@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's verify path once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; none is caught):
+
+1. header — the card's name, and its name and power limit from nvidia-smi;
+2. build — both ladder kernels from fabric_mod_tpu_torch/csrc/ (nvcc);
+3. kernel against plain — each ladder kernel at 2048 lanes against its
+   plain PyTorch version on the card (random windows, distinct keys
+   (i+2)G, identity-adjacent edge lanes, an off-curve and a (0, 0) key):
+   canonical X, Y, Z must be bit-equal, and the mixed ladder must equal
+   the projective one in affine form on every valid-key lane;
+4. main path — 4 blocks of 1000 transactions (3000 signatures each,
+   2-of-3 endorsement) through GpuVerifier.verify_many, once per ladder;
+   the 4th block's endorser items are raw messages hashed on the card.
+   Verdicts must equal the fixtures' expected masks bit for bit and, on
+   256 sampled lanes per block, the pure-python software verify; both
+   kernels' launch counts (zeroed just before) must have risen;
+5. profile — torch.profiler over one block of each kind: wall time,
+   device busy time and idle share, the heaviest device kernels.
+
+It prints one JSON line describing each kernel, and as its last line
+{"ok": true, "device": {...}}.  Without CUDA, or without the package
+beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+LANES = 2048
+N_BLOCKS = 4
+TX_PER_BLOCK = 1000
+SAMPLE = 256
+SEED = 20261016
+
+# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
+# the 32-bit non-tensor operation rate.
+PEAK_BYTES = 3.35e12
+PEAK_OPS_32 = 67e12
+
+# Field multiplies per lane of each ladder (see PERF.md for the count):
+# point_double 13, point_add 14, point_add_mixed 13; Q table 7 doubles +
+# 7 adds; key to Montgomery 2, output from Montgomery 3.
+MULS_DOUBLE, MULS_ADD, MULS_ADD_MIXED = 13, 14, 13
+MULS_TABLE = 7 * MULS_DOUBLE + 7 * MULS_ADD
+MULS_INV_NORMALISE = 268 + 14 + 28 + 30     # p-2 chain + simultaneous inversion
+# one 8-word CIOS Montgomery multiply: 128 32x32->64 products, each two
+# integer multiply-add instructions, a multiply-add counting 2 operations
+OPS_PER_MUL = 128 * 2 * 2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def ladder_inputs(torch, np, device):
+    """Random windows, distinct keys (i+2)G, edge and invalid lanes."""
+    from fabric_mod_tpu_torch.ops import limbs9, p256
+    rng = np.random.default_rng(SEED)
+    u1 = rng.integers(0, 16, (p256.N_WINDOWS, LANES)).astype(np.int32)
+    u2 = rng.integers(0, 16, (p256.N_WINDOWS, LANES)).astype(np.int32)
+    u1[:, 0] = 0
+    u2[:, 0] = 0                        # lane 0: stays at infinity
+    u2[:, 1] = 0                        # lane 1: G adds only
+    u1[:, 2] = 0                        # lane 2: Q adds only
+    u1[1:, 3] = 0                       # lane 3: one MSB window
+    u2[:p256.N_WINDOWS - 1, 4] = 0      # lane 4: one LSB window
+    g = (p256.GX, p256.GY)
+    pts, acc = [], p256._affine_add(g, g)
+    for _ in range(LANES):
+        pts.append(acc)
+        acc = p256._affine_add(acc, g)
+    xs = [x for x, _ in pts]
+    ys = [y for _, y in pts]
+    ys[5] ^= 1                          # lane 5: off-curve key
+    xs[6], ys[6] = 0, 0                 # lane 6: key (0, 0)
+    R = 1 << limbs9.RBITS
+    qx = limbs9.to_device(np.stack([limbs9.int_to_limbs(x * R % p256.P)
+                                    for x in xs]), device)
+    qy = limbs9.to_device(np.stack([limbs9.int_to_limbs(y * R % p256.P)
+                                    for y in ys]), device)
+    return (torch.as_tensor(u1, device=device),
+            torch.as_tensor(u2, device=device), qx, qy, {5, 6})
+
+
+def affine_of(torch, xyz_canon):
+    """Canonical (K, n) Montgomery-270 limbs X, Y, Z -> per-lane affine
+    python ints (None at infinity)."""
+    from fabric_mod_tpu_torch.ops import limbs9, p256
+    rinv = pow(1 << limbs9.RBITS, -1, p256.P)
+    cols = [c.cpu().numpy() for c in xyz_canon]
+    out = []
+    for lane in range(cols[0].shape[1]):
+        X, Y, Z = (limbs9.limbs_to_int(c[:, lane]) * rinv % p256.P
+                   for c in cols)
+        if Z == 0:
+            out.append(None)
+            continue
+        zi = pow(Z, -1, p256.P)
+        out.append((X * zi % p256.P, Y * zi % p256.P))
+    return out
+
+
+def time_cuda(torch, fn, reps: int) -> float:
+    """Mean milliseconds of fn() over `reps` runs, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ladder_muls_per_lane(mixed: bool, u1, u2) -> float:
+    """Field multiplies per lane this run's windows need (mean)."""
+    from fabric_mod_tpu_torch.ops import p256
+    base = MULS_TABLE + 5 + p256.N_WINDOWS * p256.WINDOW * MULS_DOUBLE
+    if not mixed:
+        return base + 2 * p256.N_WINDOWS * MULS_ADD
+    nonzero = int((u1 != 0).sum().item() + (u2 != 0).sum().item())
+    return base + MULS_INV_NORMALISE + nonzero * MULS_ADD_MIXED / u1.shape[1]
+
+
+def phase_kernels(torch, np, dev):
+    from fabric_mod_tpu_torch.ops import limbs9, p256, p256_cuda
+    fp = p256._consts()[0]
+    u1, u2, qx, qy, invalid = ladder_inputs(torch, np, dev)
+    results, canon = {}, {}
+    for mixed in (False, True):
+        name = p256_cuda.KERNELS[mixed]
+        plain_fn = p256.shamir_ladder_mixed if mixed else p256.shamir_ladder
+        got = p256_cuda.ladder(u1, u2, qx, qy, mixed=mixed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain_fn(u1, u2, qx, qy)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got_c = [limbs9.canonical(c, fp) for c in got]
+        want_c = [limbs9.canonical(c, fp) for c in want]
+        err = max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got_c, want_c))
+        for g, w, coord in zip(got_c, want_c, "XYZ"):
+            if not torch.equal(g, w):
+                bad = (g != w).any(0).nonzero().flatten()[:8].tolist()
+                raise AssertionError(f"{name}: {coord} differs from the "
+                                     f"plain ladder at lanes {bad}")
+        canon[mixed] = got_c
+        qx_w = p256_cuda.mont_limbs_to_words(qx).contiguous()
+        qy_w = p256_cuda.mont_limbs_to_words(qy).contiguous()
+        u1c, u2c = u1.contiguous(), u2.contiguous()
+        p256_cuda.kernel_words(u1c, u2c, qx_w, qy_w, mixed)      # warm
+        ms = time_cuda(torch, lambda: p256_cuda.kernel_words(
+            u1c, u2c, qx_w, qy_w, mixed), reps=5)
+        muls = ladder_muls_per_lane(mixed, u1, u2)
+        ops = muls * OPS_PER_MUL * LANES
+        table_bytes = (16 * 3 if not mixed else 15 * 2) * 32
+        nbytes = LANES * (2 * 64 * 4 + 2 * 32 + 3 * 32) + table_bytes
+        bound_ops = ops / PEAK_OPS_32 * 1e3
+        bound_bytes = nbytes / PEAK_BYTES * 1e3
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "fabric_mod_tpu_torch/csrc/p256_ladder.cu",
+            "replaces": ("fabric_mod_tpu/ops/p256_pallas.py:159" if mixed
+                         else "fabric_mod_tpu/ops/p256_pallas.py:81"),
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "library_ms": None,
+        }
+        log(f"kernel {name}: bit-equal to plain on {LANES} lanes; "
+            f"{ms:.3f} ms/call (CUDA events, 5 calls), plain {plain_ms:.1f} "
+            f"ms/call, bound {results[name]['bound_ms']:.4f} ms "
+            f"({results[name]['bound_by']}: {muls:.0f} field muls/lane), "
+            "library_ms null (no PyTorch call computes this)")
+    proj = affine_of(torch, canon[False])
+    mix = affine_of(torch, canon[True])
+    diff = [i for i in range(LANES) if i not in invalid and proj[i] != mix[i]]
+    if diff:
+        raise AssertionError(f"mixed != projective in affine form at {diff[:8]}")
+    if proj[0] is not None:
+        raise AssertionError("all-zero lane did not stay at infinity")
+    log(f"mixed ladder == projective ladder in affine form on "
+        f"{LANES - len(invalid)} valid-key lanes")
+    return results
+
+
+def phase_main_path(torch, np, blocks):
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.ops import p256_cuda
+    rng = np.random.default_rng(SEED + 1)
+    verifiers = {lad: gpu.GpuVerifier(ladder=lad, cache_size=0)
+                 for lad in gpu.LADDERS}
+    # warm-up outside the counted run: first launches, constant uploads
+    warm_items, warm_expect = blocks[0][0][:64], blocks[0][1][:64]
+    for v in verifiers.values():
+        if not (v.verify_many(warm_items) == warm_expect).all():
+            raise AssertionError("warm-up verdicts differ from the fixture")
+    sw_checked = {}
+    for bi, (items, _expect) in enumerate(blocks):
+        idx = rng.choice(len(items), SAMPLE, replace=False)
+        sw_checked[bi] = (idx, np.array([sw.verify_item(items[i]) for i in idx]))
+    per_ladder = {}
+    p256_cuda.reset_counts()
+    for lad, v in verifiers.items():
+        before = p256_cuda.counts()
+        block_ms = []
+        for bi, (items, expect) in enumerate(blocks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = v.verify_many(items)
+            block_ms.append((time.perf_counter() - t0) * 1e3)
+            if got.shape != expect.shape or not (got == expect).all():
+                bad = np.nonzero(got != expect)[0][:8].tolist()
+                raise AssertionError(f"{lad}: block {bi} verdicts differ "
+                                     f"from the expected mask at {bad}")
+            idx, want = sw_checked[bi]
+            if not (got[idx] == want).all():
+                raise AssertionError(f"{lad}: block {bi} differs from the "
+                                     "software verify on sampled lanes")
+        after = p256_cuda.counts()
+        launched = {k: after[k] - before[k] for k in after}
+        n_items = sum(len(b[0]) for b in blocks)
+        per_ladder[lad] = launched
+        log(f"main path ({lad} ladder): {N_BLOCKS} blocks x {len(blocks[0][0])} "
+            f"signatures, verdicts == expected masks and == sw on "
+            f"{SAMPLE} sampled lanes/block; ms per block "
+            f"{[round(m, 1) for m in block_ms]}; "
+            f"{n_items / (sum(block_ms) / 1e3):.0f} verifies/s; "
+            f"kernel launches {launched} "
+            f"({sum(launched.values()) / N_BLOCKS:.1f} per 1000-tx block)")
+    counts = p256_cuda.counts()
+    for name, c in counts.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "main path")
+    return counts
+
+
+def phase_profile(torch, blocks):
+    """Where one block's time goes: torch.profiler over one
+    verify_many per block kind (digest-only, raw endorsers), projective
+    ladder.  Prints wall time, summed device kernel time, the device's
+    idle share, the number of device kernels, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from fabric_mod_tpu_torch.bccsp import gpu
+    v = gpu.GpuVerifier(ladder="projective", cache_size=0)
+    for label, (items, _expect) in (("digest block", blocks[0]),
+                                    ("raw-endorser block", blocks[-1])):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            v.verify_many(items)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        if not kernels or busy_us <= 0:
+            log(f"profile {label}: wall {wall_ms:.1f} ms; device time not "
+                "measured (the profiler recorded no device kernels)")
+            continue
+        by_name: dict = {}
+        for e in kernels:
+            c, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        log(f"profile {label} ({len(items)} signatures): wall {wall_ms:.1f} "
+            f"ms, device kernels {len(kernels)}, device busy "
+            f"{busy_us / 1e3:.1f} ms, device idle share "
+            f"{1 - busy_us / 1e3 / wall_ms:.3f}")
+        for name, (c, t) in top:
+            log(f"  {t / 1e3:9.2f} ms  x{c:<6d} {name[:90]}")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from fabric_mod_tpu_torch import device as _device
+    from fabric_mod_tpu_torch.ops import _build
+    from fabric_mod_tpu_torch.utils import fixtures
+
+    # 1. header
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"device: {name}")
+    log(smi)
+    _device.require_exact_fp32()
+    dev = _device.resolve(None)
+
+    # 2. build
+    t0 = time.perf_counter()
+    logs = _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s for {list(_build.SOURCES)}")
+    for src, out in logs.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas[{src}]: {line.strip()}")
+
+    # 3. kernels against their plain versions
+    kernels = phase_kernels(torch, np, dev)
+
+    # 4. the main path
+    t0 = time.perf_counter()
+    blocks = [fixtures.make_block(b, n_tx=TX_PER_BLOCK,
+                                  raw_endorsers=(b == N_BLOCKS - 1))
+              for b in range(N_BLOCKS)]
+    log(f"fixtures: {N_BLOCKS} blocks signed in "
+        f"{time.perf_counter() - t0:.1f} s (pure-python signer)")
+    counts = phase_main_path(torch, np, blocks)
+    for k in kernels.values():
+        k["launches"] = counts[k["name"]]
+
+    # 5. where a block's time goes (after the counted run)
+    phase_profile(torch, blocks)
+
+    log(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

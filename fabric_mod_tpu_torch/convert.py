@@ -1,0 +1,65 @@
+"""Carry state across from the JAX package and back.
+
+This system has no weights.  What the two packages share are constants
+— the Montgomery FieldSpec arrays of p and n and the two G tables — and
+the device-layout inputs of the verify core: (K, batch) f32 limb planes
+and (N_WINDOWS, batch) int32 window planes.  These functions take the
+reference's numpy arrays (never its modules) and return the port's
+tensors, and back.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_FIELDSPEC_ARRAYS = ("p", "one", "one_mont", "r2", "np_mat", "p_mat",
+                     "kp32", "lift32")
+
+
+def limbs_from_reference(arr, device="cpu") -> torch.Tensor:
+    """A reference limb plane ((K, batch) f32) or window plane
+    ((N_WINDOWS, batch) int) -> a tensor of the same values on `device`
+    (float planes stay float32, integer planes become int32)."""
+    a = np.asarray(arr)
+    dtype = torch.float32 if np.issubdtype(a.dtype, np.floating) \
+        else torch.int32
+    return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+
+
+def limbs_to_reference(t: torch.Tensor) -> np.ndarray:
+    """A port tensor -> a numpy array the reference accepts (float32 or
+    int32, same layout)."""
+    a = t.detach().cpu().numpy()
+    if np.issubdtype(a.dtype, np.floating):
+        return a.astype(np.float32)
+    return a.astype(np.int32)
+
+
+def fieldspec_arrays(spec) -> Dict[str, np.ndarray]:
+    """The numpy arrays of a FieldSpec (either package's), by name."""
+    return {name: np.asarray(getattr(spec, name)) for name in _FIELDSPEC_ARRAYS}
+
+
+def constants_from_reference(fieldspec_arrays: Mapping[str, Mapping[str, np.ndarray]],
+                             g_table: np.ndarray, g_table_affine: np.ndarray,
+                             device="cpu") -> Dict[str, object]:
+    """The reference's constants as the port's tensors.
+
+    fieldspec_arrays: {field name: {array name: array}} (e.g. from
+    `fieldspec_arrays(spec)` per field); g_table: (3, TABLE, K);
+    g_table_affine: (2, TABLE-1, K).  Returns {"fields": {field:
+    {array name: tensor}}, "g_table": tensor, "g_table_affine":
+    tensor}."""
+    fields = {}
+    for fname, arrays in fieldspec_arrays.items():
+        fields[fname] = {name: torch.as_tensor(np.ascontiguousarray(arrays[name]),
+                                               device=device)
+                         for name in _FIELDSPEC_ARRAYS}
+    return {
+        "fields": fields,
+        "g_table": limbs_from_reference(g_table, device),
+        "g_table_affine": limbs_from_reference(g_table_affine, device),
+    }
+

@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA sources (nvcc -> shared library -> ctypes).
+
+Each source under fabric_mod_tpu_torch/csrc/ is compiled on first CUDA
+use into `<repo>/build/kernels/<name>-<source hash>.so` (a directory
+.gitignore lists), with a plain C interface loaded through ctypes — no
+PyTorch headers, so a build takes seconds, not minutes.  The hash key
+means an edited source rebuilds and a stale library is never loaded.  A
+failed build raises with nvcc's output.  Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+SOURCES = ("p256_ladder",)
+
+# C signatures: every pointer and the stream are c_void_p (without
+# argtypes ctypes would pass them as 32-bit ints and cut them)
+_P = ctypes.c_void_p
+SIGNATURES = {
+    "p256_ladder": {
+        "p256_ladder_launch": (ctypes.c_int,
+                               [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+                                ctypes.c_int, _P]),
+    },
+}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit to build")
+
+
+def source_path(name: str) -> Path:
+    return CSRC / f"{name}.cu"
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(source_path(name).read_bytes()
+                            + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _command(name: str, out: Path) -> list:
+    return [nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", str(out), str(source_path(name))]
+
+
+def build_many(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Build every named source not yet built, all nvcc processes
+    started together; returns {name: nvcc's output (ptxas register and
+    spill report)} for the ones built.  Raises on any failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        running[name] = (subprocess.Popen(
+            _command(name, Path(tmp)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), Path(tmp), target)
+    logs, failed = {}, []
+    for name, (proc, tmp, target) in running.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, target)          # atomic: no half-written .so
+    if failed:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return logs
+
+
+class _Libraries:
+    """Loaded libraries, one per source, with their signatures set."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._libs: dict = {}
+
+    def get(self, name: str) -> ctypes.CDLL:
+        with self._lock:
+            lib = self._libs.get(name)
+            if lib is None:
+                build_many([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                for fn, (res, args) in SIGNATURES[name].items():
+                    f = getattr(lib, fn)
+                    f.restype = res
+                    f.argtypes = args
+                self._libs[name] = lib
+            return lib
+
+
+_LIBS = _Libraries()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for `name` (building it first if needed)."""
+    return _LIBS.get(name)

@@ -1,0 +1,93 @@
+"""Batched SHA-256 in PyTorch.
+
+The port of fabric_mod_tpu/ops/sha256.py (`sha256_blocks`).  The batch
+axis carries the parallelism; mixed lengths are handled by padding to
+the batch's max block count and freezing a lane's state once its own
+blocks run out.  Words are carried in int64 masked to 32 bits, since
+torch's uint32 op coverage is partial.  This is not a kernel port (the
+reference is a jitted XLA program, not a Pallas kernel): torch ops are
+its implementation.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+
+_H0 = np.array([
+    0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+    0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19], np.int64)
+
+_K = [
+    0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5,
+    0x3956C25B, 0x59F111F1, 0x923F82A4, 0xAB1C5ED5,
+    0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
+    0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174,
+    0xE49B69C1, 0xEFBE4786, 0x0FC19DC6, 0x240CA1CC,
+    0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
+    0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7,
+    0xC6E00BF3, 0xD5A79147, 0x06CA6351, 0x14292967,
+    0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13,
+    0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85,
+    0xA2BFE8A1, 0xA81A664B, 0xC24B8B70, 0xC76C51A3,
+    0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
+    0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5,
+    0x391C0CB3, 0x4ED8AA4A, 0x5B9CCA4F, 0x682E6FF3,
+    0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
+    0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2]
+
+
+def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """32-bit rotate right of int64 words in [0, 2^32)."""
+    return ((x >> n) | (x << (32 - n))) & M32
+
+
+def _compress(state, block):
+    """One compression: state = 8 (batch,) words, block (batch, 16)."""
+    w = [block[:, i] for i in range(16)]
+    for t in range(16, 64):
+        x1, x14 = w[t - 15], w[t - 2]
+        s0 = _rotr(x1, 7) ^ _rotr(x1, 18) ^ (x1 >> 3)
+        s1 = _rotr(x14, 17) ^ _rotr(x14, 19) ^ (x14 >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & M32)
+    a, b, c, d, e, f, g, h = state
+    for t in range(64):
+        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+        ch = (e & f) ^ (~e & g)
+        t1 = h + s1 + ch + _K[t] + w[t]
+        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        h, g, f = g, f, e
+        e = (d + t1) & M32
+        d, c, b = c, b, a
+        a = (t1 + s0 + maj) & M32
+    return [(s + v) & M32 for s, v in zip(state, (a, b, c, d, e, f, g, h))]
+
+
+def sha256_blocks(words: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
+    """Hash pre-padded messages.
+
+    words: (batch, max_blocks, 16) big-endian message words (any int
+    dtype holding values < 2^32), padded per FIPS 180-4 within each
+    message's own block count.  nblocks: (batch,) real block counts.
+    Returns (batch, 8) int64 digest words."""
+    words = words.to(torch.int64)
+    batch = words.shape[0]
+    h0 = torch.as_tensor(_H0, device=words.device)
+    state = [h0[i].expand(batch).clone() for i in range(8)]
+    for i in range(words.shape[1]):
+        new = _compress(state, words[:, i])
+        live = i < nblocks
+        state = [torch.where(live, n, s) for n, s in zip(new, state)]
+    return torch.stack(state, dim=-1)
+
+
+def digest_to_bytes(digest_words) -> np.ndarray:
+    """(..., 8) words -> (..., 32) uint8 big-endian."""
+    d = np.asarray(digest_words.cpu() if isinstance(digest_words, torch.Tensor)
+                   else digest_words).astype(np.int64)
+    out = np.empty(d.shape[:-1] + (32,), np.uint8)
+    for i in range(4):
+        out[..., i::4] = ((d >> (24 - 8 * i)) & 0xFF).astype(np.uint8)
+    return out
