@@ -6,12 +6,17 @@
 Phases (any failure exits non-zero; none is caught):
 
 1. header — the card's name, and its name and power limit from nvidia-smi;
-2. build — both ladder kernels from fabric_mod_tpu_torch/csrc/ (nvcc);
+2. build — both ladder kernels from fabric_mod_tpu_torch/csrc/ (nvcc),
+   with ptxas' registers, stack and spills;
 3. kernel against plain — each ladder kernel at 2048 lanes against its
    plain PyTorch version on the card (random windows, distinct keys
    (i+2)G, identity-adjacent edge lanes, an off-curve and a (0, 0) key):
    canonical X, Y, Z must be bit-equal, and the mixed ladder must equal
-   the projective one in affine form on every valid-key lane;
+   the projective one in affine form on every valid-key lane.  Prints
+   each kernel's threads per lane and block size, ms per call, the
+   bound (32-bit multiply-adds the function needs over the card's
+   integer multiply-add rate at its SM clock) and one lane's critical
+   path in rounds;
 4. main path — 4 blocks of 1000 transactions (3000 signatures each,
    2-of-3 endorsement) through GpuVerifier.verify_many, once per ladder;
    the 4th block's endorser items are raw messages hashed on the card.
@@ -38,20 +43,34 @@ TX_PER_BLOCK = 1000
 SAMPLE = 256
 SEED = 20261016
 
-# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
-# the 32-bit non-tensor operation rate.
+# H100 SXM published peak (NVIDIA H100 datasheet): HBM bytes/s.
 PEAK_BYTES = 3.35e12
-PEAK_OPS_32 = 67e12
+# 32-bit integer multiply-adds per SM per clock (Hopper SM: 4 x 16 lanes).
+INT_MADD_PER_SM_CLOCK = 64
 
-# Field multiplies per lane of each ladder (see PERF.md for the count):
-# point_double 13, point_add 14, point_add_mixed 13; Q table 7 doubles +
-# 7 adds; key to Montgomery 2, output from Montgomery 3.
-MULS_DOUBLE, MULS_ADD, MULS_ADD_MIXED = 13, 14, 13
-MULS_TABLE = 7 * MULS_DOUBLE + 7 * MULS_ADD
-MULS_INV_NORMALISE = 268 + 14 + 28 + 30     # p-2 chain + simultaneous inversion
-# one 8-word CIOS Montgomery multiply: 128 32x32->64 products, each two
-# integer multiply-add instructions, a multiply-add counting 2 operations
-OPS_PER_MUL = 128 * 2 * 2
+# The function's word products per lane of each ladder (PERF.md has the
+# count).  A field multiply is 64 32x32->64 word products, a square 36,
+# each product two 32-bit multiply-adds (low and high halves).  RCB
+# formulas: point_double 10 multiplies + 3 squares, point_add 14,
+# point_add_mixed 13; Q table 7 doublings + 7 additions; key to
+# Montgomery 2, output from Montgomery 3 multiplies.
+MUL_PRODUCTS, SQR_PRODUCTS = 64, 36
+PRODUCTS_DOUBLE = 10 * MUL_PRODUCTS + 3 * SQR_PRODUCTS
+PRODUCTS_ADD = 14 * MUL_PRODUCTS
+PRODUCTS_ADD_MIXED = 13 * MUL_PRODUCTS
+PRODUCTS_TABLE = 7 * PRODUCTS_DOUBLE + 7 * PRODUCTS_ADD
+PRODUCTS_CONVERT = 5 * MUL_PRODUCTS
+# mixed only: the p-2 chain (255 squares + 13 multiplies) inside the
+# simultaneous inversion (14 + 28 multiplies) and the 30 affine multiplies
+PRODUCTS_NORMALISE = 255 * SQR_PRODUCTS + (13 + 14 + 28 + 30) * MUL_PRODUCTS
+# One lane's critical path in rounds (a round is one multiply per thread
+# of the lane's group; three rounds per formula, one each to convert in
+# and out)
+ROUNDS = 14 * 3 + 64 * 6 * 3 + 2
+# mixed: + the prefix chain (14) and the p-2 chain (268) in sequence,
+# 14 rounds of the backward pass, ceil(30 / threads per lane) rounds of
+# the affine table
+ROUNDS_NORMALISE_FIXED = 14 + 268 + 14
 
 
 def log(msg: str) -> None:
@@ -119,20 +138,39 @@ def time_cuda(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ladder_muls_per_lane(mixed: bool, u1, u2) -> float:
-    """Field multiplies per lane this run's windows need (mean)."""
+def ladder_products_per_lane(mixed: bool, u1, u2) -> float:
+    """Word products per lane that this run's windows need (mean)."""
     from fabric_mod_tpu_torch.ops import p256
-    base = MULS_TABLE + 5 + p256.N_WINDOWS * p256.WINDOW * MULS_DOUBLE
+    base = (PRODUCTS_TABLE + PRODUCTS_CONVERT
+            + p256.N_WINDOWS * p256.WINDOW * PRODUCTS_DOUBLE)
     if not mixed:
-        return base + 2 * p256.N_WINDOWS * MULS_ADD
+        return base + 2 * p256.N_WINDOWS * PRODUCTS_ADD
     nonzero = int((u1 != 0).sum().item() + (u2 != 0).sum().item())
-    return base + MULS_INV_NORMALISE + nonzero * MULS_ADD_MIXED / u1.shape[1]
+    return (base + PRODUCTS_NORMALISE
+            + nonzero * PRODUCTS_ADD_MIXED / u1.shape[1])
+
+
+def chain_rounds(mixed: bool, per_lane: int) -> int:
+    """One lane's critical path in rounds of multiplies (this design)."""
+    if not mixed:
+        return ROUNDS
+    return ROUNDS + ROUNDS_NORMALISE_FIXED + -(-30 // per_lane)
+
+
+def sm_clock_hz() -> float:
+    """The SM clock nvidia-smi reports as the card's maximum."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
 
 
 def phase_kernels(torch, np, dev):
     from fabric_mod_tpu_torch.ops import limbs9, p256, p256_cuda
     fp = p256._consts()[0]
     u1, u2, qx, qy, invalid = ladder_inputs(torch, np, dev)
+    per_lane, block = p256_cuda.geometry()
     results, canon = {}, {}
     for mixed in (False, True):
         name = p256_cuda.KERNELS[mixed]
@@ -158,12 +196,14 @@ def phase_kernels(torch, np, dev):
         u1c, u2c = u1.contiguous(), u2.contiguous()
         p256_cuda.kernel_words(u1c, u2c, qx_w, qy_w, mixed)      # warm
         ms = time_cuda(torch, lambda: p256_cuda.kernel_words(
-            u1c, u2c, qx_w, qy_w, mixed), reps=5)
-        muls = ladder_muls_per_lane(mixed, u1, u2)
-        ops = muls * OPS_PER_MUL * LANES
+            u1c, u2c, qx_w, qy_w, mixed), reps=10)
+        products = ladder_products_per_lane(mixed, u1, u2)
+        madds = 2 * products * LANES
+        clock = sm_clock_hz()
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
         table_bytes = (16 * 3 if not mixed else 15 * 2) * 32
         nbytes = LANES * (2 * 64 * 4 + 2 * 32 + 3 * 32) + table_bytes
-        bound_ops = ops / PEAK_OPS_32 * 1e3
+        bound_ops = madds / (INT_MADD_PER_SM_CLOCK * n_sm * clock) * 1e3
         bound_bytes = nbytes / PEAK_BYTES * 1e3
         results[name] = {
             "name": name, "route": "cuda",
@@ -176,9 +216,15 @@ def phase_kernels(torch, np, dev):
             "library_ms": None,
         }
         log(f"kernel {name}: bit-equal to plain on {LANES} lanes; "
-            f"{ms:.3f} ms/call (CUDA events, 5 calls), plain {plain_ms:.1f} "
-            f"ms/call, bound {results[name]['bound_ms']:.4f} ms "
-            f"({results[name]['bound_by']}: {muls:.0f} field muls/lane), "
+            f"{per_lane} threads per lane, blocks of {block} threads; "
+            f"{ms:.4f} ms per {LANES}-lane call (CUDA events, 10 calls), "
+            f"plain {plain_ms:.1f} ms/call; bound "
+            f"{results[name]['bound_ms']:.4f} ms by "
+            f"{results[name]['bound_by']} ({products:.0f} word products = "
+            f"{2 * products:.0f} 32-bit multiply-adds per lane at "
+            f"{INT_MADD_PER_SM_CLOCK}/SM/clock x {n_sm} SMs x "
+            f"{clock / 1e6:.0f} MHz; bytes {bound_bytes:.5f} ms); "
+            f"critical path per lane {chain_rounds(mixed, per_lane)} rounds; "
             "library_ms null (no PyTorch call computes this)")
     proj = affine_of(torch, canon[False])
     mix = affine_of(torch, canon[True])

@@ -6,40 +6,57 @@
 //   ladder_mixed_kernel       replaces fabric_mod_tpu/ops/p256_pallas.py
 //                             _ladder_kernel_mixed (via pallas_ladder_mixed)
 //
-// What they compute: the same RCB complete formulas (eprint 2015/1060
-// algorithms 4, 5, 6) in the same operation order as ops/p256.py, the
-// same Q-table schedule (build_q_table: 7 doublings + 7 additions) and,
-// for the mixed kernel, the same window-0 normalisation (the p-2
-// addition chain of inv_mont_p_chain inside Montgomery's simultaneous
-// inversion).  So X, Y, Z equal the plain ladders' as field values,
-// exactly, although the limb representation differs.
+// What they compute: u1*G + u2*Q by the RCB complete formulas (eprint
+// 2015/1060 algorithms 4, 5, 6) over the Q-table schedule of
+// ops/p256.build_q_table (7 doublings + 7 additions) and, for the mixed
+// kernel, the window-0 normalisation (the p-2 addition chain of
+// inv_mont_p_chain inside Montgomery's simultaneous inversion).  Each
+// formula returns the same field values X3, Y3, Z3 as ops/p256.py; only
+// the grouping of its multiplies and adds differs (below).  So X, Y, Z
+// equal the plain ladders' exactly, although the limb representation
+// differs.
 //
-// Design.  The TPU kernel ran a sequential grid axis over the 64 windows
-// with the accumulator in VMEM scratch.  Here one thread owns one
-// signature lane and runs the whole 64-window loop itself; blocks of 128
-// threads, grid ceil(B/128), the ragged edge masked in the kernel.  A
-// field element is 8 x uint32 little-endian words in Montgomery form
-// with R = 2^256 (not the plain layer's f32 radix-2^9 limbs, which exist
-// for the TPU's matrix unit): products are 32x32->64-bit integer
-// multiply-adds with carry chains.  For P-256's p, -p^-1 mod 2^32 = 1
-// (p = -1 mod 2^32), so the CIOS reduction multiplier is the low word
-// itself and needs no multiply.  The constant G table lives in shared
-// memory, loaded at block start (constant memory would serialise the
-// lanes' divergent indices); the per-lane Q table lives in local memory
-// and is indexed directly, with no one-hot product.
+// What bounds them on this card.  A verify's ladder is about 5.3k field
+// multiplies against a few hundred bytes per lane: operations, never
+// bytes.  At the main path's width (2048 lanes a call) there are too few
+// lanes for one thread per lane to fill the card: the time is one lane's
+// chain of field operations.  The design shortens that chain and spreads
+// it over threads:
 //
-// What bounds it on this card: integer multiply issue, not bytes.  A
-// verify's ladder is about 5.3k field multiplies, each 128 32x32->64
-// products (two IMAD-class instructions apiece), against a few hundred
-// bytes of input and output per lane.  This first version keeps one lane
-// per thread, so a 2048-lane call fills only 16 blocks: most SMs idle and
-// each thread's dependent multiply chain exposed.  Spreading a lane over
-// several threads is the next step (PERF.md).  wgmma has no integer
-// path wide enough to help.
+//  1. A field product made for P-256.  A field element is 8 x uint32
+//     little-endian words in Montgomery form, R = 2^256.  The product's
+//     rows are carry chains of 64-bit multiply-adds (PTX mad.lo.cc /
+//     madc.hi.cc) whose register pairs keep one alignment in every row; a
+//     square takes 36 word products instead of 64; the reduction is in
+//     closed form: -p^-1 mod 2^256 = 1 + 2^96 + 2^193 - 2^224, so the
+//     Montgomery multiplier is three shifted adds and the reduction a few
+//     carry chains, with no multiply and no word-by-word dependence.  Adds
+//     and subtracts are one add.cc / sub.cc chain and a masked correction.
+//  2. Several threads per lane.  A lane is a group of kGroup (8) adjacent
+//     threads of one warp.  Each formula runs as three rounds of up to 8
+//     independent multiplies (point_double {6, 8, 5}, point_add {8, 6, 6},
+//     point_add_mixed {8, 4, 6}); thread g computes multiply g of a round,
+//     and the products meet in a per-lane exchange area in shared memory
+//     behind one __syncwarp.  A round of 8 costs what one multiply costs,
+//     so the formulas' small constant factors (their doublings, triplings
+//     and b) ride along as multiplies by constants, which removes most of
+//     the adds and subtracts between rounds; the rest run in every thread
+//     of the group, in lock step, on registers.  A window is 18 rounds
+//     where one thread per lane ran 80 multiplies in sequence, and a
+//     2048-lane call is 512 warps: about one per scheduler of 132 SMs.
+//  3. Tables in shared memory: the per-lane Q table, the mixed kernel's
+//     prefix products, inverses and affine table, the G table and the
+//     rounds' constant operands.  Nothing is indexed in local memory.
 //
-// The field and point arithmetic below is plain C++ when compiled by a
-// host compiler (no __CUDACC__): only the kernels and the launcher need
-// nvcc.
+// No thread leaves early: lanes past the ragged edge run on a clamped
+// lane index and skip only their stores, and the mixed kernel's zero
+// windows are a select after an unconditional add, so every thread of a
+// warp reaches every __syncwarp.
+//
+// The field, point and per-lane code below is plain C++ when compiled by
+// a host compiler (no __CUDACC__): the inline PTX has a plain C++ twin
+// that computes the same values, and on the host one call plays every
+// thread of a group in turn.  Only the kernels and the launcher need nvcc.
 
 #include <cstddef>
 #include <cstdint>
@@ -50,9 +67,15 @@
 #define __device__
 #define __forceinline__ inline
 #define __constant__
+struct uint4 {
+    uint32_t x, y, z, w;
+};
 #endif
 
 namespace {
+
+// threads per lane: a round has at most this many multiplies
+constexpr int kGroup = 8;
 
 struct Fe {
     uint32_t v[8];
@@ -78,10 +101,59 @@ __constant__ uint32_t kR2[8] = {
 __constant__ uint32_t kOneM[8] = {
     0x00000001u, 0x00000000u, 0x00000000u, 0xFFFFFFFFu,
     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFEu, 0x00000000u};
-// b * R mod p: the curve's b in Montgomery form
-__constant__ uint32_t kBM[8] = {
-    0x29C4BDDFu, 0xD89CDF62u, 0x78843090u, 0xACF005CDu,
-    0xF7212ED6u, 0xE5A220ABu, 0x04874834u, 0xDC30061Du};
+// 3 and 3b in Montgomery form (c * R mod p; b is the curve's b)
+__constant__ uint32_t kC3[8] = {
+    0x00000003u, 0x00000000u, 0x00000000u, 0xFFFFFFFDu,
+    0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFCu, 0x00000002u};
+__constant__ uint32_t kC3B[8] = {
+    0x7D4E399Fu, 0x89D69E26u, 0x698C91B2u, 0x06D01166u,
+    0xE5638C84u, 0xB0E66203u, 0x0D95D89Cu, 0x94901259u};
+
+// The second operands of the rounds that multiply by constants only
+// (c * R mod p), one row per multiply: point_double round 2 (rows 0-7),
+// point_add round 2 (8-13), point_add_mixed round 2 (14-17).  Each thread
+// reads its own row (from a copy in shared memory on the card), which
+// needs no select.
+constexpr int kConstRows = 18;
+constexpr int kRowsDouble = 0, kRowsAdd = 8, kRowsMixed = 14;
+__constant__ uint32_t kRoundConsts[kConstRows][8] = {
+    {0x7D4E399Fu, 0x89D69E26u, 0x698C91B2u, 0x06D01166u,
+     0xE5638C84u, 0xB0E66203u, 0x0D95D89Cu, 0x94901259u},  // 3b
+    {0x00000006u, 0x00000000u, 0x00000000u, 0xFFFFFFFAu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFF9u, 0x00000005u},  // 6
+    {0xFA9C733Fu, 0x13AD3C4Cu, 0xD3192365u, 0x0DA022CBu,
+     0xCAC71908u, 0x61CCC407u, 0x1B2BB138u, 0x292024B3u},  // 6b
+    {0x00000009u, 0x00000000u, 0x00000000u, 0xFFFFFFF7u,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFF6u, 0x00000008u},  // 9
+    {0x00000003u, 0x00000000u, 0x00000000u, 0xFFFFFFFDu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFCu, 0x00000002u},  // 3
+    {0x00000003u, 0x00000000u, 0x00000000u, 0xFFFFFFFDu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFCu, 0x00000002u},  // 3
+    {0x00000002u, 0x00000000u, 0x00000000u, 0xFFFFFFFEu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFDu, 0x00000001u},  // 2
+    {0x00000002u, 0x00000000u, 0x00000000u, 0xFFFFFFFEu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFDu, 0x00000001u},  // 2
+    {0x00000003u, 0x00000000u, 0x00000000u, 0xFFFFFFFDu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFCu, 0x00000002u},  // 3
+    {0x7D4E399Fu, 0x89D69E26u, 0x698C91B2u, 0x06D01166u,
+     0xE5638C84u, 0xB0E66203u, 0x0D95D89Cu, 0x94901259u},  // 3b
+    {0x7D4E399Fu, 0x89D69E26u, 0x698C91B2u, 0x06D01166u,
+     0xE5638C84u, 0xB0E66203u, 0x0D95D89Cu, 0x94901259u},  // 3b
+    {0x00000009u, 0x00000000u, 0x00000000u, 0xFFFFFFF7u,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFF6u, 0x00000008u},  // 9
+    {0x00000003u, 0x00000000u, 0x00000000u, 0xFFFFFFFDu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFCu, 0x00000002u},  // 3
+    {0x00000003u, 0x00000000u, 0x00000000u, 0xFFFFFFFDu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFCu, 0x00000002u},  // 3
+    {0x00000003u, 0x00000000u, 0x00000000u, 0xFFFFFFFDu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFCu, 0x00000002u},  // 3
+    {0x7D4E399Fu, 0x89D69E26u, 0x698C91B2u, 0x06D01166u,
+     0xE5638C84u, 0xB0E66203u, 0x0D95D89Cu, 0x94901259u},  // 3b
+    {0x00000003u, 0x00000000u, 0x00000000u, 0xFFFFFFFDu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFCu, 0x00000002u},  // 3
+    {0x00000003u, 0x00000000u, 0x00000000u, 0xFFFFFFFDu,
+     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFCu, 0x00000002u},  // 3
+};
 
 __device__ __forceinline__ Fe fe_load_const(const uint32_t* c) {
     Fe r;
@@ -97,244 +169,515 @@ __device__ __forceinline__ Fe fe_zero() {
     return r;
 }
 
-// t (8 words + top word `hi`, value < 2p) -> t mod p
-__device__ __forceinline__ Fe fe_reduce_once(const uint32_t* t, uint32_t hi) {
-    Fe d;
-    uint64_t borrow = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        uint64_t s = (uint64_t)t[k] - kP[k] - borrow;
-        d.v[k] = (uint32_t)s;
-        borrow = (s >> 63) & 1u;
-    }
-    const bool use_d = (hi != 0u) || (borrow == 0u);
+__device__ __forceinline__ Fe fe_sel(bool take_a, const Fe& a, const Fe& b) {
     Fe r;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) r.v[k] = use_d ? d.v[k] : t[k];
+    for (int k = 0; k < 8; ++k) r.v[k] = take_a ? a.v[k] : b.v[k];
     return r;
 }
 
-// Montgomery product a*b*R^-1 mod p (CIOS).  Needs a < 2^256, b < p;
-// returns a value < p.
-__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
-    uint32_t t[10];
-#pragma unroll
-    for (int k = 0; k < 10; ++k) t[k] = 0u;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            uint64_t s = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
-            t[j] = (uint32_t)s;
-            c = s >> 32;
-        }
-        uint64_t s = (uint64_t)t[8] + c;
-        t[8] = (uint32_t)s;
-        t[9] = (uint32_t)(s >> 32);
-        // m = t[0] * (-p^-1 mod 2^32) = t[0] * 1
-        const uint32_t m = t[0];
-        s = (uint64_t)m * kP[0] + t[0];
-        c = s >> 32;
-#pragma unroll
-        for (int j = 1; j < 8; ++j) {
-            s = (uint64_t)m * kP[j] + t[j] + c;
-            t[j - 1] = (uint32_t)s;
-            c = s >> 32;
-        }
-        s = (uint64_t)t[8] + c;
-        t[7] = (uint32_t)s;
-        t[8] = t[9] + (uint32_t)(s >> 32);
-    }
-    return fe_reduce_once(t, t[8]);
+// --- Field arithmetic: values < p in, values < p out ----------------------
+//
+// Each carry chain is one asm block on the card (the carry flag does not
+// survive between asm statements); the #else branch is the same
+// computation in plain C++ for the host compiler.
+
+// acc[0 .. 2N] += x * (y[0] + y[1]*2^64 + ... + y[N-1]*2^(64(N-1))): the
+// products' low and high words land on consecutive words, so N products
+// are one carry chain of 2N multiply-adds, and the carry out lands in
+// acc[2N].  The caller guarantees that acc[2N] does not overflow.
+template <int N>
+__device__ __forceinline__ void mac_pairs(uint32_t* acc, uint32_t x, const uint32_t* y);
+
+#ifdef __CUDA_ARCH__
+template <>
+__device__ __forceinline__ void mac_pairs<1>(uint32_t* a, uint32_t x, const uint32_t* y) {
+    asm volatile(
+        "mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+        "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+        "addc.u32 %2, %2, 0;"
+        : "+r"(a[0]), "+r"(a[1]), "+r"(a[2])
+        : "r"(x), "r"(y[0]));
 }
-
-__device__ __forceinline__ Fe fe_sqr(const Fe& a) { return fe_mul(a, a); }
-
-__device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
-    uint32_t t[8];
+template <>
+__device__ __forceinline__ void mac_pairs<2>(uint32_t* a, uint32_t x, const uint32_t* y) {
+    asm volatile(
+        "mad.lo.cc.u32 %0, %5, %6, %0;\n\t"
+        "madc.hi.cc.u32 %1, %5, %6, %1;\n\t"
+        "madc.lo.cc.u32 %2, %5, %7, %2;\n\t"
+        "madc.hi.cc.u32 %3, %5, %7, %3;\n\t"
+        "addc.u32 %4, %4, 0;"
+        : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+r"(a[4])
+        : "r"(x), "r"(y[0]), "r"(y[1]));
+}
+template <>
+__device__ __forceinline__ void mac_pairs<3>(uint32_t* a, uint32_t x, const uint32_t* y) {
+    asm volatile(
+        "mad.lo.cc.u32 %0, %7, %8, %0;\n\t"
+        "madc.hi.cc.u32 %1, %7, %8, %1;\n\t"
+        "madc.lo.cc.u32 %2, %7, %9, %2;\n\t"
+        "madc.hi.cc.u32 %3, %7, %9, %3;\n\t"
+        "madc.lo.cc.u32 %4, %7, %10, %4;\n\t"
+        "madc.hi.cc.u32 %5, %7, %10, %5;\n\t"
+        "addc.u32 %6, %6, 0;"
+        : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+r"(a[4]),
+          "+r"(a[5]), "+r"(a[6])
+        : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]));
+}
+template <>
+__device__ __forceinline__ void mac_pairs<4>(uint32_t* a, uint32_t x, const uint32_t* y) {
+    asm volatile(
+        "mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
+        "madc.hi.cc.u32 %1, %9, %10, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+        "madc.lo.cc.u32 %4, %9, %12, %4;\n\t"
+        "madc.hi.cc.u32 %5, %9, %12, %5;\n\t"
+        "madc.lo.cc.u32 %6, %9, %13, %6;\n\t"
+        "madc.hi.cc.u32 %7, %9, %13, %7;\n\t"
+        "addc.u32 %8, %8, 0;"
+        : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+r"(a[4]),
+          "+r"(a[5]), "+r"(a[6]), "+r"(a[7]), "+r"(a[8])
+        : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]));
+}
+#else
+template <int N>
+__device__ __forceinline__ void mac_pairs(uint32_t* a, uint32_t x, const uint32_t* y) {
     uint64_t c = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        uint64_t s = (uint64_t)a.v[k] + b.v[k] + c;
-        t[k] = (uint32_t)s;
+    for (int k = 0; k < N; ++k) {
+        const uint64_t p = (uint64_t)x * y[k];
+        uint64_t s = (uint64_t)a[2 * k] + (uint32_t)p + c;
+        a[2 * k] = (uint32_t)s;
+        s = (uint64_t)a[2 * k + 1] + (uint32_t)(p >> 32) + (s >> 32);
+        a[2 * k + 1] = (uint32_t)s;
         c = s >> 32;
     }
-    return fe_reduce_once(t, (uint32_t)c);
+    a[2 * N] += (uint32_t)c;
+}
+#endif
+
+// e[1..15] += o[1..15], no carry out (the caller's sum fits in 16 words)
+__device__ __forceinline__ void add_odd_into_even(uint32_t* e, const uint32_t* o) {
+#ifdef __CUDA_ARCH__
+    uint32_t c;
+    asm volatile(
+        "add.cc.u32 %0, %0, %9;\n\t"
+        "addc.cc.u32 %1, %1, %10;\n\t"
+        "addc.cc.u32 %2, %2, %11;\n\t"
+        "addc.cc.u32 %3, %3, %12;\n\t"
+        "addc.cc.u32 %4, %4, %13;\n\t"
+        "addc.cc.u32 %5, %5, %14;\n\t"
+        "addc.cc.u32 %6, %6, %15;\n\t"
+        "addc.cc.u32 %7, %7, %16;\n\t"
+        "addc.u32 %8, 0, 0;"
+        : "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]), "+r"(e[5]),
+          "+r"(e[6]), "+r"(e[7]), "+r"(e[8]), "=r"(c)
+        : "r"(o[1]), "r"(o[2]), "r"(o[3]), "r"(o[4]), "r"(o[5]), "r"(o[6]),
+          "r"(o[7]), "r"(o[8]));
+    // add.cc of c + 0xFFFFFFFF sets the carry flag exactly when c == 1
+    asm volatile(
+        "{\n\t.reg .u32 t;\n\t"
+        "add.cc.u32 t, %7, 0xFFFFFFFF;\n\t"
+        "addc.cc.u32 %0, %0, %8;\n\t"
+        "addc.cc.u32 %1, %1, %9;\n\t"
+        "addc.cc.u32 %2, %2, %10;\n\t"
+        "addc.cc.u32 %3, %3, %11;\n\t"
+        "addc.cc.u32 %4, %4, %12;\n\t"
+        "addc.cc.u32 %5, %5, %13;\n\t"
+        "addc.u32 %6, %6, %14;\n\t}"
+        : "+r"(e[9]), "+r"(e[10]), "+r"(e[11]), "+r"(e[12]), "+r"(e[13]),
+          "+r"(e[14]), "+r"(e[15])
+        : "r"(c), "r"(o[9]), "r"(o[10]), "r"(o[11]), "r"(o[12]), "r"(o[13]),
+          "r"(o[14]), "r"(o[15]));
+#else
+    uint64_t c = 0;
+    for (int k = 1; k < 16; ++k) {
+        const uint64_t s = (uint64_t)e[k] + o[k] + c;
+        e[k] = (uint32_t)s;
+        c = s >> 32;
+    }
+#endif
 }
 
-__device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
-    Fe d;
+// (c : r) with c in {0, 1} and value < 2p  ->  value mod p
+__device__ __forceinline__ Fe fe_reduce_once(const uint32_t* r, uint32_t c) {
+    Fe d, out;
+#ifdef __CUDA_ARCH__
+    uint32_t keep;     // all ones when (c : r) < p
+    asm volatile(
+        "sub.cc.u32 %0, %9, 0xFFFFFFFF;\n\t"
+        "subc.cc.u32 %1, %10, 0xFFFFFFFF;\n\t"
+        "subc.cc.u32 %2, %11, 0xFFFFFFFF;\n\t"
+        "subc.cc.u32 %3, %12, 0;\n\t"
+        "subc.cc.u32 %4, %13, 0;\n\t"
+        "subc.cc.u32 %5, %14, 0;\n\t"
+        "subc.cc.u32 %6, %15, 1;\n\t"
+        "subc.cc.u32 %7, %16, 0xFFFFFFFF;\n\t"
+        "subc.u32 %8, %17, 0;"
+        : "=r"(d.v[0]), "=r"(d.v[1]), "=r"(d.v[2]), "=r"(d.v[3]),
+          "=r"(d.v[4]), "=r"(d.v[5]), "=r"(d.v[6]), "=r"(d.v[7]), "=r"(keep)
+        : "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]), "r"(r[4]), "r"(r[5]),
+          "r"(r[6]), "r"(r[7]), "r"(c));
+#else
     uint64_t borrow = 0;
-#pragma unroll
     for (int k = 0; k < 8; ++k) {
-        uint64_t s = (uint64_t)a.v[k] - b.v[k] - borrow;
+        const uint64_t s = (uint64_t)r[k] - kP[k] - borrow;
         d.v[k] = (uint32_t)s;
         borrow = (s >> 63) & 1u;
     }
-    // a - b < 0: add p back
+    const uint32_t keep = (c < borrow) ? 0xFFFFFFFFu : 0u;
+#endif
+#pragma unroll
+    for (int k = 0; k < 8; ++k) out.v[k] = (r[k] & keep) | (d.v[k] & ~keep);
+    return out;
+}
+
+// Montgomery reduction of the 512-bit t (t < 2^256 * p): t * 2^-256 mod p,
+// in closed form.  For P-256, q = -p^-1 mod 2^256 = 1 + 2^96 + 2^193 - 2^224
+// (because -p = 1 - x mod 2^256 with x = 2^96 + 2^192 - 2^224 and x^3 = 0),
+// so the Montgomery multiplier M = t_lo * q mod 2^256 is three shifted
+// adds of t_lo, with no multiply and no word-by-word dependence.  Then
+// (t + M*p) / 2^256 = t_hi + (M*2^96 + M*2^192 + V*2^224) / 2^256 + k with
+// V = M*(2^32 - 1): the low 256 bits of t + M*p are zero, and k (0..3) is
+// their carry, read off the top low word exactly because the words below
+// can move it by at most -1..+2.  Needs t < 2^256 * p; gives a value < p.
+__device__ __forceinline__ Fe mont_reduce(uint32_t* t) {
+    uint32_t M[8], V[9], Z[4], Y[7], top;
+    M[0] = t[0];
+    M[1] = t[1];
+    M[2] = t[2];
+    // t_lo << 193 and t_lo << 224 touch words 6 and 7 only
+    const uint32_t s6 = t[0] << 1;
+    const uint32_t s7 = ((t[1] << 1) | (t[0] >> 31)) - t[0];
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "add.cc.u32 %0, %5, %10;\n\t"
+        "addc.cc.u32 %1, %6, %11;\n\t"
+        "addc.cc.u32 %2, %7, %12;\n\t"
+        "addc.cc.u32 %3, %8, %13;\n\t"
+        "addc.u32 %4, %9, %14;"
+        : "=r"(M[3]), "=r"(M[4]), "=r"(M[5]), "=r"(M[6]), "=r"(M[7])
+        : "r"(t[3]), "r"(t[4]), "r"(t[5]), "r"(t[6]), "r"(t[7]),
+          "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]));
+    asm volatile(
+        "add.cc.u32 %0, %0, %2;\n\t"
+        "addc.u32 %1, %1, %3;"
+        : "+r"(M[6]), "+r"(M[7])
+        : "r"(s6), "r"(s7));
+    // V = (M << 32) - M
+    asm volatile(
+        "sub.cc.u32 %0, 0, %9;\n\t"
+        "subc.cc.u32 %1, %9, %10;\n\t"
+        "subc.cc.u32 %2, %10, %11;\n\t"
+        "subc.cc.u32 %3, %11, %12;\n\t"
+        "subc.cc.u32 %4, %12, %13;\n\t"
+        "subc.cc.u32 %5, %13, %14;\n\t"
+        "subc.cc.u32 %6, %14, %15;\n\t"
+        "subc.cc.u32 %7, %15, %16;\n\t"
+        "subc.u32 %8, %16, 0;"
+        : "=r"(V[0]), "=r"(V[1]), "=r"(V[2]), "=r"(V[3]), "=r"(V[4]),
+          "=r"(V[5]), "=r"(V[6]), "=r"(V[7]), "=r"(V[8])
+        : "r"(M[0]), "r"(M[1]), "r"(M[2]), "r"(M[3]), "r"(M[4]), "r"(M[5]),
+          "r"(M[6]), "r"(M[7]));
+#else
+    {
+        const uint32_t add[5] = {t[0], t[1], t[2], t[3], t[4]};
+        uint64_t c = 0;
+        for (int w = 0; w < 5; ++w) {
+            c = (uint64_t)t[3 + w] + add[w] + (c >> 32);
+            M[3 + w] = (uint32_t)c;
+        }
+        c = (uint64_t)M[6] + s6;
+        M[6] = (uint32_t)c;
+        M[7] += s7 + (uint32_t)(c >> 32);
+        uint64_t borrow = 0;
+        for (int w = 0; w < 9; ++w) {
+            const uint64_t hi = w > 0 ? M[w - 1] : 0u, lo = w < 8 ? M[w] : 0u;
+            const uint64_t d = hi - lo - borrow;
+            V[w] = (uint32_t)d;
+            borrow = (d >> 63) & 1u;
+        }
+    }
+#endif
+    // word 7 of the low half: t7 + M4 (M << 96) + M1 (M << 192) + V0 (V << 224) - M7
+    const uint32_t k = (uint32_t)(((uint64_t)t[7] + M[4] + M[1] + V[0] + 2u - M[7]) >> 32);
+#ifdef __CUDA_ARCH__
+    // Z = M5 + M6*2^32 + M7*2^64 + k;  Y = M[2..7] + Z;  t_hi += V[1..8]; t_hi += Y
+    asm volatile(
+        "add.cc.u32 %0, %4, %7;\n\t"
+        "addc.cc.u32 %1, %5, 0;\n\t"
+        "addc.cc.u32 %2, %6, 0;\n\t"
+        "addc.u32 %3, 0, 0;"
+        : "=r"(Z[0]), "=r"(Z[1]), "=r"(Z[2]), "=r"(Z[3])
+        : "r"(M[5]), "r"(M[6]), "r"(M[7]), "r"(k));
+    asm volatile(
+        "add.cc.u32 %0, %7, %13;\n\t"
+        "addc.cc.u32 %1, %8, %14;\n\t"
+        "addc.cc.u32 %2, %9, %15;\n\t"
+        "addc.cc.u32 %3, %10, %16;\n\t"
+        "addc.cc.u32 %4, %11, 0;\n\t"
+        "addc.cc.u32 %5, %12, 0;\n\t"
+        "addc.u32 %6, 0, 0;"
+        : "=r"(Y[0]), "=r"(Y[1]), "=r"(Y[2]), "=r"(Y[3]), "=r"(Y[4]),
+          "=r"(Y[5]), "=r"(Y[6])
+        : "r"(M[2]), "r"(M[3]), "r"(M[4]), "r"(M[5]), "r"(M[6]), "r"(M[7]),
+          "r"(Z[0]), "r"(Z[1]), "r"(Z[2]), "r"(Z[3]));
+    asm volatile(
+        "add.cc.u32 %0, %0, %9;\n\t"
+        "addc.cc.u32 %1, %1, %10;\n\t"
+        "addc.cc.u32 %2, %2, %11;\n\t"
+        "addc.cc.u32 %3, %3, %12;\n\t"
+        "addc.cc.u32 %4, %4, %13;\n\t"
+        "addc.cc.u32 %5, %5, %14;\n\t"
+        "addc.cc.u32 %6, %6, %15;\n\t"
+        "addc.cc.u32 %7, %7, %16;\n\t"
+        "addc.u32 %8, 0, 0;"
+        : "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]),
+          "+r"(t[13]), "+r"(t[14]), "+r"(t[15]), "=r"(top)
+        : "r"(V[1]), "r"(V[2]), "r"(V[3]), "r"(V[4]), "r"(V[5]), "r"(V[6]),
+          "r"(V[7]), "r"(V[8]));
+    asm volatile(
+        "add.cc.u32 %0, %0, %9;\n\t"
+        "addc.cc.u32 %1, %1, %10;\n\t"
+        "addc.cc.u32 %2, %2, %11;\n\t"
+        "addc.cc.u32 %3, %3, %12;\n\t"
+        "addc.cc.u32 %4, %4, %13;\n\t"
+        "addc.cc.u32 %5, %5, %14;\n\t"
+        "addc.cc.u32 %6, %6, %15;\n\t"
+        "addc.cc.u32 %7, %7, 0;\n\t"
+        "addc.u32 %8, %8, 0;"
+        : "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]),
+          "+r"(t[13]), "+r"(t[14]), "+r"(t[15]), "+r"(top)
+        : "r"(Y[0]), "r"(Y[1]), "r"(Y[2]), "r"(Y[3]), "r"(Y[4]), "r"(Y[5]),
+          "r"(Y[6]));
+#else
+    {
+        uint64_t c = (uint64_t)M[5] + k;
+        Z[0] = (uint32_t)c;
+        c = (uint64_t)M[6] + (c >> 32);
+        Z[1] = (uint32_t)c;
+        c = (uint64_t)M[7] + (c >> 32);
+        Z[2] = (uint32_t)c;
+        Z[3] = (uint32_t)(c >> 32);
+        c = 0;
+        for (int w = 0; w < 7; ++w) {
+            c = (uint64_t)(w < 6 ? M[2 + w] : 0u) + (w < 4 ? Z[w] : 0u) + (c >> 32);
+            Y[w] = (uint32_t)c;
+        }
+        c = 0;
+        for (int w = 0; w < 8; ++w) {
+            c = (uint64_t)t[8 + w] + V[1 + w] + (w < 7 ? Y[w] : 0u) + (c >> 32);
+            t[8 + w] = (uint32_t)c;
+        }
+        top = (uint32_t)(c >> 32);
+    }
+#endif
+    return fe_reduce_once(t + 8, top);
+}
+
+// Montgomery product a*b*2^-256 mod p.  Needs a < 2^256, b < p.  Each
+// row of b is two independent chains of 4 word products whose low and
+// high halves tile the row without overlap.  Products that land on even
+// words accumulate in A, those on odd words in B (B[i] is word i+1), so
+// every 64-bit multiply-add writes a register pair of the same alignment
+// in every row; A + B*2^32 is the 512-bit product.
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
+    uint32_t A[17], Bs[18];
+#pragma unroll
+    for (int k = 0; k < 17; ++k) {
+        A[k] = 0u;
+        Bs[k] = 0u;
+    }
+    Bs[17] = 0u;
+    uint32_t* B = Bs + 1;
+    const uint32_t ae[4] = {a.v[0], a.v[2], a.v[4], a.v[6]};
+    const uint32_t ao[4] = {a.v[1], a.v[3], a.v[5], a.v[7]};
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+        mac_pairs<4>(A + j, b.v[j], ae);
+        mac_pairs<4>(B + j, b.v[j], ao);
+        mac_pairs<4>(A + j + 2, b.v[j + 1], ao);
+        mac_pairs<4>(B + j, b.v[j + 1], ae);
+    }
+    add_odd_into_even(A, Bs);
+    return mont_reduce(A);
+}
+
+// Montgomery square a*a*2^-256 mod p, a < p: the 28 cross products once
+// (row i: a_i times a_{i+1..7}, as two chains of non-overlapping products
+// into e and o), doubled, plus the 8 squares on the diagonal: 36 word
+// products.
+__device__ __forceinline__ Fe fe_sqr(const Fe& a) {
+    uint32_t e[16], o[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+        e[k] = 0u;
+        o[k] = 0u;
+    }
+    const uint32_t* x = a.v;
+    {
+        const uint32_t y0[4] = {x[1], x[3], x[5], x[7]};
+        const uint32_t y1[3] = {x[2], x[4], x[6]};
+        const uint32_t y2[3] = {x[3], x[5], x[7]};
+        const uint32_t y3[2] = {x[4], x[6]};
+        const uint32_t y4[2] = {x[5], x[7]};
+        mac_pairs<4>(e + 1, x[0], y0);
+        mac_pairs<3>(e + 3, x[1], y1);
+        mac_pairs<3>(e + 5, x[2], y2);
+        mac_pairs<2>(e + 7, x[3], y3);
+        mac_pairs<2>(e + 9, x[4], y4);
+        mac_pairs<1>(e + 11, x[5], x + 6);
+        mac_pairs<1>(e + 13, x[6], x + 7);
+    }
+    {
+        const uint32_t y0[3] = {x[2], x[4], x[6]};
+        const uint32_t y1[3] = {x[3], x[5], x[7]};
+        const uint32_t y2[2] = {x[4], x[6]};
+        const uint32_t y3[2] = {x[5], x[7]};
+        mac_pairs<3>(o + 2, x[0], y0);
+        mac_pairs<3>(o + 4, x[1], y1);
+        mac_pairs<2>(o + 6, x[2], y2);
+        mac_pairs<2>(o + 8, x[3], y3);
+        mac_pairs<1>(o + 10, x[4], x + 6);
+        mac_pairs<1>(o + 12, x[5], x + 7);
+    }
+    add_odd_into_even(e, o);              // e = the cross products, < 2^511
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "add.cc.u32 %0, %0, %0;\n\t"
+        "addc.cc.u32 %1, %1, %1;\n\t"
+        "addc.cc.u32 %2, %2, %2;\n\t"
+        "addc.cc.u32 %3, %3, %3;\n\t"
+        "addc.cc.u32 %4, %4, %4;\n\t"
+        "addc.cc.u32 %5, %5, %5;\n\t"
+        "addc.cc.u32 %6, %6, %6;\n\t"
+        "addc.cc.u32 %7, %7, %7;\n\t"
+        "addc.cc.u32 %8, %8, %8;\n\t"
+        "addc.cc.u32 %9, %9, %9;\n\t"
+        "addc.cc.u32 %10, %10, %10;\n\t"
+        "addc.cc.u32 %11, %11, %11;\n\t"
+        "addc.cc.u32 %12, %12, %12;\n\t"
+        "addc.cc.u32 %13, %13, %13;\n\t"
+        "addc.u32 %14, %14, %14;"
+        : "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]), "+r"(e[5]),
+          "+r"(e[6]), "+r"(e[7]), "+r"(e[8]), "+r"(e[9]), "+r"(e[10]),
+          "+r"(e[11]), "+r"(e[12]), "+r"(e[13]), "+r"(e[14]), "+r"(e[15]));
+    asm volatile(
+        "mad.lo.cc.u32 %0, %16, %16, %0;\n\t"
+        "madc.hi.cc.u32 %1, %16, %16, %1;\n\t"
+        "madc.lo.cc.u32 %2, %17, %17, %2;\n\t"
+        "madc.hi.cc.u32 %3, %17, %17, %3;\n\t"
+        "madc.lo.cc.u32 %4, %18, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %18, %18, %5;\n\t"
+        "madc.lo.cc.u32 %6, %19, %19, %6;\n\t"
+        "madc.hi.cc.u32 %7, %19, %19, %7;\n\t"
+        "madc.lo.cc.u32 %8, %20, %20, %8;\n\t"
+        "madc.hi.cc.u32 %9, %20, %20, %9;\n\t"
+        "madc.lo.cc.u32 %10, %21, %21, %10;\n\t"
+        "madc.hi.cc.u32 %11, %21, %21, %11;\n\t"
+        "madc.lo.cc.u32 %12, %22, %22, %12;\n\t"
+        "madc.hi.cc.u32 %13, %22, %22, %13;\n\t"
+        "madc.lo.cc.u32 %14, %23, %23, %14;\n\t"
+        "madc.hi.u32 %15, %23, %23, %15;"
+        : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]),
+          "+r"(e[5]), "+r"(e[6]), "+r"(e[7]), "+r"(e[8]), "+r"(e[9]),
+          "+r"(e[10]), "+r"(e[11]), "+r"(e[12]), "+r"(e[13]), "+r"(e[14]),
+          "+r"(e[15])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]),
+          "r"(x[6]), "r"(x[7]));
+#else
+    uint32_t top = 0;
+    for (int k = 1; k < 16; ++k) {
+        const uint32_t next = e[k] >> 31;
+        e[k] = (e[k] << 1) | top;
+        top = next;
+    }
+    uint64_t c = 0;
+    for (int i = 0; i < 8; ++i) {
+        const uint64_t sq = (uint64_t)x[i] * x[i];
+        uint64_t s = (uint64_t)e[2 * i] + (uint32_t)sq + c;
+        e[2 * i] = (uint32_t)s;
+        s = (uint64_t)e[2 * i + 1] + (uint32_t)(sq >> 32) + (s >> 32);
+        e[2 * i + 1] = (uint32_t)s;
+        c = s >> 32;
+    }
+#endif
+    return mont_reduce(e);
+}
+
+__device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
+    Fe r = a;
+    uint32_t c;
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "add.cc.u32 %0, %0, %9;\n\t"
+        "addc.cc.u32 %1, %1, %10;\n\t"
+        "addc.cc.u32 %2, %2, %11;\n\t"
+        "addc.cc.u32 %3, %3, %12;\n\t"
+        "addc.cc.u32 %4, %4, %13;\n\t"
+        "addc.cc.u32 %5, %5, %14;\n\t"
+        "addc.cc.u32 %6, %6, %15;\n\t"
+        "addc.cc.u32 %7, %7, %16;\n\t"
+        "addc.u32 %8, 0, 0;"
+        : "+r"(r.v[0]), "+r"(r.v[1]), "+r"(r.v[2]), "+r"(r.v[3]),
+          "+r"(r.v[4]), "+r"(r.v[5]), "+r"(r.v[6]), "+r"(r.v[7]), "=r"(c)
+        : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]),
+          "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]));
+#else
+    uint64_t s = 0;
+    for (int k = 0; k < 8; ++k) {
+        s = (uint64_t)r.v[k] + b.v[k] + (s >> 32);
+        r.v[k] = (uint32_t)s;
+    }
+    c = (uint32_t)(s >> 32);
+#endif
+    return fe_reduce_once(r.v, c);
+}
+
+// a - b, plus p when that borrows
+__device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
+    Fe d = a;
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "{\n\t.reg .u32 m, m1;\n\t"
+        "sub.cc.u32 %0, %0, %8;\n\t"
+        "subc.cc.u32 %1, %1, %9;\n\t"
+        "subc.cc.u32 %2, %2, %10;\n\t"
+        "subc.cc.u32 %3, %3, %11;\n\t"
+        "subc.cc.u32 %4, %4, %12;\n\t"
+        "subc.cc.u32 %5, %5, %13;\n\t"
+        "subc.cc.u32 %6, %6, %14;\n\t"
+        "subc.cc.u32 %7, %7, %15;\n\t"
+        "subc.u32 m, 0, 0;\n\t"
+        "and.b32 m1, m, 1;\n\t"
+        "add.cc.u32 %0, %0, m;\n\t"
+        "addc.cc.u32 %1, %1, m;\n\t"
+        "addc.cc.u32 %2, %2, m;\n\t"
+        "addc.cc.u32 %3, %3, 0;\n\t"
+        "addc.cc.u32 %4, %4, 0;\n\t"
+        "addc.cc.u32 %5, %5, 0;\n\t"
+        "addc.cc.u32 %6, %6, m1;\n\t"
+        "addc.u32 %7, %7, m;\n\t}"
+        : "+r"(d.v[0]), "+r"(d.v[1]), "+r"(d.v[2]), "+r"(d.v[3]),
+          "+r"(d.v[4]), "+r"(d.v[5]), "+r"(d.v[6]), "+r"(d.v[7])
+        : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]),
+          "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]));
+#else
+    uint64_t borrow = 0;
+    for (int k = 0; k < 8; ++k) {
+        const uint64_t s = (uint64_t)d.v[k] - b.v[k] - borrow;
+        d.v[k] = (uint32_t)s;
+        borrow = (s >> 63) & 1u;
+    }
     const uint32_t mask = borrow ? 0xFFFFFFFFu : 0u;
     uint64_t c = 0;
-#pragma unroll
     for (int k = 0; k < 8; ++k) {
-        uint64_t s = (uint64_t)d.v[k] + (kP[k] & mask) + c;
+        const uint64_t s = (uint64_t)d.v[k] + (kP[k] & mask) + c;
         d.v[k] = (uint32_t)s;
         c = s >> 32;
     }
+#endif
     return d;
-}
-
-// --- Complete formulas, a = -3 (operation order of ops/p256.py) ----------
-
-__device__ __forceinline__ Pt point_add(const Pt& p1, const Pt& p2) {
-    const Fe bm = fe_load_const(kBM);
-    Fe t0, t1, t2, t3, t4, X3, Y3, Z3;
-    t0 = fe_mul(p1.x, p2.x);
-    t1 = fe_mul(p1.y, p2.y);
-    t2 = fe_mul(p1.z, p2.z);
-    t3 = fe_add(p1.x, p1.y);
-    t4 = fe_add(p2.x, p2.y);
-    t3 = fe_mul(t3, t4);
-    t4 = fe_add(t0, t1);
-    t3 = fe_sub(t3, t4);
-    t4 = fe_add(p1.y, p1.z);
-    X3 = fe_add(p2.y, p2.z);
-    t4 = fe_mul(t4, X3);
-    X3 = fe_add(t1, t2);
-    t4 = fe_sub(t4, X3);
-    X3 = fe_add(p1.x, p1.z);
-    Y3 = fe_add(p2.x, p2.z);
-    X3 = fe_mul(X3, Y3);
-    Y3 = fe_add(t0, t2);
-    Y3 = fe_sub(X3, Y3);
-    Z3 = fe_mul(bm, t2);
-    X3 = fe_sub(Y3, Z3);
-    Z3 = fe_add(X3, X3);
-    X3 = fe_add(X3, Z3);
-    Z3 = fe_sub(t1, X3);
-    X3 = fe_add(t1, X3);
-    Y3 = fe_mul(bm, Y3);
-    t1 = fe_add(t2, t2);
-    t2 = fe_add(t1, t2);
-    Y3 = fe_sub(Y3, t2);
-    Y3 = fe_sub(Y3, t0);
-    t1 = fe_add(Y3, Y3);
-    Y3 = fe_add(t1, Y3);
-    t1 = fe_add(t0, t0);
-    t0 = fe_add(t1, t0);
-    t0 = fe_sub(t0, t2);
-    t1 = fe_mul(t4, Y3);
-    t2 = fe_mul(t0, Y3);
-    Y3 = fe_mul(X3, Z3);
-    Y3 = fe_add(Y3, t2);
-    X3 = fe_mul(t3, X3);
-    X3 = fe_sub(X3, t1);
-    Z3 = fe_mul(t4, Z3);
-    t1 = fe_mul(t3, t0);
-    Z3 = fe_add(Z3, t1);
-    Pt r;
-    r.x = X3;
-    r.y = Y3;
-    r.z = Z3;
-    return r;
-}
-
-__device__ __forceinline__ Pt point_add_mixed(const Pt& p1, const Aff& p2) {
-    const Fe bm = fe_load_const(kBM);
-    Fe t0, t1, t2, t3, t4, X3, Y3, Z3;
-    t0 = fe_mul(p1.x, p2.x);
-    t1 = fe_mul(p1.y, p2.y);
-    t3 = fe_add(p2.x, p2.y);
-    t4 = fe_add(p1.x, p1.y);
-    t3 = fe_mul(t3, t4);
-    t4 = fe_add(t0, t1);
-    t3 = fe_sub(t3, t4);
-    t4 = fe_mul(p2.y, p1.z);
-    t4 = fe_add(t4, p1.y);
-    Y3 = fe_mul(p2.x, p1.z);
-    Y3 = fe_add(Y3, p1.x);
-    Z3 = fe_mul(bm, p1.z);
-    X3 = fe_sub(Y3, Z3);
-    Z3 = fe_add(X3, X3);
-    X3 = fe_add(X3, Z3);
-    Z3 = fe_sub(t1, X3);
-    X3 = fe_add(t1, X3);
-    Y3 = fe_mul(bm, Y3);
-    t1 = fe_add(p1.z, p1.z);
-    t2 = fe_add(t1, p1.z);
-    Y3 = fe_sub(Y3, t2);
-    Y3 = fe_sub(Y3, t0);
-    t1 = fe_add(Y3, Y3);
-    Y3 = fe_add(t1, Y3);
-    t1 = fe_add(t0, t0);
-    t0 = fe_add(t1, t0);
-    t0 = fe_sub(t0, t2);
-    t1 = fe_mul(t4, Y3);
-    t2 = fe_mul(t0, Y3);
-    Y3 = fe_mul(X3, Z3);
-    Y3 = fe_add(Y3, t2);
-    X3 = fe_mul(t3, X3);
-    X3 = fe_sub(X3, t1);
-    Z3 = fe_mul(t4, Z3);
-    t1 = fe_mul(t3, t0);
-    Z3 = fe_add(Z3, t1);
-    Pt r;
-    r.x = X3;
-    r.y = Y3;
-    r.z = Z3;
-    return r;
-}
-
-__device__ __forceinline__ Pt point_double(const Pt& p) {
-    const Fe bm = fe_load_const(kBM);
-    Fe t0, t1, t2, t3, X3, Y3, Z3;
-    t0 = fe_sqr(p.x);
-    t1 = fe_sqr(p.y);
-    t2 = fe_sqr(p.z);
-    t3 = fe_mul(p.x, p.y);
-    t3 = fe_add(t3, t3);
-    Z3 = fe_mul(p.x, p.z);
-    Z3 = fe_add(Z3, Z3);
-    Y3 = fe_mul(bm, t2);
-    Y3 = fe_sub(Y3, Z3);
-    X3 = fe_add(Y3, Y3);
-    Y3 = fe_add(X3, Y3);
-    X3 = fe_sub(t1, Y3);
-    Y3 = fe_add(t1, Y3);
-    Y3 = fe_mul(X3, Y3);
-    X3 = fe_mul(X3, t3);
-    t3 = fe_add(t2, t2);
-    t2 = fe_add(t2, t3);
-    Z3 = fe_mul(bm, Z3);
-    Z3 = fe_sub(Z3, t2);
-    Z3 = fe_sub(Z3, t0);
-    t3 = fe_add(Z3, Z3);
-    Z3 = fe_add(Z3, t3);
-    t3 = fe_add(t0, t0);
-    t0 = fe_add(t3, t0);
-    t0 = fe_sub(t0, t2);
-    t0 = fe_mul(t0, Z3);
-    Y3 = fe_add(Y3, t0);
-    t0 = fe_mul(p.y, p.z);
-    t0 = fe_add(t0, t0);
-    Z3 = fe_mul(t0, Z3);
-    X3 = fe_sub(X3, Z3);
-    Z3 = fe_mul(t0, t1);
-    Z3 = fe_add(Z3, Z3);
-    Z3 = fe_add(Z3, Z3);
-    Pt r;
-    r.x = X3;
-    r.y = Y3;
-    r.z = Z3;
-    return r;
-}
-
-__device__ __forceinline__ Pt point_infinity() {
-    Pt r;
-    r.x = fe_zero();
-    r.y = fe_load_const(kOneM);
-    r.z = fe_zero();
-    return r;
 }
 
 __device__ __forceinline__ Fe fe_sqr_n(Fe x, int n) {
@@ -362,152 +705,455 @@ __device__ __forceinline__ Fe fe_inv(const Fe& a) {
     return acc;
 }
 
-// canonical key words (limb axis first: word k of lane at k*n + lane)
-// -> Montgomery form
-__device__ __forceinline__ Fe load_to_mont(const uint32_t* src, int lane, int n) {
-    Fe x;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) x.v[k] = src[(std::size_t)k * n + lane];
-    return fe_mul(x, fe_load_const(kR2));
+// --- A lane is a group of kGroup threads ----------------------------------
+//
+// Every thread of a group holds the lane's point in registers.  A round
+// of K <= kGroup independent multiplies gives multiply j to the thread of
+// rank j; the products go through the lane's exchange area in
+// shared memory (two halves used in turn, so one __syncwarp a round is
+// enough) and every thread reads them all back.  On the host, one call
+// plays each rank in turn and group_sync is a no-op.
+
+// The lane's shared-memory area, in 32-bit words; every Fe starts on a
+// 16-byte boundary.
+constexpr int kXchWords = 2 * kGroup * 8;    // the exchange area
+constexpr int kQTabWords = 16 * 24;          // [inf, Q, .., 15Q] projective
+constexpr int kPrefWords = 15 * 8;           // prefix products, then 1/Z
+constexpr int kAffWords = 15 * 16;           // affine [Q, .., 15Q]
+
+constexpr int kLaneWordsProjective = kXchWords + kQTabWords;
+constexpr int kLaneWordsMixed = kLaneWordsProjective + kPrefWords + kAffWords;
+
+struct Lane {
+    int rank;        // this thread's place in the group (card only)
+    int buf;         // which half of the exchange area the next round uses
+    uint32_t* xch;
+    uint32_t* qtab;
+    uint32_t* pref;  // mixed only
+    uint32_t* aff;   // mixed only
+    const uint32_t* ctab;   // kRoundConsts (or its shared-memory copy)
+};
+
+__device__ __forceinline__ Lane make_lane(uint32_t* area, int rank, const uint32_t* ctab) {
+    Lane ln;
+    ln.rank = rank;
+    ln.ctab = ctab;
+    ln.buf = 0;
+    ln.xch = area;
+    ln.qtab = area + kXchWords;
+    ln.pref = ln.qtab + kQTabWords;
+    ln.aff = ln.pref + kPrefWords;
+    return ln;
 }
 
-__device__ __forceinline__ void store_from_mont(uint32_t* dst, const Fe& a, int lane, int n) {
+#ifdef __CUDA_ARCH__
+#define FOR_MY_RANKS(ln, g) \
+    for (int g = (ln).rank, g##_once = 1; g##_once; g##_once = 0)
+__device__ __forceinline__ void group_sync() { __syncwarp(); }
+#else
+#define FOR_MY_RANKS(ln, g) for (int g = 0; g < kGroup; ++g)
+__device__ __forceinline__ void group_sync() {}
+#endif
+
+__device__ __forceinline__ Fe fe_ld(const uint32_t* src) {
+    const uint4 lo = reinterpret_cast<const uint4*>(src)[0];
+    const uint4 hi = reinterpret_cast<const uint4*>(src)[1];
+    Fe r;
+    r.v[0] = lo.x; r.v[1] = lo.y; r.v[2] = lo.z; r.v[3] = lo.w;
+    r.v[4] = hi.x; r.v[5] = hi.y; r.v[6] = hi.z; r.v[7] = hi.w;
+    return r;
+}
+
+// one half (4 words) of an Fe
+__device__ __forceinline__ void fe_st_half(uint32_t* dst, const Fe& f, int h) {
+    uint4 q;
+    q.x = f.v[4 * h];
+    q.y = f.v[4 * h + 1];
+    q.z = f.v[4 * h + 2];
+    q.w = f.v[4 * h + 3];
+    reinterpret_cast<uint4*>(dst)[h] = q;
+}
+
+// The lane's copy of f into shared memory, each half by one rank.
+// Readers wait for a group_sync.
+__device__ __forceinline__ void fe_put(const Lane& ln, uint32_t* dst, const Fe& f) {
+    FOR_MY_RANKS(ln, g) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            if (h == g) fe_st_half(dst, f, h);
+    }
+}
+
+__device__ __forceinline__ void pt_put(const Lane& ln, uint32_t* dst, const Pt& p) {
+    FOR_MY_RANKS(ln, g) {
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+            if (q % kGroup == g) {
+                const Fe& f = q < 2 ? p.x : (q < 4 ? p.y : p.z);
+                fe_st_half(dst + (q >> 1) * 8, f, q & 1);
+            }
+        }
+    }
+}
+
+__device__ __forceinline__ Pt pt_ld(const uint32_t* src) {
+    Pt p;
+    p.x = fe_ld(src);
+    p.y = fe_ld(src + 8);
+    p.z = fe_ld(src + 16);
+    return p;
+}
+
+// The operand of multiply g: vals[idx[g]].  idx is a list of literals,
+// so the tests fold at compile time into one select per distinct value.
+template <int K, int N>
+__device__ __forceinline__ Fe pick(const Fe (&vals)[N], const int (&idx)[K], int g) {
+    Fe r = vals[idx[0]];
+#pragma unroll
+    for (int d = 0; d < N; ++d) {
+        if (d == idx[0]) continue;
+        bool take = false;
+#pragma unroll
+        for (int j = 1; j < K; ++j)
+            if (idx[j] == d) take = take || g == j;
+        r = fe_sel(take, vals[d], r);
+    }
+    return r;
+}
+
+// out[j] = a(j) * b(j) for the K <= kGroup multiplies of a round: rank g
+// computes multiply g (ranks past K compute a copy of multiply 0), then
+// every rank reads all K products back.
+template <int K, class OpA, class OpB>
+__device__ __forceinline__ void mul_round_of(Lane& ln, OpA opa, OpB opb, Fe (&out)[K]) {
+    static_assert(K <= kGroup, "one multiply per rank");
+    uint32_t* slots = ln.xch + ln.buf * (kGroup * 8);
+    FOR_MY_RANKS(ln, g) {
+        const Fe prod = fe_mul(opa(g), opb(g));
+        fe_st_half(slots + g * 8, prod, 0);
+        fe_st_half(slots + g * 8, prod, 1);
+    }
+    group_sync();
+#pragma unroll
+    for (int j = 0; j < K; ++j) out[j] = fe_ld(slots + j * 8);
+    ln.buf ^= 1;
+}
+
+// out[j] = va[ia[j]] * vb[ib[j]]
+template <int K, int NA, int NB>
+__device__ __forceinline__ void mul_round(Lane& ln, const Fe (&va)[NA], const int (&ia)[K],
+                                          const Fe (&vb)[NB], const int (&ib)[K],
+                                          Fe (&out)[K]) {
+    mul_round_of(ln, [&](int g) { return pick(va, ia, g); },
+                 [&](int g) { return pick(vb, ib, g); }, out);
+}
+
+// out[j] = va[ia[j]] * (row `row0 + j` of the constant table)
+template <int K, int NA>
+__device__ __forceinline__ void mul_round(Lane& ln, const Fe (&va)[NA], const int (&ia)[K],
+                                          int row0, Fe (&out)[K]) {
+    mul_round_of(ln, [&](int g) { return pick(va, ia, g); },
+                 [&](int g) { return fe_ld(ln.ctab + (row0 + (g < K ? g : 0)) * 8); }, out);
+}
+
+// --- Complete formulas, a = -3, as rounds of independent multiplies -------
+//
+// Each formula gives the same X3, Y3, Z3 as ops/p256.py (the field values
+// of eprint 2015/1060 algorithms 4, 5, 6), but regrouped for this card:
+// a round holds up to kGroup multiplies at the cost of one, so small
+// constant factors (the formulas' doublings and triplings, b) ride along
+// as multiplies by constants in rounds that have room, which removes most
+// of the adds and subtracts between rounds.  Three rounds each.
+
+__device__ __forceinline__ Pt point_double(Lane& ln, const Pt& p) {
+    Fe r1[6];
+    mul_round(ln, {p.x, p.y, p.z}, {0, 1, 2, 0, 0, 1},
+              {p.x, p.y, p.z}, {0, 1, 2, 1, 2, 2}, r1);
+    // X^2, Y^2, Z^2, XY, XZ, YZ
+    Fe r2[8];
+    mul_round(ln, {r1[2], r1[4], r1[0], r1[3], r1[5]}, {0, 1, 1, 0, 2, 0, 3, 4},
+              kRowsDouble, r2);
+    // 3bZ^2, 6XZ, 6bXZ, 9Z^2, 3X^2, 3Z^2, 2XY, 2YZ
+    const Fe y3a = fe_sub(r2[0], r2[1]);                    // 3(bZ^2 - 2XZ)
+    const Fe x3a = fe_sub(r1[1], y3a);
+    const Fe y3b = fe_add(r1[1], y3a);
+    const Fe z3a = fe_sub(fe_sub(r2[2], r2[3]), r2[4]);     // 3(2bXZ - 3Z^2 - X^2)
+    const Fe t0 = fe_sub(r2[4], r2[5]);                     // 3X^2 - 3Z^2
+    Fe r3[5];
+    mul_round(ln, {x3a, r2[7], t0}, {0, 1, 0, 2, 1},
+              {r2[6], z3a, y3b, r1[1]}, {0, 1, 2, 1, 3}, r3);
+    Pt r;
+    r.x = fe_sub(r3[0], r3[1]);
+    r.y = fe_add(r3[2], r3[3]);
+    const Fe z2 = fe_add(r3[4], r3[4]);
+    r.z = fe_add(z2, z2);                                   // 8 YZ Y^2
+    return r;
+}
+
+// The last round and the sums of algorithms 4 and 5: with x3 = 3(Y3a - b
+// t2), t1 = Y1Y2, y3 = 3(b Y3a - 3 t2 - t0), t0x3 = 3 t0 - 3 t2:
+// X3 = t3 (t1 + x3) - t4 y3, Y3 = (t1 + x3)(t1 - x3) + t0x3 y3,
+// Z3 = t4 (t1 - x3) + t3 t0x3.
+__device__ __forceinline__ Pt add_last_round(Lane& ln, const Fe& t1, const Fe& t3,
+                                             const Fe& t4, const Fe& x3, const Fe& y3,
+                                             const Fe& t0x3) {
+    const Fe z3p = fe_sub(t1, x3);
+    const Fe x3p = fe_add(t1, x3);
+    Fe r3[6];
+    mul_round(ln, {t4, t0x3, x3p, t3}, {0, 1, 2, 3, 0, 3},
+              {y3, z3p, x3p, t0x3}, {0, 0, 1, 2, 1, 3}, r3);
+    Pt r;
+    r.x = fe_sub(r3[3], r3[0]);
+    r.y = fe_add(r3[2], r3[1]);
+    r.z = fe_add(r3[4], r3[5]);
+    return r;
+}
+
+__device__ __forceinline__ Pt point_add(Lane& ln, const Pt& p1, const Pt& p2) {
+    Fe r1[8];
+    mul_round(ln, {p1.x, p1.y, p1.z, fe_add(p1.x, p1.z)}, {0, 1, 2, 0, 1, 1, 2, 3},
+              {p2.x, p2.y, p2.z, fe_add(p2.x, p2.z)}, {0, 1, 2, 1, 0, 2, 1, 3}, r1);
+    // t0 = X1X2, t1 = Y1Y2, t2 = Z1Z2, X1Y2, Y1X2, Y1Z2, Z1Y2, (X1+Z1)(X2+Z2)
+    const Fe t3 = fe_add(r1[3], r1[4]);
+    const Fe t4 = fe_add(r1[5], r1[6]);
+    const Fe y3a = fe_sub(r1[7], fe_add(r1[0], r1[2]));    // X1Z2 + Z1X2
+    Fe r2[6];
+    mul_round(ln, {y3a, r1[2], r1[0]}, {0, 1, 0, 1, 2, 1}, kRowsAdd, r2);
+    // 3Y3a, 3b t2, 3b Y3a, 9 t2, 3 t0, 3 t2
+    return add_last_round(ln, r1[1], t3, t4, fe_sub(r2[0], r2[1]),
+                          fe_sub(fe_sub(r2[2], r2[3]), r2[4]), fe_sub(r2[4], r2[5]));
+}
+
+__device__ __forceinline__ Pt point_add_mixed(Lane& ln, const Pt& p1, const Aff& p2) {
+    const Fe c3 = fe_load_const(kC3), c3b = fe_load_const(kC3B);
+    Fe r1[8];
+    mul_round(ln, {p1.x, p1.y, p2.y, p2.x, p1.z}, {0, 1, 0, 1, 2, 3, 4, 4},
+              {p2.x, p2.y, p1.z, c3b, c3}, {0, 1, 1, 0, 2, 2, 3, 4}, r1);
+    // t0 = X1x2, t1 = Y1y2, X1y2, Y1x2, y2Z1, x2Z1, 3b Z1, 3 Z1 (= t2)
+    const Fe t3 = fe_add(r1[2], r1[3]);
+    const Fe t4 = fe_add(r1[4], p1.y);
+    const Fe y3a = fe_add(r1[5], p1.x);
+    Fe r2[4];
+    mul_round(ln, {y3a, r1[7], r1[0]}, {0, 0, 1, 2}, kRowsMixed, r2);
+    // 3Y3a, 3b Y3a, 9 Z1, 3 t0
+    return add_last_round(ln, r1[1], t3, t4, fe_sub(r2[0], r1[6]),
+                          fe_sub(fe_sub(r2[1], r2[2]), r2[3]), fe_sub(r2[3], r1[7]));
+}
+
+__device__ __forceinline__ Pt point_infinity() {
+    Pt r;
+    r.x = fe_zero();
+    r.y = fe_load_const(kOneM);
+    r.z = fe_zero();
+    return r;
+}
+
+// canonical key words (limb axis first: word k of lane at k*n + lane)
+// -> Montgomery form, x and y in one round
+__device__ __forceinline__ Pt load_key(Lane& ln, const uint32_t* qx, const uint32_t* qy,
+                                       int lane, int n) {
+    Fe x, y;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        x.v[k] = qx[(std::size_t)k * n + lane];
+        y.v[k] = qy[(std::size_t)k * n + lane];
+    }
+    const Fe r2 = fe_load_const(kR2);
+    Fe m[2];
+    mul_round(ln, {x, y}, {0, 1}, {r2}, {0, 0}, m);
+    Pt q;
+    q.x = m[0];
+    q.y = m[1];
+    q.z = fe_load_const(kOneM);
+    return q;
+}
+
+// out of Montgomery form (X, Y, Z in one round), then each rank stores
+// its share of the 24 words; lanes past the edge store nothing
+__device__ __forceinline__ void store_result(Lane& ln, const Pt& acc, bool live, int lane,
+                                             int n, uint32_t* X, uint32_t* Y, uint32_t* Z) {
     Fe one = fe_zero();
     one.v[0] = 1u;
-    const Fe x = fe_mul(a, one);
+    Fe r[3];
+    mul_round(ln, {acc.x, acc.y, acc.z}, {0, 1, 2}, {one}, {0, 0, 0}, r);
+    if (!live) return;
+    FOR_MY_RANKS(ln, g) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) dst[(std::size_t)k * n + lane] = x.v[k];
+        for (int w = 0; w < 24; ++w) {
+            if (w % kGroup == g) {
+                uint32_t* dst = w < 8 ? X : (w < 16 ? Y : Z);
+                dst[(std::size_t)(w & 7) * n + lane] = r[w >> 3].v[w & 7];
+            }
+        }
+    }
 }
 
-// [inf, Q, 2Q, ..., 15Q]: the schedule of ops/p256.build_q_table
-__device__ __forceinline__ void build_q_table(Pt* tab, const Pt& q1) {
-    tab[0] = point_infinity();
-    tab[1] = q1;
+// [inf, Q, 2Q, ..., 15Q] into the lane's table: the schedule of
+// ops/p256.build_q_table
+__device__ __forceinline__ void build_q_table(Lane& ln, const Pt& q1) {
+    pt_put(ln, ln.qtab, point_infinity());
+    pt_put(ln, ln.qtab + 24, q1);
+    group_sync();
+    Pt cur = q1;
 #pragma unroll 1
     for (int i = 2; i < 16; ++i) {
-        if ((i & 1) == 0) tab[i] = point_double(tab[i >> 1]);
-        else tab[i] = point_add(tab[i - 1], q1);
+        if ((i & 1) == 0) cur = point_double(ln, pt_ld(ln.qtab + (i >> 1) * 24));
+        else cur = point_add(ln, cur, q1);
+        pt_put(ln, ln.qtab + i * 24, cur);
+        group_sync();
     }
 }
 
 // One lane of the projective ladder.  gtab: 16 entries x (x, y, z)
-// Montgomery words — the G table, in shared memory under nvcc.
+// Montgomery words, the G table (shared memory on the card).
 __device__ __forceinline__ void ladder_projective_lane(
-        int lane, int n, const int32_t* u1w, const int32_t* u2w,
-        const uint32_t* qx, const uint32_t* qy, const Fe* gtab,
+        Lane& ln, int lane, bool live, int n, const int32_t* u1w, const int32_t* u2w,
+        const uint32_t* qx, const uint32_t* qy, const uint32_t* gtab,
         uint32_t* X, uint32_t* Y, uint32_t* Z) {
-    Pt q1;
-    q1.x = load_to_mont(qx, lane, n);
-    q1.y = load_to_mont(qy, lane, n);
-    q1.z = fe_load_const(kOneM);
-    Pt tab[16];
-    build_q_table(tab, q1);
+    build_q_table(ln, load_key(ln, qx, qy, lane, n));
     Pt acc = point_infinity();
 #pragma unroll 1
     for (int w = 0; w < 64; ++w) {
-#pragma unroll 1
-        for (int d = 0; d < 4; ++d) acc = point_double(acc);
         const int i2 = u2w[(std::size_t)w * n + lane] & 15;
-        acc = point_add(acc, tab[i2]);
         const int i1 = u1w[(std::size_t)w * n + lane] & 15;
-        Pt g;
-        g.x = gtab[i1 * 3 + 0];
-        g.y = gtab[i1 * 3 + 1];
-        g.z = gtab[i1 * 3 + 2];
-        acc = point_add(acc, g);
+#pragma unroll 1
+        for (int d = 0; d < 4; ++d) acc = point_double(ln, acc);
+#pragma unroll 1
+        for (int h = 0; h < 2; ++h) {
+            const uint32_t* src = h == 0 ? ln.qtab + i2 * 24 : gtab + i1 * 24;
+            acc = point_add(ln, acc, pt_ld(src));
+        }
     }
-    store_from_mont(X, acc.x, lane, n);
-    store_from_mont(Y, acc.y, lane, n);
-    store_from_mont(Z, acc.z, lane, n);
+    store_result(ln, acc, live, lane, n, X, Y, Z);
 }
 
 // One lane of the mixed ladder.  gtab: 15 entries x (x, y) affine
 // Montgomery words for G..15G.
 __device__ __forceinline__ void ladder_mixed_lane(
-        int lane, int n, const int32_t* u1w, const int32_t* u2w,
-        const uint32_t* qx, const uint32_t* qy, const Fe* gtab,
+        Lane& ln, int lane, bool live, int n, const int32_t* u1w, const int32_t* u2w,
+        const uint32_t* qx, const uint32_t* qy, const uint32_t* gtab,
         uint32_t* X, uint32_t* Y, uint32_t* Z) {
-    Pt q1;
-    q1.x = load_to_mont(qx, lane, n);
-    q1.y = load_to_mont(qy, lane, n);
-    q1.z = fe_load_const(kOneM);
-    Pt tab[16];
-    build_q_table(tab, q1);
+    build_q_table(ln, load_key(ln, qx, qy, lane, n));
     // Montgomery's simultaneous inversion of the Z of Q..15Q
     // (limbs9.inv_mont_many): one inversion + 3*14 multiplies.  A zero
-    // Z (invalid key) zeroes the whole lane's table.
-    Fe prefix[15];
-    prefix[0] = tab[1].z;
+    // Z (invalid key) zeroes the whole lane's table.  The prefix chain
+    // and the inversion are sequential: every rank runs them.
+    Fe run = fe_ld(ln.qtab + 24 + 16);
+    fe_put(ln, ln.pref, run);
 #pragma unroll 1
-    for (int i = 1; i < 15; ++i) prefix[i] = fe_mul(prefix[i - 1], tab[i + 1].z);
-    Fe running = fe_inv(prefix[14]);
-    Fe zinv[15];
+    for (int i = 1; i < 15; ++i) {
+        run = fe_mul(run, fe_ld(ln.qtab + (i + 1) * 24 + 16));
+        fe_put(ln, ln.pref + i * 8, run);
+    }
+    group_sync();
+    run = fe_inv(run);
 #pragma unroll 1
     for (int i = 14; i > 0; --i) {
-        zinv[i] = fe_mul(running, prefix[i - 1]);
-        running = fe_mul(running, tab[i + 1].z);
+        Fe r[2];
+        mul_round(ln, {run}, {0, 0},
+                  {fe_ld(ln.pref + (i - 1) * 8), fe_ld(ln.qtab + (i + 1) * 24 + 16)},
+                  {0, 1}, r);
+        fe_put(ln, ln.pref + i * 8, r[0]);         // 1/Z of (i+1)Q over prefix i
+        run = r[1];
     }
-    zinv[0] = running;
-    Aff aff[15];
+    fe_put(ln, ln.pref, run);
+    group_sync();
+    // the affine table: 30 independent multiplies, rank g takes g, g+kGroup, ..
+    FOR_MY_RANKS(ln, g) {
 #pragma unroll 1
-    for (int i = 0; i < 15; ++i) {
-        aff[i].x = fe_mul(tab[i + 1].x, zinv[i]);
-        aff[i].y = fe_mul(tab[i + 1].y, zinv[i]);
+        for (int j = g; j < 30; j += kGroup) {
+            const int e = j >> 1, c = j & 1;
+            const Fe v = fe_mul(fe_ld(ln.qtab + (e + 1) * 24 + c * 8), fe_ld(ln.pref + e * 8));
+            fe_st_half(ln.aff + e * 16 + c * 8, v, 0);
+            fe_st_half(ln.aff + e * 16 + c * 8, v, 1);
+        }
     }
+    group_sync();
     Pt acc = point_infinity();
 #pragma unroll 1
     for (int w = 0; w < 64; ++w) {
-#pragma unroll 1
-        for (int d = 0; d < 4; ++d) acc = point_double(acc);
-        // zero windows keep the accumulator (the affine tables have no
-        // infinity row), as the plain ladder's select does
         const int i2 = u2w[(std::size_t)w * n + lane] & 15;
-        if (i2 != 0) acc = point_add_mixed(acc, aff[i2 - 1]);
         const int i1 = u1w[(std::size_t)w * n + lane] & 15;
-        if (i1 != 0) {
-            Aff g;
-            g.x = gtab[(i1 - 1) * 2 + 0];
-            g.y = gtab[(i1 - 1) * 2 + 1];
-            acc = point_add_mixed(acc, g);
+#pragma unroll 1
+        for (int d = 0; d < 4; ++d) acc = point_double(ln, acc);
+        // zero windows keep the accumulator (the affine tables have no
+        // infinity row): an add of row 0, then a select, as the plain
+        // ladder's torch.where does
+#pragma unroll 1
+        for (int h = 0; h < 2; ++h) {
+            const int wv = h == 0 ? i2 : i1;
+            const int row = (wv > 0 ? wv : 1) - 1;
+            const uint32_t* src = h == 0 ? ln.aff + row * 16 : gtab + row * 16;
+            Aff p2;
+            p2.x = fe_ld(src);
+            p2.y = fe_ld(src + 8);
+            const Pt sum = point_add_mixed(ln, acc, p2);
+            const bool keep = wv == 0;
+            acc.x = fe_sel(keep, acc.x, sum.x);
+            acc.y = fe_sel(keep, acc.y, sum.y);
+            acc.z = fe_sel(keep, acc.z, sum.z);
         }
     }
-    store_from_mont(X, acc.x, lane, n);
-    store_from_mont(Y, acc.y, lane, n);
-    store_from_mont(Z, acc.z, lane, n);
+    store_result(ln, acc, live, lane, n, X, Y, Z);
 }
 
 }  // namespace
 
 #ifdef __CUDACC__
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 64;
+constexpr int kLanesPerBlock = kThreads / kGroup;
 
-__global__ void __launch_bounds__(kThreads) ladder_projective_kernel(
+template <bool kMixed>
+__device__ __forceinline__ void ladder_block(
         const int32_t* __restrict__ u1w, const int32_t* __restrict__ u2w,
         const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
         const uint32_t* __restrict__ gtab, uint32_t* __restrict__ X,
         uint32_t* __restrict__ Y, uint32_t* __restrict__ Z, int n) {
-    __shared__ Fe sg[16 * 3];
-    uint32_t* sgw = reinterpret_cast<uint32_t*>(sg);
-    for (int i = threadIdx.x; i < 16 * 3 * 8; i += blockDim.x) sgw[i] = gtab[i];
+    extern __shared__ uint4 smem[];
+    constexpr int kGWords = kMixed ? 15 * 2 * 8 : 16 * 3 * 8;
+    uint32_t* sg = reinterpret_cast<uint32_t*>(smem);
+    uint32_t* sc = sg + kGWords;
+    for (int i = threadIdx.x; i < kGWords; i += kThreads) sg[i] = gtab[i];
+    for (int i = threadIdx.x; i < kConstRows * 8; i += kThreads) sc[i] = (&kRoundConsts[0][0])[i];
     __syncthreads();
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    ladder_projective_lane(lane, n, u1w, u2w, qx, qy, sg, X, Y, Z);
+    const int slot = threadIdx.x / kGroup;
+    const int lane = blockIdx.x * kLanesPerBlock + slot;
+    const bool live = lane < n;
+    constexpr int kLaneWords = kMixed ? kLaneWordsMixed : kLaneWordsProjective;
+    Lane ln = make_lane(sc + kConstRows * 8 + slot * kLaneWords, threadIdx.x % kGroup, sc);
+    const int l = live ? lane : n - 1;
+    if constexpr (kMixed) ladder_mixed_lane(ln, l, live, n, u1w, u2w, qx, qy, sg, X, Y, Z);
+    else ladder_projective_lane(ln, l, live, n, u1w, u2w, qx, qy, sg, X, Y, Z);
 }
 
-__global__ void __launch_bounds__(kThreads) ladder_mixed_kernel(
+__global__ void __launch_bounds__(kThreads, 1) ladder_projective_kernel(
         const int32_t* __restrict__ u1w, const int32_t* __restrict__ u2w,
         const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
         const uint32_t* __restrict__ gtab, uint32_t* __restrict__ X,
         uint32_t* __restrict__ Y, uint32_t* __restrict__ Z, int n) {
-    __shared__ Fe sg[15 * 2];
-    uint32_t* sgw = reinterpret_cast<uint32_t*>(sg);
-    for (int i = threadIdx.x; i < 15 * 2 * 8; i += blockDim.x) sgw[i] = gtab[i];
-    __syncthreads();
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    ladder_mixed_lane(lane, n, u1w, u2w, qx, qy, sg, X, Y, Z);
+    ladder_block<false>(u1w, u2w, qx, qy, gtab, X, Y, Z, n);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ladder_mixed_kernel(
+        const int32_t* __restrict__ u1w, const int32_t* __restrict__ u2w,
+        const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+        const uint32_t* __restrict__ gtab, uint32_t* __restrict__ X,
+        uint32_t* __restrict__ Y, uint32_t* __restrict__ Z, int n) {
+    ladder_block<true>(u1w, u2w, qx, qy, gtab, X, Y, Z, n);
+}
+
+constexpr std::size_t smem_bytes(bool mixed) {
+    return 4 * ((mixed ? 15 * 2 * 8 : 16 * 3 * 8) + kConstRows * 8
+                + (std::size_t)kLanesPerBlock
+                      * (mixed ? kLaneWordsMixed : kLaneWordsProjective));
+}
+
+// Threads per lane and threads per block, for reports.
+extern "C" int p256_ladder_geometry(int* threads_per_lane, int* block_threads) {
+    *threads_per_lane = kGroup;
+    *block_threads = kThreads;
+    return 0;
 }
 
 // Launch one ladder on `stream`.  u1w, u2w: (64, n) int32 windows, MSB
@@ -520,22 +1166,24 @@ extern "C" int p256_ladder_launch(int mixed, const void* u1w, const void* u2w,
                                   const void* gtab, void* X, void* Y, void* Z,
                                   int n, void* stream) {
     if (n <= 0) return 0;
-    const dim3 grid((n + kThreads - 1) / kThreads);
+    const dim3 grid((n + kLanesPerBlock - 1) / kLanesPerBlock);
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     const auto* a = static_cast<const int32_t*>(u1w);
     const auto* b = static_cast<const int32_t*>(u2w);
     const auto* x = static_cast<const uint32_t*>(qx);
     const auto* y = static_cast<const uint32_t*>(qy);
     const auto* g = static_cast<const uint32_t*>(gtab);
-    if (mixed) {
-        ladder_mixed_kernel<<<grid, kThreads, 0, s>>>(
-            a, b, x, y, g, static_cast<uint32_t*>(X), static_cast<uint32_t*>(Y),
-            static_cast<uint32_t*>(Z), n);
-    } else {
-        ladder_projective_kernel<<<grid, kThreads, 0, s>>>(
-            a, b, x, y, g, static_cast<uint32_t*>(X), static_cast<uint32_t*>(Y),
-            static_cast<uint32_t*>(Z), n);
+    auto* ox = static_cast<uint32_t*>(X);
+    auto* oy = static_cast<uint32_t*>(Y);
+    auto* oz = static_cast<uint32_t*>(Z);
+    const std::size_t bytes = smem_bytes(mixed != 0);
+    auto kernel = mixed ? ladder_mixed_kernel : ladder_projective_kernel;
+    if (bytes > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (err != cudaSuccess) return static_cast<int>(err);
     }
+    kernel<<<grid, kThreads, bytes, s>>>(a, b, x, y, g, ox, oy, oz, n);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,6 +32,8 @@ SIGNATURES = {
         "p256_ladder_launch": (ctypes.c_int,
                                [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                                 ctypes.c_int, _P]),
+        "p256_ladder_geometry": (ctypes.c_int,
+                                 [ctypes.POINTER(ctypes.c_int)] * 2),
     },
 }
 

@@ -18,6 +18,7 @@ wrapper launches it and nowhere else.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -79,6 +80,15 @@ def g_table_words(mixed: bool) -> np.ndarray:
 
 
 # --- the launch -------------------------------------------------------------
+
+def geometry() -> tuple:
+    """(threads per lane, threads per block) of the built kernels."""
+    from fabric_mod_tpu_torch.ops import _build
+    per_lane, block = ctypes.c_int(), ctypes.c_int()
+    _build.load("p256_ladder").p256_ladder_geometry(
+        ctypes.byref(per_lane), ctypes.byref(block))
+    return per_lane.value, block.value
+
 
 def _check(t: torch.Tensor, name: str, dtype, rows: int, n: int, dev):
     if t.device != dev or t.dtype != dtype or tuple(t.shape) != (rows, n) \

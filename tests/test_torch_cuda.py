@@ -6,8 +6,10 @@ Tests marked `cuda` need a card and skip without one; run them there with
 
 The others run anywhere: the source's constants against values computed
 here, and — since the kernels' field and point arithmetic is plain C++
-outside `__CUDACC__` — that arithmetic compiled by the host C++ compiler
-and held bit-equal to the plain PyTorch ladders."""
+outside `__CUDACC__` (the inline PTX has a C++ twin) — that arithmetic
+compiled by the host C++ compiler, its field operations held against
+Python ints and its per-lane ladders bit-equal to the plain PyTorch
+ladders."""
 import ctypes
 import random
 import re
@@ -82,8 +84,20 @@ def test_source_constants():
     assert array("kP") == _words(P)
     assert array("kR2") == _words(R256 * R256 % P)
     assert array("kOneM") == _words(R256 % P)
-    assert array("kBM") == _words(p256.B * R256 % P)
-    assert (-pow(P, -1, 1 << 32)) % (1 << 32) == 1   # the CIOS shortcut
+    assert array("kC3") == _words(3 * R256 % P)
+    assert array("kC3B") == _words(3 * p256.B * R256 % P)
+    # the rows of constant second operands, each c * R mod p for the c
+    # its comment names (b is the curve's b)
+    body = re.search(r"kRoundConsts\[kConstRows\]\[8\] = \{(.*?)\n\};", text,
+                     re.S).group(1)
+    rows = re.findall(r"\{([^}]*)\},\s*//\s*(\w+)", body)
+    assert len(rows) == 18
+    for words, name in rows:
+        c = int(name[:-1]) * p256.B if name.endswith("b") else int(name)
+        got = [int(x.strip().rstrip("u"), 16) for x in words.split(",")]
+        assert got == _words(c * R256 % P), name
+    # the reduction's closed form: q = -p^-1 mod 2^256 = 1 + 2^96 + 2^193 - 2^224
+    assert (-pow(P, -1, R256)) % R256 == (1 + (1 << 96) + (1 << 193) - (1 << 224)) % R256
 
 
 @pytest.mark.parametrize("mixed", [False, True])
@@ -103,31 +117,115 @@ def test_g_table_words(mixed):
         assert val(row[1]) == y * R256 % p256.P
 
 
-def test_kernel_arithmetic_on_host_compiler(tmp_path):
-    """The kernels' per-lane code (ladder_*_lane) built by g++ for the
-    host gives the plain ladders' exact canonical outputs."""
+# The host shim: the kernels' per-lane code and field arithmetic, built
+# by g++ (no __CUDACC__: the PTX's plain C++ twin, every rank of a group
+# played in turn by one call).
+_HOST_SHIM = r"""
+#include "{src}"
+#include <vector>
+extern "C" void lanes(int mixed, const int32_t* u1, const int32_t* u2,
+                      const uint32_t* qx, const uint32_t* qy, const uint32_t* g,
+                      uint32_t* X, uint32_t* Y, uint32_t* Z, int n, int live) {{
+  std::vector<uint32_t> area(kLaneWordsMixed);
+  for (int lane = 0; lane < n; ++lane) {{
+    Lane ln = make_lane(area.data(), 0, &kRoundConsts[0][0]);
+    if (mixed) ladder_mixed_lane(ln, lane, live, n, u1, u2, qx, qy, g, X, Y, Z);
+    else ladder_projective_lane(ln, lane, live, n, u1, u2, qx, qy, g, X, Y, Z);
+  }}
+}}
+extern "C" void field(int op, const uint32_t* a, const uint32_t* b,
+                      uint32_t* out, int n) {{
+  for (int i = 0; i < n; ++i) {{
+    Fe x, y;
+    for (int k = 0; k < 8; ++k) {{ x.v[k] = a[8 * i + k]; y.v[k] = b[8 * i + k]; }}
+    const Fe r = op == 0 ? fe_mul(x, y) : op == 1 ? fe_sqr(x)
+               : op == 2 ? fe_add(x, y) : fe_sub(x, y);
+    for (int k = 0; k < 8; ++k) out[8 * i + k] = r.v[k];
+  }}
+}}
+"""
+
+FIELD_OPS = ("mul", "sqr", "add", "sub")
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    shim = tmp_path / "lanes.cpp"
-    shim.write_text(
-        f'#include "{SRC}"\n'
-        'extern "C" void lanes(int mixed, const int32_t* u1, '
-        'const int32_t* u2, const uint32_t* qx, const uint32_t* qy, '
-        'const uint32_t* g, uint32_t* X, uint32_t* Y, uint32_t* Z, int n) {\n'
-        '  const Fe* gt = reinterpret_cast<const Fe*>(g);\n'
-        '  for (int lane = 0; lane < n; ++lane) {\n'
-        '    if (mixed) ladder_mixed_lane(lane, n, u1, u2, qx, qy, gt, X, Y, Z);\n'
-        '    else ladder_projective_lane(lane, n, u1, u2, qx, qy, gt, X, Y, Z);\n'
-        '  }\n}\n')
-    lib_path = tmp_path / "liblanes.so"
-    subprocess.run([cxx, "-O0", "-std=c++17", "-shared", "-fPIC",
+    d = tmp_path_factory.mktemp("host_shim")
+    shim = d / "shim.cpp"
+    shim.write_text(_HOST_SHIM.format(src=SRC))
+    lib_path = d / "libshim.so"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
                     "-Wno-unknown-pragmas", "-x", "c++", "-o", str(lib_path),
                     str(shim)], check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(lib_path))
-    lib.lanes.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int]
+    lib.lanes.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                          + [ctypes.c_int, ctypes.c_int])
     lib.lanes.restype = None
-    n = 6
+    lib.field.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.field.restype = None
+    return lib
+
+
+def _field_cases(seed=11, n_random=200):
+    """(a, b) operand pairs: every pair of the edge operands (a may be
+    any 256-bit value for the product, b < p), then random ones."""
+    P = p256.P
+    edges_b = [0, 1, 2, P - 1, P - 2, R256 % P, (1 << 255) % P]
+    edges_a = edges_b + [R256 - 1, R256 - 2, P, P + 1]
+    rng = random.Random(seed)
+    pairs = [(a, b) for a in edges_a for b in edges_b]
+    pairs += [(rng.randrange(P), rng.randrange(P)) for _ in range(n_random)]
+    pairs += [(rng.randrange(R256), rng.randrange(P)) for _ in range(n_random)]
+    return pairs
+
+
+def _field_want(op, a, b):
+    P = p256.P
+    rinv = pow(R256, -1, P)
+    if op == "mul":
+        return a * b * rinv % P
+    if op == "sqr":
+        return a * a * rinv % P
+    if op == "add":
+        return (a + b) % P
+    return (a - b) % P
+
+
+def _as_words(vals):
+    return np.array([_words(v) for v in vals], np.uint32).reshape(-1)
+
+
+@pytest.mark.parametrize("op", FIELD_OPS)
+def test_field_ops_on_host_compiler(host_lib, op):
+    """fe_mul, fe_sqr, fe_add and fe_sub (the P-256 special-form
+    reduction, the dedicated square, the masked corrections) against
+    Python ints on edge and random operands, within their input
+    contracts: a < 2^256 for the product's first operand, every other
+    operand < p."""
+    pairs = _field_cases()
+    if op != "mul":                 # squares, sums, differences: a < p
+        pairs = [(a, b) for a, b in pairs if a < p256.P]
+    a = _as_words([x for x, _ in pairs])
+    b = _as_words([y for _, y in pairs])
+    out = np.zeros_like(a)
+    host_lib.field(FIELD_OPS.index(op), a.ctypes.data, b.ctypes.data,
+                   out.ctypes.data, len(pairs))
+    got = out.reshape(-1, 8).astype(object)
+    for i, (x, y) in enumerate(pairs):
+        val = sum(int(w) << (32 * k) for k, w in enumerate(got[i]))
+        assert val == _field_want(op, x, y), (op, hex(x), hex(y))
+
+
+def test_kernel_arithmetic_on_host_compiler(host_lib):
+    """The kernels' per-lane code (ladder_*_lane, the round schedule
+    played rank by rank) built by g++ for the host gives the plain
+    ladders' exact canonical outputs, at a width that is a multiple of
+    neither the group nor the block; a lane past the edge stores
+    nothing."""
+    n = 13
     u1, u2, qx, qy = _ladder_case(n)
     qxw = p256_cuda.mont_limbs_to_words(qx).numpy().copy()
     qyw = p256_cuda.mont_limbs_to_words(qy).numpy().copy()
@@ -135,22 +233,81 @@ def test_kernel_arithmetic_on_host_compiler(tmp_path):
     for mixed in (False, True):
         g = np.ascontiguousarray(p256_cuda.g_table_words(mixed))
         out = [np.zeros((8, n), np.int32) for _ in range(3)]
-        lib.lanes(int(mixed), u1n.ctypes.data, u2n.ctypes.data,
-                  qxw.ctypes.data, qyw.ctypes.data, g.ctypes.data,
-                  *(o.ctypes.data for o in out), n)
+        host_lib.lanes(int(mixed), u1n.ctypes.data, u2n.ctypes.data,
+                       qxw.ctypes.data, qyw.ctypes.data, g.ctypes.data,
+                       *(o.ctypes.data for o in out), n, 1)
         want = _plain_words(mixed, u1, u2, qx, qy)
         for o, w, coord in zip(out, want, "XYZ"):
             got = p256_cuda.from_u32_bits(torch.from_numpy(o))
             assert torch.equal(got, w), (mixed, coord)
+        dead = [np.full((8, 1), 7, np.int32) for _ in range(3)]
+        host_lib.lanes(int(mixed), u1n[:, :1].copy().ctypes.data,
+                       u2n[:, :1].copy().ctypes.data,
+                       qxw[:, :1].copy().ctypes.data,
+                       qyw[:, :1].copy().ctypes.data, g.ctypes.data,
+                       *(o.ctypes.data for o in dead), 1, 0)
+        assert all((o == 7).all() for o in dead), mixed
+
+
+_CARD_SHIM = r"""
+#include "{src}"
+__global__ void field_kernel(int op, const uint32_t* a, const uint32_t* b,
+                             uint32_t* out, int n) {{
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe x, y;
+  for (int k = 0; k < 8; ++k) {{ x.v[k] = a[8 * i + k]; y.v[k] = b[8 * i + k]; }}
+  const Fe r = op == 0 ? fe_mul(x, y) : op == 1 ? fe_sqr(x)
+             : op == 2 ? fe_add(x, y) : fe_sub(x, y);
+  for (int k = 0; k < 8; ++k) out[8 * i + k] = r.v[k];
+}}
+extern "C" int field(int op, const void* a, const void* b, void* out, int n) {{
+  field_kernel<<<(n + 127) / 128, 128>>>(
+      op, static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint32_t*>(out), n);
+  return static_cast<int>(cudaDeviceSynchronize());
+}}
+"""
 
 
 @pytest.mark.cuda
+def test_field_ops_on_card(cuda_device, tmp_path):
+    """The inline-PTX field arithmetic, built by nvcc for the card,
+    against Python ints on the same edge and random operands as the
+    host test."""
+    shim = tmp_path / "field.cu"
+    shim.write_text(_CARD_SHIM.format(src=SRC))
+    lib_path = tmp_path / "libfield.so"
+    subprocess.run([_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", str(lib_path),
+                    str(shim)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.field.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.field.restype = ctypes.c_int
+    for op in FIELD_OPS:
+        pairs = _field_cases()
+        if op != "mul":
+            pairs = [(a, b) for a, b in pairs if a < p256.P]
+        a = torch.from_numpy(_as_words([x for x, _ in pairs]).view(np.int32))
+        b = torch.from_numpy(_as_words([y for _, y in pairs]).view(np.int32))
+        a, b = a.to(cuda_device), b.to(cuda_device)
+        out = torch.zeros_like(a)
+        assert lib.field(FIELD_OPS.index(op), a.data_ptr(), b.data_ptr(),
+                         out.data_ptr(), len(pairs)) == 0
+        got = out.cpu().numpy().view(np.uint32).reshape(-1, 8).astype(object)
+        for i, (x, y) in enumerate(pairs):
+            val = sum(int(w) << (32 * k) for k, w in enumerate(got[i]))
+            assert val == _field_want(op, x, y), (op, hex(x), hex(y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 5])
 @pytest.mark.parametrize("mixed", [False, True])
-def test_kernel_matches_plain_on_card(cuda_device, mixed):
-    """At a ragged width (not a multiple of 128), with edge and invalid
+def test_kernel_matches_plain_on_card(cuda_device, mixed, n):
+    """At a ragged width (a multiple of neither the group nor the
+    block) and at a width smaller than one block, with edge and invalid
     lanes: the kernel's canonical X, Y, Z are bit-equal to the plain
     ladder's on the card, and its launch count rises by one."""
-    n = 300
     u1, u2, qx, qy = (t.to(cuda_device) for t in _ladder_case(n))
     name = p256_cuda.KERNELS[mixed]
     before = p256_cuda.counts()[name]
