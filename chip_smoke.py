@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's verify path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's block-commit path once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -17,16 +17,31 @@ Phases (any failure exits non-zero; none is caught):
    bound (32-bit multiply-adds the function needs over the card's
    integer multiply-add rate at its SM clock) and one lane's critical
    path in rounds;
-4. main path — 4 blocks of 1000 transactions (3000 signatures each,
+4. verify path — 4 blocks of 1000 transactions (3000 signatures each,
    2-of-3 endorsement) through GpuVerifier.verify_many, once per ladder;
    the 4th block's endorser items are raw messages hashed on the card.
    Verdicts must equal the fixtures' expected masks bit for bit and, on
    256 sampled lanes per block, the pure-python software verify; both
    kernels' launch counts (zeroed just before) must have risen;
-5. profile — torch.profiler over one block of each kind: wall time,
-   device busy time and idle share, the heaviest device kernels.
+5. block commit — the system's main path: 4 encoded blocks of 1000
+   transactions (utils/fixtures.make_commit_blocks: every planted invalid
+   kind, a VALIDATION_PARAMETER pin) through the port's Committer
+   (TxValidator, MVCC, in-memory ledger) into a fresh ledger per arm:
+   (a) the projective ladder with the tensor-policy evaluator, which must
+   receive a CUDA mask on every block; (b) the same with the policy
+   closures; (c) the mixed ladder with the evaluator; (d) the host
+   software verifier, the oracle.  Every arm's txflags must equal the
+   fixture's and each other, every state fingerprint must be equal, and
+   both kernels' launch counts (zeroed just before) must have risen.
+   Prints ms per block by stage, committed tx/s and the evaluator's
+   device ms;
+6. profile — torch.profiler over one verify of each block kind and over
+   one whole block commit: wall time, device busy time and idle share,
+   the heaviest device kernels; and over the policy evaluator's pass
+   alone: its launches and device time per block.
 
-It prints one JSON line describing each kernel, and as its last line
+It prints one JSON line describing each kernel (`launches` counts the
+block-commit phase), and as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -42,6 +57,8 @@ N_BLOCKS = 4
 TX_PER_BLOCK = 1000
 SAMPLE = 256
 SEED = 20261016
+# block-commit phase: a planted invalid tx of each kind every 50 txs
+PLANT_EVERY = 50
 
 # H100 SXM published peak (NVIDIA H100 datasheet): HBM bytes/s.
 PEAK_BYTES = 3.35e12
@@ -275,7 +292,7 @@ def phase_main_path(torch, np, blocks):
         launched = {k: after[k] - before[k] for k in after}
         n_items = sum(len(b[0]) for b in blocks)
         per_ladder[lad] = launched
-        log(f"main path ({lad} ladder): {N_BLOCKS} blocks x {len(blocks[0][0])} "
+        log(f"verify path ({lad} ladder): {N_BLOCKS} blocks x {len(blocks[0][0])} "
             f"signatures, verdicts == expected masks and == sw on "
             f"{SAMPLE} sampled lanes/block; ms per block "
             f"{[round(m, 1) for m in block_ms]}; "
@@ -286,45 +303,149 @@ def phase_main_path(torch, np, blocks):
     for name, c in counts.items():
         if c <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+                                 "verify path")
     return counts
 
 
-def phase_profile(torch, blocks):
-    """Where one block's time goes: torch.profiler over one
-    verify_many per block kind (digest-only, raw endorsers), projective
-    ladder.  Prints wall time, summed device kernel time, the device's
-    idle share, the number of device kernels, and the top kernels."""
+def device_profile(torch, fn):
+    """Run fn() under torch.profiler: (wall ms, device kernels, device
+    busy ms, [(name, count, ms)] heaviest first), or device figures None
+    when the profiler recorded no device kernel."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if not kernels or busy_us <= 0:
+        return wall_ms, None, None, []
+    by_name: dict = {}
+    for e in kernels:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return wall_ms, len(kernels), busy_us / 1e3, \
+        [(name, c, t / 1e3) for name, (c, t) in top]
+
+
+def log_profile(label, wall_ms, n_kernels, busy_ms, top) -> None:
+    if n_kernels is None:
+        log(f"profile {label}: wall {wall_ms:.1f} ms; device time not "
+            "measured (the profiler recorded no device kernels)")
+        return
+    log(f"profile {label}: wall {wall_ms:.1f} ms, device kernels "
+        f"{n_kernels}, device busy {busy_ms:.1f} ms, device idle share "
+        f"{1 - busy_ms / wall_ms:.3f}")
+    for name, c, t in top:
+        log(f"  {t:9.2f} ms  x{c:<6d} {name[:90]}")
+
+
+def phase_block_commit(torch, np, world, blocks, expected):
+    """The block commit through the port's Committer, arm by arm, each
+    into a fresh in-memory ledger.  Returns the kernel launch counts of
+    the GPU arms."""
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.ops import p256_cuda
+    from fabric_mod_tpu_torch.policy import tensorpolicy
+    from fabric_mod_tpu_torch.protos import messages as m
+    arms = (("a", "projective ladder, tensor policy", "projective", True),
+            ("b", "projective ladder, policy closures", "projective", False),
+            ("c", "mixed ladder, tensor policy", "mixed", True),
+            ("d", "host software verifier (oracle)", None, False))
+    n_tx = sum(len(f) for f in expected)
+    n_valid = sum(f == m.TxValidationCode.VALID for b in expected for f in b)
+    flags_by_arm, fps = {}, {}
+    p256_cuda.reset_counts()
+    for arm, label, ladder, tensor in arms:
+        verifier = (gpu.GpuVerifier(ladder=ladder, cache_size=0)
+                    if ladder else sw.SwVerifier())
+        committer = world.committer(verifier, tensor_policy=tensor)
+        tensorpolicy.reset_counts()
+        flags_by_arm[arm] = []
+        timings = []
+        wall = 0.0
+        for bi, raw in enumerate(blocks):
+            block = m.Block.decode(raw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flags = committer.store_block(block)
+            wall += time.perf_counter() - t0
+            timings.append(committer.last_timings)
+            if flags != expected[bi]:
+                bad = [i for i, (g, w) in enumerate(zip(flags, expected[bi]))
+                       if g != w][:8]
+                raise AssertionError(f"arm {arm}: block {bi} txflags differ "
+                                     f"from the expected flags at {bad}")
+            flags_by_arm[arm].append(flags)
+        fps[arm] = committer.ledger.state_fingerprint()
+        passes = tensorpolicy.counts()
+        want = {"cuda": len(blocks)} if tensor else {}
+        if passes != want:
+            raise AssertionError(f"arm {arm}: policy evaluator passes "
+                                 f"{passes}, expected {want}")
+        stages = ("stage", "verify", "policy", "commit")
+        split = {k: [round(t[k] * 1e3, 1) for t in timings] for k in stages}
+        total = [round(sum(t[k] for k in stages) * 1e3, 1) for t in timings]
+        log(f"block commit arm ({arm}) {label}: {len(blocks)} blocks x "
+            f"{len(expected[0])} txs, txflags == expected; ms per block "
+            f"{total}: stage {split['stage']}, verify {split['verify']}, "
+            f"policy {split['policy']}, mvcc+commit {split['commit']}; "
+            f"{n_tx / wall:.1f} committed tx/s ({n_valid / wall:.1f} valid "
+            f"tx/s); fingerprint {fps[arm][:16]}")
+        if tensor:
+            dev_ms = [round(t["policy_device_ms"], 3) for t in timings]
+            log(f"  policy evaluator on the CUDA mask: {passes['cuda']} "
+                f"passes, device ms per block {dev_ms} (CUDA events)")
+    if len({tuple(map(tuple, f)) for f in flags_by_arm.values()}) != 1:
+        raise AssertionError("arms disagree on txflags")
+    if len(set(fps.values())) != 1:
+        raise AssertionError(f"state fingerprints differ across arms: {fps}")
+    counts = p256_cuda.counts()
+    for name, c in counts.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "block-commit path")
+    log(f"block commit: all arms agree on txflags and state fingerprint "
+        f"{fps['a']}; kernel launches {counts}")
+    return counts
+
+
+def phase_profile(torch, blocks, world, commit_blocks):
+    """Where a block's time goes: torch.profiler over one verify_many
+    per block kind (digest-only, raw endorsers) and over one whole
+    block commit (projective ladder, tensor policy); then over the
+    policy evaluator's pass alone, on the verify mask of the block."""
     from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.protos import messages as m
     v = gpu.GpuVerifier(ladder="projective", cache_size=0)
     for label, (items, _expect) in (("digest block", blocks[0]),
                                     ("raw-endorser block", blocks[-1])):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            v.verify_many(items)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-        if not kernels or busy_us <= 0:
-            log(f"profile {label}: wall {wall_ms:.1f} ms; device time not "
-                "measured (the profiler recorded no device kernels)")
-            continue
-        by_name: dict = {}
-        for e in kernels:
-            c, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        log(f"profile {label} ({len(items)} signatures): wall {wall_ms:.1f} "
-            f"ms, device kernels {len(kernels)}, device busy "
-            f"{busy_us / 1e3:.1f} ms, device idle share "
-            f"{1 - busy_us / 1e3 / wall_ms:.3f}")
-        for name, (c, t) in top:
-            log(f"  {t / 1e3:9.2f} ms  x{c:<6d} {name[:90]}")
+        log_profile(f"{label} ({len(items)} signatures)",
+                    *device_profile(torch, lambda: v.verify_many(items)))
+    committer = world.committer(v, tensor_policy=True)
+    block = m.Block.decode(commit_blocks[0])
+    log_profile(f"block commit ({len(block.data.data)} txs, tensor policy)",
+                *device_profile(torch, lambda: committer.store_block(block)))
+    staged = world.committer(v, tensor_policy=True).validator.stage(
+        m.Block.decode(commit_blocks[0]))
+    raw = staged.mask_fn()
+    torch.cuda.synchronize()
+    session = staged.session
+
+    def evaluator():
+        session.attach_mask(raw)
+        session.verdicts()
+    wall_ms, n_kernels, busy_ms, top = device_profile(torch, evaluator)
+    log_profile(f"policy evaluator pass ({len(session)} evaluations)",
+                wall_ms, n_kernels, busy_ms, top)
+    log(f"policy evaluator per block: {n_kernels} device launches, "
+        f"device busy {busy_ms} ms, wall {wall_ms:.2f} ms (torch.profiler)")
 
 
 def main() -> int:
@@ -360,7 +481,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     kernels = phase_kernels(torch, np, dev)
 
-    # 4. the main path
+    # 4. the verify path
     t0 = time.perf_counter()
     blocks = [fixtures.make_block(b, n_tx=TX_PER_BLOCK,
                                   raw_endorsers=(b == N_BLOCKS - 1))
@@ -368,11 +489,21 @@ def main() -> int:
     log(f"fixtures: {N_BLOCKS} blocks signed in "
         f"{time.perf_counter() - t0:.1f} s (pure-python signer)")
     counts = phase_main_path(torch, np, blocks)
+    log(f"verify path kernel launches {counts}")
+
+    # 5. the block commit: the main path
+    t0 = time.perf_counter()
+    world = fixtures.make_commit_world()
+    commit_blocks, expected = fixtures.make_commit_blocks(
+        world, N_BLOCKS, TX_PER_BLOCK, plant_every=PLANT_EVERY)
+    log(f"fixtures: {N_BLOCKS} encoded blocks of {TX_PER_BLOCK} txs signed "
+        f"in {time.perf_counter() - t0:.1f} s (pure-python signer)")
+    counts = phase_block_commit(torch, np, world, commit_blocks, expected)
     for k in kernels.values():
         k["launches"] = counts[k["name"]]
 
-    # 5. where a block's time goes (after the counted run)
-    phase_profile(torch, blocks)
+    # 6. where a block's time goes (after the counted runs)
+    phase_profile(torch, blocks, world, commit_blocks)
 
     log(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

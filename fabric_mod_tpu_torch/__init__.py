@@ -1,14 +1,18 @@
 """fabric_mod_tpu_torch — the PyTorch/CUDA port of fabric_mod_tpu's device half.
 
 The JAX package (fabric_mod_tpu/) stays the reference; this package
-imports torch and numpy, never jax and never a module of the reference.
-It keeps its own copy of whatever it needs.  Entry points run on CUDA
-unless the caller passes device="cpu"; with no card and no such request
-they raise.
+imports torch and numpy, never jax, never a module of the reference and
+never the `cryptography` wheel.  It keeps its own copy of whatever it
+needs.  Entry points run on CUDA unless the caller passes device="cpu";
+with no card and no such request they raise.
 
-Slice 1 ports the batch ECDSA-P256 verify provider — the system's hot
-path on the accelerator — with the Shamir ladder as two hand-written
-CUDA kernels for Hopper (sm_90a).
+Slice 1 ported the batch ECDSA-P256 verify provider, with the Shamir
+ladder as two hand-written CUDA kernels for Hopper (sm_90a); slice 2
+redesigned both kernels.  Slice 3 ports the block-commit path around
+it: an encoded block -> TxValidator (host unpack, MSP, one batch
+collector) -> GpuVerifier (the CUDA ladders) -> the tensor-policy
+evaluator on the device-resident verify mask -> txflags -> MVCC -> the
+in-memory ledger -> state fingerprint.
 
 Counterparts (reference module -> port module):
 
@@ -16,16 +20,35 @@ Counterparts (reference module -> port module):
 fabric_mod_tpu/                 fabric_mod_tpu_torch/
 ==============================  ==========================================
 bccsp/api.py (VerifyItem)       bccsp/api.py
-bccsp/sw.py + _ecfallback.py    bccsp/sw.py (pure-python P-256, seeded)
+bccsp/sw.py + _ecfallback.py    bccsp/sw.py (pure-python P-256, seeded;
+                                DER/PEM/SPKI/PKCS#8; SwCSP, SwVerifier)
+bccsp/_x509fallback.py          bccsp/x509.py (the only X.509 layer)
 bccsp/der.py                    bccsp/der.py (verbatim copy)
-bccsp/tpu.py (TpuVerifier)      bccsp/gpu.py (GpuVerifier)
-utils/fixtures.py               utils/fixtures.py (+ make_block)
+bccsp/tpu.py (TpuVerifier)      bccsp/gpu.py (GpuVerifier, fused seam)
+utils/fixtures.py               utils/fixtures.py (+ make_block,
+                                make_commit_world, make_commit_blocks)
 ops/limbs9.py                   ops/limbs9.py (plain torch limb layer)
 ops/sha256.py                   ops/sha256.py (torch ops, int64 words)
 ops/p256.py                     ops/p256.py (plain ladders, verify core)
 ops/p256_pallas.py (kernels)    ops/p256_cuda.py + csrc/p256_ladder.cu
                                 + ops/_build.py (nvcc -> ctypes)
-(none)                          convert.py (constants/layouts across)
+protos/wire.py, messages.py,    protos/ (verbatim copies)
+protoutil.py
+msp/ca.py, identities.py,       msp/ (seeded CA; raw-message items an
+mspimpl.py, cache.py            MSP constructor argument)
+policy/policydsl.py,            policy/ (copies; manager keeps only
+cauthdsl.py, application.py,    compile_policy_bytes)
+manager.py
+policy/tensorpolicy.py          policy/tensorpolicy.py (the evaluator as
+                                torch ops on the mask's device)
+ledger/rwsetutil.py,            ledger/ (copies, without private data)
+statedb.py, mvcc.py
+ledger/kvledger.py              ledger/kvledger.py (lean, in memory;
+                                same state fingerprint)
+peer/plugins.py, txvalidator.py peer/ (generic per-tx decode path;
+                                tensor_policy a constructor argument)
+(none)                          convert.py (constants, layouts and a
+                                world's bytes across)
 (none)                          device.py (device choice, exact fp32)
 ==============================  ==========================================
 

@@ -9,7 +9,8 @@ device.
 
 Kept from the reference: the buckets, vectorised marshalling
 (`marshal_items` over bccsp/der.py), the verdict memo-cache
-(`VerdictCache`) and within-call dedup.  Left out of this slice:
+(`VerdictCache`), within-call dedup, and the fused seam that hands the
+tensor-policy evaluator the verdict mask on the device.  Left out:
 BatchingVerifyService, metrics, tracing, fault points, and the circuit
 breaker with its software failover — a CUDA error here raises; no path
 answers a device batch in software.
@@ -22,6 +23,7 @@ import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from fabric_mod_tpu_torch import device as _device
 from fabric_mod_tpu_torch.bccsp import der as _der
@@ -36,12 +38,12 @@ _P256_N = 0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551
 _LOW_S_BOUND = (_P256_N // 2 + 1).to_bytes(32, "big")
 
 
-def _bucket(n: int) -> int:
-    """Smallest static bucket holding n (n <= the largest bucket)."""
-    for b in BUCKETS:
+def _bucket(n: int, buckets: Sequence[int] = BUCKETS) -> int:
+    """Smallest bucket holding n (n <= the largest bucket)."""
+    for b in buckets:
         if n <= b:
             return b
-    raise ValueError(f"no bucket >= {n} (max {BUCKETS[-1]})")
+    raise ValueError(f"no bucket >= {n} (max {buckets[-1]})")
 
 
 def marshal_items(items: Sequence[VerifyItem], size: Optional[int] = None
@@ -152,17 +154,23 @@ class GpuVerifier:
     (affine tables + complete mixed adds) — the two CUDA kernels.
     `cache_size` bounds the verdict memo-cache (0 disables); pass a
     `VerdictCache` to share one.  Identical items in one call always
-    dedup to a single device lane."""
+    dedup to a single device lane.  `buckets` are the batch sizes a
+    call is padded to (ascending; the largest is also the chunk size
+    of a larger call)."""
 
     def __init__(self, device=None, ladder: str = "projective",
                  cache: Optional[VerdictCache] = None,
-                 cache_size: int = 8192):
+                 cache_size: int = 8192, buckets: Sequence[int] = BUCKETS):
         if ladder not in LADDERS:
             raise ValueError(f"ladder must be one of {LADDERS}, got {ladder!r}")
+        if not buckets or list(buckets) != sorted(set(buckets)) \
+                or buckets[0] < 1:
+            raise ValueError(f"buckets must be ascending sizes, got {buckets}")
         self.device = _device.resolve(device)
         if self.device.type == "cuda":
             _device.require_exact_fp32()
         self.ladder = ladder
+        self.buckets = tuple(buckets)
         if cache is not None:
             self._cache = cache
         else:
@@ -177,7 +185,25 @@ class GpuVerifier:
 
     def verify_many_async(self, items: Sequence[VerifyItem]):
         """Memo-probe + dedup + marshal + enqueue on the device,
-        returning a zero-arg resolver for the (n,) bool verdicts."""
+        returning a zero-arg resolver for the (n,) bool numpy
+        verdicts."""
+        return self._verify_async(items, keep_device=False)
+
+    def verify_many_fused_async(self, items: Sequence[VerifyItem]):
+        """The policy-fusion seam (reference: bccsp/tpu.py:361).  Same
+        pipeline as `verify_many_async`, but when every unique lane
+        misses the memo-cache the resolver returns the (n,) bool
+        verdict TENSOR on the verifier's device — assembled there
+        across the buckets and the dedup map, not waited for — so the
+        tensor-policy evaluator consumes it without a round trip
+        through the host.  The cache write-back, which needs the host
+        copy, is then deferred to the resolver's `.writeback()`, which
+        the consumer calls at its own sync point
+        (StagedBlock.resolve_mask).  With any cache hit the resolver
+        returns the numpy mask.  The values are identical either way."""
+        return self._verify_async(items, keep_device=True)
+
+    def _verify_async(self, items: Sequence[VerifyItem], keep_device: bool):
         n = len(items)
         if n == 0:
             return lambda: np.zeros(0, bool)
@@ -203,40 +229,52 @@ class GpuVerifier:
         if not miss_lanes:
             out = vals[lanes]
             return lambda: out
-        resolve = self._dispatch([uniq_items[j] for j in miss_lanes])
+        verdicts = self._dispatch([uniq_items[j] for j in miss_lanes])
+
+        if keep_device and len(miss_lanes) == len(uniq_keys):
+            # every lane missed: the device tensor goes through as is,
+            # the dedup expansion a gather on the device
+            raw = verdicts if len(uniq_items) == n else \
+                verdicts[_device.upload(lanes, self.device)]
+
+            def finish_fused():
+                return raw
+
+            def writeback() -> None:
+                if cache is not None:
+                    cache.put_many(uniq_keys, verdicts.cpu().numpy())
+            finish_fused.writeback = writeback
+            return finish_fused
         miss_idx = np.asarray(miss_lanes)
 
         def finish() -> np.ndarray:
-            mask = np.asarray(resolve(), bool)
+            mask = verdicts.cpu().numpy()
             if cache is not None:
                 cache.put_many([uniq_keys[j] for j in miss_lanes], mask)
             vals[miss_idx] = mask
             return vals[lanes]
         return finish
 
-    def verify_many_fused_async(self, items: Sequence[VerifyItem]):
-        """The policy-fusion seam of the reference.  Until the policy
-        evaluator is ported it resolves to the same numpy mask as
-        `verify_many_async`."""
-        return self.verify_many_async(items)
-
-    def _dispatch(self, items: Sequence[VerifyItem]):
-        """Marshal + enqueue unique items, chunked through the buckets."""
+    def _dispatch(self, items: Sequence[VerifyItem]) -> torch.Tensor:
+        """Marshal + enqueue unique items, chunked through the buckets:
+        their (n,) bool verdict tensor on the device, its work enqueued
+        and not waited for."""
         n = len(items)
-        if n > BUCKETS[-1]:
-            parts = [self._dispatch(items[i:i + BUCKETS[-1]])
-                     for i in range(0, n, BUCKETS[-1])]
-            return lambda: np.concatenate([p() for p in parts])
+        top = self.buckets[-1]
+        if n > top:
+            return torch.cat([self._dispatch(items[i:i + top])
+                              for i in range(0, n, top)])
         from fabric_mod_tpu_torch.ops import p256
-        size = _bucket(n)
-        d, r, s, qx, qy, pre_ok, msg = marshal_items(items, size)
+        d, r, s, qx, qy, pre_ok, msg = marshal_items(
+            items, _bucket(n, self.buckets))
+        pre = _device.upload(pre_ok, self.device)
         mixed = self.ladder == "mixed"
         if msg is not None:
             words, nblocks, has_msg = msg
-            resolve = p256.batch_verify_raw(
+            ok = p256.batch_verify_raw(
                 words, nblocks, has_msg, d, r, s, qx, qy,
                 device=self.device, mixed=mixed, lazy=True)
         else:
-            resolve = p256.batch_verify(d, r, s, qx, qy, device=self.device,
-                                        mixed=mixed, lazy=True)
-        return lambda: (resolve() & pre_ok)[:n]
+            ok = p256.batch_verify(d, r, s, qx, qy, device=self.device,
+                                   mixed=mixed, lazy=True)
+        return (ok & pre)[:n]

@@ -3,16 +3,21 @@
 The port's own copy of what it needs from fabric_mod_tpu/bccsp/sw.py and
 bccsp/_ecfallback.py: key generation from a seed, RFC 6979 signing with
 the low-S rule, verification, and strict DER encode/decode of the
-ECDSA-Sig-Value.  It needs no `cryptography` wheel, so the fixtures and
-the software verdicts that the device path is held against can be made
-on any machine.  Slow (about a millisecond per operation) and not
-constant-time: fixtures and reference verdicts only, never the
-production verify path.
+ECDSA-Sig-Value; the DER, PEM, SubjectPublicKeyInfo and PKCS#8
+encodings of keys; and `SwCSP`, the provider surface identities use.
+It never imports the `cryptography` wheel, so the fixtures, the MSP and
+the software verdicts that the device path is held against behave the
+same on every machine.  Slow (about a millisecond per operation) and
+not constant-time: fixtures, host-side identity checks and reference
+verdicts, never the batch verify path.
 """
 from __future__ import annotations
 
+import base64
 import hashlib
 import hmac
+
+import numpy as np
 
 # NIST P-256 domain parameters (public constants).
 P = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
@@ -323,6 +328,15 @@ class _WindowCache:
 _WINDOWS = _WindowCache()
 
 
+def _equation_holds(x: int, y: int, r: int, s: int, e: int) -> bool:
+    """The ECDSA equation for an on-curve key and 1 <= r, s < n."""
+    w = pow(s, -1, N)
+    pt = _jac_to_affine(_jac_add(
+        _mul_g_jac(e * w % N),
+        _mul_window_jac(r * w % N, _WINDOWS.row((x, y)))))
+    return pt is not None and pt[0] % N == r
+
+
 def verify(public_xy: bytes, signature: bytes, digest: bytes) -> bool:
     """The software verdict with the provider's rules: 64-byte key on
     the curve (and not (0, 0)), 32-byte digest, strict DER, 1 <= r,s < n,
@@ -341,12 +355,22 @@ def verify(public_xy: bytes, signature: bytes, digest: bytes) -> bool:
     y = int.from_bytes(public_xy[32:], "big")
     if not on_curve(x, y):
         return False
-    e = int.from_bytes(digest, "big")
-    w = pow(s, -1, N)
-    pt = _jac_to_affine(_jac_add(
-        _mul_g_jac(e * w % N),
-        _mul_window_jac(r * w % N, _WINDOWS.row((x, y)))))
-    return pt is not None and pt[0] % N == r
+    return _equation_holds(x, y, r, s, int.from_bytes(digest, "big"))
+
+
+def verify_certificate_signature(x: int, y: int, signature: bytes,
+                                 message: bytes) -> bool:
+    """ecdsa-with-SHA256 over `message` as X.509 uses it: no low-S rule
+    (certificate issuers need not normalise s)."""
+    try:
+        r, s = decode_dss_signature(bytes(signature))
+    except (ValueError, TypeError):
+        return False
+    if not (1 <= r < N and 1 <= s < N) or not on_curve(x, y):
+        return False
+    return _equation_holds(x, y, r, s,
+                           int.from_bytes(hashlib.sha256(message).digest(),
+                                          "big"))
 
 
 def verify_item(item) -> bool:
@@ -357,3 +381,229 @@ def verify_item(item) -> bool:
             return False
         digest = hashlib.sha256(item.message).digest()
     return verify(item.public_xy, item.signature, digest)
+
+
+# --- DER, PEM, SubjectPublicKeyInfo, PKCS#8 ---------------------------------
+# The port's copy of fabric_mod_tpu/bccsp/_ecfallback.py's key encodings:
+# what msp/ca.py mints and bccsp/x509.py parses.
+
+def der_tlv(tag: int, body: bytes) -> bytes:
+    """One DER TLV with a definite (short- or long-form) length."""
+    n = len(body)
+    if n < 0x80:
+        return bytes([tag, n]) + body
+    lb = n.to_bytes((n.bit_length() + 7) // 8, "big")
+    return bytes([tag, 0x80 | len(lb)]) + lb + body
+
+
+def der_seq(*parts: bytes) -> bytes:
+    return der_tlv(0x30, b"".join(parts))
+
+
+def der_int(v: int) -> bytes:
+    if v < 0:
+        raise ValueError("negative INTEGER")
+    body = v.to_bytes((v.bit_length() + 7) // 8 or 1, "big")
+    if body[0] & 0x80:
+        body = b"\x00" + body
+    return der_tlv(0x02, body)
+
+
+def der_oid(dotted: str) -> bytes:
+    arcs = [int(a) for a in dotted.split(".")]
+    body = bytearray([arcs[0] * 40 + arcs[1]])
+    for arc in arcs[2:]:
+        chunk = [arc & 0x7F]
+        arc >>= 7
+        while arc:
+            chunk.append(0x80 | (arc & 0x7F))
+            arc >>= 7
+        body.extend(reversed(chunk))
+    return der_tlv(0x06, bytes(body))
+
+
+class DerReader:
+    """Strict walking reader over one DER blob."""
+
+    def __init__(self, buf: bytes, start: int = 0, end: int = None):
+        self.buf = buf
+        self.off = start
+        self.end = len(buf) if end is None else end
+
+    def done(self) -> bool:
+        return self.off >= self.end
+
+    def peek_tag(self) -> int:
+        if self.done():
+            raise ValueError("truncated DER")
+        return self.buf[self.off]
+
+    def read(self, expect_tag: int = None):
+        """-> (tag, value_start, value_end); advances past the TLV."""
+        buf, off = self.buf, self.off
+        if off + 2 > self.end:
+            raise ValueError("truncated DER")
+        tag = buf[off]
+        if expect_tag is not None and tag != expect_tag:
+            raise ValueError(
+                f"DER tag 0x{tag:02x}, expected 0x{expect_tag:02x}")
+        ln = buf[off + 1]
+        off += 2
+        if ln & 0x80:
+            nb = ln & 0x7F
+            if nb == 0 or nb > 4 or off + nb > self.end:
+                raise ValueError("bad DER length")
+            ln = int.from_bytes(buf[off:off + nb], "big")
+            off += nb
+        if off + ln > self.end:
+            raise ValueError("DER value overruns buffer")
+        self.off = off + ln
+        return tag, off, off + ln
+
+    def value(self, expect_tag: int = None) -> bytes:
+        _, a, b = self.read(expect_tag)
+        return self.buf[a:b]
+
+    def reader(self, expect_tag: int = None) -> "DerReader":
+        _, a, b = self.read(expect_tag)
+        return DerReader(self.buf, a, b)
+
+
+OID_EC_PUBLIC_KEY = "1.2.840.10045.2.1"
+OID_PRIME256V1 = "1.2.840.10045.3.1.7"
+OID_ECDSA_SHA256 = "1.2.840.10045.4.3.2"
+
+_EC_ALG_ID = der_seq(der_oid(OID_EC_PUBLIC_KEY), der_oid(OID_PRIME256V1))
+
+
+def pem_encode(label: str, der: bytes) -> bytes:
+    b64 = base64.b64encode(der)
+    lines = [b64[i:i + 64] for i in range(0, len(b64), 64)]
+    return (b"-----BEGIN %s-----\n" % label.encode()
+            + b"\n".join(lines)
+            + b"\n-----END %s-----\n" % label.encode())
+
+
+def pem_decode(data: bytes) -> bytes:
+    """First PEM block -> DER bytes (label-agnostic: callers dispatch
+    on content)."""
+    lines = data.replace(b"\r", b"").split(b"\n")
+    body, inside = [], False
+    for ln in lines:
+        if ln.startswith(b"-----BEGIN"):
+            inside = True
+            continue
+        if ln.startswith(b"-----END"):
+            break
+        if inside:
+            body.append(ln.strip())
+    if not inside or not body:
+        raise ValueError("no PEM block found")
+    return base64.b64decode(b"".join(body))
+
+
+def spki_der(x: int, y: int) -> bytes:
+    """SubjectPublicKeyInfo DER for an uncompressed P-256 point."""
+    point = b"\x04" + x.to_bytes(32, "big") + y.to_bytes(32, "big")
+    return der_seq(_EC_ALG_ID, der_tlv(0x03, b"\x00" + point))
+
+
+def parse_spki(der: bytes):
+    """SubjectPublicKeyInfo DER -> the on-curve P-256 point (x, y)."""
+    outer = DerReader(der).reader(0x30)
+    alg = outer.reader(0x30)
+    if alg.value(0x06) != der_oid(OID_EC_PUBLIC_KEY)[2:]:
+        raise ValueError("non-EC SubjectPublicKeyInfo")
+    if alg.value(0x06) != der_oid(OID_PRIME256V1)[2:]:
+        raise ValueError("non-P256 SubjectPublicKeyInfo")
+    bits = outer.value(0x03)
+    if len(bits) != 66 or bits[0] != 0 or bits[1] != 0x04:
+        raise ValueError("bad EC point BIT STRING")
+    x = int.from_bytes(bits[2:34], "big")
+    y = int.from_bytes(bits[34:], "big")
+    if not on_curve(x, y):
+        raise ValueError("point is not on P-256")
+    return x, y
+
+
+def pkcs8_der(key: PrivateKey) -> bytes:
+    """PKCS#8 (unencrypted) DER embedding the RFC 5915 ECPrivateKey
+    with the public point."""
+    point = b"\x04" + key.public_xy()
+    ecpriv = der_seq(
+        der_int(1),
+        der_tlv(0x04, key.d.to_bytes(32, "big")),
+        der_tlv(0xA1, der_tlv(0x03, b"\x00" + point)))
+    return der_seq(der_int(0), _EC_ALG_ID, der_tlv(0x04, ecpriv))
+
+
+def parse_pkcs8(der: bytes) -> PrivateKey:
+    outer = DerReader(der).reader(0x30)
+    if outer.value(0x02) != b"\x00":
+        raise ValueError("unsupported PKCS#8 version")
+    alg = outer.reader(0x30)
+    if alg.value(0x06) != der_oid(OID_EC_PUBLIC_KEY)[2:]:
+        raise ValueError("non-EC private key")
+    ecpriv = DerReader(outer.value(0x04)).reader(0x30)
+    if ecpriv.value(0x02) != b"\x01":
+        raise ValueError("unsupported ECPrivateKey version")
+    return PrivateKey(int.from_bytes(ecpriv.value(0x04), "big"))
+
+
+# --- the provider surface identities use ------------------------------------
+
+class EcdsaKey:
+    """A P-256 key handle (reference: bccsp/sw.py EcdsaKey): the public
+    point and, for a signing key, the private scalar."""
+
+    curve = "P256"
+
+    def __init__(self, x: int, y: int, priv: PrivateKey = None):
+        self.x, self.y = x, y
+        self._priv = priv
+
+    def public_xy(self) -> bytes:
+        return self.x.to_bytes(32, "big") + self.y.to_bytes(32, "big")
+
+    def ski(self) -> bytes:
+        """SHA-256 over the uncompressed point, the reference's SKI."""
+        return hashlib.sha256(b"\x04" + self.public_xy()).digest()
+
+    def private(self) -> bool:
+        return self._priv is not None
+
+
+class SwCSP:
+    """The software provider with the `SwCSP` surface that identities
+    use (fabric_mod_tpu/bccsp/sw.py:179): PEM key import, SHA-256,
+    sign and verify, all pure Python."""
+
+    def key_import(self, raw: bytes, kind: str) -> EcdsaKey:
+        if kind == "pem-pub":
+            return EcdsaKey(*parse_spki(pem_decode(raw)))
+        if kind == "pem-priv":
+            priv = parse_pkcs8(pem_decode(raw))
+            return EcdsaKey(*priv.public_point(), priv=priv)
+        raise ValueError(f"unknown import kind {kind}")
+
+    def hash(self, msg: bytes, algorithm: str = "SHA256") -> bytes:
+        if algorithm != "SHA256":
+            raise ValueError(f"unsupported hash {algorithm}")
+        return hashlib.sha256(msg).digest()
+
+    def sign(self, key: EcdsaKey, digest: bytes) -> bytes:
+        if not key.private():
+            raise ValueError("signing needs a private key")
+        return key._priv.sign(digest)
+
+    def verify(self, key: EcdsaKey, signature: bytes, digest: bytes) -> bool:
+        return verify(key.public_xy(), signature, digest)
+
+
+class SwVerifier:
+    """A host verifier with GpuVerifier's `verify_many` surface over
+    `verify_item`: the software oracle a block commit can run on in
+    place of the card."""
+
+    def verify_many(self, items) -> np.ndarray:
+        return np.array([verify_item(it) for it in items], bool)

@@ -1,15 +1,16 @@
 """Carry state across from the JAX package and back.
 
 This system has no weights.  What the two packages share are constants
-— the Montgomery FieldSpec arrays of p and n and the two G tables — and
+— the Montgomery FieldSpec arrays of p and n and the two G tables —,
 the device-layout inputs of the verify core: (K, batch) f32 limb planes
-and (N_WINDOWS, batch) int32 window planes.  These functions take the
-reference's numpy arrays (never its modules) and return the port's
-tensors, and back.
+and (N_WINDOWS, batch) int32 window planes, and a channel's membership:
+certificates, keys and policies.  These functions take the reference's
+numpy arrays and bytes (never its modules or objects) and return the
+port's tensors and objects, and back.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -63,3 +64,24 @@ def constants_from_reference(fieldspec_arrays: Mapping[str, Mapping[str, np.ndar
         "g_table_affine": limbs_from_reference(g_table_affine, device),
     }
 
+
+def world_from_reference(ca_cert_pems: Mapping[str, bytes],
+                         signer_pems: Mapping[str, Tuple[str, bytes, bytes]],
+                         policy: bytes, raw_messages: bool = False,
+                         channel_id: str = "bench"):
+    """A block-commit world of the reference, carried across as plain
+    bytes: {org: CA certificate PEM}, {signer name: (mspid,
+    certificate PEM, PKCS#8 private-key PEM)} and the endorsement
+    policy's ApplicationPolicy bytes.  Returns the port's
+    utils/fixtures.CommitWorld over the same certificates and keys.
+    Only bytes are accepted, so no object of the reference crosses."""
+    for pem in (*ca_cert_pems.values(), policy,
+                *(b for s in signer_pems.values() for b in s[1:])):
+        if not isinstance(pem, bytes):
+            raise TypeError(f"expected bytes, got {type(pem).__name__}")
+    from fabric_mod_tpu_torch.utils import fixtures
+    return fixtures.world_from_pems(
+        dict(ca_cert_pems),
+        {name: (str(mspid), cert, key)
+         for name, (mspid, cert, key) in signer_pems.items()},
+        policy, raw_messages=raw_messages, channel_id=channel_id)

@@ -7,6 +7,7 @@ kernel was expected.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,6 +26,17 @@ def resolve(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is "
                            "not available")
     return dev
+
+
+def upload(arr, dev: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor on `dev`.  To a CUDA device the copy
+    goes through pinned memory without blocking the host, so it queues
+    behind the work already on the stream instead of waiting for it (a
+    copy from pageable memory synchronises)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def require_exact_fp32() -> None:

@@ -498,16 +498,11 @@ def marshal_inputs(digests, r_bytes, s_bytes, qx_bytes, qy_bytes):
     return core_args, range_ok
 
 
-def _to_dev(core_args, dev):
+def _to_dev(core_args, range_ok, dev):
+    """The core's inputs and the host range verdict on `dev`."""
     out = [torch.as_tensor(a, device=dev) for a in core_args[:5]]
     out.append(torch.as_tensor(np.asarray(core_args[5], bool), device=dev))
-    return out
-
-
-def _finish(ok: torch.Tensor, range_ok: np.ndarray, lazy: bool):
-    if lazy:
-        return lambda: ok.cpu().numpy() & range_ok
-    return ok.cpu().numpy() & range_ok
+    return out, torch.as_tensor(np.asarray(range_ok, bool), device=dev)
 
 
 def batch_verify(digests, r_bytes, s_bytes, qx_bytes, qy_bytes,
@@ -515,16 +510,17 @@ def batch_verify(digests, r_bytes, s_bytes, qx_bytes, qy_bytes,
     """Verify a batch of ECDSA-P256 signatures over 32-byte digests.
 
     All args are (batch, 32) uint8 big-endian.  Runs on CUDA unless
-    `device="cpu"`.  Returns (batch,) bool — or, with `lazy=True`, a
-    zero-arg resolver: the device work has been enqueued (CUDA is
-    asynchronous) and the resolver waits for it."""
+    `device="cpu"`.  Returns (batch,) bool numpy — or, with `lazy=True`,
+    the (batch,) bool verdict tensor on the device, its work enqueued
+    and not waited for (CUDA is asynchronous)."""
     dev = _device.resolve(device)
     if dev.type == "cuda":
         _device.require_exact_fp32()
     core_args, range_ok = marshal_inputs(
         digests, r_bytes, s_bytes, qx_bytes, qy_bytes)
-    ok = _verify_core_impl(*_to_dev(core_args, dev), mixed=mixed)
-    return _finish(ok, range_ok, lazy)
+    args, range_dev = _to_dev(core_args, range_ok, dev)
+    ok = _verify_core_impl(*args, mixed=mixed) & range_dev
+    return ok if lazy else ok.cpu().numpy()
 
 
 def batch_verify_raw(words, nblocks, has_msg, digests, r_bytes, s_bytes,
@@ -542,6 +538,6 @@ def batch_verify_raw(words, nblocks, has_msg, digests, r_bytes, s_bytes,
                         device=dev)
     nb = torch.as_tensor(np.asarray(nblocks, np.int64), device=dev)
     hm = torch.as_tensor(np.asarray(has_msg, bool), device=dev)
-    ok = _verify_core_fused_impl(w, nb, hm, *_to_dev(core_args, dev),
-                                 mixed=mixed)
-    return _finish(ok, range_ok, lazy)
+    args, range_dev = _to_dev(core_args, range_ok, dev)
+    ok = _verify_core_fused_impl(w, nb, hm, *args, mixed=mixed) & range_dev
+    return ok if lazy else ok.cpu().numpy()

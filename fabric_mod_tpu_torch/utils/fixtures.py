@@ -11,9 +11,11 @@ wheel and no randomness outside the seed.
 """
 from __future__ import annotations
 
+import dataclasses
+import datetime
 import hashlib
 import random
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -117,6 +119,256 @@ def make_block(block_no: int, n_tx: int = 1000, n_clients: int = 64,
     if adversarial:
         _plant_adversarial(items, keys, expect)
     return items, expect
+
+
+# --- the block-commit world -------------------------------------------------
+
+CHANNEL = "bench"
+NAMESPACE = "mycc"
+# 2-of-3 org peers: BASELINE.md config #2
+ENDORSEMENT_POLICY = "OutOf(2, 'Org1.peer', 'Org2.peer', 'Org3.peer')"
+# the validity windows of make_commit_world's certificates start here
+CERT_EPOCH = datetime.datetime(2025, 1, 1, tzinfo=datetime.timezone.utc)
+_PAIRS = (("Org1", "Org2"), ("Org2", "Org3"), ("Org1", "Org3"))
+
+
+@dataclasses.dataclass
+class CommitWorld:
+    """A channel's membership for the block-commit path: the MSP
+    manager (second-chance cached, as a peer's channel wraps it), the
+    signers by name ("Org1", "Org2", "Org3" — one peer each — and
+    "client", an Org1 client), and the chaincode-wide endorsement
+    policy as ApplicationPolicy bytes."""
+    mgr: object
+    signers: Dict[str, object]
+    policy: bytes
+    channel_id: str = CHANNEL
+
+    def committer(self, verifier, tensor_policy: bool = False):
+        """A Committer over a fresh in-memory ledger, wired for
+        key-level policies and duplicate-txid checks against it."""
+        from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+        from fabric_mod_tpu_torch.peer.txvalidator import (
+            VALIDATION_PARAMETER, Committer, TxValidator,
+            ValidationInfoProvider)
+        from fabric_mod_tpu_torch.policy import ApplicationPolicyEvaluator
+        led = KvLedger(self.channel_id)
+
+        def state_vp(ns, key):
+            meta = led.state.get_metadata(ns, key)
+            return meta.get(VALIDATION_PARAMETER) if meta else None
+        validator = TxValidator(
+            self.channel_id, self.mgr, ApplicationPolicyEvaluator(self.mgr),
+            verifier, ValidationInfoProvider(self.policy),
+            tx_id_exists=led.tx_id_exists, state_metadata=state_vp,
+            tensor_policy=tensor_policy)
+        return Committer(validator, led)
+
+
+def world_from_pems(ca_cert_pems: Dict[str, bytes],
+                    signer_pems: Dict[str, Tuple[str, bytes, bytes]],
+                    policy: bytes, raw_messages: bool = False,
+                    channel_id: str = CHANNEL) -> CommitWorld:
+    """A CommitWorld from plain bytes: each org's CA certificate PEM,
+    each signer's (mspid, certificate PEM, PKCS#8 key PEM), the
+    endorsement policy.  `raw_messages`: verify items carry raw
+    messages, hashed on the card."""
+    from fabric_mod_tpu_torch.bccsp import x509
+    from fabric_mod_tpu_torch.msp.cache import CachedMsp
+    from fabric_mod_tpu_torch.msp.mspimpl import Msp, MspManager
+    csp = sw.SwCSP()
+    msps = {org: Msp(org, csp, [x509.load_pem_x509_certificate(pem)],
+                     raw_messages=raw_messages)
+            for org, pem in ca_cert_pems.items()}
+    signers = {name: msps[mspid].signing_identity(cert_pem, key_pem)
+               for name, (mspid, cert_pem, key_pem) in signer_pems.items()}
+    return CommitWorld(CachedMsp(MspManager(list(msps.values()))), signers,
+                       policy, channel_id)
+
+
+def commit_world_pems(seed: bytes = b"commit"):
+    """The seeded material of make_commit_world as plain bytes:
+    (ca_cert_pems, signer_pems, policy) for `world_from_pems`."""
+    from fabric_mod_tpu_torch.msp import ca as calib
+    from fabric_mod_tpu_torch.policy import from_string
+    from fabric_mod_tpu_torch.protos import messages as m
+    cas, signer_pems = {}, {}
+    for org in ("Org1", "Org2", "Org3"):
+        ca = calib.CA(f"ca.{org.lower()}", org, seed=seed, now=CERT_EPOCH)
+        cas[org] = ca
+        cert, key = ca.issue(f"peer0.{org.lower()}", org, ous=["peer"])
+        signer_pems[org] = (org, cert.pem(), calib.key_pem(key))
+    cert, key = cas["Org1"].issue("client@org1", "Org1", ous=["client"])
+    signer_pems["client"] = ("Org1", cert.pem(), calib.key_pem(key))
+    policy = m.ApplicationPolicy(
+        signature_policy=from_string(ENDORSEMENT_POLICY)).encode()
+    return ({org: ca.cert_pem() for org, ca in cas.items()}, signer_pems,
+            policy)
+
+
+def make_commit_world(seed: bytes = b"commit",
+                      raw_messages: bool = False) -> CommitWorld:
+    """BASELINE.md config #2's channel: 3 orgs with one peer each and a
+    client, the 2-of-3 endorsement policy — every certificate and key
+    made from `seed`."""
+    return world_from_pems(*commit_world_pems(seed),
+                           raw_messages=raw_messages)
+
+
+def _flip(sig: bytes) -> bytes:
+    """A signature with one bit of r flipped: still strict DER and low
+    S, no longer valid."""
+    b = bytearray(sig)
+    b[10] ^= 1
+    return bytes(b)
+
+
+def _signed_tx(world: CommitWorld, rwset: bytes, endorsers, nonce: bytes,
+               timestamp: int, bad_creator: bool = False,
+               bad_endorser: Optional[int] = None):
+    """protoutil.create_signed_tx with the nonce and timestamp given,
+    and the optional tampering of the creator's or one endorser's
+    signature."""
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    creator = world.signers["client"]
+    creator_bytes = creator.serialize()
+    tx_id = protoutil.compute_tx_id(nonce, creator_bytes)
+    cca = m.ChaincodeAction(
+        results=rwset, events=b"", response=m.Response(status=200),
+        chaincode_id=m.ChaincodeID(name=NAMESPACE))
+    prp_bytes = m.ProposalResponsePayload(
+        proposal_hash=hashlib.sha256(tx_id.encode()).digest(),
+        extension=cca.encode()).encode()
+    endorsements = []
+    for i, name in enumerate(endorsers):
+        e = world.signers[name]
+        ident = e.serialize()
+        sig = e.sign_message(prp_bytes + ident)
+        endorsements.append(m.Endorsement(
+            endorser=ident, signature=_flip(sig) if i == bad_endorser else sig))
+    cap = m.ChaincodeActionPayload(action=m.ChaincodeEndorsedAction(
+        proposal_response_payload=prp_bytes, endorsements=endorsements))
+    tx = m.Transaction(actions=[m.TransactionAction(payload=cap.encode())])
+    ch = protoutil.make_channel_header(
+        m.HeaderType.ENDORSER_TRANSACTION, world.channel_id, tx_id=tx_id,
+        timestamp=timestamp)
+    payload = protoutil.make_payload(
+        ch, protoutil.make_signature_header(creator_bytes, nonce), tx.encode())
+    env = protoutil.sign_envelope(payload, creator)
+    if bad_creator:
+        env = m.Envelope(payload=env.payload, signature=_flip(env.signature))
+    return env
+
+
+def _pin_org(b: int) -> str:
+    """The org the VALIDATION_PARAMETER pin of odd block b names."""
+    return ("Org3", "Org1")[(b // 2) % 2]
+
+
+def make_commit_blocks(world: CommitWorld, n_blocks: int, n_tx: int,
+                       plant_every: int = 16, seed: bytes = b"blocks"
+                       ) -> Tuple[List[bytes], List[List[int]]]:
+    """`n_blocks` chained, encoded blocks of `n_tx` transactions each,
+    and the txflags every transaction must end with.
+
+    Each tx is signed by the world's client and endorsed by two of the
+    three org peers, and writes its own key.  Block 0 tx 0 writes
+    "pinned" and tx 1 "counter".  Every odd block's tx 0 pins "pinned"
+    to one org with a VALIDATION_PARAMETER metadata write, endorsed as
+    the pin in force (or, for the first, the chaincode policy) requires.
+    In every block, at position k = j % plant_every (`plant_every` >=
+    16):
+      3  one endorsement only (1 of 3)        ENDORSEMENT_POLICY_FAILURE
+      5  creator signature tampered           BAD_CREATOR_SIGNATURE
+      7  one of two endorser signatures bad   ENDORSEMENT_POLICY_FAILURE
+      9  a repeat of the envelope at k = 8    DUPLICATE_TXID
+     11  reads "counter" at a stale version   MVCC_READ_CONFLICT
+    and from block 1 on:
+     12  a repeat of the previous block's k = 8 tx       DUPLICATE_TXID
+     13  reads "counter" at its committed version        VALID
+     14  writes "pinned", not endorsed by the pinned org
+                                              ENDORSEMENT_POLICY_FAILURE
+     15  writes "pinned", endorsed by the pinned org     VALID
+    Nonces and timestamps come from `seed`, signatures are RFC 6979:
+    the same inputs give the same bytes."""
+    from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder
+    from fabric_mod_tpu_torch.peer.txvalidator import VALIDATION_PARAMETER
+    from fabric_mod_tpu_torch.policy import from_string
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    if plant_every < 16:
+        raise ValueError("plant_every must be at least 16")
+    V = m.TxValidationCode
+    ns = NAMESPACE
+    blocks, expected, prev_hash = [], [], b""
+    prev_envs: List = []
+    for b in range(n_blocks):
+        envs, flags = [], []
+        # the pin in force after tx 0 of this block, if any
+        pin = _pin_org(b) if b % 2 == 1 else (
+            _pin_org(b - 1) if b >= 2 else None)
+        for j in range(n_tx):
+            k = j % plant_every
+            nonce = hashlib.sha256(seed + b"|nonce|%d|%d" % (b, j)).digest()[:24]
+            ts = 1_735_689_600_000_000_000 + (b * n_tx + j) * 1000
+            rw = RWSetBuilder()
+            endorsers = _PAIRS[j % 3]
+            flag = V.VALID
+            kw = {}
+            if b == 0 and j < 2:
+                rw.add_write(ns, ("pinned", "counter")[j], b"v0")
+            elif j == 0 and b % 2 == 1:
+                standing = _pin_org(b - 2) if b >= 3 else None
+                vp = m.ApplicationPolicy(signature_policy=from_string(
+                    f"'{pin}.peer'")).encode()
+                rw.add_metadata_write(ns, "pinned", VALIDATION_PARAMETER, vp)
+                endorsers = ("Org1", "Org2") if standing is None else \
+                    (standing, next(o for o in ("Org1", "Org2", "Org3")
+                                    if o != standing))
+            elif k == 9:
+                envs.append(envs[j - 1])
+                flags.append(V.DUPLICATE_TXID)
+                continue
+            elif k == 12 and b >= 1:
+                envs.append(prev_envs[j - 4])
+                flags.append(V.DUPLICATE_TXID)
+                continue
+            else:
+                rw.add_write(ns, f"b{b}t{j}", b"v")
+                if k == 3:
+                    endorsers = endorsers[:1]
+                    flag = V.ENDORSEMENT_POLICY_FAILURE
+                elif k == 5:
+                    kw["bad_creator"] = True
+                    flag = V.BAD_CREATOR_SIGNATURE
+                elif k == 7:
+                    endorsers, kw["bad_endorser"] = ("Org1", "Org2"), 1
+                    flag = V.ENDORSEMENT_POLICY_FAILURE
+                elif k == 11:
+                    rw.add_read(ns, "counter", (b + 1, 999))
+                    flag = V.MVCC_READ_CONFLICT
+                elif k == 13 and b >= 1:
+                    rw.add_read(ns, "counter", (0, 1))
+                elif k in (14, 15) and pin is not None:
+                    rw = RWSetBuilder()
+                    rw.add_write(ns, "pinned", b"v%d" % j)
+                    others = tuple(o for o in ("Org1", "Org2", "Org3")
+                                   if o != pin)
+                    if k == 14:
+                        endorsers = others
+                        flag = V.ENDORSEMENT_POLICY_FAILURE
+                    else:
+                        endorsers = (pin, others[0])
+            envs.append(_signed_tx(world, rw.build().encode(), endorsers,
+                                   nonce, ts, **kw))
+            flags.append(flag)
+        block = protoutil.new_block(b, prev_hash, envs)
+        prev_hash = protoutil.block_header_hash(block.header)
+        blocks.append(block.encode())
+        expected.append(flags)
+        prev_envs = envs
+    return blocks, expected
 
 
 def _replace(it: VerifyItem, **kw) -> VerifyItem:

@@ -343,3 +343,42 @@ def test_gpu_verifier_on_card(cuda_device):
         got = gpu.GpuVerifier(ladder=ladder, cache_size=0).verify_many(items)
         assert got.tolist() == expect.tolist()
         assert p256_cuda.counts()[name] > before
+
+
+@pytest.mark.cuda
+def test_policy_evaluator_on_card_equals_cpu(cuda_device):
+    """The tensor-policy evaluator over a CUDA mask (the fused seam's
+    form) gives the CPU pass's verdicts, at the caps' widths."""
+    from fabric_mod_tpu_torch.policy import tensorpolicy as tp
+    rng = np.random.default_rng(3)
+    n, n_i, n_p, n_t = 500, tp.MAX_IDENTS, tp.MAX_PRINCIPALS, 9
+    ops = rng.integers(0, 7, (n, n_t)).astype(np.int32)
+    args = rng.integers(0, n_p, (n, n_t)).astype(np.int32)
+    valid = rng.random((n, n_i)) < 0.7
+    sat = rng.random((n, n_i, n_p)) < 0.5
+    want = tp.eval_numpy(valid, sat, ops, args)
+    got = tp.eval_torch(*(torch.from_numpy(a).to(cuda_device)
+                          for a in (valid, sat, ops, args)))
+    assert got.device.type == "cuda"
+    assert got.cpu().numpy().tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+def test_block_commits_on_card(cuda_device):
+    """A 16-tx block of every planted kind commits through the port's
+    Committer on the card: flags equal the fixture's, the evaluator took
+    the CUDA mask, and the ladder kernel ran."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.policy import tensorpolicy as tp
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    world = fixtures.make_commit_world()
+    blocks, expected = fixtures.make_commit_blocks(world, 2, 16)
+    committer = world.committer(gpu.GpuVerifier(cache_size=0),
+                                tensor_policy=True)
+    tp.reset_counts()
+    before = p256_cuda.counts()["ladder_projective"]
+    for raw, want in zip(blocks, expected):
+        assert committer.store_block(m.Block.decode(raw)) == want
+    assert tp.counts() == {"cuda": len(blocks)}
+    assert p256_cuda.counts()["ladder_projective"] > before

@@ -1,6 +1,7 @@
-"""The port imports neither jax nor any module of the JAX package: a fresh
-interpreter imports every port module and runs the CPU verify path, then
-inspects sys.modules."""
+"""The port imports neither jax, nor any module of the JAX package, nor
+the `cryptography` wheel: a fresh interpreter imports every port module,
+runs the CPU verify path and commits one small block through the port's
+Committer on the CPU, then inspects sys.modules."""
 import json
 import os
 import pathlib
@@ -23,9 +24,16 @@ items, expect = fixtures.make_block(0, n_tx=1, raw_endorsers=True,
                                     adversarial=False)
 got = gpu.GpuVerifier(device="cpu").verify_many(items)
 assert got.tolist() == expect.tolist(), (got, expect)
+from fabric_mod_tpu_torch.protos import messages
+world = fixtures.make_commit_world()
+blocks, flags = fixtures.make_commit_blocks(world, 1, 2)
+committer = world.committer(gpu.GpuVerifier(device="cpu"), tensor_policy=True)
+assert committer.store_block(messages.Block.decode(blocks[0])) == flags[0]
+assert committer.ledger.height == 1
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
-             or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu."))
+             or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")
+             or n == "cryptography" or n.startswith("cryptography."))
 print(json.dumps(bad))
 """
 

@@ -68,11 +68,28 @@ def test_dedup_and_cache_hits(mixed_items):
 
 
 def test_async_and_fused_seams_resolve_to_numpy(mixed_items):
+    """verify_many_async resolves to numpy; the fused seam resolves to a
+    bool tensor on the verifier's device when every lane misses the
+    cache (dedup expanded on the device, cache write-back deferred to
+    .writeback()), and to numpy once a lane hits."""
     items, expect = mixed_items
-    v = gpu.GpuVerifier(device="cpu", cache_size=0)
-    got = v.verify_many_fused_async(items[:2])()
-    assert isinstance(got, np.ndarray) and got.dtype == bool
-    assert got.tolist() == expect[:2].tolist()
+    v = gpu.GpuVerifier(device="cpu")
+    pair = [items[0], items[1], items[0]]
+    fused = v.verify_many_fused_async(pair)
+    got = fused()
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.bool
+    assert got.device == v.device
+    assert got.tolist() == [expect[0], expect[1], expect[0]]
+    assert len(v.cache) == 0
+    fused.writeback()
+    assert len(v.cache) == 2
+    again = v.verify_many_fused_async(pair)()
+    assert isinstance(again, np.ndarray) and again.dtype == bool
+    assert again.tolist() == got.tolist()
+    plain = gpu.GpuVerifier(device="cpu", cache_size=0).verify_many_async(
+        items[:2])()
+    assert isinstance(plain, np.ndarray) and plain.tolist() == \
+        expect[:2].tolist()
     assert v.verify_many([]).shape == (0,)
 
 
