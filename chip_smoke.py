@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's block-commit path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's device paths once on one CUDA card: the
+block commit (the main path) and the idemix presentation verify.
 
     python3 chip_smoke.py
 
@@ -35,6 +36,21 @@ Phases (any failure exits non-zero; none is caught):
    both kernels' launch counts (zeroed just before) must have risen.
    Prints ms per block by stage, committed tx/s and the evaluator's
    device ms;
+7. idemix (run after 5, before the profile) — the batched FP256BN
+   pairing (ops/fp256bn_dev.py, plain torch ops on the card): (a) a
+   pairing check at 1024 lanes, a 1000-tx idemix block's width, from
+   utils/fixtures.make_pairing_lanes (every 97th lane tampered): the
+   mask stays a CUDA tensor until its one copy, must equal the
+   construction's, and on 8 sampled lanes the host pairings' equality;
+   ms per check (CUDA events and wall, warm); (b) 4 full pairings on the
+   card, each equal to the host `pairing` exactly; (c) batch_verify of
+   64 presentations (3 planted kinds): verdicts equal the expected ones
+   and, on the first 16, the host path's; presentations/s of both paths
+   and the pairing check's share of the device path; (d) for both
+   checks, torch.profiler over one of each repeated piece (the line
+   precompute, a Miller doubling step, an add step, a cyclotomic square,
+   a multiply, and the rest once), scaled by the schedule's static
+   counts: launches per check, device busy ms, idle share;
 6. profile — torch.profiler over one verify of each block kind and over
    one whole block commit: wall time, device busy time and idle share,
    the heaviest device kernels; and over the policy evaluator's pass
@@ -59,6 +75,17 @@ SAMPLE = 256
 SEED = 20261016
 # block-commit phase: a planted invalid tx of each kind every 50 txs
 PLANT_EVERY = 50
+
+# idemix phase: a 1000-tx idemix block's pairing checks (padded to the
+# next power of two), every 97th lane tampered; bench.py's presentation
+# width with a planted presentation every 16
+IDEMIX_LANES = 1024
+IDEMIX_TAMPER_EVERY = 97
+IDEMIX_SAMPLE = 8
+IDEMIX_PAIRINGS = 4
+IDEMIX_PRESENTATIONS = 64
+IDEMIX_PLANT_EVERY = 16
+IDEMIX_HOST_CHECKED = 16
 
 # H100 SXM published peak (NVIDIA H100 datasheet): HBM bytes/s.
 PEAK_BYTES = 3.35e12
@@ -448,6 +475,187 @@ def phase_profile(torch, blocks, world, commit_blocks):
         f"device busy {busy_ms} ms, wall {wall_ms:.2f} ms (torch.profiler)")
 
 
+def phase_idemix(torch, np):
+    """The idemix presentation verify on the card (phase 7)."""
+    from fabric_mod_tpu_torch.idemix import credential
+    from fabric_mod_tpu_torch.idemix import fp256bn as host
+    from fabric_mod_tpu_torch.ops import fp256bn_dev as dev
+    from fabric_mod_tpu_torch.utils import fixtures
+    t_phase = time.perf_counter()
+    world = fixtures.make_idemix_world(SEED)
+    ik = world.issuer.key
+    a_pts, abar_pts, expect = fixtures.make_pairing_lanes(
+        world, IDEMIX_LANES, IDEMIX_TAMPER_EVERY, seed=SEED)
+    neg = [p.neg() for p in abar_pts]
+    log(f"idemix fixtures: world and {IDEMIX_LANES} pairing lanes in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    dev.reset_counts()
+
+    # (a) the full-width pairing check
+    def check():
+        return dev.pairing_check_batch(a_pts, ik.W, neg, ik.g2, lazy=True)
+    t0 = time.perf_counter()
+    mask_t = check()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if mask_t.device.type != "cuda":
+        raise AssertionError(f"pairing check mask on {mask_t.device}")
+    mask = mask_t.cpu().numpy()
+    if not np.array_equal(mask, expect):
+        bad = np.nonzero(mask != expect)[0][:8].tolist()
+        raise AssertionError(f"pairing check differs from the construction "
+                             f"at lanes {bad}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    mask_t = check()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    event_ms = start.elapsed_time(end)
+    if not np.array_equal(mask_t.cpu().numpy(), expect):
+        raise AssertionError("warm pairing check differs from the construction")
+    rng = np.random.default_rng(SEED + 7)
+    tampered = np.nonzero(~expect)[0]
+    sample = sorted(set(tampered[:2].tolist()) | set(
+        rng.choice(IDEMIX_LANES, IDEMIX_SAMPLE - 2, replace=False).tolist()))
+    for i in sample:
+        want = host.pairing(a_pts[i], ik.W) == host.pairing(abar_pts[i], ik.g2)
+        if bool(mask[i]) != want:
+            raise AssertionError(f"lane {i}: card {bool(mask[i])}, host "
+                                 f"pairings {want}")
+    log(f"idemix (a) pairing check at {IDEMIX_LANES} lanes: mask (a CUDA "
+        f"tensor) == construction ({int((~expect).sum())} tampered) and == "
+        f"host pairings on lanes {sample}; {event_ms:.1f} ms per check by "
+        f"CUDA events, {wall_ms:.1f} ms wall (warm; first {first_ms:.1f} ms)")
+
+    # (b) full pairings against the host
+    got = dev.pairing_batch(a_pts[:IDEMIX_PAIRINGS], ik.W)
+    if got.device.type != "cuda":
+        raise AssertionError(f"pairing_batch output on {got.device}")
+    for i in range(IDEMIX_PAIRINGS):
+        if dev.f12_to_host(got, i) != host.pairing(a_pts[i], ik.W):
+            raise AssertionError(f"pairing {i} differs from the host's")
+    log(f"idemix (b) {IDEMIX_PAIRINGS} full pairings on the card == host "
+        "fp256bn.pairing exactly")
+
+    # (c) batch_verify at bench.py's presentation width
+    t0 = time.perf_counter()
+    items, want = fixtures.make_presentations(
+        world, IDEMIX_PRESENTATIONS, IDEMIX_PLANT_EVERY, seed=SEED)
+    sign_s = time.perf_counter() - t0
+    before = dev.counts().get("cuda", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = credential.batch_verify(ik, items)
+    dev_s = time.perf_counter() - t0
+    if dev.counts().get("cuda", 0) != before + 1:
+        raise AssertionError("batch_verify did not run its pairing check "
+                             "on the card")
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w][:8]
+        raise AssertionError(f"batch_verify verdicts differ at {bad}")
+    t0 = time.perf_counter()
+    host_got = credential.batch_verify(ik, items[:IDEMIX_HOST_CHECKED],
+                                       use_device=False)
+    host_s = time.perf_counter() - t0
+    if host_got != got[:IDEMIX_HOST_CHECKED]:
+        raise AssertionError("device and host batch_verify disagree")
+    todo = [s for s, _, _ in items
+            if s.A_prime is not None and s.A_bar is not None]
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    dev.pairing_check_batch([s.A_prime for s in todo], ik.W,
+                            [s.A_bar.neg() for s in todo], ik.g2)
+    end.record()
+    torch.cuda.synchronize()
+    pair_s = time.perf_counter() - t0
+    log(f"idemix (c) batch_verify of {IDEMIX_PRESENTATIONS} presentations "
+        f"(signed in {sign_s:.1f} s; {len(want) - sum(want)} planted): "
+        f"verdicts == expected, first {IDEMIX_HOST_CHECKED} == host path; "
+        f"device path {IDEMIX_PRESENTATIONS / dev_s:.2f} presentations/s "
+        f"({dev_s * 1e3:.1f} ms), host path "
+        f"{IDEMIX_HOST_CHECKED / host_s:.2f} presentations/s; the "
+        f"{len(todo)}-lane pairing check alone {pair_s * 1e3:.1f} ms wall "
+        f"({start.elapsed_time(end):.1f} ms CUDA events), "
+        f"{pair_s / dev_s:.3f} of the device path")
+
+    # (d) bounded profiles of both checks, scaled to a whole check
+    profile_pairing_check(torch, ik, a_pts, neg, wall_ms)
+    profile_pairing_check(torch, ik, [s.A_prime for s in todo],
+                          [s.A_bar.neg() for s in todo], pair_s * 1e3)
+    log(f"idemix phase: {time.perf_counter() - t_phase:.1f} s wall; "
+        f"pairing passes {dev.counts()}")
+
+
+def profile_pairing_check(torch, ik, a_pts, b_pts, check_wall_ms):
+    """torch.profiler over one of each repeated piece of a pairing check
+    (the line precompute, a Miller doubling step, an add step, a
+    cyclotomic square, a multiply) and over the rest once, scaled by the
+    schedule's static counts: launches, device busy ms and idle share
+    per check against the unprofiled check's wall."""
+    from fabric_mod_tpu_torch import device as _device
+    from fabric_mod_tpu_torch.idemix import fp256bn as host
+    from fabric_mod_tpu_torch.ops import fp256bn_dev as dev
+    d = _device.resolve(None)
+    s1, s2 = dev.line_schedule(ik.W), dev.line_schedule(ik.g2)
+    ax, ay = dev._g1_batch_to_mont(a_pts, d)
+    bx, by = dev._g1_batch_to_mont(b_pts, d)
+    xp, yp = torch.stack([ax, bx], 1), torch.stack([ay, by], 1)
+    (A1, B1), (A2, B2) = s1.tensors(d), s2.tensors(d)
+    A = torch.stack([A1, A2], -1).unsqueeze(-1)
+    B = torch.stack([B1, B2], -1).unsqueeze(-1)
+    ly = dev._line_operands(xp, A, B)
+    f2 = dev._miller(xp, yp, A, B, s1.is_add)
+    g = dev.f12_mul(f2[..., 0, :], f2[..., 1, :])
+    n_add = int(s1.is_add.sum()) + 2             # + the correction lines
+    n_dbl = len(s1.is_add) - int(s1.is_add.sum())
+    bits = bin(abs(host.U))[2:]
+
+    def rest():
+        f = dev.f12_conj(f2)
+        f = dev.f12_mul(f[..., 0, :], f[..., 1, :])
+        f = dev._easy_part(f)
+        fu = [dev.f12_conj(f) for _ in range(3)]
+        return dev.f12_is_one(dev._hard_tail(f, *fu))
+    pieces = (
+        ("line precompute", 1, lambda: dev._line_operands(xp, A, B)),
+        ("Miller doubling step", n_dbl,
+         lambda: dev._miller_step(f2, yp, ly[:, :, :, 0], False)),
+        ("Miller add step", n_add,
+         lambda: dev._miller_step(f2, yp, ly[:, :, :, 0], True)),
+        ("cyclotomic square", 3 * len(bits), lambda: dev.f12_sqr(g)),
+        ("cyclotomic multiply", 3 * bits.count("1"),
+         lambda: dev.f12_mul(g, g)),
+        ("rest (conj, pair product, easy part, tail, is_one)", 1, rest),
+    )
+    lanes = len(a_pts)
+    launches = busy = wall = 0.0
+    for label, n, fn in pieces:
+        fn()                                               # warm
+        w_ms, n_k, b_ms, _top = device_profile(torch, fn)
+        wall += n * w_ms
+        if n_k is None:
+            log(f"idemix (d) {lanes} lanes, {label}: wall {w_ms:.2f} ms; "
+                "device time not measured (no device kernels recorded)")
+            launches = busy = None
+            continue
+        log(f"idemix (d) {lanes} lanes, {label}: x{n} per check; {n_k} "
+            f"device launches, busy {b_ms:.3f} ms, wall {w_ms:.2f} ms each")
+        if launches is not None:
+            launches += n * n_k
+            busy += n * b_ms
+    if launches is not None:
+        log(f"idemix (d) per {lanes}-lane pairing check (scaled): "
+            f"{launches:.0f} device launches, device busy {busy:.1f} ms; "
+            f"device idle share {1 - busy / check_wall_ms:.3f} of the "
+            f"unprofiled check's {check_wall_ms:.1f} ms wall (profiled "
+            f"pieces sum to {wall:.1f} ms)")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -501,6 +709,9 @@ def main() -> int:
     counts = phase_block_commit(torch, np, world, commit_blocks, expected)
     for k in kernels.values():
         k["launches"] = counts[k["name"]]
+
+    # 7. the idemix presentation verify
+    phase_idemix(torch, np)
 
     # 6. where a block's time goes (after the counted runs)
     phase_profile(torch, blocks, world, commit_blocks)

@@ -12,7 +12,11 @@ redesigned both kernels.  Slice 3 ports the block-commit path around
 it: an encoded block -> TxValidator (host unpack, MSP, one batch
 collector) -> GpuVerifier (the CUDA ladders) -> the tensor-policy
 evaluator on the device-resident verify mask -> txflags -> MVCC -> the
-in-memory ledger -> state fingerprint.
+in-memory ledger -> state fingerprint.  Slice 4 ports the idemix
+presentation verify: `batch_verify` (idemix/credential.py) sends every
+presentation's pairing equation to the batched FP256BN pairing
+(ops/fp256bn_dev.py) on the card as one check and keeps the Schnorr
+remainder on the host.
 
 Counterparts (reference module -> port module):
 
@@ -47,11 +51,17 @@ ledger/kvledger.py              ledger/kvledger.py (lean, in memory;
                                 same state fingerprint)
 peer/plugins.py, txvalidator.py peer/ (generic per-tx decode path;
                                 tensor_policy a constructor argument)
-(none)                          convert.py (constants, layouts and a
-                                world's bytes across)
+idemix/fp256bn.py               idemix/fp256bn.py (host reference copy)
+ops/fp256bn_dev.py              ops/fp256bn_dev.py (the batched pairing
+                                as torch ops; stacked tower products)
+idemix/credential.py,           idemix/ (copies; seeded `rng=`, the RA
+revocation.py                   over bccsp/sw.py)
+msp/idemixmsp.py                msp/idemixmsp.py (copy)
+(none)                          convert.py (constants, layouts, a
+                                world's bytes and idemix data across)
 (none)                          device.py (device choice, exact fp32)
 ==============================  ==========================================
 
 `python3 chip_smoke.py` at the repository root builds the kernels and
-drives this path on the card.
+drives these paths on the card.
 """

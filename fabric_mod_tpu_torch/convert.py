@@ -4,16 +4,21 @@ This system has no weights.  What the two packages share are constants
 — the Montgomery FieldSpec arrays of p and n and the two G tables —,
 the device-layout inputs of the verify core: (K, batch) f32 limb planes
 and (N_WINDOWS, batch) int32 window planes, and a channel's membership:
-certificates, keys and policies.  These functions take the reference's
-numpy arrays and bytes (never its modules or objects) and return the
-port's tensors and objects, and back.
+certificates, keys and policies, and an idemix issuer's keys,
+credentials, presentations and revocation lists.  These functions take
+the reference's numpy arrays, bytes and plain dicts (never its modules
+or objects) and return the port's tensors and objects, and back.
 """
 from __future__ import annotations
 
+import json
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from fabric_mod_tpu_torch.idemix import credential, revocation
+from fabric_mod_tpu_torch.msp import idemixmsp
 
 _FIELDSPEC_ARRAYS = ("p", "one", "one_mont", "r2", "np_mat", "p_mat",
                      "kp32", "lift32")
@@ -85,3 +90,42 @@ def world_from_reference(ca_cert_pems: Mapping[str, bytes],
         {name: (str(mspid), cert, key)
          for name, (mspid, cert, key) in signer_pems.items()},
         policy, raw_messages=raw_messages, channel_id=channel_id)
+
+
+
+# --- idemix: issuer keys, credentials, presentations and CRIs as data ----
+
+def _plain_dict(d) -> dict:
+    if not isinstance(d, dict):
+        raise TypeError(f"expected a dict, got {type(d).__name__}")
+    return d
+
+
+def issuer_key_from_reference(d: dict) -> credential.IssuerKey:
+    """A reference `IssuerKey.to_dict()` (or `public_dict()`) -> the
+    port's IssuerKey (its proof of knowledge is checked)."""
+    return credential.IssuerKey.from_dict(_plain_dict(d))
+
+
+def credential_from_reference(d: dict) -> credential.Credential:
+    """A reference `Credential.to_dict()` -> the port's Credential."""
+    return credential.Credential.from_dict(_plain_dict(d))
+
+
+def presentation_from_reference(sig_bytes: bytes) -> credential.Signature:
+    """A presentation as the idemix MSP's JSON signature bytes -> the
+    port's Signature."""
+    if not isinstance(sig_bytes, bytes):
+        raise TypeError(f"expected bytes, got {type(sig_bytes).__name__}")
+    return idemixmsp._sig_from_dict(json.loads(sig_bytes))
+
+
+def presentation_to_reference(sig: credential.Signature) -> bytes:
+    """The port's Signature -> the idemix MSP's JSON signature bytes,
+    which the reference reads with its `_sig_from_dict(json.loads(...))`."""
+    return json.dumps(idemixmsp._sig_to_dict(sig), sort_keys=True).encode()
+
+
+def cri_from_reference(d: dict) -> revocation.CRI:
+    """A reference `CRI.to_dict()` -> the port's CRI."""
+    return revocation.CRI.from_dict(_plain_dict(d))

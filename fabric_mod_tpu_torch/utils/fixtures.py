@@ -409,3 +409,94 @@ def _plant_adversarial(items, keys, expect) -> None:
                                    signature=sw.encode_dss_signature(r, sw.N - s))
         expect[[base, base + 1, base + 3, base + 4, base + 5, base + 6,
                 base + 7]] = False
+
+
+# --- idemix: BASELINE.md config #4, an idemix MSP channel -------------------
+
+IDEMIX_MSPID = "IdemixOrg"
+
+
+@dataclasses.dataclass
+class IdemixWorld:
+    """An idemix membership: the issuer (its key carries the MSP's four
+    attributes ou, role, enrollment, rh), the verifier's MSP over the
+    issuer's public key and the Revocation Authority's public key, the
+    users, and the Revocation Authority."""
+    issuer: object
+    msp: object
+    users: List[object]
+    ra: object
+
+
+def make_idemix_world(seed: int = 0, n_users: int = 4) -> IdemixWorld:
+    """An idemix world made from `seed`: issuer key, users (user 0 an
+    admin client, then members alternating peer and client) and the RA
+    key."""
+    from fabric_mod_tpu_torch.idemix.revocation import RevocationAuthority
+    from fabric_mod_tpu_torch.msp import idemixmsp
+    rng = random.Random(seed)
+    issuer = idemixmsp.IdemixIssuer(IDEMIX_MSPID, rng=rng)
+    users = [issuer.issue_user(
+        f"user{i}@{IDEMIX_MSPID.lower()}", ou=("client", "peer")[i % 2],
+        role=idemixmsp.ROLE_ADMIN if i == 0 else idemixmsp.ROLE_MEMBER)
+        for i in range(n_users)]
+    ra = RevocationAuthority(sw.PrivateKey.from_seed(b"idemix-ra|%d" % seed))
+    msp = idemixmsp.IdemixMsp(IDEMIX_MSPID, issuer.key,
+                              revocation_pk_pem=ra.public_pem)
+    return IdemixWorld(issuer, msp, users, ra)
+
+
+def make_presentations(world: IdemixWorld, n: int, plant_every: int = 16,
+                       seed: int = 0):
+    """n presentations (sig, msg, disclosed), by the world's users in
+    turn, each disclosing OU and role — `credential.batch_verify`'s
+    items — and the verdicts it must give.  Every `plant_every`-th
+    (i % plant_every == plant_every - 1) is planted, the kinds in turn:
+    Ā tampered by + G (the pairing fails), a wrong disclosed value (the
+    Schnorr check fails), A′ = identity (filtered before the pairing)."""
+    from fabric_mod_tpu_torch.idemix import credential
+    from fabric_mod_tpu_torch.idemix.fp256bn import G1, g1_add
+    from fabric_mod_tpu_torch.msp.idemixmsp import ATTR_ROLE
+    rng = random.Random(seed)
+    items, expect = [], []
+    for i in range(n):
+        user = world.users[i % len(world.users)]
+        msg = b"idemix-tx|%d|%d" % (seed, i)
+        disclosed = user._disclosed()
+        sig = credential.sign(world.issuer.key, user._cred, user._sk, msg,
+                              disclosed, rng=rng)
+        planted = i % plant_every == plant_every - 1
+        if planted:
+            kind = (i // plant_every) % 3
+            if kind == 0:
+                sig.A_bar = g1_add(sig.A_bar, G1.generator())
+            elif kind == 1:
+                disclosed = dict(disclosed)
+                disclosed[ATTR_ROLE] += 1
+            else:
+                sig.A_prime = None
+        items.append((sig, msg, disclosed))
+        expect.append(not planted)
+    return items, expect
+
+
+def make_pairing_lanes(world: IdemixWorld, n: int, tamper_every: int = 97,
+                       seed: int = 0):
+    """Inputs of a full-width pairing check without n signatures:
+    A_i = A_0 + i·G and Ā_i = Ā_0 + i·(x·G) with Ā_0 = x·A_0 (x the
+    issuer's secret), so e(A_i, W) = e(Ā_i, g2) by construction; every
+    `tamper_every`-th lane (i % tamper_every == tamper_every - 1) gets
+    Ā + G.  Returns ([A_i], [Ā_i], expected mask)."""
+    from fabric_mod_tpu_torch.idemix.fp256bn import R, G1, g1_add, g1_mul
+    x = world.issuer.key.x
+    g = G1.generator()
+    a = g1_mul(random.Random(seed).randrange(1, R), g)
+    abar, xg = g1_mul(x, a), g1_mul(x, g)
+    a_pts, abar_pts, expect = [], [], []
+    for i in range(n):
+        bad = i % tamper_every == tamper_every - 1
+        a_pts.append(a)
+        abar_pts.append(g1_add(abar, g) if bad else abar)
+        expect.append(not bad)
+        a, abar = g1_add(a, g), g1_add(abar, xg)
+    return a_pts, abar_pts, np.array(expect)

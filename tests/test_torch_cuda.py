@@ -1,4 +1,6 @@
-"""The CUDA ladder kernels (fabric_mod_tpu_torch/csrc/p256_ladder.cu).
+"""The CUDA ladder kernels (fabric_mod_tpu_torch/csrc/p256_ladder.cu) and the
+other device paths of the port on the card (the policy evaluator, a
+block commit, the batched FP256BN pairing).
 
 Tests marked `cuda` need a card and skip without one; run them there with
 
@@ -382,3 +384,33 @@ def test_block_commits_on_card(cuda_device):
         assert committer.store_block(m.Block.decode(raw)) == want
     assert tp.counts() == {"cuda": len(blocks)}
     assert p256_cuda.counts()["ladder_projective"] > before
+
+
+@pytest.mark.cuda
+def test_pairing_check_on_card_equals_cpu(cuda_device):
+    """The batched FP256BN pairing check on the card gives the CPU plain
+    run's verdicts on 8 lanes (two of them tampered), as a CUDA tensor."""
+    from fabric_mod_tpu_torch.ops import fp256bn_dev as dev
+    from fabric_mod_tpu_torch.utils import fixtures
+    world = fixtures.make_idemix_world(seed=3, n_users=1)
+    a, abar, expect = fixtures.make_pairing_lanes(world, 8, tamper_every=4)
+    ik = world.issuer.key
+    args = (a, ik.W, [p.neg() for p in abar], ik.g2)
+    got = dev.pairing_check_batch(*args, lazy=True)
+    assert got.device.type == "cuda"
+    want = dev.pairing_check_batch(*args, device="cpu")
+    assert got.cpu().numpy().tolist() == want.tolist() == expect.tolist()
+
+
+@pytest.mark.cuda
+def test_pairing_on_card_equals_host(cuda_device):
+    """f12_to_host of a card pairing_batch equals the host pairing."""
+    from fabric_mod_tpu_torch.idemix import fp256bn as host
+    from fabric_mod_tpu_torch.ops import fp256bn_dev as dev
+    g2 = host.g2_generator()
+    q = host.g2_mul(0x5EED, g2)
+    pts = [host.g1_mul(k, host.G1.generator()) for k in (3, 0xC0FFEE)]
+    got = dev.pairing_batch(pts, q)
+    assert got.device.type == "cuda"
+    for i, p in enumerate(pts):
+        assert dev.f12_to_host(got, i) == host.pairing(p, q)

@@ -1,7 +1,8 @@
 """The port imports neither jax, nor any module of the JAX package, nor
 the `cryptography` wheel: a fresh interpreter imports every port module,
-runs the CPU verify path and commits one small block through the port's
-Committer on the CPU, then inspects sys.modules."""
+runs the CPU verify path, commits one small block through the port's
+Committer on the CPU and verifies one idemix presentation on the host
+path, then inspects sys.modules."""
 import json
 import os
 import pathlib
@@ -30,6 +31,11 @@ blocks, flags = fixtures.make_commit_blocks(world, 1, 2)
 committer = world.committer(gpu.GpuVerifier(device="cpu"), tensor_policy=True)
 assert committer.store_block(messages.Block.decode(blocks[0])) == flags[0]
 assert committer.ledger.height == 1
+from fabric_mod_tpu_torch.idemix import credential
+idemix = fixtures.make_idemix_world(seed=1, n_users=1)
+pres, want = fixtures.make_presentations(idemix, 1)
+assert credential.batch_verify(idemix.issuer.key, pres,
+                               use_device=False) == want == [True]
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")
