@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's device paths once on one CUDA card: the
-block commit (the main path) and the idemix presentation verify.
+block commit, the end-to-end network around it (the main path) and the
+idemix presentation verify.
 
     python3 chip_smoke.py
 
@@ -36,7 +37,31 @@ Phases (any failure exits non-zero; none is caught):
    both kernels' launch counts (zeroed just before) must have risen.
    Prints ms per block by stage, committed tx/s and the evaluator's
    device ms;
-7. idemix (run after 5, before the profile) — the batched FP256BN
+8. e2e (run after 5) — the system's own end-to-end loop
+   (fabric_mod_tpu_torch/e2e.py `Network`): one channel of 3 orgs from
+   utils/fixtures.make_network_material, a solo orderer cutting 1000-tx
+   blocks on count (batch timeout 10 s), one committing peer with the
+   projective-ladder GpuVerifier and the tensor-policy evaluator.  4,000
+   put txs are endorsed up front (2 of 3 orgs, MAJORITY) by
+   fixtures.make_e2e_stream, with a planted kind of each sort every 50
+   txs (one-org endorsement, a flipped endorsement, an MVCC read
+   conflict, a resubmitted envelope, a setvp pin that drains the commit
+   pipe at a barrier, and a tampered creator signature that Broadcast
+   rejects).  Timed (e2e.commit_until, as e2e.run_pipeline): the
+   deliver client starts, one thread broadcasts every envelope, and the
+   span ends when the 4,000 txs are committed.  Every block must hold
+   1000 txs with the construction's flags, the rejections must equal
+   the planted count, the state fingerprint must equal that of a fresh
+   ledger fed the ordered blocks with the expected flags, the MCS (one
+   verify per block) and the validator (one fused verify per block)
+   must each have launched the projective ladder at least once per
+   block (launches counted by the calling path), and the evaluator
+   must have received a CUDA mask on every block.  Prints committed
+   tx/s, ingress seconds, the deliver client's stage/await/commit
+   seconds, MCS ms per block, the evaluator's fallbacks, and
+   torch.profiler over one block's MCS check and stage-and-commit on a
+   fresh peer: launches, device busy, idle share;
+7. idemix (run after 8, before the profile) — the batched FP256BN
    pairing (ops/fp256bn_dev.py, plain torch ops on the card): (a) a
    pairing check at 1024 lanes, a 1000-tx idemix block's width, from
    utils/fixtures.make_pairing_lanes (every 97th lane tampered): the
@@ -57,15 +82,18 @@ Phases (any failure exits non-zero; none is caught):
    alone: its launches and device time per block.
 
 It prints one JSON line describing each kernel (`launches` counts the
-block-commit phase), and as its last line
+block-commit and e2e phases), and as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 LANES = 2048
@@ -86,6 +114,13 @@ IDEMIX_PAIRINGS = 4
 IDEMIX_PRESENTATIONS = 64
 IDEMIX_PLANT_EVERY = 16
 IDEMIX_HOST_CHECKED = 16
+
+# e2e phase: the solo orderer cuts on count, well inside this timeout;
+# a 1000-tx block of these ~2.8 KB envelopes is ~2.8 MB, over the
+# genesis default preferred_max_bytes (2 MiB), which would cut by size
+E2E_BATCH_TIMEOUT = "10s"
+E2E_PREFERRED_MAX_BYTES = 4 * 1024 * 1024
+E2E_TIMEOUT_S = 600
 
 # H100 SXM published peak (NVIDIA H100 datasheet): HBM bytes/s.
 PEAK_BYTES = 3.35e12
@@ -475,6 +510,226 @@ def phase_profile(torch, blocks, world, commit_blocks):
         f"device busy {busy_ms} ms, wall {wall_ms:.2f} ms (torch.profiler)")
 
 
+def phase_e2e(torch, dev, n_blocks=N_BLOCKS, block_txs=TX_PER_BLOCK,
+              plant_every=PLANT_EVERY):
+    """The end-to-end network (phase 8).  Returns the ladder kernels'
+    launch counts of the timed run, and (material, block 1, its expected
+    flags) for profile_e2e_block."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    from fabric_mod_tpu_torch.ops import p256_cuda
+    from fabric_mod_tpu_torch.orderer import BroadcastError
+    from fabric_mod_tpu_torch.policy import tensorpolicy
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.utils import fixtures
+    n_tx = n_blocks * block_txs
+    material = fixtures.make_network_material(
+        SEED, max_message_count=block_txs, batch_timeout=E2E_BATCH_TIMEOUT,
+        preferred_max_bytes=E2E_PREFERRED_MAX_BYTES)
+    # no verdict cache: every block's mask is the device tensor
+    verifier = gpu.GpuVerifier(device=dev, ladder="projective", cache_size=0)
+    with tempfile.TemporaryDirectory() as root:
+        net = e2e.Network(os.path.join(root, "timed"), material=material,
+                          verifier=verifier, tensor_policy=True)
+        try:
+            t0 = time.perf_counter()
+            submits, flat = fixtures.make_e2e_stream(net, n_tx, plant_every)
+            planted = sum(not ok for _env, ok in submits)
+            expected = [flat[b * block_txs:(b + 1) * block_txs]
+                        for b in range(n_blocks)]
+            log(f"e2e fixtures: {n_tx} txs endorsed by the network's "
+                f"endorsers (+{planted} tampered) in "
+                f"{time.perf_counter() - t0:.1f} s (pure-python signer)")
+
+            # which path reached the verifier: the MCS calls verify_many,
+            # the validator verify_many_fused_async.  Each call tags its
+            # thread with its path, and each ladder call adds the
+            # launches it made to its thread's path.  Each block's
+            # tensor session is kept for its fallback count.
+            calls = {"mcs": 0, "validator": 0}
+            by_path = {"mcs": 0, "validator": 0}
+            path = threading.local()
+            sessions = []
+
+            def counted(name, fn):
+                def call(items):
+                    calls[name] += 1
+                    path.name = name
+                    try:
+                        return fn(items)
+                    finally:
+                        path.name = None
+                return call
+            verifier.verify_many = counted("mcs", verifier.verify_many)
+            verifier.verify_many_fused_async = counted(
+                "validator", verifier.verify_many_fused_async)
+            ladder = p256_cuda.ladder
+
+            def tagged_ladder(*args, **kw):
+                # the verifier's enqueue lock keeps ladder calls apart
+                before = sum(p256_cuda.counts().values())
+                out = ladder(*args, **kw)
+                key = getattr(path, "name", None) or "untagged"
+                by_path[key] = by_path.get(key, 0) \
+                    + sum(p256_cuda.counts().values()) - before
+                return out
+            commit_staged = net.channel.commit_staged
+
+            def keep_session(staged):
+                sessions.append(staged.session)
+                return commit_staged(staged)
+            net.channel.commit_staged = keep_session
+
+            rejected = 0
+
+            def feed():
+                nonlocal rejected, ingress_s
+                for env, ok in submits:
+                    try:
+                        net.broadcast.submit(env)
+                    except BroadcastError:
+                        if ok:
+                            raise
+                        rejected += 1
+                        continue
+                    if not ok:
+                        raise AssertionError("Broadcast accepted a tampered "
+                                             "creator signature")
+                ingress_s = time.perf_counter() - t0
+            ingress_s = 0.0
+            p256_cuda.ladder = tagged_ladder
+            try:
+                p256_cuda.reset_counts()
+                tensorpolicy.reset_counts()
+                t0 = time.perf_counter()
+                client, _committed, span_s = e2e.commit_until(
+                    net, n_tx, E2E_TIMEOUT_S, feed=feed,
+                    idle_timeout_s=E2E_TIMEOUT_S)
+            finally:
+                p256_cuda.ladder = ladder
+            counts = p256_cuda.counts()
+            passes = tensorpolicy.counts()
+
+            # every block full, every flag the construction's
+            if net.ledger.height != 1 + n_blocks:
+                sizes = [len(net.ledger.get_block_by_number(b).data.data)
+                         for b in range(1, net.ledger.height)]
+                raise AssertionError(f"ledger height {net.ledger.height}, "
+                                     f"expected {1 + n_blocks}; txs per "
+                                     f"block {sizes}")
+            if rejected != planted:
+                raise AssertionError(f"{rejected} envelopes rejected at "
+                                     f"ingress, {planted} planted")
+            oracle = KvLedger(net.channel_id)
+            genesis = m.Block.decode(material.genesis)
+            oracle.commit_block(genesis, [m.TxValidationCode.VALID]
+                                * len(genesis.data.data))
+            for b in range(n_blocks):
+                block = net.ledger.get_block_by_number(b + 1)
+                if len(block.data.data) != block_txs:
+                    raise AssertionError(f"block {b + 1} holds "
+                                         f"{len(block.data.data)} txs")
+                flags = list(protoutil.block_txflags(block))
+                if flags != expected[b]:
+                    bad = [i for i, (g, w) in enumerate(zip(flags, expected[b]))
+                           if g != w][:8]
+                    raise AssertionError(f"block {b + 1}: txflags differ "
+                                         f"from the construction at {bad}")
+                ordered = net.support.store.get_block_by_number(b + 1)
+                if oracle.commit_block(ordered, expected[b]) != expected[b]:
+                    raise AssertionError(f"oracle ledger changed block "
+                                         f"{b + 1}'s flags")
+            fp = net.ledger.state_fingerprint()
+            oracle_fp = oracle.state_fingerprint()
+            oracle.close()
+            if fp != oracle_fp:
+                raise AssertionError("state fingerprint differs from the "
+                                     "construction oracle's")
+
+            # the card: both device paths, a device mask on every block
+            proj, mixed = (p256_cuda.KERNELS[False], p256_cuda.KERNELS[True])
+            if calls != {"mcs": n_blocks, "validator": n_blocks}:
+                raise AssertionError(f"verifier calls {calls}, expected one "
+                                     f"MCS and one validator call per block")
+            if sum(by_path.values()) != counts[proj] or counts[mixed] != 0 \
+                    or by_path["mcs"] < n_blocks \
+                    or by_path["validator"] < n_blocks:
+                raise AssertionError(f"ladder launches {counts}, by path "
+                                     f"{by_path}: expected at least one per "
+                                     f"block from the MCS and from the "
+                                     f"validator")
+            if passes != {dev.type: n_blocks}:
+                raise AssertionError(f"policy evaluator passes {passes}, "
+                                     f"expected {n_blocks} on {dev.type}")
+            if len(sessions) != n_blocks or not all(sessions):
+                raise AssertionError("a block was committed without a "
+                                     "tensor-policy session")
+            fallbacks = sum(s.fallbacks for s in sessions)
+            n_valid = sum(f == m.TxValidationCode.VALID for f in flat)
+            log(f"e2e: {n_blocks} blocks x {block_txs} txs ordered, "
+                f"MCS-verified and committed; txflags == construction "
+                f"({n_valid} VALID); {rejected} ingress rejections == "
+                f"planted; fingerprint == oracle ({fp[:16]}); "
+                f"{n_tx / span_s:.1f} committed tx/s over the "
+                f"ordering-and-commit span of {span_s:.2f} s; ingress "
+                f"{ingress_s:.2f} s ({len(submits)} submits, "
+                f"{ingress_s / len(submits) * 1e3:.2f} ms each); deliver "
+                f"client stage {client.stage_secs:.2f} s, await "
+                f"{client.await_secs:.2f} s, commit {client.commit_secs:.2f} "
+                f"s; MCS {client.mcs_secs / n_blocks * 1e3:.1f} ms per "
+                f"block; verifier calls {calls}; ladder launches {counts} "
+                f"(by path {by_path}); "
+                f"evaluator passes {passes}, fallbacks {fallbacks}")
+            first = net.support.store.get_block_by_number(1)
+        finally:
+            net.close()
+    return counts, (material, first, expected[0])
+
+
+def profile_e2e_block(torch, material, block, expected):
+    """torch.profiler over one ordered block on a fresh peer of the same
+    network: its MCS check, then its stage and commit (one thread)."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.ops import p256_cuda
+    from fabric_mod_tpu_torch.protos import protoutil
+    with tempfile.TemporaryDirectory() as root:
+        net = e2e.Network(root, material=material,
+                          verifier=gpu.GpuVerifier(cache_size=0),
+                          tensor_policy=True)
+        try:
+            ch = net.channel
+            prev = protoutil.block_header_hash(
+                net.ledger.get_block_by_number(0).header)
+
+            def mcs():
+                ch.mcs.verify_block(ch.channel_id, block,
+                                    expected_prev_hash=prev)
+            mcs()                                          # warm
+            got = {}
+
+            def stage_and_commit():
+                staged = ch.stage_block(block)
+                staged.resolve_mask()
+                got["flags"] = ch.commit_staged(staged)
+            for label, fn in (("MCS check", mcs),
+                              ("stage and commit", stage_and_commit)):
+                before = p256_cuda.counts()
+                wall_ms, n_k, busy_ms, top = device_profile(torch, fn)
+                ladders = {k: v - before[k]
+                           for k, v in p256_cuda.counts().items()}
+                log_profile(f"e2e block {block.header.number} {label} "
+                            f"({len(block.data.data)} txs; ladder launches "
+                            f"{ladders})", wall_ms, n_k, busy_ms, top)
+            if got["flags"] != expected:
+                raise AssertionError("the profiled block's flags differ "
+                                     "from the construction")
+        finally:
+            net.close()
+
+
 def phase_idemix(torch, np):
     """The idemix presentation verify on the card (phase 7)."""
     from fabric_mod_tpu_torch.idemix import credential
@@ -707,8 +962,14 @@ def main() -> int:
     log(f"fixtures: {N_BLOCKS} encoded blocks of {TX_PER_BLOCK} txs signed "
         f"in {time.perf_counter() - t0:.1f} s (pure-python signer)")
     counts = phase_block_commit(torch, np, world, commit_blocks, expected)
+
+    # 8. the end-to-end network: ordered, MCS-verified and committed
+    t0 = time.perf_counter()
+    e2e_counts, e2e_block = phase_e2e(torch, dev)
+    profile_e2e_block(torch, *e2e_block)
+    log(f"e2e phase: {time.perf_counter() - t0:.1f} s wall")
     for k in kernels.values():
-        k["launches"] = counts[k["name"]]
+        k["launches"] = counts[k["name"]] + e2e_counts[k["name"]]
 
     # 7. the idemix presentation verify
     phase_idemix(torch, np)

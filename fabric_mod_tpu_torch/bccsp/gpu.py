@@ -171,6 +171,11 @@ class GpuVerifier:
             _device.require_exact_fp32()
         self.ladder = ladder
         self.buckets = tuple(buckets)
+        # one enqueue at a time: the peer's MCS and its commit pipe's
+        # stage call from two threads, and two threads that each enqueue
+        # thousands of small torch ops trade the GIL at every op (on the
+        # CPU path, ~4x the time of the two calls one after the other)
+        self._enqueue = threading.Lock()
         if cache is not None:
             self._cache = cache
         else:
@@ -229,7 +234,8 @@ class GpuVerifier:
         if not miss_lanes:
             out = vals[lanes]
             return lambda: out
-        verdicts = self._dispatch([uniq_items[j] for j in miss_lanes])
+        with self._enqueue:
+            verdicts = self._dispatch([uniq_items[j] for j in miss_lanes])
 
         if keep_device and len(miss_lanes) == len(uniq_keys):
             # every lane missed: the device tensor goes through as is,

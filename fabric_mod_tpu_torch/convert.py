@@ -93,6 +93,39 @@ def world_from_reference(ca_cert_pems: Mapping[str, bytes],
 
 
 
+def network_material_from_reference(net):
+    """The reference e2e `Network`'s crypto material and genesis block
+    as the port's e2e.NetworkMaterial, every piece as bytes: each org's
+    and the orderer's CA certificate PEM, the client, peer, admin and
+    orderer signers' (mspid, certificate PEM, PKCS#8 key PEM), and the
+    encoded genesis block.  The port's Network built from it has the
+    reference's channel config, members and keys.
+
+    Reads the Network's attributes and calls only their public methods
+    (`cert_pem`, `serialize`, `encode`) and the private key's
+    `private_numbers()`; no module of the reference is imported."""
+    from fabric_mod_tpu_torch.bccsp import sw
+    from fabric_mod_tpu_torch.e2e import NetworkMaterial
+    from fabric_mod_tpu_torch.msp import ca as calib
+    from fabric_mod_tpu_torch.protos import messages as m
+
+    def signer(ident):
+        sid = m.SerializedIdentity.decode(ident.serialize())
+        # the reference's SigningIdentity keeps its bccsp key in
+        # `_priv`, and that key the curve library's private key
+        d = ident._priv._priv.private_numbers().private_value
+        return (sid.mspid, bytes(sid.id_bytes),
+                calib.key_pem(sw.PrivateKey(d)))
+    return NetworkMaterial(
+        ca_pems={org: bytes(ca.cert_pem()) for org, ca in net.cas.items()},
+        orderer_ca_pem=bytes(net.orderer_ca.cert_pem()),
+        client=signer(net.client),
+        peers={org: signer(s) for org, s in net.peer_signers.items()},
+        admins={org: signer(s) for org, s in net.admins.items()},
+        orderer=signer(net.orderer_signer),
+        genesis=net.genesis_block.encode())
+
+
 # --- idemix: issuer keys, credentials, presentations and CRIs as data ----
 
 def _plain_dict(d) -> dict:

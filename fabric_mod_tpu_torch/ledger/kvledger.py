@@ -1,11 +1,17 @@
-"""A lean in-memory ledger: blocks + versioned state, MVCC commit and
+"""The kv ledger: blocks + versioned state, simulation, MVCC commit and
 the state fingerprint.
 
-The port of fabric_mod_tpu/ledger/kvledger.py's commit path
-(`commit_block`, :369-474; reference: core/ledger/kvledger/
-kv_ledger.go:457 CommitLegacy) without the private-data, history,
-config-history, durable-store and snapshot branches: MVCC validate ->
-append the block (flags in its metadata) -> apply the state batch.
+The port of fabric_mod_tpu/ledger/kvledger.py (reference:
+core/ledger/kvledger/kv_ledger.go:457 CommitLegacy; the tx simulator of
+txmgmt/txmgr/lockbased_txmgr.go and query_executor.go; ledgermgmt's
+ledger manager): `QueryExecutor` and `TxSimulator` (:61, :100),
+`KvLedger.commit_block` (:369) — MVCC validate -> append the block
+(flags in its metadata) -> apply the state batch — and `LedgerManager`
+(:841).  Blocks live in a file-backed `BlockStore` (ledger/blkstorage.py),
+in a temporary directory when the ledger is given none.  State is in
+memory: on open, the block store's blocks are replayed into it from
+their stored txflags.  Left out: the durable state DB, history, private data,
+config history and snapshots.
 
 `state_fingerprint` uses the reference's exact row, metadata and height
 encoding (`_fp_row`, `_fp_meta`, `_fp_scan_acc`, `state_fingerprint`,
@@ -17,11 +23,15 @@ cached accumulator; the digest is the same).
 from __future__ import annotations
 
 import hashlib
+import os
+import tempfile
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from fabric_mod_tpu_torch.ledger.blkstorage import BlockStore
 from fabric_mod_tpu_torch.ledger.mvcc import validate_and_prepare_batch
-from fabric_mod_tpu_torch.ledger.statedb import VersionedDB
+from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder, parse_tx_rwset
+from fabric_mod_tpu_torch.ledger.statedb import UpdateBatch, VersionedDB
 from fabric_mod_tpu_torch.protos import messages as m
 from fabric_mod_tpu_torch.protos import protoutil
 
@@ -30,6 +40,77 @@ Version = Tuple[int, int]
 
 class LedgerError(Exception):
     pass
+
+
+class QueryExecutor:
+    """Read-only state access (reference: query_executor.go)."""
+
+    def __init__(self, db: VersionedDB):
+        self._db = db
+
+    def get_state(self, ns: str, key: str) -> Optional[bytes]:
+        got = self._db.get_state(ns, key)
+        return got[0] if got else None
+
+    def get_state_range(self, ns: str, start: str, end: str):
+        for key, value, _ in self._db.get_state_range(ns, start, end):
+            yield key, value
+
+
+class TxSimulator(QueryExecutor):
+    """Records reads and writes into an RWSetBuilder (reference:
+    lockbased_txmgr.go NewTxSimulator + rwset_builder).  Private data
+    and rich queries are not ported."""
+
+    def __init__(self, db: VersionedDB, txid: str):
+        super().__init__(db)
+        self.txid = txid
+        self._rw = RWSetBuilder()
+        self._writes: Dict[Tuple[str, str], Optional[bytes]] = {}
+
+    def get_state(self, ns: str, key: str) -> Optional[bytes]:
+        if (ns, key) in self._writes:       # read-your-writes
+            return self._writes[(ns, key)]
+        got = self._db.get_state(ns, key)
+        self._rw.add_read(ns, key, got[1] if got else None)
+        return got[0] if got else None
+
+    def get_state_range(self, ns: str, start: str, end: str):
+        """Range over committed state merged with this simulation's own
+        writes.  The phantom fingerprint records committed results
+        only: at validation the re-executed range sees earlier txs'
+        writes but never this tx's own."""
+        results = []
+        merged = {}
+        for key, value, ver in self._db.get_state_range(ns, start, end):
+            results.append((key, ver))
+            merged[key] = value
+        self._rw.add_range_query(ns, start, end, True, results)
+        for (wns, key), value in self._writes.items():
+            if wns != ns or not (start <= key and (not end or key < end)):
+                continue
+            if value is None:
+                merged.pop(key, None)
+            else:
+                merged[key] = value
+        return iter(sorted(merged.items()))
+
+    def set_state(self, ns: str, key: str, value: bytes) -> None:
+        self._writes[(ns, key)] = value
+        self._rw.add_write(ns, key, value)
+
+    def delete_state(self, ns: str, key: str) -> None:
+        self._writes[(ns, key)] = None
+        self._rw.add_write(ns, key, None)
+
+    def set_state_metadata(self, ns: str, key: str, name: str,
+                           value: bytes) -> None:
+        """Key metadata write, e.g. the VALIDATION_PARAMETER endorsement
+        override that key-level validation reads."""
+        self._rw.add_metadata_write(ns, key, name, value)
+
+    def done(self) -> m.TxReadWriteSet:
+        return self._rw.build()
 
 
 def tx_rwset_from_envelope(env: m.Envelope) -> Optional[m.TxReadWriteSet]:
@@ -69,23 +150,60 @@ def _fp_meta(ns: str, key: str, entries: Dict[str, bytes]) -> int:
 
 
 class KvLedger:
-    """One channel's ledger, in memory."""
+    """One channel's ledger (reference: kv_ledger.go kvLedger).
 
-    def __init__(self, ledger_id: str = "ch"):
+    The blocks go to a BlockStore under `<ledger_dir>/chains`, and
+    reopening the directory replays them into the state.  `ledger_dir`
+    None gives the ledger a temporary directory of its own, removed on
+    `close()`."""
+
+    def __init__(self, ledger_id: str = "ch",
+                 ledger_dir: Optional[str] = None):
         self.ledger_id = ledger_id
+        self._tmp = None
+        if ledger_dir is None:
+            self._tmp = tempfile.TemporaryDirectory(prefix="kvledger-")
+            ledger_dir = self._tmp.name
+        self.dir = ledger_dir
         self.state = VersionedDB()
-        self._blocks: List[m.Block] = []
-        self._txids: set = set()
-        self._last_hash = b""
         self._lock = threading.Lock()
+        os.makedirs(ledger_dir, exist_ok=True)
+        self.blockstore = BlockStore(os.path.join(ledger_dir, "chains"))
+        for block in self.blockstore.iter_blocks():
+            self._replay(block)
 
-    @property
-    def height(self) -> int:
-        return len(self._blocks)
+    def _replay(self, block: m.Block) -> None:
+        """Re-derive a committed block's state updates from its stored
+        txflags (no re-validation; reference: kv_ledger.go recovery)."""
+        flags = protoutil.block_txflags(block)
+        num = block.header.number
+        batch = UpdateBatch()
+        for tx_num, env in enumerate(protoutil.get_envelopes(block)):
+            if flags[tx_num] != m.TxValidationCode.VALID:
+                continue
+            rwset = tx_rwset_from_envelope(env)
+            if rwset is None:
+                continue
+            for ns, kv in parse_tx_rwset(rwset):
+                for w in kv.writes:
+                    if w.is_delete:
+                        batch.delete(ns, w.key, (num, tx_num))
+                    else:
+                        batch.put(ns, w.key, w.value, (num, tx_num))
+                for mw in kv.metadata_writes:
+                    batch.put_metadata(ns, mw.key,
+                                       {e.name: e.value for e in mw.entries},
+                                       (num, tx_num))
+        self.state.apply_updates(batch, num)
 
-    def tx_id_exists(self, txid: str) -> bool:
-        return txid in self._txids
+    # -- simulation ------------------------------------------------------
+    def new_tx_simulator(self, txid: str) -> TxSimulator:
+        return TxSimulator(self.state, txid)
 
+    def new_query_executor(self) -> QueryExecutor:
+        return QueryExecutor(self.state)
+
+    # -- commit ----------------------------------------------------------
     def commit_block(self, block: m.Block,
                      incoming_flags: Optional[List[int]] = None) -> List[int]:
         """MVCC-validate + commit a block whose signature/policy
@@ -96,8 +214,6 @@ class KvLedger:
             if num != self.height:
                 raise LedgerError(
                     f"commit out of order: {num} at height {self.height}")
-            if num > 0 and block.header.previous_hash != self._last_hash:
-                raise LedgerError(f"block {num} previous_hash mismatch")
             envs = protoutil.get_envelopes(block)
             if incoming_flags is None:
                 # fail closed: absent metadata flags decode to
@@ -108,15 +224,12 @@ class KvLedger:
                     f"flags length {len(incoming_flags)} != "
                     f"{len(envs)} txs")
             txs = []
-            txids = []
             for env, flag in zip(envs, incoming_flags):
                 try:
                     ch = protoutil.envelope_channel_header(env)
                 except Exception:
                     txs.append(("", None, m.TxValidationCode.BAD_PAYLOAD))
-                    txids.append("")
                     continue
-                txids.append(ch.tx_id)
                 if ch.type != m.HeaderType.ENDORSER_TRANSACTION:
                     # config/control txs commit with no state effects
                     txs.append((ch.tx_id, m.TxReadWriteSet(), flag))
@@ -125,11 +238,31 @@ class KvLedger:
             flags, batch, _tx_writes = validate_and_prepare_batch(
                 txs, self.state, num)
             protoutil.set_block_txflags(block, bytes(flags))
-            self._blocks.append(block)
-            self._txids.update(t for t in txids if t)
-            self._last_hash = protoutil.block_header_hash(block.header)
+            self.blockstore.add_block(block)
             self.state.apply_updates(batch, num)
         return flags
+
+    # -- queries ---------------------------------------------------------
+    @property
+    def height(self) -> int:
+        return self.blockstore.height
+
+    def get_block_by_number(self, num: int) -> Optional[m.Block]:
+        return self.blockstore.get_block_by_number(num)
+
+    def get_transaction_by_id(self, txid: str
+                              ) -> Optional[m.ProcessedTransaction]:
+        loc = self.blockstore.get_tx_loc(txid)
+        if loc is None:
+            return None
+        block = self.blockstore.get_block_by_number(loc[0])
+        flags = protoutil.block_txflags(block)
+        return m.ProcessedTransaction(
+            transaction_envelope=protoutil.get_envelopes(block)[loc[1]],
+            validation_code=flags[loc[1]])
+
+    def tx_id_exists(self, txid: str) -> bool:
+        return self.blockstore.get_tx_loc(txid) is not None
 
     def state_fingerprint(self) -> str:
         """Digest of the entire committed state — every (ns, key,
@@ -145,3 +278,34 @@ class KvLedger:
             h = hashlib.sha256(self.height.to_bytes(8, "big"))
             h.update(acc.to_bytes(32, "big"))
             return h.hexdigest()
+
+    def close(self) -> None:
+        with self._lock:
+            self.blockstore.close()
+            if self._tmp is not None:
+                self._tmp.cleanup()
+
+
+class LedgerManager:
+    """Open/create ledgers by id under one directory (reference:
+    ledgermgmt/ledger_mgmt.go)."""
+
+    def __init__(self, root_dir: str):
+        self.root = root_dir
+        os.makedirs(root_dir, exist_ok=True)
+        self._ledgers: Dict[str, KvLedger] = {}
+
+    def create_or_open(self, ledger_id: str) -> KvLedger:
+        if ledger_id not in self._ledgers:
+            self._ledgers[ledger_id] = KvLedger(
+                ledger_id, os.path.join(self.root, ledger_id))
+        return self._ledgers[ledger_id]
+
+    def ledger_ids(self) -> List[str]:
+        existing = set(self._ledgers)
+        existing.update(os.listdir(self.root))
+        return sorted(existing)
+
+    def close(self) -> None:
+        for led in self._ledgers.values():
+            led.close()

@@ -1,0 +1,273 @@
+"""Pipelined block-commit engine: overlap stage(N+1) with finish+commit(N).
+
+The port's copy of fabric_mod_tpu/peer/commitpipe.py
+`PipelinedCommitter` (:138) and `ValidatorCommitTarget` (:117)
+(reference: the serial StoreBlock composition of
+gossip/state/state.go:817 — validate -> MVCC -> commit — pipelined the
+way FastFabric and StreamChain pipeline Fabric's commit path).
+
+The validator splits a block into `stage` (host unpack, policy staging
+and the verify DISPATCH, no wait) and `finish` (await the verdicts,
+resolve the flags in order) — peer/txvalidator.py.  This module runs
+that seam as a bounded pipeline over an in-order block stream:
+
+  caller       submit(block)   -> bounded in-queue (backpressure)
+  stage loop   stage(N+1): host unpack + device dispatch, CONCURRENT
+               with ...
+  commit loop  finish(N): await verdicts, resolve flags; then
+               ledger.commit_block(N): MVCC + block store + state
+
+`depth` bounds how many blocks may be staged but not yet committed;
+depth 1 gives the synchronous Committer's results bit for bit.  A
+staged block that sets `StagedBlock.needs_barrier` (config txs,
+VALIDATION_PARAMETER writes, lifecycle writes: state that staging
+reads) makes the stage loop wait for that block's commit before it
+stages the next one.
+
+On a card, stage enqueues the verify on the thread of the stage loop
+and the commit loop consumes its device mask: every launch of both is
+on the device's default stream, which orders them.
+
+A failure is sticky: the first error is kept, later submits and waits
+raise it, and both loops drain; the owner discards such a pipe and
+builds a new one from the committed height (peer/channel.py).  The
+reference's metrics, health registration, tracing spans and fault
+points are not ported; the cumulative `stage_secs`, `await_secs` and
+`commit_secs` are.
+"""
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from typing import Callable, List, Optional
+
+from fabric_mod_tpu_torch.ledger.kvledger import LedgerError
+from fabric_mod_tpu_torch.protos import protoutil
+
+log = logging.getLogger(__name__)
+
+
+class ValidatorCommitTarget:
+    """The minimal channel-shaped commit target: one TxValidator bound
+    to one ledger (peer.Channel provides the same three names)."""
+
+    def __init__(self, validator, ledger):
+        self.validator = validator
+        self.ledger = ledger
+
+    def stage_block(self, block):
+        return self.validator.stage(block)
+
+    def commit_staged(self, staged) -> List[int]:
+        flags = staged.validator.finish(staged)
+        return self.ledger.commit_block(staged.block, flags)
+
+
+class PipelinedCommitter:
+    """Bounded commit pipeline over an in-order block stream.
+
+    `submit(block)` enqueues for staging; blocks commit strictly in
+    submission order on the commit loop.  `store_block` is the
+    synchronous facade: submit, then wait for that block's commit and
+    return its flags.  The two worker threads start on the first
+    submit; `close()` drains and joins them."""
+
+    def __init__(self, channel, depth: int = 2, in_queue: int = 8,
+                 on_error: Optional[Callable] = None):
+        """`channel`: stage_block/commit_staged/.ledger (peer.Channel
+        or ValidatorCommitTarget).  `depth`: max staged-but-uncommitted
+        blocks (floor 1).  `on_error(exc)` fires once on the first
+        failure."""
+        self._channel = channel
+        self.depth = max(1, depth)
+        self._in_q: "queue.Queue" = queue.Queue(max(1, in_queue))
+        self._staged_q: "queue.Queue" = queue.Queue()
+        self._on_error = on_error
+        # one condition guards the pipeline state: the inflight count
+        # (the depth bound), the committed height (barrier and flush
+        # waits) and the sticky first error
+        self._cv = threading.Condition()
+        self._inflight = 0
+        self._height = channel.ledger.height
+        self._barrier_height: Optional[int] = None
+        self._last_submitted: Optional[int] = None
+        self._err: Optional[Exception] = None
+        self._closed = False
+        self._started = False
+        # serializes producers through the in-queue put, so two
+        # overlapping submitters cannot enqueue out of order
+        self._submit_lock = threading.Lock()
+        self._threads: List[threading.Thread] = []
+        # cumulative wall seconds per stage: the stage loop writes
+        # stage_secs, the commit loop await_secs and commit_secs
+        self.stage_secs = 0.0
+        self.await_secs = 0.0
+        self.commit_secs = 0.0
+
+    @property
+    def error(self) -> Optional[Exception]:
+        return self._err
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def _ensure_started(self) -> None:
+        if self._started:
+            return
+        self._started = True
+        for name, fn in (("commitpipe-stage", self._stage_loop),
+                         ("commitpipe-commit", self._commit_loop)):
+            t = threading.Thread(target=fn, name=name, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def _fail(self, e: Exception) -> None:
+        with self._cv:
+            if self._err is None:
+                self._err = e
+            self._cv.notify_all()
+        if self._on_error is not None:
+            try:
+                self._on_error(e)
+            except Exception:
+                log.exception("on_error callback raised")
+
+    # -- producer side ---------------------------------------------------
+    def submit(self, block) -> None:
+        """Enqueue one block.  Blocks only on the bounded in-queue.  A
+        block out of number order is rejected here, to its own caller,
+        with the ledger's error type, before it can poison the pipe."""
+        with self._submit_lock:
+            with self._cv:
+                if self._err is not None:
+                    raise self._err
+                if self._closed:
+                    raise RuntimeError("commit pipeline is closed")
+                num = block.header.number
+                # the chain may have advanced past this pipe's
+                # construction height (another committer before it)
+                base = max(self._height, self._channel.ledger.height)
+                expected = (base if self._last_submitted is None
+                            else max(base, self._last_submitted + 1))
+                if num != expected:
+                    raise LedgerError(
+                        f"submit out of order: block {num}, pipeline "
+                        f"expects {expected}")
+                self._last_submitted = num
+            self._ensure_started()
+            self._in_q.put(block)
+
+    def store_block(self, block) -> List[int]:
+        """Submit and wait for THIS block's commit; its final flags."""
+        num = block.header.number
+        self.submit(block)
+        self.wait_height(num + 1)
+        return list(protoutil.block_txflags(block))
+
+    def wait_height(self, height: int,
+                    timeout_s: Optional[float] = None) -> bool:
+        """Wait until `height` blocks are committed (False on timeout);
+        re-raises the pipeline's error if it failed first."""
+        deadline = None if timeout_s is None else \
+            time.monotonic() + timeout_s
+        with self._cv:
+            while self._height < height and self._err is None:
+                left = None if deadline is None else \
+                    deadline - time.monotonic()
+                if left is not None and left <= 0:
+                    return False
+                self._cv.wait(timeout=left if left is not None else 0.5)
+            if self._height >= height:
+                # the waiter's own block is committed, even if a later
+                # block's failure set the sticky error meanwhile
+                return True
+            raise self._err
+
+    def flush(self, timeout_s: Optional[float] = None) -> bool:
+        """Wait until every submitted block is committed."""
+        with self._cv:
+            last = self._last_submitted
+        if last is None:
+            if self._err is not None:
+                raise self._err
+            return True
+        return self.wait_height(last + 1, timeout_s)
+
+    def close(self, timeout_s: Optional[float] = None) -> None:
+        """Drain submitted work and join the workers (None: until
+        drained — close never returns with commits in flight).  A
+        pending error stays readable on `.error`."""
+        with self._submit_lock:
+            with self._cv:
+                if self._closed:
+                    return
+                self._closed = True
+            started = self._started
+        if not started:
+            return
+        self._in_q.put(None)
+        me = threading.current_thread()
+        for t in self._threads:
+            # an on_error callback may close from a worker
+            if t is not me:
+                t.join(timeout_s)
+
+    # -- stage loop: host unpack + device dispatch -----------------------
+    def _stage_loop(self) -> None:
+        try:
+            while True:
+                block = self._in_q.get()
+                if block is None:
+                    return
+                with self._cv:
+                    # stage only when a slot is free AND no barrier
+                    # block is still committing
+                    while self._err is None and (
+                            self._inflight >= self.depth
+                            or (self._barrier_height is not None
+                                and self._height < self._barrier_height)):
+                        self._cv.wait(timeout=0.5)
+                    if self._err is not None:
+                        continue           # drain mode
+                    self._inflight += 1
+                t0 = time.perf_counter()
+                staged = self._channel.stage_block(block)
+                self.stage_secs += time.perf_counter() - t0
+                if staged.needs_barrier:
+                    with self._cv:
+                        self._barrier_height = block.header.number + 1
+                self._staged_q.put(staged)
+        except Exception as e:
+            self._fail(e)
+            # keep draining so a bounded-queue producer never deadlocks
+            while self._in_q.get() is not None:
+                pass
+        finally:
+            self._staged_q.put(None)
+
+    # -- commit loop: await verdicts, resolve, MVCC + commit -------------
+    def _commit_loop(self) -> None:
+        while True:
+            staged = self._staged_q.get()
+            if staged is None:
+                return
+            try:
+                t0 = time.perf_counter()
+                staged.resolve_mask()      # the device-verdict wait
+                t1 = time.perf_counter()
+                self._channel.commit_staged(staged)
+                t2 = time.perf_counter()
+            except Exception as e:
+                self._fail(e)
+                while self._staged_q.get() is not None:
+                    pass
+                return
+            self.await_secs += t1 - t0
+            self.commit_secs += t2 - t1
+            with self._cv:
+                self._inflight -= 1
+                self._height = staged.block.header.number + 1
+                self._cv.notify_all()

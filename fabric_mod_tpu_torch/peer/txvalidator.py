@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from fabric_mod_tpu_torch.ledger.rwsetutil import parse_tx_rwset
+from fabric_mod_tpu_torch.peer.lifecycle import LIFECYCLE_NS
 from fabric_mod_tpu_torch.peer.plugins import PluginRegistry
 from fabric_mod_tpu_torch.policy import BatchCollector
 from fabric_mod_tpu_torch.policy import tensorpolicy
@@ -45,8 +46,6 @@ from fabric_mod_tpu_torch.protos.protoutil import SignedData
 V = m.TxValidationCode
 
 VALIDATION_PARAMETER = "VALIDATION_PARAMETER"
-# the lifecycle chaincode's namespace: its writes change validation info
-LIFECYCLE_NS = "_lifecycle"
 
 
 class ValidationInfoProvider:

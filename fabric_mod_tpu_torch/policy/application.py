@@ -3,16 +3,17 @@
 The port's copy of fabric_mod_tpu/policy/application.py (reference:
 core/policy/application.go:115-161 `ApplicationPolicyEvaluator.Evaluate`).
 An ApplicationPolicy is an inline SignaturePolicyEnvelope or a named
-reference into the channel's policy tree; the port has no channel
-policy tree yet, so a reference fails with PolicyError — the same
-outcome as the reference evaluator built without one.
+reference into the channel's policy tree (`PolicyManager`, from the
+channel's config bundle); without a manager a reference fails with
+PolicyError.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 from fabric_mod_tpu_torch.policy.cauthdsl import BatchCollector, PolicyError
-from fabric_mod_tpu_torch.policy.manager import compile_policy_bytes
+from fabric_mod_tpu_torch.policy.manager import (PolicyManager,
+                                                 compile_policy_bytes)
 from fabric_mod_tpu_torch.protos import messages as m
 from fabric_mod_tpu_torch.protos.protoutil import SignedData
 
@@ -23,16 +24,22 @@ class ApplicationPolicyEvaluator:
     # prepare(policy, sds, collector) contract untouched
     supports_tensor_session = True
 
-    def __init__(self, msp_mgr, sequence: int = 0):
+    def __init__(self, msp_mgr,
+                 channel_policy_manager: Optional[PolicyManager] = None,
+                 sequence: int = 0):
         """`sequence` is the owning bundle's config sequence: it keys
         the shared compiled-policy memo (policy/manager.py)."""
         self._msp_mgr = msp_mgr
+        self._channel_mgr = channel_policy_manager
         self._sequence = sequence
         self._compiled_cache: dict = {}
 
     def _resolve(self, policy_bytes: bytes):
-        """ApplicationPolicy bytes -> two-phase policy object, compile-
-        cached by its (immutable) bytes."""
+        """ApplicationPolicy bytes -> two-phase policy object.  Inline
+        signature policies are compile-cached by their (immutable)
+        bytes; channel references are re-resolved on every call, as
+        the reference does, so a config update that replaces the named
+        policy takes effect at once."""
         cached = self._compiled_cache.get(policy_bytes)
         if cached is not None:
             return cached
@@ -43,7 +50,15 @@ class ApplicationPolicyEvaluator:
             self._compiled_cache[policy_bytes] = pol
             return pol
         if ap.channel_config_policy_reference:
-            raise PolicyError("no channel policy manager configured")
+            if self._channel_mgr is None:
+                raise PolicyError("no channel policy manager configured")
+            pol = self._channel_mgr.get_policy(
+                ap.channel_config_policy_reference)
+            if pol is None:
+                raise PolicyError(
+                    f"channel policy "
+                    f"{ap.channel_config_policy_reference!r} not found")
+            return pol
         raise PolicyError("empty ApplicationPolicy")
 
     def prepare(self, policy_bytes: bytes,

@@ -371,6 +371,128 @@ def make_commit_blocks(world: CommitWorld, n_blocks: int, n_tx: int,
     return blocks, expected
 
 
+NETWORK_ORGS = ("Org1", "Org2", "Org3")
+
+
+def make_network_material(seed: int = 0, channel_id: str = "testchannel",
+                          **batch_config):
+    """An e2e.NetworkMaterial made from `seed`: a CA per org of
+    NETWORK_ORGS and one for the orderer org, a peer and an admin per
+    org, a client of the first org, the orderer's signer, and the
+    standard genesis block (the
+    configtxgen step of the reference's e2e Network) with the orderer
+    group's `batch_config` (genesis.orderer_group's max_message_count,
+    batch_timeout, preferred_max_bytes, ...).  Certificates and keys
+    are the same for the same seed; the genesis envelope carries a
+    fresh nonce."""
+    from fabric_mod_tpu_torch.channelconfig import genesis
+    from fabric_mod_tpu_torch.e2e import NetworkMaterial
+    from fabric_mod_tpu_torch.msp import ca as calib
+    tag = b"network|%d" % seed
+
+    def signer(ca, cn, org, ou):
+        cert, key = ca.issue(cn, org, ous=[ou])
+        return (org, cert.pem(), calib.key_pem(key))
+    cas = {org: calib.CA(f"ca.{org.lower()}", org, seed=tag, now=CERT_EPOCH)
+           for org in NETWORK_ORGS}
+    orderer_ca = calib.CA("ca.orderer", "OrdererOrg", seed=tag,
+                          now=CERT_EPOCH)
+    first = NETWORK_ORGS[0]
+    block = genesis.standard_network(
+        channel_id, {org: [ca.cert_pem()] for org, ca in cas.items()},
+        {"OrdererOrg": [orderer_ca.cert_pem()]}, **batch_config)
+    return NetworkMaterial(
+        ca_pems={org: ca.cert_pem() for org, ca in cas.items()},
+        orderer_ca_pem=orderer_ca.cert_pem(),
+        client=signer(cas[first], f"client@{first.lower()}", first,
+                      "client"),
+        peers={org: signer(ca, f"peer0.{org.lower()}", org, "peer")
+               for org, ca in cas.items()},
+        admins={org: signer(ca, f"admin@{org.lower()}", org, "admin")
+                for org, ca in cas.items()},
+        orderer=signer(orderer_ca, "orderer0", "OrdererOrg", "orderer"),
+        genesis=block.encode())
+
+
+# the key-level endorsement policy the e2e stream's setvp txs pin
+E2E_PIN_POLICY = b"OR('Org1.peer')"
+
+
+def make_e2e_stream(net, n_tx: int, plant_every: int = 50):
+    """`n_tx` transactions for the port's e2e `Network`, endorsed by its
+    endorsers against its current state (put txs endorsed by Org1 and
+    Org2 unless planted), with a planted kind of each sort in every
+    group of `plant_every` (>= 8) txs:
+
+      position 1   endorsed by Org1 only        ENDORSEMENT_POLICY_FAILURE
+      position 2   a put, the group's anchor    VALID
+      position 3   Org1 + Org3, Org3's endorsement signature flipped
+                                                ENDORSEMENT_POLICY_FAILURE
+      position 4   a get of the anchor's key    MVCC_READ_CONFLICT
+      position 5   the previous group's anchor envelope again (the
+                   first group's own)           DUPLICATE_TXID
+      position 6   a setvp pin (a VALIDATION_PARAMETER write: the
+                   commit pipe drains at a barrier)   VALID
+      after 6      one more envelope whose creator signature is
+                   flipped: Broadcast rejects it, so it is not one of
+                   the `n_tx`
+
+    Returns (submits, expected): the envelopes in submission order as
+    (Envelope, accepted), and the expected flag of each accepted tx in
+    order.  Under the default MAJORITY endorsement policy of 3 orgs."""
+    from fabric_mod_tpu_torch.policy.policydsl import from_string
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    if plant_every < 8:
+        raise ValueError("plant_every must leave room for the 6 kinds")
+    V = m.TxValidationCode
+    pin = m.ApplicationPolicy(
+        signature_policy=from_string(E2E_PIN_POLICY.decode())).encode()
+
+    def endorse(args, orgs=("Org1", "Org2"), flip=None):
+        sp, prop, _ = protoutil.create_chaincode_proposal(
+            net.channel_id, "mycc", args, net.client)
+        responses = [net.endorsers[o].process_proposal(sp) for o in orgs]
+        if flip is not None:
+            e = responses[flip].endorsement
+            e.signature = _flip(e.signature)
+        return protoutil.create_tx_from_responses(prop, responses, net.client)
+
+    submits, expected = [], []
+    anchor = prev_anchor = None
+    for i in range(n_tx):
+        j = i % plant_every
+        key = b"k%d" % i
+        flag = V.VALID
+        if j == 1:
+            env = endorse([b"put", key, b"v"], ("Org1",))
+            flag = V.ENDORSEMENT_POLICY_FAILURE
+        elif j == 2:
+            env = endorse([b"put", key, b"v"])
+            prev_anchor, anchor = anchor, (key, env)
+        elif j == 3:
+            env = endorse([b"put", key, b"v"], ("Org1", "Org3"), flip=1)
+            flag = V.ENDORSEMENT_POLICY_FAILURE
+        elif j == 4:
+            env = endorse([b"get", anchor[0]])
+            flag = V.MVCC_READ_CONFLICT
+        elif j == 5:
+            env = (prev_anchor or anchor)[1]
+            flag = V.DUPLICATE_TXID
+        elif j == 6:
+            env = endorse([b"setvp", b"pin%d" % i, pin], ("Org2", "Org3"))
+        else:
+            env = endorse([b"put", key, b"v%d" % i])
+        submits.append((env, True))
+        expected.append(flag)
+        if j == 6:
+            bad = endorse([b"put", b"x%d" % i, b"v"])
+            submits.append((m.Envelope(payload=bad.payload,
+                                       signature=_flip(bad.signature)),
+                            False))
+    return submits, expected
+
+
 def _replace(it: VerifyItem, **kw) -> VerifyItem:
     fields = dict(digest=it.digest, signature=it.signature,
                   public_xy=it.public_xy, message=it.message)

@@ -1,6 +1,6 @@
 """The CUDA ladder kernels (fabric_mod_tpu_torch/csrc/p256_ladder.cu) and the
 other device paths of the port on the card (the policy evaluator, a
-block commit, the batched FP256BN pairing).
+block commit, the batched FP256BN pairing, the e2e network).
 
 Tests marked `cuda` need a card and skip without one; run them there with
 
@@ -414,3 +414,44 @@ def test_pairing_on_card_equals_host(cuda_device):
     assert got.device.type == "cuda"
     for i, p in enumerate(pts):
         assert dev.f12_to_host(got, i) == host.pairing(p, q)
+
+
+@pytest.mark.cuda
+def test_e2e_network_on_card(cuda_device, tmp_path):
+    """Two 8-tx blocks of every planted kind through the port's e2e
+    Network on the card: ordered, MCS-verified and committed with the
+    construction's flags, the tampered creator rejected at ingress, the
+    evaluator on the CUDA mask of both blocks and the ladder launched."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.orderer import BroadcastError
+    from fabric_mod_tpu_torch.policy import tensorpolicy as tp
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.utils import fixtures
+    material = fixtures.make_network_material(
+        5, max_message_count=8, batch_timeout="60s")
+    net = e2e.Network(str(tmp_path), material=material,
+                      verifier=gpu.GpuVerifier(cache_size=0),
+                      tensor_policy=True)
+    try:
+        submits, expected = fixtures.make_e2e_stream(net, 16, plant_every=8)
+        tp.reset_counts()
+        before = p256_cuda.counts()["ladder_projective"]
+        def feed():
+            for env, ok in submits:
+                if ok:
+                    net.broadcast.submit(env)
+                else:
+                    with pytest.raises(BroadcastError):
+                        net.broadcast.submit(env)
+        assert e2e.commit_until(net, 16, 300, feed=feed)[1] == 16
+        assert net.ledger.height == 3
+        for b in (1, 2):
+            block = net.ledger.get_block_by_number(b)
+            assert list(protoutil.block_txflags(block)) == \
+                expected[8 * (b - 1):8 * b]
+        assert tp.counts() == {"cuda": 2}
+        # one MCS verify and one validator bucket per block at least
+        assert p256_cuda.counts()["ladder_projective"] >= before + 4
+    finally:
+        net.close()

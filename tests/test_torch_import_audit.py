@@ -1,8 +1,10 @@
 """The port imports neither jax, nor any module of the JAX package, nor
 the `cryptography` wheel: a fresh interpreter imports every port module,
 runs the CPU verify path, commits one small block through the port's
-Committer on the CPU and verifies one idemix presentation on the host
-path, then inspects sys.modules."""
+Committer on the CPU, verifies one idemix presentation on the host
+path, orders and commits one 8-tx block through the port's e2e Network
+(with the host verifier: the GPU verifier's CPU path ran above), then
+inspects sys.modules."""
 import json
 import os
 import pathlib
@@ -36,6 +38,24 @@ idemix = fixtures.make_idemix_world(seed=1, n_users=1)
 pres, want = fixtures.make_presentations(idemix, 1)
 assert credential.batch_verify(idemix.issuer.key, pres,
                                use_device=False) == want == [True]
+import tempfile
+from fabric_mod_tpu_torch import e2e
+from fabric_mod_tpu_torch.bccsp import sw
+from fabric_mod_tpu_torch.protos import protoutil
+material = fixtures.make_network_material(2, max_message_count=8,
+                                          batch_timeout="60s")
+with tempfile.TemporaryDirectory() as root:
+    net = e2e.Network(root, material=material, verifier=sw.SwVerifier())
+    try:
+        submits, want = fixtures.make_e2e_stream(net, 8, plant_every=8)
+        for env, ok in submits:
+            if ok:
+                net.broadcast.submit(env)
+        assert e2e.commit_until(net, 8, 120)[1] == 8
+        block = net.ledger.get_block_by_number(1)
+        assert list(protoutil.block_txflags(block)) == want
+    finally:
+        net.close()
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")
