@@ -8,23 +8,30 @@ idemix presentation verify.
 Phases (any failure exits non-zero; none is caught):
 
 1. header — the card's name, and its name and power limit from nvidia-smi;
-2. build — both ladder kernels from fabric_mod_tpu_torch/csrc/ (nvcc),
+2. build — both sources from fabric_mod_tpu_torch/csrc/ (nvcc, started
+   together): the ladders and the verify core's prologue and epilogue,
    with ptxas' registers, stack and spills;
 3. kernel against plain — each ladder kernel at 2048 lanes against its
    plain PyTorch version on the card (random windows, distinct keys
    (i+2)G, identity-adjacent edge lanes, an off-curve and a (0, 0) key):
    canonical X, Y, Z must be bit-equal, and the mixed ladder must equal
-   the projective one in affine form on every valid-key lane.  Prints
-   each kernel's threads per lane and block size, ms per call, the
-   bound (32-bit multiply-adds the function needs over the card's
-   integer multiply-add rate at its SM clock) and one lane's critical
-   path in rounds;
+   the projective one in affine form on every valid-key lane.  Then the
+   verify core's kernels at 2048 lanes (utils/fixtures.make_core_lanes:
+   signatures plus edge lanes — digests >= n, an all-zero padding lane,
+   an off-curve and a (0, 0) key, r + n < p, out-of-range scalars, a
+   host-masked lane): the prologue's window planes and key_ok must be
+   bit-equal to the plain prologue's, the epilogue's verdicts over the
+   ladder's output equal to the plain epilogue's and the construction's.
+   Prints each kernel's ms per call, the bound (32-bit multiply-adds the
+   function needs over the card's integer multiply-add rate at its SM
+   clock, or its bytes over the memory rate) and, for the ladders,
+   threads per lane, block size and one lane's critical path in rounds;
 4. verify path — 4 blocks of 1000 transactions (3000 signatures each,
    2-of-3 endorsement) through GpuVerifier.verify_many, once per ladder;
    the 4th block's endorser items are raw messages hashed on the card.
    Verdicts must equal the fixtures' expected masks bit for bit and, on
-   256 sampled lanes per block, the pure-python software verify; both
-   kernels' launch counts (zeroed just before) must have risen;
+   256 sampled lanes per block, the pure-python software verify; all
+   four kernels' launch counts (zeroed just before) must have risen;
 5. block commit — the system's main path: 4 encoded blocks of 1000
    transactions (utils/fixtures.make_commit_blocks: every planted invalid
    kind, a VALIDATION_PARAMETER pin) through the port's Committer
@@ -34,34 +41,48 @@ Phases (any failure exits non-zero; none is caught):
    closures; (c) the mixed ladder with the evaluator; (d) the host
    software verifier, the oracle.  Every arm's txflags must equal the
    fixture's and each other, every state fingerprint must be equal, and
-   both kernels' launch counts (zeroed just before) must have risen.
+   all four kernels' launch counts (zeroed just before) must have risen.
    Prints ms per block by stage, committed tx/s and the evaluator's
    device ms;
 8. e2e (run after 5) — the system's own end-to-end loop
    (fabric_mod_tpu_torch/e2e.py `Network`): one channel of 3 orgs from
    utils/fixtures.make_network_material, a solo orderer cutting 1000-tx
    blocks on count (batch timeout 10 s), one committing peer with the
-   projective-ladder GpuVerifier and the tensor-policy evaluator.  4,000
-   put txs are endorsed up front (2 of 3 orgs, MAJORITY) by
-   fixtures.make_e2e_stream, with a planted kind of each sort every 50
-   txs (one-org endorsement, a flipped endorsement, an MVCC read
-   conflict, a resubmitted envelope, a setvp pin that drains the commit
-   pipe at a barrier, and a tampered creator signature that Broadcast
-   rejects).  Timed (e2e.commit_until, as e2e.run_pipeline): the
-   deliver client starts, one thread broadcasts every envelope, and the
-   span ends when the 4,000 txs are committed.  Every block must hold
-   1000 txs with the construction's flags, the rejections must equal
-   the planted count, the state fingerprint must equal that of a fresh
-   ledger fed the ordered blocks with the expected flags, the MCS (one
-   verify per block) and the validator (one fused verify per block)
-   must each have launched the projective ladder at least once per
-   block (launches counted by the calling path), and the evaluator
-   must have received a CUDA mask on every block.  Prints committed
-   tx/s, ingress seconds, the deliver client's stage/await/commit
-   seconds, MCS ms per block, the evaluator's fallbacks, and
-   torch.profiler over one block's MCS check and stage-and-commit on a
-   fresh peer: launches, device busy, idle share;
-7. idemix (run after 8, before the profile) — the batched FP256BN
+   projective-ladder GpuVerifier and the tensor-policy evaluator, 4,000
+   put txs endorsed up front (2 of 3 orgs, MAJORITY) by
+   fixtures.make_e2e_stream.  Two arms in turns, each on a fresh
+   network from the same seed's material:
+   (a) unstaged, the Writers check on the host, one submitting thread,
+   with a planted kind of each sort every 50 txs (one-org endorsement, a
+   flipped endorsement, an MVCC read conflict, a resubmitted envelope, a
+   setvp pin that drains the commit pipe at a barrier, and a tampered
+   creator signature that Broadcast rejects); every block's flags must
+   be the construction's in submission order;
+   (b) staged ingress with the Writers check batched on the card
+   (`Network(ingress_batching=True, staged_batch=256)`, 32 submitting
+   threads) on the order-free stream (only the one-org and the flipped
+   endorsements and the tampered creator are planted: concurrent
+   submitters reorder the envelopes, and those kinds' flags do not
+   depend on the order); every txid's flag must be the construction's,
+   the ingress verify calls must have batched more than one envelope
+   on average, and no submitter may see a device error.
+   Timed (e2e.commit_until, as e2e.run_pipeline): the deliver client
+   starts, the submitters broadcast every envelope, and the span ends
+   when the 4,000 txs are committed.  In both arms every block must hold
+   1000 txs, the rejections must be exactly the tampered envelopes, the
+   state fingerprint must equal that of a fresh ledger fed the ordered
+   blocks with the expected flags, the MCS (one verify per block) and
+   the validator (one fused verify per block) — and in (b) ingress —
+   must each have launched the prologue, the projective ladder and the
+   epilogue (launches counted by the calling path), and the evaluator
+   must have received a CUDA mask on every block.  Prints, per arm,
+   committed tx/s, ingress seconds per submit, the deliver client's
+   stage/await/commit seconds, MCS ms per block, the kernel launches by
+   path and the evaluator's fallbacks; in (b) the ingress device calls
+   and the mean cohort.  Then torch.profiler over one block of (a)'s on
+   a fresh peer, its MCS check and its stage-and-commit: launches,
+   device busy, idle share;
+7. idemix (run last) — the batched FP256BN
    pairing (ops/fp256bn_dev.py, plain torch ops on the card): (a) a
    pairing check at 1024 lanes, a 1000-tx idemix block's width, from
    utils/fixtures.make_pairing_lanes (every 97th lane tampered): the
@@ -76,13 +97,16 @@ Phases (any failure exits non-zero; none is caught):
    precompute, a Miller doubling step, an add step, a cyclotomic square,
    a multiply, and the rest once), scaled by the schedule's static
    counts: launches per check, device busy ms, idle share;
-6. profile — torch.profiler over one verify of each block kind and over
-   one whole block commit: wall time, device busy time and idle share,
-   the heaviest device kernels; and over the policy evaluator's pass
-   alone: its launches and device time per block.
+6. profile (run after 8) — torch.profiler over one verify of each
+   block kind, over a verify call of one signature and of one 2048-lane
+   bucket (launches per verify call), and over one whole block commit:
+   wall time, device busy time and idle share, the heaviest device
+   kernels; and over the policy evaluator's pass alone: its launches
+   and device time per block.
 
-It prints one JSON line describing each kernel (`launches` counts the
-block-commit and e2e phases), and as its last line
+It prints one JSON line describing each of the four kernels
+(`launches` counts the block-commit phase and both e2e arms), and as
+its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -150,6 +174,28 @@ ROUNDS = 14 * 3 + 64 * 6 * 3 + 2
 # 14 rounds of the backward pass, ceil(30 / threads per lane) rounds of
 # the affine table
 ROUNDS_NORMALISE_FIXED = 14 + 268 + 14
+
+# The verify core's kernels (csrc/p256_core.cu), word products per lane.
+# A product mod n (CIOS) is 64 a*b word products + 8 for the quotient
+# digits + 64 for m*n, a square mod n the same with 36 for a*a; a
+# product mod p 64, a square 36 (the reduction has no multiply).
+# Prologue: s to Montgomery form, the inversion's table (14), its 252
+# squarings and one product per non-zero window of n - 2 after the
+# first, u1 and u2; the key check's 3 products and 2 squares mod p.
+# Epilogue: 4 products mod p.
+FN_PRODUCTS = 64 + 8 + 64
+FN_SQR_PRODUCTS = 36 + 8 + 64
+PROLOGUE_P_PRODUCTS = 3 * MUL_PRODUCTS + 2 * SQR_PRODUCTS
+EPILOGUE_PRODUCTS = 4 * MUL_PRODUCTS
+# bytes per lane, each input read once and each output written once:
+# prologue e, r, s, qx, qy in, two 64-window int32 planes and key_ok
+# out; epilogue X, Z, r and the flags word and key_ok in, the verdict out
+PROLOGUE_BYTES = 5 * 32 + 2 * 64 * 4 + 1
+EPILOGUE_BYTES = 3 * 32 + 4 + 1 + 1
+
+# phase 8 arm (b): concurrent submitters and the lanes' drain bound
+E2E_SUBMITTERS = 32
+E2E_STAGED_BATCH = 256
 
 
 def log(msg: str) -> None:
@@ -245,6 +291,116 @@ def sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
+def prologue_products() -> int:
+    """Word products per lane of the prologue kernel (its schedule)."""
+    from fabric_mod_tpu_torch.ops import p256
+    e = p256.N - 2
+    nonzero = sum(1 for w in range(1, 64) if (e >> (4 * (63 - w))) & 15)
+    n_mul = 1 + 14 + nonzero + 2
+    return (n_mul * FN_PRODUCTS + 63 * 4 * FN_SQR_PRODUCTS
+            + PROLOGUE_P_PRODUCTS)
+
+
+def kernel_counts() -> dict:
+    """Launch counts of every kernel of the path (ladders and core)."""
+    from fabric_mod_tpu_torch.ops import p256_core, p256_cuda
+    return {**p256_cuda.counts(), **p256_core.counts()}
+
+
+def reset_kernel_counts() -> None:
+    from fabric_mod_tpu_torch.ops import p256_core, p256_cuda
+    p256_cuda.reset_counts()
+    p256_core.reset_counts()
+
+
+def require_launched(counts: dict, where: str) -> None:
+    for name, c in counts.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {name} was not launched on {where}")
+
+
+def phase_core_kernels(torch, np, dev, clock, n_sm):
+    """Phase 3 for the verify core: the prologue and the epilogue kernels
+    at 2048 lanes against their plain versions on the card."""
+    from fabric_mod_tpu_torch.ops import p256, p256_core, p256_cuda
+    from fabric_mod_tpu_torch.utils import fixtures
+    t0 = time.perf_counter()
+    planes, pre_ok, expect = fixtures.make_core_lanes(LANES, seed=b"smoke")
+    _, range_ok, rn_lt_p = p256.range_checks(*planes)
+    buf = torch.from_numpy(p256_core.pack(planes, range_ok, pre_ok,
+                                          rn_lt_p)).to(dev)
+    e = p256_core.rows(buf, p256_core.ROW_E)
+    log(f"core lanes: {LANES} signed in {time.perf_counter() - t0:.1f} s "
+        f"({fixtures.CORE_EDGE_LANES} edge lanes: e >= n, padding, "
+        f"invalid keys, out-of-range scalars, a host-masked lane)")
+    got = p256_core.prologue(e, buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = p256_core.prologue_plain(e, buf)
+    torch.cuda.synchronize()
+    pro_plain_ms = (time.perf_counter() - t0) * 1e3
+    pro_err = 0
+    for g, w, what in zip(got, want, ("u1 windows", "u2 windows", "key_ok")):
+        if not torch.equal(g, w):
+            diff = g != w
+            bad = (diff.any(0) if diff.dim() == 2 else diff).nonzero()
+            raise AssertionError(f"verify_prologue: {what} differ from the "
+                                 f"plain prologue at lanes "
+                                 f"{bad.flatten()[:8].tolist()}")
+        pro_err = max(pro_err, int((g.to(torch.int64)
+                                    - w.to(torch.int64)).abs().max()))
+    u1, u2, key_ok = got
+    X, _Y, Z = p256_cuda.ladder_words(
+        u1, u2, p256_core.rows(buf, p256_core.ROW_QX),
+        p256_core.rows(buf, p256_core.ROW_QY))
+    ok = p256_core.epilogue(X, Z, buf, key_ok)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok_plain = p256_core.epilogue_plain(X, Z, buf, key_ok)
+    torch.cuda.synchronize()
+    epi_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(ok, ok_plain):
+        bad = (ok != ok_plain).nonzero().flatten()[:8].tolist()
+        raise AssertionError(f"verify_epilogue differs from the plain "
+                             f"epilogue at lanes {bad}")
+    if ok.cpu().numpy().tolist() != expect.tolist():
+        bad = np.nonzero(ok.cpu().numpy() != expect)[0][:8].tolist()
+        raise AssertionError(f"core verdicts differ from the construction "
+                             f"at lanes {bad}")
+    epi_err = int((ok.to(torch.int64) - ok_plain.to(torch.int64)).abs().max())
+    pro_ms = time_cuda(torch, lambda: p256_core.prologue(e, buf), reps=10)
+    epi_ms = time_cuda(torch, lambda: p256_core.epilogue(X, Z, buf, key_ok),
+                       reps=10)
+    rate = INT_MADD_PER_SM_CLOCK * n_sm * clock
+    out = {}
+    for name, held, products, nbytes, ms, plain_ms, err in (
+            ("verify_prologue", "window planes and key_ok bit-equal to",
+             prologue_products(), PROLOGUE_BYTES, pro_ms, pro_plain_ms,
+             pro_err),
+            ("verify_epilogue", "verdicts equal to", EPILOGUE_PRODUCTS,
+             EPILOGUE_BYTES, epi_ms, epi_plain_ms, epi_err)):
+        bound_ops = 2 * products * LANES / rate * 1e3
+        bound_bytes = nbytes * LANES / PEAK_BYTES * 1e3
+        out[name] = {
+            "name": name, "route": "cuda",
+            "source": "fabric_mod_tpu_torch/csrc/p256_core.cu",
+            "replaces": "fabric_mod_tpu/ops/p256.py:516",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "library_ms": None,
+        }
+        log(f"kernel {name}: {held} plain on {LANES} lanes (and the "
+            f"construction's verdicts); "
+            f"{ms:.4f} ms per {LANES}-lane call (CUDA events, 10 calls), "
+            f"plain {plain_ms:.1f} ms/call; bound "
+            f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
+            f"({products} word products = {2 * products} 32-bit "
+            f"multiply-adds per lane; bytes {bound_bytes:.5f} ms); "
+            "library_ms null (no PyTorch call computes this)")
+    return out
+
+
 def phase_kernels(torch, np, dev):
     from fabric_mod_tpu_torch.ops import limbs9, p256, p256_cuda
     fp = p256._consts()[0]
@@ -314,12 +470,13 @@ def phase_kernels(torch, np, dev):
         raise AssertionError("all-zero lane did not stay at infinity")
     log(f"mixed ladder == projective ladder in affine form on "
         f"{LANES - len(invalid)} valid-key lanes")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    results.update(phase_core_kernels(torch, np, dev, sm_clock_hz(), n_sm))
     return results
 
 
 def phase_main_path(torch, np, blocks):
     from fabric_mod_tpu_torch.bccsp import gpu, sw
-    from fabric_mod_tpu_torch.ops import p256_cuda
     rng = np.random.default_rng(SEED + 1)
     verifiers = {lad: gpu.GpuVerifier(ladder=lad, cache_size=0)
                  for lad in gpu.LADDERS}
@@ -333,9 +490,9 @@ def phase_main_path(torch, np, blocks):
         idx = rng.choice(len(items), SAMPLE, replace=False)
         sw_checked[bi] = (idx, np.array([sw.verify_item(items[i]) for i in idx]))
     per_ladder = {}
-    p256_cuda.reset_counts()
+    reset_kernel_counts()
     for lad, v in verifiers.items():
-        before = p256_cuda.counts()
+        before = kernel_counts()
         block_ms = []
         for bi, (items, expect) in enumerate(blocks):
             torch.cuda.synchronize()
@@ -350,7 +507,7 @@ def phase_main_path(torch, np, blocks):
             if not (got[idx] == want).all():
                 raise AssertionError(f"{lad}: block {bi} differs from the "
                                      "software verify on sampled lanes")
-        after = p256_cuda.counts()
+        after = kernel_counts()
         launched = {k: after[k] - before[k] for k in after}
         n_items = sum(len(b[0]) for b in blocks)
         per_ladder[lad] = launched
@@ -361,11 +518,8 @@ def phase_main_path(torch, np, blocks):
             f"{n_items / (sum(block_ms) / 1e3):.0f} verifies/s; "
             f"kernel launches {launched} "
             f"({sum(launched.values()) / N_BLOCKS:.1f} per 1000-tx block)")
-    counts = p256_cuda.counts()
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "verify path")
+    counts = kernel_counts()
+    require_launched(counts, "the verify path")
     return counts
 
 
@@ -413,7 +567,6 @@ def phase_block_commit(torch, np, world, blocks, expected):
     into a fresh in-memory ledger.  Returns the kernel launch counts of
     the GPU arms."""
     from fabric_mod_tpu_torch.bccsp import gpu, sw
-    from fabric_mod_tpu_torch.ops import p256_cuda
     from fabric_mod_tpu_torch.policy import tensorpolicy
     from fabric_mod_tpu_torch.protos import messages as m
     arms = (("a", "projective ladder, tensor policy", "projective", True),
@@ -423,7 +576,7 @@ def phase_block_commit(torch, np, world, blocks, expected):
     n_tx = sum(len(f) for f in expected)
     n_valid = sum(f == m.TxValidationCode.VALID for b in expected for f in b)
     flags_by_arm, fps = {}, {}
-    p256_cuda.reset_counts()
+    reset_kernel_counts()
     for arm, label, ladder, tensor in arms:
         verifier = (gpu.GpuVerifier(ladder=ladder, cache_size=0)
                     if ladder else sw.SwVerifier())
@@ -468,11 +621,8 @@ def phase_block_commit(torch, np, world, blocks, expected):
         raise AssertionError("arms disagree on txflags")
     if len(set(fps.values())) != 1:
         raise AssertionError(f"state fingerprints differ across arms: {fps}")
-    counts = p256_cuda.counts()
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "block-commit path")
+    counts = kernel_counts()
+    require_launched(counts, "the block-commit path")
     log(f"block commit: all arms agree on txflags and state fingerprint "
         f"{fps['a']}; kernel launches {counts}")
     return counts
@@ -480,16 +630,26 @@ def phase_block_commit(torch, np, world, blocks, expected):
 
 def phase_profile(torch, blocks, world, commit_blocks):
     """Where a block's time goes: torch.profiler over one verify_many
-    per block kind (digest-only, raw endorsers) and over one whole
-    block commit (projective ladder, tensor policy); then over the
-    policy evaluator's pass alone, on the verify mask of the block."""
+    per block kind (digest-only, raw endorsers), over a verify call of
+    one signature (an MCS check's width) and of one 2048-lane bucket —
+    launches per verify call — and over one whole block commit
+    (projective ladder, tensor policy); then over the policy evaluator's
+    pass alone, on the verify mask of the block."""
     from fabric_mod_tpu_torch.bccsp import gpu
     from fabric_mod_tpu_torch.protos import messages as m
     v = gpu.GpuVerifier(ladder="projective", cache_size=0)
-    for label, (items, _expect) in (("digest block", blocks[0]),
-                                    ("raw-endorser block", blocks[-1])):
-        log_profile(f"{label} ({len(items)} signatures)",
-                    *device_profile(torch, lambda: v.verify_many(items)))
+    digest_items = blocks[0][0]
+    for label, items in (("digest block", digest_items),
+                         ("raw-endorser block", blocks[-1][0]),
+                         ("verify call, 1 signature", digest_items[:1]),
+                         ("verify call, one 2048-lane bucket",
+                          digest_items[:LANES])):
+        v.verify_many(items)                               # warm
+        before = kernel_counts()
+        prof = device_profile(torch, lambda: v.verify_many(items))
+        kernels = {k: c - before[k] for k, c in kernel_counts().items()}
+        log_profile(f"{label} ({len(items)} signatures; kernel launches "
+                    f"{kernels}; {prof[1]} device launches in all)", *prof)
     committer = world.committer(v, tensor_policy=True)
     block = m.Block.decode(commit_blocks[0])
     log_profile(f"block commit ({len(block.data.data)} txs, tensor policy)",
@@ -510,20 +670,26 @@ def phase_profile(torch, blocks, world, commit_blocks):
         f"device busy {busy_ms} ms, wall {wall_ms:.2f} ms (torch.profiler)")
 
 
-def phase_e2e(torch, dev, n_blocks=N_BLOCKS, block_txs=TX_PER_BLOCK,
-              plant_every=PLANT_EVERY):
-    """The end-to-end network (phase 8).  Returns the ladder kernels'
-    launch counts of the timed run, and (material, block 1, its expected
-    flags) for profile_e2e_block."""
+def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
+              block_txs=TX_PER_BLOCK, plant_every=PLANT_EVERY,
+              submitters=E2E_SUBMITTERS, staged_batch=E2E_STAGED_BATCH):
+    """One arm of the end-to-end network (phase 8) on a fresh network.
+    (a): unstaged, the Writers check on the host, one submitter, the
+    full plant stream, per-block flags.  (b): staged ingress with the
+    Writers check batched on the card (`ingress_batching`,
+    `staged_batch`), `submitters` threads, the order-free stream, flags
+    per txid.  Returns the kernels' launch counts of the timed run, and
+    (material, block 1, its expected flags) for profile_e2e_block."""
     from fabric_mod_tpu_torch import e2e
     from fabric_mod_tpu_torch.bccsp import gpu
     from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
-    from fabric_mod_tpu_torch.ops import p256_cuda
+    from fabric_mod_tpu_torch.ops import p256
     from fabric_mod_tpu_torch.orderer import BroadcastError
     from fabric_mod_tpu_torch.policy import tensorpolicy
     from fabric_mod_tpu_torch.protos import messages as m
     from fabric_mod_tpu_torch.protos import protoutil
     from fabric_mod_tpu_torch.utils import fixtures
+    staged = arm == "b"
     n_tx = n_blocks * block_txs
     material = fixtures.make_network_material(
         SEED, max_message_count=block_txs, batch_timeout=E2E_BATCH_TIMEOUT,
@@ -532,84 +698,141 @@ def phase_e2e(torch, dev, n_blocks=N_BLOCKS, block_txs=TX_PER_BLOCK,
     verifier = gpu.GpuVerifier(device=dev, ladder="projective", cache_size=0)
     with tempfile.TemporaryDirectory() as root:
         net = e2e.Network(os.path.join(root, "timed"), material=material,
-                          verifier=verifier, tensor_policy=True)
+                          verifier=verifier, tensor_policy=True,
+                          ingress_batching=staged,
+                          staged_batch=staged_batch if staged else 0)
         try:
             t0 = time.perf_counter()
-            submits, flat = fixtures.make_e2e_stream(net, n_tx, plant_every)
+            submits, flat = fixtures.make_e2e_stream(
+                net, n_tx, plant_every, order_free=staged)
             planted = sum(not ok for _env, ok in submits)
             expected = [flat[b * block_txs:(b + 1) * block_txs]
                         for b in range(n_blocks)]
-            log(f"e2e fixtures: {n_tx} txs endorsed by the network's "
-                f"endorsers (+{planted} tampered) in "
+            accepted = [env for env, ok in submits if ok]
+            txid = [protoutil.envelope_channel_header(env).tx_id
+                    for env, _ok in submits]
+            want_by_txid = dict(zip(
+                [t for t, (_e, ok) in zip(txid, submits) if ok], flat))
+            log(f"e2e arm ({arm}) fixtures: {n_tx} txs endorsed by the "
+                f"network's endorsers (+{planted} tampered"
+                f"{', order-free kinds only' if staged else ''}) in "
                 f"{time.perf_counter() - t0:.1f} s (pure-python signer)")
+            if staged and len(want_by_txid) != len(accepted):
+                raise AssertionError("the order-free stream repeats a txid")
 
             # which path reached the verifier: the MCS calls verify_many,
-            # the validator verify_many_fused_async.  Each call tags its
-            # thread with its path, and each ladder call adds the
-            # launches it made to its thread's path.  Each block's
-            # tensor session is kept for its fallback count.
-            calls = {"mcs": 0, "validator": 0}
-            by_path = {"mcs": 0, "validator": 0}
+            # the validator verify_many_fused_async, the ingress service
+            # verify_many_async (which verify_many also calls: the outer
+            # tag wins).  Each call tags its thread; each core run inside
+            # the verifier's enqueue lock adds its kernel launches to its
+            # thread's path.  Each block's tensor session is kept for its
+            # fallback count; each ingress verify call's size is a cohort.
+            calls = {"mcs": 0, "validator": 0, "ingress": 0}
+            by_path = {k: dict.fromkeys(kernel_counts(), 0) for k in calls}
             path = threading.local()
-            sessions = []
+            sessions, cohorts = [], []
 
             def counted(name, fn):
                 def call(items):
-                    calls[name] += 1
-                    path.name = name
+                    outer = getattr(path, "name", None)
+                    if outer is None:
+                        calls[name] += 1
+                        path.name = name
                     try:
                         return fn(items)
                     finally:
-                        path.name = None
+                        if outer is None:
+                            path.name = None
                 return call
             verifier.verify_many = counted("mcs", verifier.verify_many)
             verifier.verify_many_fused_async = counted(
                 "validator", verifier.verify_many_fused_async)
-            ladder = p256_cuda.ladder
+            verifier.verify_many_async = counted(
+                "ingress", verifier.verify_many_async)
+            core = p256._core
 
-            def tagged_ladder(*args, **kw):
-                # the verifier's enqueue lock keeps ladder calls apart
-                before = sum(p256_cuda.counts().values())
-                out = ladder(*args, **kw)
+            def tagged_core(*args, **kw):
+                before = kernel_counts()
+                out = core(*args, **kw)
                 key = getattr(path, "name", None) or "untagged"
-                by_path[key] = by_path.get(key, 0) \
-                    + sum(p256_cuda.counts().values()) - before
+                tally = by_path.setdefault(
+                    key, dict.fromkeys(before, 0))
+                for k, v in kernel_counts().items():
+                    tally[k] += v - before[k]
                 return out
             commit_staged = net.channel.commit_staged
 
-            def keep_session(staged):
-                sessions.append(staged.session)
-                return commit_staged(staged)
+            def keep_session(staged_block):
+                sessions.append(staged_block.session)
+                return commit_staged(staged_block)
             net.channel.commit_staged = keep_session
+            if staged:
+                processor = net.support.processor
+                ingress_verify = processor._verify_many
 
-            rejected = 0
+                def cohort(items):
+                    cohorts.append(len(items))
+                    return ingress_verify(items)
+                processor._verify_many = cohort
 
-            def feed():
-                nonlocal rejected, ingress_s
-                for env, ok in submits:
+            rejected, device_errors, lock = set(), [], threading.Lock()
+
+            def submit(share):
+                for i in share:
+                    env, ok = submits[i]
                     try:
                         net.broadcast.submit(env)
                     except BroadcastError:
                         if ok:
                             raise
-                        rejected += 1
+                        with lock:
+                            rejected.add(i)
+                        continue
+                    except Exception as e:      # a device fault
+                        with lock:
+                            device_errors.append(repr(e))
                         continue
                     if not ok:
                         raise AssertionError("Broadcast accepted a tampered "
                                              "creator signature")
+
+            def feed():
+                nonlocal ingress_s
+                order = list(range(len(submits)))
+                if not staged:
+                    submit(order)
+                else:
+                    errors = []
+
+                    def run(k):
+                        try:
+                            submit(order[k::submitters])
+                        except Exception as e:  # re-raised below
+                            errors.append(e)
+                    threads = [threading.Thread(target=run, args=(k,),
+                                                daemon=True)
+                               for k in range(submitters)]
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(timeout=E2E_TIMEOUT_S)
+                    if any(t.is_alive() for t in threads):
+                        raise AssertionError("a submitter is still blocked")
+                    if errors:
+                        raise errors[0]
                 ingress_s = time.perf_counter() - t0
             ingress_s = 0.0
-            p256_cuda.ladder = tagged_ladder
+            p256._core = tagged_core
             try:
-                p256_cuda.reset_counts()
+                reset_kernel_counts()
                 tensorpolicy.reset_counts()
                 t0 = time.perf_counter()
                 client, _committed, span_s = e2e.commit_until(
                     net, n_tx, E2E_TIMEOUT_S, feed=feed,
                     idle_timeout_s=E2E_TIMEOUT_S)
             finally:
-                p256_cuda.ladder = ladder
-            counts = p256_cuda.counts()
+                p256._core = core
+            counts = kernel_counts()
             passes = tensorpolicy.counts()
 
             # every block full, every flag the construction's
@@ -619,9 +842,14 @@ def phase_e2e(torch, dev, n_blocks=N_BLOCKS, block_txs=TX_PER_BLOCK,
                 raise AssertionError(f"ledger height {net.ledger.height}, "
                                      f"expected {1 + n_blocks}; txs per "
                                      f"block {sizes}")
-            if rejected != planted:
-                raise AssertionError(f"{rejected} envelopes rejected at "
-                                     f"ingress, {planted} planted")
+            if device_errors:
+                raise AssertionError(f"{len(device_errors)} device errors "
+                                     f"at ingress: {device_errors[:3]}")
+            tampered = {i for i, (_e, ok) in enumerate(submits) if not ok}
+            if rejected != tampered:
+                raise AssertionError(f"{len(rejected)} envelopes rejected at "
+                                     f"ingress, {planted} planted; the "
+                                     f"same ones: {rejected == tampered}")
             oracle = KvLedger(net.channel_id)
             genesis = m.Block.decode(material.genesis)
             oracle.commit_block(genesis, [m.TxValidationCode.VALID]
@@ -632,13 +860,19 @@ def phase_e2e(torch, dev, n_blocks=N_BLOCKS, block_txs=TX_PER_BLOCK,
                     raise AssertionError(f"block {b + 1} holds "
                                          f"{len(block.data.data)} txs")
                 flags = list(protoutil.block_txflags(block))
-                if flags != expected[b]:
-                    bad = [i for i, (g, w) in enumerate(zip(flags, expected[b]))
+                if staged:
+                    want = [want_by_txid[protoutil.envelope_channel_header(
+                        m.Envelope.decode(raw)).tx_id]
+                        for raw in block.data.data]
+                else:
+                    want = expected[b]
+                if flags != want:
+                    bad = [i for i, (g, w) in enumerate(zip(flags, want))
                            if g != w][:8]
                     raise AssertionError(f"block {b + 1}: txflags differ "
                                          f"from the construction at {bad}")
                 ordered = net.support.store.get_block_by_number(b + 1)
-                if oracle.commit_block(ordered, expected[b]) != expected[b]:
+                if oracle.commit_block(ordered, want) != want:
                     raise AssertionError(f"oracle ledger changed block "
                                          f"{b + 1}'s flags")
             fp = net.ledger.state_fingerprint()
@@ -648,44 +882,72 @@ def phase_e2e(torch, dev, n_blocks=N_BLOCKS, block_txs=TX_PER_BLOCK,
                 raise AssertionError("state fingerprint differs from the "
                                      "construction oracle's")
 
-            # the card: both device paths, a device mask on every block
-            proj, mixed = (p256_cuda.KERNELS[False], p256_cuda.KERNELS[True])
-            if calls != {"mcs": n_blocks, "validator": n_blocks}:
+            # the card: every device path, a device mask on every block
+            want_calls = {"mcs": n_blocks, "validator": n_blocks}
+            if {k: calls[k] for k in want_calls} != want_calls \
+                    or (calls["ingress"] > 0) != staged:
                 raise AssertionError(f"verifier calls {calls}, expected one "
-                                     f"MCS and one validator call per block")
-            if sum(by_path.values()) != counts[proj] or counts[mixed] != 0 \
-                    or by_path["mcs"] < n_blocks \
-                    or by_path["validator"] < n_blocks:
-                raise AssertionError(f"ladder launches {counts}, by path "
-                                     f"{by_path}: expected at least one per "
-                                     f"block from the MCS and from the "
-                                     f"validator")
+                                     f"MCS and one validator call per block"
+                                     f"{' and ingress calls' if staged else ''}")
+            proj = "ladder_projective"
+            for key, tally in by_path.items():
+                if key != "untagged" and not (
+                        tally[proj] == tally["verify_prologue"]
+                        == tally["verify_epilogue"]):
+                    raise AssertionError(f"{key}: launches {tally}: a ladder "
+                                         "without its prologue or epilogue")
+            summed = {k: sum(t[k] for t in by_path.values()) for k in counts}
+            if summed != counts or counts["ladder_mixed"] != 0 \
+                    or by_path["mcs"][proj] < n_blocks \
+                    or by_path["validator"][proj] < n_blocks \
+                    or (by_path["ingress"][proj] > 0) != staged:
+                raise AssertionError(f"kernel launches {counts}, by path "
+                                     f"{by_path}: expected each device path "
+                                     f"to launch its kernels")
             if passes != {dev.type: n_blocks}:
                 raise AssertionError(f"policy evaluator passes {passes}, "
                                      f"expected {n_blocks} on {dev.type}")
             if len(sessions) != n_blocks or not all(sessions):
                 raise AssertionError("a block was committed without a "
                                      "tensor-policy session")
+            ingress_note = ""
+            if staged:
+                mean = sum(cohorts) / max(1, len(cohorts))
+                if not cohorts or mean <= 1.0 \
+                        or sum(cohorts) != len(submits):
+                    raise AssertionError(f"ingress cohorts {len(cohorts)}, "
+                                         f"mean {mean:.2f}: expected "
+                                         f"batches of more than one")
+                ingress_note = (f"; ingress device calls "
+                                f"{calls['ingress']}, cohorts {len(cohorts)} "
+                                f"of mean size {mean:.2f} (max "
+                                f"{max(cohorts)}), 0 device errors")
             fallbacks = sum(s.fallbacks for s in sessions)
             n_valid = sum(f == m.TxValidationCode.VALID for f in flat)
-            log(f"e2e: {n_blocks} blocks x {block_txs} txs ordered, "
-                f"MCS-verified and committed; txflags == construction "
-                f"({n_valid} VALID); {rejected} ingress rejections == "
-                f"planted; fingerprint == oracle ({fp[:16]}); "
+            label = (f"staged, {submitters} submitters, Writers batched on "
+                     "the card" if staged else
+                     "unstaged, 1 submitter, Writers on the host")
+            log(f"e2e arm ({arm}) {label}: {n_blocks} blocks x {block_txs} txs ordered, MCS-verified "
+                f"and committed; txflags == construction"
+                f"{' per txid' if staged else ''} ({n_valid} VALID); "
+                f"{len(rejected)} ingress rejections == planted; "
+                f"fingerprint == oracle ({fp[:16]}); "
                 f"{n_tx / span_s:.1f} committed tx/s over the "
                 f"ordering-and-commit span of {span_s:.2f} s; ingress "
                 f"{ingress_s:.2f} s ({len(submits)} submits, "
-                f"{ingress_s / len(submits) * 1e3:.2f} ms each); deliver "
+                f"{ingress_s / len(submits) * 1e3:.3f} ms each); deliver "
                 f"client stage {client.stage_secs:.2f} s, await "
                 f"{client.await_secs:.2f} s, commit {client.commit_secs:.2f} "
                 f"s; MCS {client.mcs_secs / n_blocks * 1e3:.1f} ms per "
-                f"block; verifier calls {calls}; ladder launches {counts} "
-                f"(by path {by_path}); "
-                f"evaluator passes {passes}, fallbacks {fallbacks}")
+                f"block; verifier calls {calls}; kernel launches {counts} "
+                f"(by path {by_path}); evaluator passes {passes}, fallbacks "
+                f"{fallbacks}{ingress_note}")
             first = net.support.store.get_block_by_number(1)
+            first_flags = list(protoutil.block_txflags(
+                net.ledger.get_block_by_number(1)))
         finally:
             net.close()
-    return counts, (material, first, expected[0])
+    return counts, (material, first, first_flags)
 
 
 def profile_e2e_block(torch, material, block, expected):
@@ -693,7 +955,6 @@ def profile_e2e_block(torch, material, block, expected):
     network: its MCS check, then its stage and commit (one thread)."""
     from fabric_mod_tpu_torch import e2e
     from fabric_mod_tpu_torch.bccsp import gpu
-    from fabric_mod_tpu_torch.ops import p256_cuda
     from fabric_mod_tpu_torch.protos import protoutil
     with tempfile.TemporaryDirectory() as root:
         net = e2e.Network(root, material=material,
@@ -716,13 +977,13 @@ def profile_e2e_block(torch, material, block, expected):
                 got["flags"] = ch.commit_staged(staged)
             for label, fn in (("MCS check", mcs),
                               ("stage and commit", stage_and_commit)):
-                before = p256_cuda.counts()
+                before = kernel_counts()
                 wall_ms, n_k, busy_ms, top = device_profile(torch, fn)
-                ladders = {k: v - before[k]
-                           for k, v in p256_cuda.counts().items()}
+                kernels = {k: v - before[k]
+                           for k, v in kernel_counts().items()}
                 log_profile(f"e2e block {block.header.number} {label} "
-                            f"({len(block.data.data)} txs; ladder launches "
-                            f"{ladders})", wall_ms, n_k, busy_ms, top)
+                            f"({len(block.data.data)} txs; kernel launches "
+                            f"{kernels})", wall_ms, n_k, busy_ms, top)
             if got["flags"] != expected:
                 raise AssertionError("the profiled block's flags differ "
                                      "from the construction")
@@ -963,19 +1224,21 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.1f} s (pure-python signer)")
     counts = phase_block_commit(torch, np, world, commit_blocks, expected)
 
-    # 8. the end-to-end network: ordered, MCS-verified and committed
+    # 8. the end-to-end network, in turns: (a) unstaged, (b) staged
     t0 = time.perf_counter()
-    e2e_counts, e2e_block = phase_e2e(torch, dev)
+    e2e_counts, e2e_block = phase_e2e(torch, dev, arm="a")
+    staged_counts, _ = phase_e2e(torch, dev, arm="b")
     profile_e2e_block(torch, *e2e_block)
     log(f"e2e phase: {time.perf_counter() - t0:.1f} s wall")
     for k in kernels.values():
-        k["launches"] = counts[k["name"]] + e2e_counts[k["name"]]
-
-    # 7. the idemix presentation verify
-    phase_idemix(torch, np)
+        k["launches"] = (counts[k["name"]] + e2e_counts[k["name"]]
+                         + staged_counts[k["name"]])
 
     # 6. where a block's time goes (after the counted runs)
     phase_profile(torch, blocks, world, commit_blocks)
+
+    # 7. the idemix presentation verify
+    phase_idemix(torch, np)
 
     log(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,11 @@ presentation's pairing equation to the batched FP256BN pairing
 remainder on the host.  Slice 5 ports the in-process end-to-end network
 (e2e.py): channel config and the channel policy tree, the solo orderer,
 the MCS, the pipelined deliver-and-commit path, endorsers and a
-block-store ledger.
+block-store ledger.  Slice 6 ports the verify core around the ladder
+as two more CUDA kernels (csrc/p256_core.cu: the scalar prologue with
+the key check, and the epilogue), so a verify call is three launches,
+and staged broadcast ingress with the Writers check batched on the
+card (BatchingVerifyService, orderer/stagedbroadcast.py).
 
 Counterparts (reference module -> port module):
 
@@ -31,15 +35,21 @@ bccsp/sw.py + _ecfallback.py    bccsp/sw.py (pure-python P-256, seeded;
                                 DER/PEM/SPKI/PKCS#8; SwCSP, SwVerifier)
 bccsp/_x509fallback.py          bccsp/x509.py (the only X.509 layer)
 bccsp/der.py                    bccsp/der.py (verbatim copy)
-bccsp/tpu.py (TpuVerifier)      bccsp/gpu.py (GpuVerifier, fused seam)
+bccsp/tpu.py (TpuVerifier,      bccsp/gpu.py (GpuVerifier, fused seam,
+BatchingVerifyService)          BatchingVerifyService)
 utils/fixtures.py               utils/fixtures.py (+ make_block,
                                 make_commit_world, make_commit_blocks,
-                                make_network_material, make_e2e_stream)
+                                make_network_material, make_e2e_stream,
+                                make_core_lanes)
 ops/limbs9.py                   ops/limbs9.py (plain torch limb layer)
 ops/sha256.py                   ops/sha256.py (torch ops, int64 words)
-ops/p256.py                     ops/p256.py (plain ladders, verify core)
+ops/p256.py                     ops/p256.py (plain ladders, plain
+                                prologue and epilogue, batch_verify)
+ops/p256.py _verify_core_impl   ops/p256_core.py + csrc/p256_core.cu
+(prologue, epilogue)            (the packed buffer, two kernels)
 ops/p256_pallas.py (kernels)    ops/p256_cuda.py + csrc/p256_ladder.cu
-                                + ops/_build.py (nvcc -> ctypes)
+                                + csrc/p256_field.cuh (shared field
+                                code) + ops/_build.py (nvcc -> ctypes)
 protos/wire.py, messages.py,    protos/ (verbatim copies)
 protoutil.py
 msp/ca.py, identities.py,       msp/ (seeded CA; raw-message items an
@@ -57,9 +67,10 @@ ledger/kvledger.py              ledger/kvledger.py (block store + state
 channelconfig/bundle.py,        channelconfig/ (copies over bccsp/x509.py)
 configtx.py, genesis.py
 orderer/blockcutter.py,         orderer/ (solo only; no admission gate,
-blockwriter.py, msgprocessor.py no staged broadcast, no follower)
-consensus.py, registrar.py,
-broadcast.py, deliver.py
+blockwriter.py, msgprocessor.py no follower; staged lanes a Broadcast
+consensus.py, registrar.py,     constructor argument)
+broadcast.py, deliver.py,
+stagedbroadcast.py
 peer/plugins.py, txvalidator.py peer/ (generic per-tx decode path;
                                 tensor_policy a constructor argument)
 peer/mcs.py, commitpipe.py,     peer/ (plain threading objects;

@@ -9,17 +9,24 @@ device.
 
 Kept from the reference: the buckets, vectorised marshalling
 (`marshal_items` over bccsp/der.py), the verdict memo-cache
-(`VerdictCache`), within-call dedup, and the fused seam that hands the
-tensor-policy evaluator the verdict mask on the device.  Left out:
-BatchingVerifyService, metrics, tracing, fault points, and the circuit
-breaker with its software failover — a CUDA error here raises; no path
-answers a device batch in software.
+(`VerdictCache`), within-call dedup, the fused seam that hands the
+tensor-policy evaluator the verdict mask on the device, and
+`BatchingVerifyService` (reference :645), which coalesces concurrent
+callers' verifies into shared device batches (the staged ingress path:
+orderer/stagedbroadcast.py).  Left out: metrics, tracing, fault points,
+the service's routing tag, and the circuit breaker with its software
+failover — a CUDA error here raises; no path answers a device batch in
+software.
 """
 from __future__ import annotations
 
 import collections
 import operator
+import queue
 import threading
+import time
+from concurrent.futures import Future, InvalidStateError
+from concurrent.futures import TimeoutError as FutureTimeout
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -273,14 +280,215 @@ class GpuVerifier:
         from fabric_mod_tpu_torch.ops import p256
         d, r, s, qx, qy, pre_ok, msg = marshal_items(
             items, _bucket(n, self.buckets))
-        pre = _device.upload(pre_ok, self.device)
         mixed = self.ladder == "mixed"
         if msg is not None:
             words, nblocks, has_msg = msg
             ok = p256.batch_verify_raw(
                 words, nblocks, has_msg, d, r, s, qx, qy,
-                device=self.device, mixed=mixed, lazy=True)
+                device=self.device, mixed=mixed, lazy=True, pre_ok=pre_ok)
         else:
             ok = p256.batch_verify(d, r, s, qx, qy, device=self.device,
-                                   mixed=mixed, lazy=True)
-        return (ok & pre)[:n]
+                                   mixed=mixed, lazy=True, pre_ok=pre_ok)
+        return ok[:n]
+
+
+# --- the coalescing front end (reference: bccsp/tpu.py:603-938) -------------
+
+class VerifyDeadlineExceeded(TimeoutError):
+    """The verify deadline expired before the verdict resolved: a
+    DEADLINE (the device overloaded or stuck), typed apart from a device
+    FAILURE (the batch raised).  Straggler futures of a timed-out
+    `verify_many` fail with this same error."""
+
+    def __init__(self, msg: str, deadline_s: Optional[float] = None):
+        super().__init__(msg)
+        self.deadline_s = deadline_s
+
+
+def _complete(fut: Future, value=None, exc: Optional[BaseException] = None
+              ) -> None:
+    """Complete a future that a deadline may have failed first: the
+    loser of that race must not die on InvalidStateError (a dead
+    resolver thread would hang every later caller)."""
+    try:
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(value)
+    except InvalidStateError:
+        pass
+
+
+class BatchingVerifyService:
+    """Deadline- and size-batched verify front end with a bounded
+    in-flight window.
+
+    A flusher thread drains the submit queue into batches (a flush when
+    `max_batch` items are pending or the oldest is `deadline_s` old)
+    and dispatches each through the verifier's `verify_many_async` (or
+    `verify_many`), then goes back to accumulating while the device
+    works.  A `verify_many` call's items enter the queue as one group,
+    and the flusher takes every group already queued at once, so a
+    caller that formed its own cohort (a staged lane) gets one device
+    call with `deadline_s=0`.  A resolver thread completes the futures
+    in dispatch order.
+    The queue between them holds at most `inflight_depth` batches: when
+    the device falls behind, the flusher blocks — backpressure, not
+    unbounded buffering.  `close()` drains: everything submitted before
+    it gets a verdict.  The verifier's lifecycle stays the caller's."""
+
+    def __init__(self, verifier, max_batch: int = 2048,
+                 deadline_s: float = 0.002, inflight_depth: int = 2):
+        if max_batch < 1 or inflight_depth < 1 or deadline_s < 0:
+            raise ValueError("max_batch and inflight_depth must be >= 1 "
+                             "and deadline_s >= 0")
+        self._verifier = verifier
+        self.max_batch = max_batch
+        self.deadline_s = deadline_s
+        self.inflight_depth = inflight_depth
+        self._q: "queue.Queue" = queue.Queue()
+        self._inflight: "queue.Queue" = queue.Queue(inflight_depth)
+        self._stop = threading.Event()
+        # orders submit against close: an item lands before close()'s
+        # final drain, or is refused
+        self._lifecycle = threading.Lock()
+        self._resolver = threading.Thread(
+            target=self._resolve_loop, name="verify-resolver", daemon=True)
+        self._worker = threading.Thread(
+            target=self._run, name="verify-flusher", daemon=True)
+        self._resolver.start()
+        self._worker.start()
+
+    def submit(self, item: VerifyItem) -> Future:
+        """Queue one item; its future resolves to the bool verdict."""
+        return self._submit_group([item])[0]
+
+    def _submit_group(self, items: Sequence[VerifyItem]) -> List[Future]:
+        """Queue `items` as one group, which the flusher never splits
+        below `max_batch`; one future per item."""
+        group = [(item, Future()) for item in items]
+        with self._lifecycle:
+            if self._stop.is_set():
+                for _, fut in group:
+                    fut.set_exception(RuntimeError("verify service is closed"))
+            elif group:
+                self._q.put(group)
+        return [fut for _, fut in group]
+
+    def verify_many(self, items: Sequence[VerifyItem],
+                    timeout: Optional[float] = 30.0) -> List[bool]:
+        """The policy engine's seam (GpuVerifier's shape): submit the
+        items as one group and gather the verdicts.  Concurrent callers'
+        groups share device batches.  `timeout` bounds the whole call
+        (None waits forever); on expiry every pending future fails with
+        VerifyDeadlineExceeded and the call raises it."""
+        futs = self._submit_group(items)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        out = []
+        for f in futs:
+            remaining = (None if deadline is None
+                         else max(0.0, deadline - time.monotonic()))
+            try:
+                out.append(f.result(remaining))
+            except FutureTimeout:
+                pending = [g for g in futs if not g.done()]
+                err = VerifyDeadlineExceeded(
+                    f"verify deadline ({timeout}s) expired with "
+                    f"{len(pending)} verdict(s) outstanding", timeout)
+                for g in pending:
+                    _complete(g, exc=err)
+                raise err from None
+        return out
+
+    def close(self) -> None:
+        """Stop both threads, draining: everything already submitted,
+        batches on the device included, gets a verdict."""
+        with self._lifecycle:
+            self._stop.set()
+        self._worker.join(timeout=60)
+        self._resolver.join(timeout=60)
+        # a thread that outlived its join leaves its items here: fail
+        # them rather than leave a caller parked on a future
+        while True:
+            try:
+                group = self._q.get_nowait()
+            except queue.Empty:
+                break
+            for _, fut in group:
+                _complete(fut, exc=RuntimeError("verify service is closed"))
+        if self._worker.is_alive() or self._resolver.is_alive():
+            raise RuntimeError("verify service threads did not stop")
+
+    def _route_batch(self, batch):
+        """[(verifier, sub-batch)]: one program, one group."""
+        return [(self._verifier, batch)]
+
+    def _flush(self, batch) -> None:
+        """Dispatch one batch and hand it to the resolver.  A dispatch
+        that raises fails its group's futures here; a device fault
+        surfaces on the resolver."""
+        dispatched = []
+        for verifier, group in self._route_batch(batch):
+            items = [it for it, _ in group]
+            try:
+                async_fn = getattr(verifier, "verify_many_async", None)
+                if async_fn is not None:
+                    resolve = async_fn(items)
+                else:
+                    mask = verifier.verify_many(items)
+                    resolve = lambda m=mask: m           # noqa: E731
+            except Exception as e:                   # the group's verdict
+                for _, fut in group:
+                    _complete(fut, exc=e)
+                continue
+            dispatched.append((group, resolve))
+        for entry in dispatched:
+            self._inflight.put(entry)                # blocks when full
+
+    def _run(self) -> None:
+        pending: list = []
+        first_ts = 0.0
+        while not self._stop.is_set():
+            if pending:
+                wait = max(0.0, first_ts + self.deadline_s - time.monotonic())
+            else:
+                wait = 0.05
+            try:
+                group = self._q.get(timeout=wait)
+                if not pending:
+                    first_ts = time.monotonic()
+                pending.extend(group)
+                while len(pending) < self.max_batch:  # what is queued joins
+                    pending.extend(self._q.get_nowait())
+            except queue.Empty:
+                pass
+            if pending and (len(pending) >= self.max_batch
+                            or time.monotonic() - first_ts >= self.deadline_s):
+                self._flush_all(pending)
+                pending = []
+        # closing: what was submitted before close() still gets a verdict
+        while True:
+            try:
+                pending.extend(self._q.get_nowait())
+            except queue.Empty:
+                break
+        self._flush_all(pending)
+        self._inflight.put(None)                     # resolver: drain, exit
+
+    def _flush_all(self, pending) -> None:
+        for i in range(0, len(pending), self.max_batch):
+            self._flush(pending[i:i + self.max_batch])
+
+    def _resolve_loop(self) -> None:
+        while True:
+            got = self._inflight.get()
+            if got is None:
+                return
+            group, resolve = got
+            try:
+                mask = resolve()
+                for (_, fut), ok in zip(group, mask):
+                    _complete(fut, bool(ok))
+            except Exception as e:                   # the group's verdict
+                for _, fut in group:
+                    _complete(fut, exc=e)

@@ -7,10 +7,14 @@ Broadcast.submit -> solo consenter -> block cutting and signing ->
 DeliverService -> the peer's MCS block-signature verify -> the
 pipelined TxValidator -> MVCC -> the ledger commit.
 
-On a card the two device paths of the loop are the MCS (one verify per
-block) and the validator (every creator and endorser signature of a
-block in one batch, and with `tensor_policy` the endorsement policies
-on the device mask).  Ingress and the endorsers verify on the host (see
+On a card the device paths of the loop are the MCS (one verify per
+block), the validator (every creator and endorser signature of a block
+in one batch, and with `tensor_policy` the endorsement policies on the
+device mask) and, with `ingress_batching`, ingress: the orderer's
+Writers checks go through a `BatchingVerifyService` over the same
+verifier, and with `staged_batch` > 0 concurrent submitters' checks
+coalesce into one call per lane drain (orderer/stagedbroadcast.py).
+Otherwise ingress verifies on the host, as do the endorsers (see
 orderer/msgprocessor.py and peer/endorser.py).
 
 A Network is built from `NetworkMaterial`: the CA certificates, the
@@ -71,10 +75,16 @@ class Network:
     endorser per org — all in-process, built from `material` (its
     genesis block fixes the channel, the orgs and the batch
     configuration).  `verifier` None builds `GpuVerifier(device=device)`:
-    on CUDA unless `device="cpu"`, and it raises without a card."""
+    on CUDA unless `device="cpu"`, and it raises without a card.
+    `ingress_batching` sends the orderer's Writers checks through a
+    `BatchingVerifyService` over `verifier`; `staged_batch` > 0 stages
+    Broadcast's normal txs in lanes that drain up to that many at a
+    time (reference e2e.py:85-97).  Behind lanes the service flushes
+    with no deadline wait: a lane's drain is already the cohort."""
 
     def __init__(self, root_dir: str, material: NetworkMaterial,
-                 verifier=None, device=None, tensor_policy: bool = False):
+                 verifier=None, device=None, tensor_policy: bool = False,
+                 ingress_batching: bool = False, staged_batch: int = 0):
         if verifier is None:
             from fabric_mod_tpu_torch.bccsp.gpu import GpuVerifier
             verifier = GpuVerifier(device=device)
@@ -90,13 +100,22 @@ class Network:
         channel_id, config = config_from_block(self.genesis_block)
         self.channel_id = channel_id
 
-        # the ordering service: the Writers check of each envelope
-        # verifies on the host (orderer/msgprocessor.py)
+        # the ordering service: the Writers check verifies on the host,
+        # or with ingress batching through the coalescing service
+        self.ingress_service = None
+        ingress_verify = None
+        if ingress_batching:
+            from fabric_mod_tpu_torch.bccsp.gpu import BatchingVerifyService
+            self.ingress_service = (
+                BatchingVerifyService(verifier, deadline_s=0.0)
+                if staged_batch else BatchingVerifyService(verifier))
+            ingress_verify = self.ingress_service.verify_many
         self.registrar = Registrar(os.path.join(root_dir, "orderer"),
-                                   self.orderer_signer, self.csp)
+                                   self.orderer_signer, self.csp,
+                                   verify_many=ingress_verify)
         self.support = self.registrar.create_channel(
             m.Block.decode(material.genesis))
-        self.broadcast = Broadcast(self.registrar)
+        self.broadcast = Broadcast(self.registrar, staged_batch=staged_batch)
         self.deliver = DeliverService(self.support)
 
         # the committing peer
@@ -119,6 +138,12 @@ class Network:
         return DeliverClient(self.channel, self.deliver)
 
     def close(self) -> None:
+        """Stop, in order: the broadcast lanes (no submitter is left
+        blocked), the ingress service, the orderer, the peer's channel
+        and the ledger."""
+        self.broadcast.close()
+        if self.ingress_service is not None:
+            self.ingress_service.close()
         self.registrar.close()
         self.channel.close()
         self.ledger_mgr.close()
@@ -173,13 +198,44 @@ def commit_until(net: Network, want_txs: int, timeout: float,
     return client, committed, span_s
 
 
+def submit_all(net: Network, envs, submitters: int = 1) -> None:
+    """Broadcast `envs` from `submitters` threads (envelope i from thread
+    i mod submitters, each in order); the first error is re-raised."""
+    if submitters <= 1:
+        for env in envs:
+            net.broadcast.submit(env)
+        return
+    errors = []
+
+    def run(share):
+        try:
+            for env in share:
+                net.broadcast.submit(env)
+        except Exception as e:              # re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(envs[k::submitters],),
+                                name=f"e2e-submit-{k}", daemon=True)
+               for k in range(submitters)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("a submitter did not finish")
+    if errors:
+        raise errors[0]
+
+
 def run_pipeline(n_txs: int, verifier=None, stats: Optional[dict] = None,
-                 tensor_policy: bool = False, device=None) -> float:
-    """Endorse `n_txs` puts, broadcast them while the peer's deliver
-    client runs, and commit them through the peer pipeline; committed
-    tx/s over the ordering + commit span (endorsement and signing
-    excluded: client work).  The network is
-    `fixtures.make_network_material(0)`'s.
+                 tensor_policy: bool = False, device=None,
+                 submitters: int = 1, staged_batch: int = 0,
+                 ingress_batching: bool = False) -> float:
+    """Endorse `n_txs` puts, broadcast them from `submitters` threads
+    while the peer's deliver client runs, and commit them through the
+    peer pipeline; committed tx/s over the ordering + commit span
+    (endorsement and signing excluded: client work).  The network is
+    `fixtures.make_network_material(0)`'s, with `staged_batch` and
+    `ingress_batching` as `Network` takes them.
 
     `stats`, if given, receives the deliver client's cumulative
     stage_secs (host unpack + device dispatch), await_secs (the
@@ -191,7 +247,9 @@ def run_pipeline(n_txs: int, verifier=None, stats: Optional[dict] = None,
     with tempfile.TemporaryDirectory() as root:
         net = Network(root, fixtures.make_network_material(0),
                       verifier=verifier, device=device,
-                      tensor_policy=tensor_policy)
+                      tensor_policy=tensor_policy,
+                      ingress_batching=ingress_batching,
+                      staged_batch=staged_batch)
         try:
             envs = []
             orgs = list(net.endorsers)[:2]
@@ -204,11 +262,9 @@ def run_pipeline(n_txs: int, verifier=None, stats: Optional[dict] = None,
                 envs.append(protoutil.create_tx_from_responses(
                     prop, responses, net.client))
 
-            def feed():
-                for env in envs:
-                    net.broadcast.submit(env)
             client, committed, dt = commit_until(
-                net, n_txs, max(120.0, n_txs / 20), feed=feed)
+                net, n_txs, max(120.0, n_txs / 20),
+                feed=lambda: submit_all(net, envs, submitters))
             if committed < n_txs:
                 raise RuntimeError(f"only {committed}/{n_txs} txs committed")
             if stats is not None:

@@ -2,8 +2,9 @@
 
 Each source under fabric_mod_tpu_torch/csrc/ is compiled on first CUDA
 use into `<repo>/build/kernels/<name>-<source hash>.so` (a directory
-.gitignore lists), with a plain C interface loaded through ctypes — no
-PyTorch headers, so a build takes seconds, not minutes.  The hash key
+.gitignore lists; the hash covers the headers under csrc/ too), with a
+plain C interface loaded through ctypes — no PyTorch headers, so a
+build takes seconds, not minutes.  The hash key
 means an edited source rebuilds and a stale library is never loaded.  A
 failed build raises with nvcc's output.  Nothing here runs at import.
 """
@@ -22,7 +23,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-SOURCES = ("p256_ladder",)
+SOURCES = ("p256_ladder", "p256_core")
 
 # C signatures: every pointer and the stream are c_void_p (without
 # argtypes ctypes would pass them as 32-bit ints and cut them)
@@ -34,6 +35,12 @@ SIGNATURES = {
                                 ctypes.c_int, _P]),
         "p256_ladder_geometry": (ctypes.c_int,
                                  [ctypes.POINTER(ctypes.c_int)] * 2),
+    },
+    "p256_core": {
+        "p256_core_prologue_launch": (ctypes.c_int,
+                                      [_P, _P, _P, _P, _P, ctypes.c_int, _P]),
+        "p256_core_epilogue_launch": (ctypes.c_int,
+                                      [_P, _P, _P, _P, _P, ctypes.c_int, _P]),
     },
 }
 
@@ -54,8 +61,13 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()
-                            + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, keyed by the source, every header under
+    csrc/ (the sources include them) and the target flags."""
+    h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -7,10 +7,14 @@ algorithms 4, 5 and 6), transcribed in the reference's exact operation
 order so every intermediate is the same field value.
 
 `u1*G + u2*Q` is the 4-bit windowed Shamir ladder.  `shamir_ladder` and
-`shamir_ladder_mixed` here are its PLAIN versions (any device); the
-verify core calls `ops/p256_cuda.ladder`, which launches the hand-written
-CUDA kernel for a CUDA tensor and takes the plain version only for a
-CPU tensor.  The final comparison avoids an inversion: accept iff
+`shamir_ladder_mixed` here are its PLAIN versions (any device), and
+`verify_prologue_plain` / `verify_epilogue_plain` the plain versions of
+the scalar prologue (w = s^-1, u1, u2 mod n, their windows, the key
+check) and the epilogue.  `batch_verify` packs its inputs into one
+buffer (ops/p256_core.py) and runs prologue, ladder and epilogue
+through their wrappers (ops/p256_core.py, ops/p256_cuda.py): the
+hand-written CUDA kernels for a CUDA buffer, the plain versions only
+for a CPU one.  The final comparison avoids an inversion: accept iff
 X == (r + k*n)*Z (mod p) for k in {0, 1} (with r + k*n < p), Z != 0.
 """
 from __future__ import annotations
@@ -25,7 +29,7 @@ from fabric_mod_tpu_torch.ops import limbs9 as limbs
 from fabric_mod_tpu_torch.ops.limbs9 import (
     FieldSpec, K, add, sub, mont_mul, mont_sqr, to_mont, eq_zero,
     mul_small, canonical, bits_le, inv_mont, inv_mont_many,
-    be_bytes_to_limbs, const_like,
+    const_like,
 )
 
 WINDOW = 4                     # Shamir ladder window width (bits)
@@ -386,11 +390,12 @@ def inv_mont_p_chain(a_mont: torch.Tensor, spec=None) -> torch.Tensor:
     return acc
 
 
-def digest_words_to_limbs(dw: torch.Tensor) -> torch.Tensor:
+def digest_words_le(dw: torch.Tensor) -> torch.Tensor:
     """(batch, 8) big-endian SHA-256 digest words (int64, < 2^32) ->
-    (K, batch) f32 limbs of the digest as a 256-bit integer."""
-    words_le = dw.to(torch.int64).flip(-1).T          # (8, batch), LS first
-    return limbs.words_to_limbs(words_le).to(torch.float32)
+    (8, batch) int32 bit patterns of the digest's little-endian words:
+    the verify core's e rows (ops/p256_core.py)."""
+    from fabric_mod_tpu_torch.ops import p256_cuda
+    return p256_cuda.to_u32_bits(dw.to(torch.int64).flip(-1).T)
 
 
 def windows_msb_first(u_canon: torch.Tensor) -> torch.Tensor:
@@ -404,33 +409,35 @@ def windows_msb_first(u_canon: torch.Tensor) -> torch.Tensor:
     return w.flip(0)
 
 
-def _verify_core_impl(e, r, s, qx, qy, rn_lt_p,
-                      mixed: bool = False) -> torch.Tensor:
-    """Batched ECDSA-P256 verify on limb tensors.
+def verify_prologue_plain(e, r, s, qx, qy):
+    """The PLAIN verify prologue (the CUDA kernel's plain version, see
+    ops/p256_core.py): scalars mod n and the key check.
 
-    e, r, s: (K, batch) f32 canonical limbs (digest, scalars already
-    range-checked on host); qx, qy: (K, batch) canonical key limbs;
-    rn_lt_p: (batch,) bool.  The ladder is ops/p256_cuda.ladder: the
-    CUDA kernel on a CUDA tensor, the plain ladder on a CPU tensor.
-    Returns (batch,) bool: signature valid AND key on curve."""
-    from fabric_mod_tpu_torch.ops import p256_cuda
+    e, r, s, qx, qy: (K, batch) f32 canonical limbs of the digest (any
+    256-bit value), the signature scalars and the affine key.  Returns
+    (u1_w, u2_w, qx_m, qy_m, key_ok): the (N_WINDOWS, batch) int32
+    window planes of u1 = e*w and u2 = r*w mod n (w = s^-1 mod n), most
+    significant window first; the key in Montgomery form mod p; and
+    (batch,) bool key_ok — the key is on the curve and is not (0, 0)."""
     fp, fn, _b_m_np, _, _ = _consts()
-
     qx_m = to_mont(qx, fp)
     qy_m = to_mont(qy, fp)
     key_ok = on_curve(qx_m, qy_m)
     key_ok &= ~(eq_zero(qx, fp) & eq_zero(qy, fp))
-
-    s_mn = to_mont(s, fn)
-    w_mn = inv_mont(s_mn, fn)
+    # mont_mul of a plain value by a Montgomery-domain one is the plain
+    # product
+    w_mn = inv_mont(to_mont(s, fn), fn)
     u1 = canonical(mont_mul(e, w_mn, fn), fn)
     u2 = canonical(mont_mul(r, w_mn, fn), fn)
-    u1_w = windows_msb_first(u1)
-    u2_w = windows_msb_first(u2)
+    return windows_msb_first(u1), windows_msb_first(u2), qx_m, qy_m, key_ok
 
-    acc = p256_cuda.ladder(u1_w, u2_w, qx_m, qy_m, mixed=mixed)
-    X, Z = acc[0], acc[2]
 
+def verify_epilogue_plain(X, Z, r, rn_lt_p, key_ok) -> torch.Tensor:
+    """The PLAIN verify epilogue: accept iff the key is good, Z != 0 and
+    X == r'*Z (mod p) for r' in {r, r + n} (r + n only where rn_lt_p).
+    X, Z: (K, batch) Montgomery-domain limbs of the ladder's output;
+    r: (K, batch) canonical limbs.  Returns (batch,) bool."""
+    fp, fn, _b_m_np, _, _ = _consts()
     not_inf = ~eq_zero(Z, fp)
     r_m = to_mont(r, fp)
     ok_r = eq_zero(sub(X, mont_mul(r_m, Z, fp)), fp)
@@ -438,18 +445,6 @@ def _verify_core_impl(e, r, s, qx, qy, rn_lt_p,
     rn_m = to_mont(rn, fp)
     ok_rn = eq_zero(sub(X, mont_mul(rn_m, Z, fp)), fp) & rn_lt_p
     return key_ok & not_inf & (ok_r | ok_rn)
-
-
-def _verify_core_fused_impl(words, nblocks, has_msg, e, r, s, qx, qy,
-                            rn_lt_p, mixed: bool = False) -> torch.Tensor:
-    """The fused hash->verify core: e = SHA-256(m) computed on the device
-    for raw-message lanes, in the same call as the verify; pre-digested
-    lanes (has_msg False) keep `e`."""
-    from fabric_mod_tpu_torch.ops import sha256
-    dw = sha256.sha256_blocks(words, nblocks)        # (batch, 8)
-    e_dev = digest_words_to_limbs(dw)
-    e = torch.where(has_msg[None], e_dev, e)
-    return _verify_core_impl(e, r, s, qx, qy, rn_lt_p, mixed=mixed)
 
 
 # --- Host wrapper ----------------------------------------------------------
@@ -470,74 +465,78 @@ def _lt_bytes(a: np.ndarray, b_: bytes) -> np.ndarray:
     return np.where(any_nz, firstval < 0, False)
 
 
-def _host_limbs(b: np.ndarray) -> np.ndarray:
-    """(batch, 32) bytes -> (K, batch) f32 host array (device layout)."""
-    return np.ascontiguousarray(
-        np.moveaxis(be_bytes_to_limbs(b), -1, 0).astype(np.float32))
+def range_checks(digests, r_bytes, s_bytes, qx_bytes, qy_bytes):
+    """The five (batch, 32) uint8 big-endian planes, the host-side
+    scalar-range verdict (r, s in [1, n), qx, qy < p) and rn_lt_p
+    (r + n < p)."""
+    planes = tuple(np.asarray(a, np.uint8) for a in
+                   (digests, r_bytes, s_bytes, qx_bytes, qy_bytes))
+    _d, r, s, qx, qy = planes
+    range_ok = (r.any(axis=-1) & s.any(axis=-1)
+                & _lt_bytes(r, _N_BYTES) & _lt_bytes(s, _N_BYTES)
+                & _lt_bytes(qx, _P_BYTES) & _lt_bytes(qy, _P_BYTES))
+    return planes, range_ok, _lt_bytes(r, _P_MINUS_N_BYTES)
 
 
-def marshal_inputs(digests, r_bytes, s_bytes, qx_bytes, qy_bytes):
-    """Host prologue: range checks + byte->limb marshalling (numpy).
-    Returns (core_args, range_ok): the (K, batch) f32 limb arrays + the
-    rn_lt_p flags, and the host-side scalar-range verdict."""
-    digests = np.asarray(digests, np.uint8)
-    r_bytes = np.asarray(r_bytes, np.uint8)
-    s_bytes = np.asarray(s_bytes, np.uint8)
-    qx_bytes = np.asarray(qx_bytes, np.uint8)
-    qy_bytes = np.asarray(qy_bytes, np.uint8)
-    nonzero_r = r_bytes.any(axis=-1)
-    nonzero_s = s_bytes.any(axis=-1)
-    range_ok = (nonzero_r & nonzero_s
-                & _lt_bytes(r_bytes, _N_BYTES) & _lt_bytes(s_bytes, _N_BYTES)
-                & _lt_bytes(qx_bytes, _P_BYTES)
-                & _lt_bytes(qy_bytes, _P_BYTES))
-    rn_lt_p = _lt_bytes(r_bytes, _P_MINUS_N_BYTES)
-    core_args = (_host_limbs(digests), _host_limbs(r_bytes),
-                 _host_limbs(s_bytes), _host_limbs(qx_bytes),
-                 _host_limbs(qy_bytes), rn_lt_p)
-    return core_args, range_ok
+def _core(e, buf, mixed: bool, lazy: bool):
+    """Prologue, ladder and epilogue on the packed buffer's device: the
+    CUDA kernels for a CUDA buffer, their plain versions for a CPU one."""
+    from fabric_mod_tpu_torch.ops import p256_core, p256_cuda
+    u1_w, u2_w, key_ok = p256_core.prologue(e, buf)
+    X, _Y, Z = p256_cuda.ladder_words(
+        u1_w, u2_w, p256_core.rows(buf, p256_core.ROW_QX),
+        p256_core.rows(buf, p256_core.ROW_QY), mixed)
+    ok = p256_core.epilogue(X, Z, buf, key_ok)
+    return ok if lazy else ok.cpu().numpy()
 
 
-def _to_dev(core_args, range_ok, dev):
-    """The core's inputs and the host range verdict on `dev`."""
-    out = [torch.as_tensor(a, device=dev) for a in core_args[:5]]
-    out.append(torch.as_tensor(np.asarray(core_args[5], bool), device=dev))
-    return out, torch.as_tensor(np.asarray(range_ok, bool), device=dev)
+def _packed(dev, digests, r_bytes, s_bytes, qx_bytes, qy_bytes, pre_ok,
+            has_msg=None):
+    """The core's packed input buffer on `dev`, in one copy."""
+    from fabric_mod_tpu_torch.ops import p256_core
+    if dev.type == "cuda":
+        _device.require_exact_fp32()
+    planes, range_ok, rn_lt_p = range_checks(
+        digests, r_bytes, s_bytes, qx_bytes, qy_bytes)
+    n = len(range_ok)
+    pre_ok = np.ones(n, bool) if pre_ok is None else np.asarray(pre_ok, bool)
+    return _device.upload(
+        p256_core.pack(planes, range_ok, pre_ok, rn_lt_p, has_msg), dev)
 
 
 def batch_verify(digests, r_bytes, s_bytes, qx_bytes, qy_bytes,
-                 device=None, mixed: bool = False, lazy: bool = False):
+                 device=None, mixed: bool = False, lazy: bool = False,
+                 pre_ok=None):
     """Verify a batch of ECDSA-P256 signatures over 32-byte digests.
 
-    All args are (batch, 32) uint8 big-endian.  Runs on CUDA unless
-    `device="cpu"`.  Returns (batch,) bool numpy — or, with `lazy=True`,
-    the (batch,) bool verdict tensor on the device, its work enqueued
-    and not waited for (CUDA is asynchronous)."""
-    dev = _device.resolve(device)
-    if dev.type == "cuda":
-        _device.require_exact_fp32()
-    core_args, range_ok = marshal_inputs(
-        digests, r_bytes, s_bytes, qx_bytes, qy_bytes)
-    args, range_dev = _to_dev(core_args, range_ok, dev)
-    ok = _verify_core_impl(*args, mixed=mixed) & range_dev
-    return ok if lazy else ok.cpu().numpy()
+    All args are (batch, 32) uint8 big-endian; `pre_ok`, if given, the
+    (batch,) host validity mask (False lanes never verify).  Runs on
+    CUDA unless `device="cpu"`: the inputs go to the device in one copy
+    and the core is three launches there (ops/p256_core.py prologue,
+    the ladder, the epilogue).  Returns (batch,) bool numpy — or, with
+    `lazy=True`, the (batch,) bool verdict tensor on the device, its
+    work enqueued and not waited for (CUDA is asynchronous)."""
+    from fabric_mod_tpu_torch.ops import p256_core
+    buf = _packed(_device.resolve(device), digests, r_bytes, s_bytes,
+                  qx_bytes, qy_bytes, pre_ok)
+    return _core(p256_core.rows(buf, p256_core.ROW_E), buf, mixed, lazy)
 
 
 def batch_verify_raw(words, nblocks, has_msg, digests, r_bytes, s_bytes,
                      qx_bytes, qy_bytes, device=None, mixed: bool = False,
-                     lazy: bool = False):
+                     lazy: bool = False, pre_ok=None):
     """`batch_verify` with the digest computed on the device for raw-
     message lanes (`words`: (batch, max_blocks, 16) uint32 from
-    bccsp/der.pack_messages); lanes with has_msg False use `digests`."""
+    bccsp/der.pack_messages); lanes with has_msg False use `digests`.
+    The torch SHA-256 (ops/sha256.py) runs in front of the prologue."""
+    from fabric_mod_tpu_torch.ops import p256_core, sha256
     dev = _device.resolve(device)
-    if dev.type == "cuda":
-        _device.require_exact_fp32()
-    core_args, range_ok = marshal_inputs(
-        digests, r_bytes, s_bytes, qx_bytes, qy_bytes)
+    buf = _packed(dev, digests, r_bytes, s_bytes, qx_bytes, qy_bytes,
+                  pre_ok, has_msg)
     w = torch.as_tensor(np.asarray(words, np.uint32).astype(np.int64),
                         device=dev)
     nb = torch.as_tensor(np.asarray(nblocks, np.int64), device=dev)
-    hm = torch.as_tensor(np.asarray(has_msg, bool), device=dev)
-    args, range_dev = _to_dev(core_args, range_ok, dev)
-    ok = _verify_core_fused_impl(w, nb, hm, *args, mixed=mixed) & range_dev
-    return ok if lazy else ok.cpu().numpy()
+    dw = sha256.sha256_blocks(w, nb)                 # (batch, 8) big-endian
+    e = torch.where(p256_core.has_msg(buf)[None], digest_words_le(dw),
+                    p256_core.rows(buf, p256_core.ROW_E)).contiguous()
+    return _core(e, buf, mixed, lazy)

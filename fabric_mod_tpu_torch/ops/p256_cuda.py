@@ -5,13 +5,16 @@ Replaces fabric_mod_tpu/ops/p256_pallas.py (`pallas_ladder` ->
 kernels are csrc/p256_ladder.cu, built by ops/_build.py and bound with
 ctypes.
 
+`ladder_words(u1_w, u2_w, qx_w, qy_w, mixed)` is the verify core's
+path (ops/p256.py): int32 window planes and the key's words in, the
+canonical non-Montgomery X, Y, Z words out — `kernel_words`, the
+launch, for CUDA tensors; for CPU tensors the plain ladder
+(ops/p256.shamir_ladder / _mixed) between word/limb conversions.
 `ladder(u1_w, u2_w, qx_m, qy_m, mixed=...)` keeps the plain ladder's
-contract on (K, batch) f32 Montgomery limbs (R = 2^270).  For a CPU
-tensor it IS the plain version (ops/p256.shamir_ladder / _mixed).  For
-a CUDA tensor it launches the kernel or raises — there is no fallback.
-Around the launch the plain limb ops convert in and out: `from_mont` +
-`canonical` give the key's canonical words; the kernel returns
-canonical non-Montgomery words, which go back to limbs and `to_mont`.
+contract on (K, batch) f32 Montgomery limbs (R = 2^270), for the tests
+and chip_smoke's comparison: on a CUDA tensor the plain limb ops convert
+in and out around the launch.  No path falls back: a CUDA tensor
+launches the kernel or raises.
 
 Each kernel has a launch count (`LAUNCHES`), raised by one where the
 wrapper launches it and nowhere else.
@@ -90,7 +93,8 @@ def geometry() -> tuple:
     return per_lane.value, block.value
 
 
-def _check(t: torch.Tensor, name: str, dtype, rows: int, n: int, dev):
+def check_plane(t: torch.Tensor, name: str, dtype, rows: int, n: int, dev):
+    """Raise unless `t` is a contiguous (rows, n) `dtype` tensor on `dev`."""
     if t.device != dev or t.dtype != dtype or tuple(t.shape) != (rows, n) \
             or not t.is_contiguous():
         raise ValueError(
@@ -111,10 +115,10 @@ def kernel_words(u1_w: torch.Tensor, u2_w: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError("kernel_words needs CUDA tensors")
     n = qx_w.shape[1]
-    _check(u1_w, "u1_w", torch.int32, p256.N_WINDOWS, n, dev)
-    _check(u2_w, "u2_w", torch.int32, p256.N_WINDOWS, n, dev)
-    _check(qx_w, "qx_w", torch.int32, 8, n, dev)
-    _check(qy_w, "qy_w", torch.int32, 8, n, dev)
+    check_plane(u1_w, "u1_w", torch.int32, p256.N_WINDOWS, n, dev)
+    check_plane(u2_w, "u2_w", torch.int32, p256.N_WINDOWS, n, dev)
+    check_plane(qx_w, "qx_w", torch.int32, 8, n, dev)
+    check_plane(qy_w, "qy_w", torch.int32, 8, n, dev)
     lib = _build.load("p256_ladder")
     gtab = limbs.const(g_table_words(bool(mixed)), dev)
     X = torch.empty((8, n), dtype=torch.int32, device=dev)
@@ -147,6 +151,22 @@ def words_to_mont_limbs(w: torch.Tensor) -> torch.Tensor:
     fp = p256._consts()[0]
     lm = limbs.words_to_limbs(from_u32_bits(w)).to(torch.float32)
     return limbs.to_mont(lm, fp)
+
+
+def ladder_words(u1_w: torch.Tensor, u2_w: torch.Tensor, qx_w: torch.Tensor,
+                 qy_w: torch.Tensor, mixed: bool = False):
+    """`kernel_words`' contract (windows, the key's words in; canonical
+    non-Montgomery X, Y, Z words out) on any device: the kernel for CUDA
+    tensors, the plain ladder for CPU tensors (words converted to
+    Montgomery limbs and back).  The verify core's path."""
+    if qx_w.device.type == "cuda":
+        return kernel_words(u1_w, u2_w, qx_w, qy_w, mixed)
+    if qx_w.device.type != "cpu":
+        raise ValueError(f"unsupported device {qx_w.device}")
+    plain = p256.shamir_ladder_mixed if mixed else p256.shamir_ladder
+    out = plain(u1_w, u2_w, words_to_mont_limbs(qx_w),
+                words_to_mont_limbs(qy_w))
+    return tuple(mont_limbs_to_words(c) for c in out)
 
 
 def ladder(u1_w: torch.Tensor, u2_w: torch.Tensor, qx_m: torch.Tensor,

@@ -5,16 +5,21 @@ The port's copy of fabric_mod_tpu/orderer/broadcast.py `Broadcast.submit`
 ProcessMessage :136-180: classify -> msgprocessor -> WaitReady ->
 Order/Configure).  `submit` is the unary form of one stream message.
 
-Unstaged, as the reference runs by default: each submitter's Writers
-check runs on its own thread.  Not ported: the admission gate, the
-staged lanes that coalesce concurrent submitters into one batched
-verify, and the NOT_LEADER retrier (solo always has a leader).
+Unstaged (`staged_batch=0`, the reference's default), each submitter's
+Writers check runs on its own thread.  Staged (`staged_batch` > 0,
+reference :94-102, :146-153), concurrent submitters' normal txs go
+through the per-channel lanes of orderer/stagedbroadcast.py, which
+judge each cohort with one batched `verify_many` call; the verdict comes
+back to the submitter's thread, and `chain.order` stays there.  Config
+updates always take the blocking path.  Not ported: the admission gate
+and the NOT_LEADER retrier (solo always has a leader).
 """
 from __future__ import annotations
 
 from fabric_mod_tpu_torch.channelconfig import ConfigTxError
 from fabric_mod_tpu_torch.orderer.msgprocessor import MsgRejectedError
 from fabric_mod_tpu_torch.orderer.registrar import Registrar
+from fabric_mod_tpu_torch.orderer.stagedbroadcast import StagedIngress
 from fabric_mod_tpu_torch.protos import messages as m
 
 # client-attributable rejections -> BAD_REQUEST on the wire; anything
@@ -27,8 +32,20 @@ class BroadcastError(Exception):
 
 
 class Broadcast:
-    def __init__(self, registrar: Registrar):
+    """`staged_batch`: the most envelopes one lane drain judges together;
+    0 runs each submitter's check on its own thread."""
+
+    def __init__(self, registrar: Registrar, staged_batch: int = 0):
+        if staged_batch < 0:
+            raise ValueError("staged_batch must be >= 0")
         self._registrar = registrar
+        self._staged = StagedIngress(staged_batch) if staged_batch else None
+
+    def close(self) -> None:
+        """Stop the lanes (nothing to stop unstaged); a submitter racing
+        the close gets a typed error, never a hang."""
+        if self._staged is not None:
+            self._staged.close()
 
     def submit(self, env: m.Envelope) -> None:
         """Accept one envelope for ordering; raises BroadcastError on a
@@ -47,7 +64,11 @@ class Broadcast:
             support.chain.configure(wrapped, seq)
             return
         try:
-            seq = support.processor.process_normal_msg(env)
+            if self._staged is not None:
+                seq = self._staged.submit(support.channel_id,
+                                          support.processor, env)
+            else:
+                seq = support.processor.process_normal_msg(env)
         except _CLIENT_FAULTS as e:
             raise BroadcastError(f"rejected: {e}") from e
         support.chain.order(env, seq)

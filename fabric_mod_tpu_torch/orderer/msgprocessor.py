@@ -7,20 +7,23 @@ SigFilter.Apply at sigfilter.go:41, and ProcessConfigUpdateMsg).
 
 The filters reject empty envelopes, enforce the channel's
 absolute_max_bytes, and require the channel Writers policy over the
-envelope's signature.  The Writers check verifies on the host, as the
-reference's Network builds it by default: one envelope is one
-signature, and a device call per envelope would cost its fixed launch
-overhead every time.  The reference's `verify_many` seam and its
-batched `process_normal_msgs` (the staged-broadcast path) are not
-ported.
+envelope's signature.  The Writers check verifies through the
+`verify_many` seam (reference :40): None verifies on the host, as the
+reference's Network builds it by default; with ingress batching the
+Network passes a `BatchingVerifyService`'s, so the check rides a device
+batch.  `process_normal_msgs` (reference :79) is the batched form the
+staged lanes call (orderer/stagedbroadcast.py): one bundle read and ONE
+`verify_many` call for a whole cohort, a typed verdict per slot.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from fabric_mod_tpu_torch.channelconfig import (
     extract_config_update, propose_config_update)
 from fabric_mod_tpu_torch.channelconfig.bundle import Bundle
+from fabric_mod_tpu_torch.policy.cauthdsl import BatchCollector
+from fabric_mod_tpu_torch.policy.manager import batch_verifier
 from fabric_mod_tpu_torch.protos import messages as m
 from fabric_mod_tpu_torch.protos import protoutil
 
@@ -30,19 +33,33 @@ class MsgRejectedError(Exception):
 
 
 CHANNEL_WRITERS = "/Channel/Writers"
+_WRITERS_FAILED = "signature does not satisfy Writers"
 
 
 class StandardChannelProcessor:
     """Per-channel ingress processor.  `bundle_fn` returns the CURRENT
     bundle, so every message is judged under the config in force when
-    it is processed."""
+    it is processed.  `verify_many`: the Writers and config-update
+    policy checks' verifier (None: the host)."""
 
     def __init__(self, bundle_fn: Callable[[], Bundle],
-                 signer=None):
+                 signer=None, verify_many: Optional[Callable] = None):
         self._bundle = bundle_fn
         self._signer = signer          # orderer identity for CONFIG wraps
+        self._verify_many = verify_many
 
-    def _apply_filters(self, env: m.Envelope, bundle: Bundle) -> None:
+    @staticmethod
+    def _check_channel(env: m.Envelope, bundle: Bundle) -> None:
+        ch = protoutil.envelope_channel_header(env)
+        if ch.channel_id != bundle.channel_id:
+            raise MsgRejectedError(
+                f"message for channel {ch.channel_id!r} on "
+                f"{bundle.channel_id!r}")
+
+    @staticmethod
+    def _check(env: m.Envelope, bundle: Bundle):
+        """The filters before the signature check; returns the Writers
+        policy."""
         if not env.payload:
             raise MsgRejectedError("empty envelope")
         oc = bundle.orderer
@@ -52,22 +69,60 @@ class StandardChannelProcessor:
         pol = bundle.policy(CHANNEL_WRITERS)
         if pol is None:
             raise MsgRejectedError(f"no {CHANNEL_WRITERS} policy")
+        return pol
+
+    def _apply_filters(self, env: m.Envelope, bundle: Bundle) -> None:
+        pol = self._check(env, bundle)
         sds = protoutil.envelope_as_signed_data(env)
-        if not pol.evaluate_signed_data(sds):
-            raise MsgRejectedError("signature does not satisfy Writers")
+        if not pol.evaluate_signed_data(sds, self._verify_many):
+            raise MsgRejectedError(_WRITERS_FAILED)
 
     def process_normal_msg(self, env: m.Envelope) -> int:
         """Validate a normal tx for ordering; returns the config
         sequence it was validated under (reference: standardchannel.go
         ProcessNormalMsg)."""
         bundle = self._bundle()
-        ch = protoutil.envelope_channel_header(env)
-        if ch.channel_id != bundle.channel_id:
-            raise MsgRejectedError(
-                f"message for channel {ch.channel_id!r} on "
-                f"{bundle.channel_id!r}")
+        self._check_channel(env, bundle)
         self._apply_filters(env, bundle)
         return bundle.sequence
+
+    def process_normal_msgs(self, envs: Sequence[m.Envelope]) -> List[object]:
+        """Batched `process_normal_msg`: many normal txs under ONE bundle
+        read, their Writers signature checks in ONE `verify_many` call.
+        One verdict per envelope, in order: the config sequence (int) on
+        acceptance, the exception on rejection — a bad envelope costs
+        its own slot only.  If the batch call itself raises, each
+        envelope is judged again alone through the same seam, so a
+        fault costs its own envelope, never its batch-mates."""
+        bundle = self._bundle()
+        results: List[object] = [None] * len(envs)
+        collector = BatchCollector()
+        pol = None
+        staged = []                          # (slot, pending evaluation)
+        for i, env in enumerate(envs):
+            try:
+                self._check_channel(env, bundle)
+                pol = self._check(env, bundle)
+                sds = protoutil.envelope_as_signed_data(env)
+                staged.append((i, pol.prepare(sds, collector)))
+            except Exception as e:           # the slot's typed verdict
+                results[i] = e
+        if not staged:
+            return results
+        try:
+            mask = batch_verifier(pol, self._verify_many)(collector.items)
+            verdicts = [(i, p.finish(mask)) for i, p in staged]
+        except Exception:                    # the batch call's fault
+            for i, _ in staged:
+                try:
+                    results[i] = self.process_normal_msg(envs[i])
+                except Exception as e:       # the slot's verdict
+                    results[i] = e
+            return results
+        for i, ok in verdicts:
+            results[i] = bundle.sequence if ok else MsgRejectedError(
+                _WRITERS_FAILED)
+        return results
 
     def process_config_update_msg(
             self, env: m.Envelope) -> Tuple[m.Envelope, int]:
@@ -77,7 +132,7 @@ class StandardChannelProcessor:
         bundle = self._bundle()
         self._apply_filters(env, bundle)
         cue = extract_config_update(env)
-        new_config = propose_config_update(bundle, cue)
+        new_config = propose_config_update(bundle, cue, self._verify_many)
         cenv = m.ConfigEnvelope(config=new_config, last_update=env)
         ch = protoutil.make_channel_header(m.HeaderType.CONFIG,
                                            bundle.channel_id)

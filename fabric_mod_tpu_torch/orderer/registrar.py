@@ -9,6 +9,8 @@ ported.
 
 A ChainSupport owns one channel's bundle (swapped atomically on config
 commit), block cutter, block writer, ingress processor and consenter.
+The registrar's `verify_many` (None: the host) is every channel
+processor's Writers-check verifier (reference :39, :98).
 The registrar bootstraps each channel found on disk from its tip config
 block on open: the ledger is the config store.
 """
@@ -37,7 +39,7 @@ class ChainSupport:
     """(reference: multichannel/chainsupport.go ChainSupport)"""
 
     def __init__(self, channel_id: str, store: BlockStore, bundle: Bundle,
-                 signer, csp):
+                 signer, csp, verify_many=None):
         self.channel_id = channel_id
         self.store = store
         self._bundle = bundle
@@ -46,7 +48,7 @@ class ChainSupport:
         self.cutter = BlockCutter(bundle.batch_config())
         self.writer = BlockWriter(store, signer, channel_id)
         self.processor = StandardChannelProcessor(
-            self.bundle, signer=signer)
+            self.bundle, signer=signer, verify_many=verify_many)
         self.chain = SoloChain(self)
 
     def bundle(self) -> Bundle:
@@ -88,10 +90,11 @@ class ChainSupport:
 class Registrar:
     """(reference: multichannel/registrar.go)"""
 
-    def __init__(self, root_dir: str, signer, csp):
+    def __init__(self, root_dir: str, signer, csp, verify_many=None):
         self._root = root_dir
         self._signer = signer
         self._csp = csp
+        self._verify_many = verify_many
         self._chains: Dict[str, ChainSupport] = {}
         self._lock = threading.Lock()
         os.makedirs(root_dir, exist_ok=True)
@@ -115,7 +118,7 @@ class Registrar:
             raise RegistrarError(
                 f"directory {channel_id!r} holds channel {cid!r}")
         support = ChainSupport(cid, store, Bundle(cid, config, self._csp),
-                               self._signer, self._csp)
+                               self._signer, self._csp, self._verify_many)
         self._chains[cid] = support
         support.start()
 
@@ -130,7 +133,7 @@ class Registrar:
             if store.height == 0:
                 store.add_block(genesis_block)
             support = ChainSupport(cid, store, Bundle(cid, config, self._csp),
-                                   self._signer, self._csp)
+                                   self._signer, self._csp, self._verify_many)
             self._chains[cid] = support
         support.start()
         return support

@@ -73,6 +73,62 @@ def signature_arrays(
     return d, r, s, qx, qy, expect
 
 
+
+# The verify core's edge lanes (ops/p256_core.py): the digest e may be
+# any 256-bit value, padding lanes are all zeros, and invalid keys and
+# out-of-range scalars still run the whole core.
+CORE_EDGE_LANES = 13
+
+
+def make_core_lanes(n: int, seed: bytes = b"core"):
+    """(planes, pre_ok, expect): n lanes of the verify core's inputs —
+    the five (n, 32) uint8 planes (e, r, s, qx, qy), a host mask with
+    one False lane, and the verdict each lane must get.  Lanes from
+    CORE_EDGE_LANES on are valid signatures; the first ones:
+
+      0  valid                      7   off-curve key (y ^ 1)
+      1  valid, e = 2^256 - 1       8   key (0, 0)
+      2  valid, e = n               9   r = 5 (r + n < p), s random
+      3  valid, e = n + 1           10  qx = p + 1 (out of range)
+      4  valid, e = n - 1           11  valid, pre_ok False
+      5  valid, e = 0               12  s = 2^256 - 1 (out of range)
+      6  padding: all zeros
+    """
+    if n < CORE_EDGE_LANES:
+        raise ValueError(f"need at least {CORE_EDGE_LANES} lanes")
+    key = sw.PrivateKey.from_seed(seed)
+    xy = key.public_xy()
+    rng = random.Random(seed)
+    N, P = sw.N, sw.P
+    digests = [rng.randbytes(32) for _ in range(n)]
+    for lane, e in ((1, (1 << 256) - 1), (2, N), (3, N + 1), (4, N - 1),
+                    (5, 0)):
+        digests[lane] = e.to_bytes(32, "big")
+    planes = [np.zeros((n, 32), np.uint8) for _ in range(5)]
+    d, r, s, qx, qy = planes
+    for i in range(n):
+        ri, si = sw.decode_dss_signature(key.sign(digests[i]))
+        d[i] = np.frombuffer(digests[i], np.uint8)
+        r[i] = np.frombuffer(ri.to_bytes(32, "big"), np.uint8)
+        s[i] = np.frombuffer(si.to_bytes(32, "big"), np.uint8)
+        qx[i] = np.frombuffer(xy[:32], np.uint8)
+        qy[i] = np.frombuffer(xy[32:], np.uint8)
+    expect = np.ones(n, bool)
+    for a in planes:
+        a[6] = 0
+    qy[7, 31] ^= 1
+    qx[8] = 0
+    qy[8] = 0
+    r[9] = np.frombuffer((5).to_bytes(32, "big"), np.uint8)
+    s[9] = np.frombuffer(rng.randrange(1, N).to_bytes(32, "big"), np.uint8)
+    qx[10] = np.frombuffer((P + 1).to_bytes(32, "big"), np.uint8)
+    s[12] = 0xFF
+    pre_ok = np.ones(n, bool)
+    pre_ok[11] = False
+    expect[6:CORE_EDGE_LANES] = False
+    return planes, pre_ok, expect
+
+
 ORGS = (b"Org1", b"Org2", b"Org3")
 
 
@@ -418,7 +474,8 @@ def make_network_material(seed: int = 0, channel_id: str = "testchannel",
 E2E_PIN_POLICY = b"OR('Org1.peer')"
 
 
-def make_e2e_stream(net, n_tx: int, plant_every: int = 50):
+def make_e2e_stream(net, n_tx: int, plant_every: int = 50,
+                    order_free: bool = False):
     """`n_tx` transactions for the port's e2e `Network`, endorsed by its
     endorsers against its current state (put txs endorsed by Org1 and
     Org2 unless planted), with a planted kind of each sort in every
@@ -436,6 +493,13 @@ def make_e2e_stream(net, n_tx: int, plant_every: int = 50):
       after 6      one more envelope whose creator signature is
                    flipped: Broadcast rejects it, so it is not one of
                    the `n_tx`
+
+    With `order_free`, only the kinds whose flag does not depend on the
+    order the orderer sees the envelopes in are planted (positions 1
+    and 3 and the tampered creator); positions 4, 5 and 6 are plain
+    puts to keys of their own.  That is the stream concurrent
+    submitters can send: the read conflict, the duplicate and the pin
+    are dropped, as their flags (or those after them) follow the order.
 
     Returns (submits, expected): the envelopes in submission order as
     (Envelope, accepted), and the expected flag of each accepted tx in
@@ -473,6 +537,8 @@ def make_e2e_stream(net, n_tx: int, plant_every: int = 50):
         elif j == 3:
             env = endorse([b"put", key, b"v"], ("Org1", "Org3"), flip=1)
             flag = V.ENDORSEMENT_POLICY_FAILURE
+        elif order_free and j in (4, 5, 6):
+            env = endorse([b"put", key, b"v%d" % i])
         elif j == 4:
             env = endorse([b"get", anchor[0]])
             flag = V.MVCC_READ_CONFLICT

@@ -1,5 +1,7 @@
-"""The CUDA ladder kernels (fabric_mod_tpu_torch/csrc/p256_ladder.cu) and the
-other device paths of the port on the card (the policy evaluator, a
+"""The CUDA ladder kernels (fabric_mod_tpu_torch/csrc/p256_ladder.cu), the
+verify core's prologue and epilogue kernels (csrc/p256_core.cu; their
+host-compiled lanes are tests/test_torch_cuda_core.py) and the other
+device paths of the port on the card (the policy evaluator, a
 block commit, the batched FP256BN pairing, the e2e network).
 
 Tests marked `cuda` need a card and skip without one; run them there with
@@ -22,11 +24,22 @@ import numpy as np
 import pytest
 import torch
 
-from fabric_mod_tpu_torch.ops import _build, limbs9, p256, p256_cuda
+from fabric_mod_tpu_torch.ops import _build, limbs9, p256, p256_core, p256_cuda
+from fabric_mod_tpu_torch.utils import fixtures
 
 SRC = _build.source_path("p256_ladder")
 R256 = 1 << 256
 R270 = 1 << 270
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain limb code is many small ops: one intra-op thread a
+    worker keeps the tier-1 workers from oversubscribing the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture
@@ -77,7 +90,7 @@ def _words(v):
 
 
 def test_source_constants():
-    text = SRC.read_text()
+    text = SRC.read_text() + (_build.CSRC / "p256_field.cuh").read_text()
 
     def array(name):
         body = re.search(name + r"\[8\] = \{([^}]*)\}", text).group(1)
@@ -100,6 +113,30 @@ def test_source_constants():
         assert got == _words(c * R256 % P), name
     # the reduction's closed form: q = -p^-1 mod 2^256 = 1 + 2^96 + 2^193 - 2^224
     assert (-pow(P, -1, R256)) % R256 == (1 + (1 << 96) + (1 << 193) - (1 << 224)) % R256
+    # the verify core's constants (csrc/p256_core.cu): mod n, b in
+    # Montgomery form mod p, n0' = -n^-1 mod 2^32, the buffer's layout
+    core = _build.source_path("p256_core").read_text()
+
+    def core_array(name):
+        body = re.search(name + r"\[8\] = \{([^}]*)\}", core).group(1)
+        return [int(x.strip().rstrip("u"), 16) for x in body.split(",")]
+    N = p256.N
+    assert core_array("kN") == _words(N)
+    assert core_array("kNm2") == _words(N - 2)
+    assert core_array("kR2N") == _words(R256 * R256 % N)
+    assert core_array("kOneN") == _words(R256 % N)
+    assert core_array("kBM") == _words(p256.B * R256 % P)
+    n0 = int(re.search(r"kN0Inv = (0x[0-9A-Fa-f]+)u;", core).group(1), 16)
+    assert n0 == (-pow(N, -1, 1 << 32)) % (1 << 32)
+    assert (n0 * N) % (1 << 32) == (1 << 32) - 1
+    layout = dict(re.findall(r"(kRow\w+|kRows|kFlag\w+) = (\d+)u?", core))
+    assert {k: int(v) for k, v in layout.items()} == {
+        "kRowE": p256_core.ROW_E, "kRowR": p256_core.ROW_R,
+        "kRowS": p256_core.ROW_S, "kRowQx": p256_core.ROW_QX,
+        "kRowQy": p256_core.ROW_QY, "kRowFlags": p256_core.ROW_FLAGS,
+        "kRows": p256_core.ROWS, "kFlagRangeOk": p256_core.FLAG_RANGE_OK,
+        "kFlagPreOk": p256_core.FLAG_PRE_OK,
+        "kFlagRnLtP": p256_core.FLAG_RN_LT_P}
 
 
 @pytest.mark.parametrize("mixed", [False, True])
@@ -335,16 +372,89 @@ def test_kernel_rejects_bad_inputs(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 13])
+def test_core_kernels_match_plain_on_card(cuda_device, n):
+    """The verify core's prologue and epilogue kernels (csrc/p256_core.cu)
+    on the card, with every edge lane of fixtures.make_core_lanes: the
+    window planes and key_ok are bit-equal to the plain prologue's on
+    the card, the verdicts over the ladder's output equal the plain
+    epilogue's and the construction's, and each launch count rises by
+    one."""
+    planes, pre_ok, expect = fixtures.make_core_lanes(n)
+    _, range_ok, rn_lt_p = p256.range_checks(*planes)
+    buf = torch.from_numpy(p256_core.pack(planes, range_ok, pre_ok,
+                                          rn_lt_p)).to(cuda_device)
+    e = p256_core.rows(buf, p256_core.ROW_E)
+    before = p256_core.counts()
+    u1, u2, key_ok = p256_core.prologue(e, buf)
+    want = p256_core.prologue_plain(e, buf)
+    for got, w in zip((u1, u2, key_ok), want):
+        assert torch.equal(got, w)
+    X, _Y, Z = p256_cuda.kernel_words(
+        u1, u2, p256_core.rows(buf, p256_core.ROW_QX),
+        p256_core.rows(buf, p256_core.ROW_QY), False)
+    ok = p256_core.epilogue(X, Z, buf, key_ok)
+    torch.cuda.synchronize()
+    assert ok.device.type == "cuda"
+    assert ok.tolist() == p256_core.epilogue_plain(X, Z, buf, key_ok).tolist() \
+        == expect.tolist()
+    after = p256_core.counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "verify_prologue": 1, "verify_epilogue": 1}
+
+
+@pytest.mark.cuda
+def test_core_kernels_reject_bad_inputs(cuda_device):
+    planes, pre_ok, _ = fixtures.make_core_lanes(16)
+    _, range_ok, rn_lt_p = p256.range_checks(*planes)
+    buf = torch.from_numpy(p256_core.pack(planes, range_ok, pre_ok,
+                                          rn_lt_p)).to(cuda_device)
+    e = p256_core.rows(buf, p256_core.ROW_E)
+    with pytest.raises(ValueError):
+        p256_core.prologue(e.to(torch.int64), buf)
+    with pytest.raises(ValueError):
+        p256_core.prologue(e[:, :3], buf)
+    u1, u2, key_ok = p256_core.prologue(e, buf)
+    with pytest.raises(ValueError):
+        p256_core.epilogue(e, e, buf, key_ok.to(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_digest_verify_call_is_three_launches(cuda_device):
+    """A digest-only GpuVerifier call runs the prologue, one ladder and
+    the epilogue once each, and no plain limb op: the device's kernel
+    count is that of those three and the final gather and copies."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from torch.profiler import ProfilerActivity, profile
+    items, expect = fixtures.make_block(2, n_tx=8)
+    v = gpu.GpuVerifier(cache_size=0)
+    assert v.verify_many(items).tolist() == expect.tolist()      # warm
+    p256_core.reset_counts()
+    p256_cuda.reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = v.verify_many(items)
+        torch.cuda.synchronize()
+    assert got.tolist() == expect.tolist()
+    assert p256_core.counts() == {"verify_prologue": 1, "verify_epilogue": 1}
+    assert p256_cuda.counts() == {"ladder_projective": 1, "ladder_mixed": 0}
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(kernels) <= 6, kernels
+
+
+@pytest.mark.cuda
 def test_gpu_verifier_on_card(cuda_device):
     from fabric_mod_tpu_torch.bccsp import gpu
-    from fabric_mod_tpu_torch.utils import fixtures
     items, expect = fixtures.make_block(1, n_tx=40, raw_endorsers=True)
     for ladder in gpu.LADDERS:
         name = p256_cuda.KERNELS[ladder == "mixed"]
         before = p256_cuda.counts()[name]
+        core_before = sum(p256_core.counts().values())
         got = gpu.GpuVerifier(ladder=ladder, cache_size=0).verify_many(items)
         assert got.tolist() == expect.tolist()
         assert p256_cuda.counts()[name] > before
+        assert sum(p256_core.counts().values()) > core_before
 
 
 @pytest.mark.cuda
@@ -373,7 +483,6 @@ def test_block_commits_on_card(cuda_device):
     from fabric_mod_tpu_torch.bccsp import gpu
     from fabric_mod_tpu_torch.policy import tensorpolicy as tp
     from fabric_mod_tpu_torch.protos import messages as m
-    from fabric_mod_tpu_torch.utils import fixtures
     world = fixtures.make_commit_world()
     blocks, expected = fixtures.make_commit_blocks(world, 2, 16)
     committer = world.committer(gpu.GpuVerifier(cache_size=0),
@@ -391,7 +500,6 @@ def test_pairing_check_on_card_equals_cpu(cuda_device):
     """The batched FP256BN pairing check on the card gives the CPU plain
     run's verdicts on 8 lanes (two of them tampered), as a CUDA tensor."""
     from fabric_mod_tpu_torch.ops import fp256bn_dev as dev
-    from fabric_mod_tpu_torch.utils import fixtures
     world = fixtures.make_idemix_world(seed=3, n_users=1)
     a, abar, expect = fixtures.make_pairing_lanes(world, 8, tamper_every=4)
     ik = world.issuer.key
@@ -427,7 +535,6 @@ def test_e2e_network_on_card(cuda_device, tmp_path):
     from fabric_mod_tpu_torch.orderer import BroadcastError
     from fabric_mod_tpu_torch.policy import tensorpolicy as tp
     from fabric_mod_tpu_torch.protos import protoutil
-    from fabric_mod_tpu_torch.utils import fixtures
     material = fixtures.make_network_material(
         5, max_message_count=8, batch_timeout="60s")
     net = e2e.Network(str(tmp_path), material=material,

@@ -3,8 +3,9 @@ the `cryptography` wheel: a fresh interpreter imports every port module,
 runs the CPU verify path, commits one small block through the port's
 Committer on the CPU, verifies one idemix presentation on the host
 path, orders and commits one 8-tx block through the port's e2e Network
-(with the host verifier: the GPU verifier's CPU path ran above), then
-inspects sys.modules."""
+(with the host verifier: the GPU verifier's CPU path ran above) and one
+through a staged Network from 4 submitter threads, then inspects
+sys.modules."""
 import json
 import os
 import pathlib
@@ -54,6 +55,24 @@ with tempfile.TemporaryDirectory() as root:
         assert e2e.commit_until(net, 8, 120)[1] == 8
         block = net.ledger.get_block_by_number(1)
         assert list(protoutil.block_txflags(block)) == want
+    finally:
+        net.close()
+    net = e2e.Network(root + "/staged", material=material,
+                      verifier=sw.SwVerifier(), ingress_batching=True,
+                      staged_batch=8)
+    try:
+        submits, want = fixtures.make_e2e_stream(net, 8, plant_every=8,
+                                                 order_free=True)
+        envs = [env for env, ok in submits if ok]
+        assert e2e.commit_until(net, 8, 120, feed=lambda: e2e.submit_all(
+            net, envs, submitters=4))[1] == 8
+        block = net.ledger.get_block_by_number(1)
+        got = {protoutil.envelope_channel_header(
+            messages.Envelope.decode(raw)).tx_id: flag
+            for raw, flag in zip(block.data.data,
+                                 protoutil.block_txflags(block))}
+        assert got == {protoutil.envelope_channel_header(env).tx_id: flag
+                       for env, flag in zip(envs, want)}
     finally:
         net.close()
 bad = sorted(n for n in sys.modules

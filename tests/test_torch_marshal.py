@@ -1,7 +1,7 @@
-"""The port's host marshalling (bccsp/gpu.marshal_items, ops/p256.marshal_inputs)
-and its pure-python signer against the JAX package's: byte planes,
-pre_ok and message words, including malformed DER, high-S, empty and
-non-bytes messages."""
+"""The port's host marshalling (bccsp/gpu.marshal_items, ops/p256
+range_checks and the verify core's packed buffer) and its pure-python
+signer against the JAX package's: byte planes, pre_ok and message
+words, including malformed DER, high-S, empty and non-bytes messages."""
 import hashlib
 
 import numpy as np
@@ -61,14 +61,28 @@ def test_marshal_without_raw_messages_has_no_message_lane():
 
 
 def test_marshal_inputs_matches_reference():
+    """The port's host prologue (p256.range_checks and the verify core's
+    packed words, ops/p256_core.pack) against the reference's
+    marshal_inputs: the same range verdicts and rn_lt_p flags, and each
+    value's words equal to the reference's limbs as integers."""
+    from fabric_mod_tpu_torch.ops import p256_core
     d, r, s, qx, qy, _ = fixtures.signature_arrays(6)
     r = r.copy()
     r[2] = np.frombuffer(tp256.N.to_bytes(32, "big"), np.uint8)
     want_args, want_ok = jp256.marshal_inputs(d, r, s, qx, qy)
-    got_args, got_ok = tp256.marshal_inputs(d, r, s, qx, qy)
+    planes, got_ok, rn_lt_p = tp256.range_checks(d, r, s, qx, qy)
     assert np.array_equal(want_ok, got_ok)
-    for w, g in zip(want_args, got_args):
-        assert np.array_equal(np.asarray(w), np.asarray(g))
+    assert np.array_equal(np.asarray(want_args[5]), rn_lt_p)
+    packed = p256_core.pack(planes, got_ok, np.ones(6, bool), rn_lt_p)
+    words = packed.view(np.uint32).astype(object)
+    rows = (p256_core.ROW_E, p256_core.ROW_R, p256_core.ROW_S,
+            p256_core.ROW_QX, p256_core.ROW_QY)
+    for row, limbs in zip(rows, want_args[:5]):
+        limbs = np.asarray(limbs)
+        for lane in range(6):
+            assert sum(int(w) << (32 * k) for k, w in
+                       enumerate(words[row:row + 8, lane])) == \
+                sum(int(v) << (9 * i) for i, v in enumerate(limbs[:, lane]))
 
 
 def test_port_signatures_verify_under_reference_sw():

@@ -2,14 +2,28 @@
 the adversarial set at batch 8 (the sigbatch shape of tests/test_p256.py):
 valid, tampered digest, wrong key, tampered r, s = 0, r >= n, off-curve
 key, key (0, 0), and the high-S mirror (accepted by the core; low-S is
-a host rule).  Both port ladders must give the reference's verdicts."""
+a host rule).  Both port ladders must give the reference's verdicts,
+through the CPU path (the kernels' plain versions) and through the CUDA
+core's per-lane code built by the host compiler."""
 import numpy as np
 import pytest
 import torch
 
 from fabric_mod_tpu.ops import p256 as jp
 from fabric_mod_tpu_torch.ops import p256 as tp
+from fabric_mod_tpu_torch.ops import p256_core
 from fabric_mod_tpu_torch.utils import fixtures
+from tests import _torch_core_shim as shim
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain limb code is many small ops: one intra-op thread a
+    worker keeps the tier-1 workers from oversubscribing the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -46,6 +60,26 @@ def test_verify_core_matches_reference(adversarial_batch, reference_verdicts,
     assert got.tolist() == reference_verdicts.tolist()
     assert got.tolist() == [False, False, False, False, False, False,
                             True, False]
+
+
+@pytest.fixture(scope="module")
+def core_lib(tmp_path_factory):
+    lib = shim.build(tmp_path_factory.mktemp("core_shim"))
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    return lib
+
+
+def test_cuda_core_lanes_match_reference(adversarial_batch,
+                                         reference_verdicts, core_lib):
+    """The CUDA core's own arithmetic — the prologue and epilogue lanes
+    of csrc/p256_core.cu built by the host compiler, around the plain
+    ladder — gives the reference verify_core's verdicts."""
+    planes, range_ok, rn_lt_p = tp.range_checks(*adversarial_batch)
+    packed = p256_core.pack(planes, range_ok, np.ones(len(range_ok), bool),
+                            rn_lt_p)
+    ok, _, _ = shim.run_core(core_lib, packed)
+    assert ok.tolist() == reference_verdicts.tolist()
 
 
 def test_fused_core_hashes_raw_lanes():

@@ -1,6 +1,6 @@
 """The port's SHA-256 (fabric_mod_tpu_torch/ops/sha256.py) against the JAX
-reference's sha256_blocks and hashlib, and the digest -> limb fold
-against the reference's digest_words_to_limbs."""
+reference's sha256_blocks and hashlib, and the digest as the verify
+core reads it against the reference's digest_words_to_limbs."""
 import hashlib
 import random
 
@@ -48,10 +48,18 @@ def test_frozen_lanes_keep_initial_state():
 
 
 def test_digest_words_to_limbs_matches_reference():
+    """The raw path's digest as the verify core reads it (p256.
+    digest_words_le: little-endian int32 words) holds, lane by lane, the
+    value of the reference's digest_words_to_limbs limbs."""
     import jax.numpy as jnp
     msgs = _messages(12)
     words, nb, _ = jder.pack_messages(msgs)
     dw = np.asarray(jsha.sha256_blocks(jnp.asarray(words), jnp.asarray(nb)))
     want = np.asarray(jp256.digest_words_to_limbs(jnp.asarray(dw)))
-    got = tp256.digest_words_to_limbs(torch.as_tensor(dw.astype(np.int64)))
-    assert np.array_equal(got.numpy(), want)
+    got = tp256.digest_words_le(torch.as_tensor(dw.astype(np.int64)))
+    assert got.dtype == torch.int32 and got.shape == (8, len(msgs))
+    got_words = got.numpy().view(np.uint32).astype(object)
+    for lane in range(len(msgs)):
+        value = sum(int(w) << (32 * k) for k, w in enumerate(got_words[:, lane]))
+        assert value == sum(int(v) << (9 * i) for i, v in enumerate(want[:, lane]))
+        assert value == int.from_bytes(hashlib.sha256(msgs[lane]).digest(), "big")
