@@ -10,22 +10,28 @@ Phases (any failure exits non-zero; none is caught):
 1. header — the card's name, and its name and power limit from nvidia-smi;
 2. build — both sources from fabric_mod_tpu_torch/csrc/ (nvcc, started
    together): the ladders and the verify core's prologue and epilogue,
-   with ptxas' registers, stack and spills;
+   with ptxas' registers, stack and spills for each entry function;
 3. kernel against plain — each ladder kernel at 2048 lanes against its
    plain PyTorch version on the card (random windows, distinct keys
    (i+2)G, identity-adjacent edge lanes, an off-curve and a (0, 0) key):
    canonical X, Y, Z must be bit-equal, and the mixed ladder must equal
    the projective one in affine form on every valid-key lane.  Then the
-   verify core's kernels at 2048 lanes (utils/fixtures.make_core_lanes:
+   verify core's kernels (utils/fixtures.make_core_lanes at 2048 lanes:
    signatures plus edge lanes — digests >= n, an all-zero padding lane,
-   an off-curve and a (0, 0) key, r + n < p, out-of-range scalars, a
-   host-masked lane): the prologue's window planes and key_ok must be
-   bit-equal to the plain prologue's, the epilogue's verdicts over the
-   ladder's output equal to the plain epilogue's and the construction's.
-   Prints each kernel's ms per call, the bound (32-bit multiply-adds the
-   function needs over the card's integer multiply-add rate at its SM
-   clock, or its bytes over the memory rate) and, for the ladders,
-   threads per lane, block size and one lane's critical path in rounds;
+   an off-curve and a (0, 0) key, r + n < p, out-of-range scalars
+   s = 2^256 - 1 and, set here, s = n, a host-masked lane): the
+   prologue's window planes and key_ok must be bit-equal to the plain
+   prologue's at 2048 lanes, at 16 and at 1 lane, and for every edge
+   lane alone; the epilogue's verdicts over the ladder's output equal to
+   the plain epilogue's and the construction's.  Prints each kernel's
+   ms per call, the bound (32-bit multiply-adds the function needs over
+   the card's integer multiply-add rate at its SM clock, or its bytes
+   over the memory rate) and, for the ladders, threads per lane, block
+   size and one lane's critical path in rounds.  The verify core's
+   kernels are timed on the device alone (CUDA events around launches
+   made straight through the C entry point and queued behind a sleep)
+   and through their wrappers (CUDA events over 10 calls, and host wall
+   per call), the prologue at 1, 16 and 2048 lanes;
 4. verify path — 4 blocks of 1000 transactions (3000 signatures each,
    2-of-3 endorsement) through GpuVerifier.verify_many, once per ladder;
    the 4th block's endorser items are raw messages hashed on the card.
@@ -179,19 +185,36 @@ ROUNDS_NORMALISE_FIXED = 14 + 268 + 14
 # A product mod n (CIOS) is 64 a*b word products + 8 for the quotient
 # digits + 64 for m*n, a square mod n the same with 36 for a*a; a
 # product mod p 64, a square 36 (the reduction has no multiply).
-# Prologue: s to Montgomery form, the inversion's table (14), its 252
-# squarings and one product per non-zero window of n - 2 after the
-# first, u1 and u2; the key check's 3 products and 2 squares mod p.
-# Epilogue: 4 products mod p.
+# Prologue, the Fermat schedule (the inverse as a power to n - 2): s to
+# Montgomery form, the power's table (14), its 252 squarings and one
+# product per non-zero window of n - 2 after the first, u1 and u2.  The
+# bound takes the smaller of it and this kernel's own count.  The divstep
+# schedule (this kernel): per batch of 30 divsteps the matrix applied to
+# (f, g), 4 products a limb, and to (d, e) mod n, 6 a limb, over 9 limbs
+# (the divsteps' own few 32-bit multiplies uncounted); then s to
+# Montgomery form, the inverse out of the plain domain, u1 and u2.  Both
+# add the key check's 3 products and 2 squares mod p.  Epilogue: 3
+# products mod p (X == r'*Z tested as r'*Z*R^-1 == X*R^-1).
 FN_PRODUCTS = 64 + 8 + 64
 FN_SQR_PRODUCTS = 36 + 8 + 64
+BATCH_PRODUCTS = 9 * (4 + 6)
 PROLOGUE_P_PRODUCTS = 3 * MUL_PRODUCTS + 2 * SQR_PRODUCTS
-EPILOGUE_PRODUCTS = 4 * MUL_PRODUCTS
+EPILOGUE_PRODUCTS = 3 * MUL_PRODUCTS
 # bytes per lane, each input read once and each output written once:
 # prologue e, r, s, qx, qy in, two 64-window int32 planes and key_ok
 # out; epilogue X, Z, r and the flags word and key_ok in, the verdict out
 PROLOGUE_BYTES = 5 * 32 + 2 * 64 * 4 + 1
 EPILOGUE_BYTES = 3 * 32 + 4 + 1 + 1
+# the prologue's widths on the main path: the MCS check of a block (1
+# signature), an ingress cohort (~16), a validator bucket
+PROLOGUE_WIDTHS = (1, 16, LANES)
+# the edge lane that phase 3 gives s = n (a valid lane of make_core_lanes)
+S_EQ_N_LANE = 13
+# launches per device-time reading; the sleep in front of them (cycles,
+# ~25 ms at 1980 MHz) outlasts their enqueue, so the events time the
+# kernels back to back and not the host
+DEVICE_REPS = 200
+SLEEP_CYCLES = 50_000_000
 
 # phase 8 arm (b): concurrent submitters and the lanes' drain bound
 E2E_SUBMITTERS = 32
@@ -292,13 +315,51 @@ def sm_clock_hz() -> float:
 
 
 def prologue_products() -> int:
-    """Word products per lane of the prologue kernel (its schedule)."""
+    """Word products per lane of a prologue that inverts by Fermat."""
     from fabric_mod_tpu_torch.ops import p256
     e = p256.N - 2
     nonzero = sum(1 for w in range(1, 64) if (e >> (4 * (63 - w))) & 15)
     n_mul = 1 + 14 + nonzero + 2
     return (n_mul * FN_PRODUCTS + 63 * 4 * FN_SQR_PRODUCTS
             + PROLOGUE_P_PRODUCTS)
+
+
+def divstep_products(s_values) -> float:
+    """Word products per lane of this prologue (the divstep schedule) on
+    these scalars, the mean over the lanes: each lane's batches are what
+    its own s needs."""
+    from fabric_mod_tpu_torch.ops import p256_core
+    batches = [p256_core.inversion_batches(s) for s in s_values]
+    return (BATCH_PRODUCTS * sum(batches) / len(batches)
+            + 4 * FN_PRODUCTS + PROLOGUE_P_PRODUCTS)
+
+
+def device_ms(torch, launch, reps: int = DEVICE_REPS) -> float:
+    """Mean device milliseconds per launch of `launch()`: the launches
+    queue behind a sleep kernel, so the events around them time their
+    run on the card, not their enqueue."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host wall milliseconds per call of fn() (its enqueue: the
+    card is synchronised before and after, outside the reading)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def kernel_counts() -> dict:
@@ -319,36 +380,95 @@ def require_launched(counts: dict, where: str) -> None:
             raise AssertionError(f"kernel {name} was not launched on {where}")
 
 
+def require_equal_prologue(torch, got, want, where: str) -> int:
+    """Raise unless the prologue's (u1_w, u2_w, key_ok) equal the plain
+    ones bit for bit; the max absolute difference (0)."""
+    err = 0
+    for g, w, what in zip(got, want, ("u1 windows", "u2 windows", "key_ok")):
+        if not torch.equal(g, w):
+            diff = g != w
+            bad = (diff.any(0) if diff.dim() == 2 else diff).nonzero()
+            raise AssertionError(f"verify_prologue ({where}): {what} differ "
+                                 f"from the plain prologue at lanes "
+                                 f"{bad.flatten()[:8].tolist()}")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+    return err
+
+
 def phase_core_kernels(torch, np, dev, clock, n_sm):
-    """Phase 3 for the verify core: the prologue and the epilogue kernels
-    at 2048 lanes against their plain versions on the card."""
-    from fabric_mod_tpu_torch.ops import p256, p256_core, p256_cuda
+    """Phase 3 for the verify core: the prologue kernel at 1, 16 and 2048
+    lanes and the epilogue kernel at 2048 lanes against their plain
+    versions on the card; device time apart from the wrapper's."""
+    from fabric_mod_tpu_torch.ops import _build, p256, p256_core, p256_cuda
     from fabric_mod_tpu_torch.utils import fixtures
     t0 = time.perf_counter()
     planes, pre_ok, expect = fixtures.make_core_lanes(LANES, seed=b"smoke")
+    planes[2][S_EQ_N_LANE] = np.frombuffer(p256.N.to_bytes(32, "big"), np.uint8)
+    expect[S_EQ_N_LANE] = False
     _, range_ok, rn_lt_p = p256.range_checks(*planes)
     buf = torch.from_numpy(p256_core.pack(planes, range_ok, pre_ok,
                                           rn_lt_p)).to(dev)
     e = p256_core.rows(buf, p256_core.ROW_E)
+    s_values = [int.from_bytes(bytes(b), "big") for b in planes[2]]
     log(f"core lanes: {LANES} signed in {time.perf_counter() - t0:.1f} s "
-        f"({fixtures.CORE_EDGE_LANES} edge lanes: e >= n, padding, "
-        f"invalid keys, out-of-range scalars, a host-masked lane)")
+        f"({fixtures.CORE_EDGE_LANES} edge lanes and lane {S_EQ_N_LANE} "
+        f"with s = n: e >= n, padding, invalid keys, out-of-range scalars, "
+        f"a host-masked lane)")
+    lib = _build.load("p256_core")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rate = INT_MADD_PER_SM_CLOCK * n_sm * clock
+    fermat = prologue_products()
+
+    def bound(products, nbytes, width):
+        ops = 2 * products * width / rate * 1e3
+        byt = nbytes * width / PEAK_BYTES * 1e3
+        return max(ops, byt), "operations" if ops >= byt else "bytes", byt
+
     got = p256_core.prologue(e, buf)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = p256_core.prologue_plain(e, buf)
     torch.cuda.synchronize()
     pro_plain_ms = (time.perf_counter() - t0) * 1e3
-    pro_err = 0
-    for g, w, what in zip(got, want, ("u1 windows", "u2 windows", "key_ok")):
-        if not torch.equal(g, w):
-            diff = g != w
-            bad = (diff.any(0) if diff.dim() == 2 else diff).nonzero()
-            raise AssertionError(f"verify_prologue: {what} differ from the "
-                                 f"plain prologue at lanes "
-                                 f"{bad.flatten()[:8].tolist()}")
-        pro_err = max(pro_err, int((g.to(torch.int64)
-                                    - w.to(torch.int64)).abs().max()))
+    pro_err = require_equal_prologue(torch, got, want, f"{LANES} lanes")
+    # every edge lane alone: the plain prologue is lane by lane, so its
+    # 2048-lane planes' column is the 1-lane answer
+    for i in range(S_EQ_N_LANE + 1):
+        one = buf[:, i:i + 1].contiguous()
+        got1 = p256_core.prologue(p256_core.rows(one, p256_core.ROW_E), one)
+        pro_err = max(pro_err, require_equal_prologue(
+            torch, got1, [w[..., i:i + 1] for w in want], f"lane {i} alone"))
+    pro_rows = {}
+    for width in PROLOGUE_WIDTHS:
+        sub = buf[:, :width].contiguous()
+        e_w = p256_core.rows(sub, p256_core.ROW_E)
+        got_w = p256_core.prologue(e_w, sub)
+        pro_err = max(pro_err, require_equal_prologue(
+            torch, got_w, [w[..., :width] for w in want], f"{width} lanes"))
+        u1_w, u2_w, key_w = got_w
+        args = (e_w.data_ptr(), sub.data_ptr(), u1_w.data_ptr(),
+                u2_w.data_ptr(), key_w.data_ptr(), width, stream)
+        if lib.p256_core_prologue_launch(*args) != 0:
+            raise AssertionError("verify_prologue: direct launch failed")
+        dev_ms = device_ms(torch, lambda: lib.p256_core_prologue_launch(*args))
+        ev_ms = time_cuda(torch, lambda: p256_core.prologue(e_w, sub), reps=10)
+        wrap_ms = host_ms(torch, lambda: p256_core.prologue(e_w, sub), reps=100)
+        divstep = divstep_products(s_values[:width])
+        b_ms, b_by, b_bytes = bound(min(fermat, divstep), PROLOGUE_BYTES, width)
+        pro_rows[width] = (dev_ms, b_ms, b_by)
+        log(f"kernel verify_prologue at width {width}: window planes and "
+            f"key_ok bit-equal to plain; device {dev_ms:.4f} ms per call "
+            f"(CUDA events over {DEVICE_REPS} direct launches queued behind "
+            f"a sleep), {ev_ms:.4f} ms per wrapper call (CUDA events, 10 "
+            f"wrapper calls), wrapper host wall {wrap_ms:.4f} ms "
+            f"per call; bound {b_ms:.5f} ms by {b_by} (word products per "
+            f"lane: divstep schedule {divstep:.1f}, Fermat schedule "
+            f"{fermat}; bytes {b_bytes:.6f} ms)")
+    log(f"kernel verify_prologue: every edge lane alone bit-equal to plain; "
+        f"2 threads per lane, one warp per rank, lanes per block "
+        f"= width / {n_sm} SMs within [1, 32]; plain "
+        f"{pro_plain_ms:.1f} ms per {LANES}-lane call")
+
     u1, u2, key_ok = got
     X, _Y, Z = p256_cuda.ladder_words(
         u1, u2, p256_core.rows(buf, p256_core.ROW_QX),
@@ -368,36 +488,40 @@ def phase_core_kernels(torch, np, dev, clock, n_sm):
         raise AssertionError(f"core verdicts differ from the construction "
                              f"at lanes {bad}")
     epi_err = int((ok.to(torch.int64) - ok_plain.to(torch.int64)).abs().max())
-    pro_ms = time_cuda(torch, lambda: p256_core.prologue(e, buf), reps=10)
-    epi_ms = time_cuda(torch, lambda: p256_core.epilogue(X, Z, buf, key_ok),
-                       reps=10)
-    rate = INT_MADD_PER_SM_CLOCK * n_sm * clock
+    args = (X.data_ptr(), Z.data_ptr(), buf.data_ptr(), key_ok.data_ptr(),
+            ok.data_ptr(), LANES, stream)
+    if lib.p256_core_epilogue_launch(*args) != 0:
+        raise AssertionError("verify_epilogue: direct launch failed")
+    epi_ms = device_ms(torch, lambda: lib.p256_core_epilogue_launch(*args))
+    epi_ev_ms = time_cuda(torch, lambda: p256_core.epilogue(X, Z, buf, key_ok),
+                          reps=10)
+    epi_wrap_ms = host_ms(torch, lambda: p256_core.epilogue(X, Z, buf, key_ok),
+                          reps=100)
+    e_ms, e_by, e_bytes = bound(EPILOGUE_PRODUCTS, EPILOGUE_BYTES, LANES)
+    log(f"kernel verify_epilogue: verdicts equal to plain on {LANES} lanes "
+        f"(and the construction's); device {epi_ms:.4f} ms per call (CUDA "
+        f"events over {DEVICE_REPS} direct launches queued behind a sleep)")
+    log(f"kernel verify_epilogue: wrapper {epi_ev_ms:.4f} ms per call (CUDA "
+        f"events, 10 calls); wrapper host wall "
+        f"{epi_wrap_ms:.4f} ms per call (100 calls); plain "
+        f"{epi_plain_ms:.1f} ms/call; bound {e_ms:.5f} ms by {e_by} "
+        f"({EPILOGUE_PRODUCTS} word products per lane; bytes "
+        f"{e_bytes:.6f} ms)")
     out = {}
-    for name, held, products, nbytes, ms, plain_ms, err in (
-            ("verify_prologue", "window planes and key_ok bit-equal to",
-             prologue_products(), PROLOGUE_BYTES, pro_ms, pro_plain_ms,
-             pro_err),
-            ("verify_epilogue", "verdicts equal to", EPILOGUE_PRODUCTS,
-             EPILOGUE_BYTES, epi_ms, epi_plain_ms, epi_err)):
-        bound_ops = 2 * products * LANES / rate * 1e3
-        bound_bytes = nbytes * LANES / PEAK_BYTES * 1e3
+    for name, ms, plain_ms, err, b_ms, b_by in (
+            ("verify_prologue", pro_rows[LANES][0], pro_plain_ms, pro_err,
+             pro_rows[LANES][1], pro_rows[LANES][2]),
+            ("verify_epilogue", epi_ms, epi_plain_ms, epi_err, e_ms, e_by)):
         out[name] = {
             "name": name, "route": "cuda",
             "source": "fabric_mod_tpu_torch/csrc/p256_core.cu",
             "replaces": "fabric_mod_tpu/ops/p256.py:516",
             "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
-            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
         }
-        log(f"kernel {name}: {held} plain on {LANES} lanes (and the "
-            f"construction's verdicts); "
-            f"{ms:.4f} ms per {LANES}-lane call (CUDA events, 10 calls), "
-            f"plain {plain_ms:.1f} ms/call; bound "
-            f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
-            f"({products} word products = {2 * products} 32-bit "
-            f"multiply-adds per lane; bytes {bound_bytes:.5f} ms); "
-            "library_ms null (no PyTorch call computes this)")
+    log("verify core: library_ms null (no PyTorch call computes these); "
+        "ms in the JSON line is the device time at 2048 lanes")
     return out
 
 
@@ -1199,7 +1323,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s for {list(_build.SOURCES)}")
     for src, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"  ptxas[{src}]: {line.strip()}")
 
     # 3. kernels against their plain versions

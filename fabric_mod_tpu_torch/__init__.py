@@ -23,7 +23,9 @@ block-store ledger.  Slice 6 ports the verify core around the ladder
 as two more CUDA kernels (csrc/p256_core.cu: the scalar prologue with
 the key check, and the epilogue), so a verify call is three launches,
 and staged broadcast ingress with the Writers check batched on the
-card (BatchingVerifyService, orderer/stagedbroadcast.py).
+card (BatchingVerifyService, orderer/stagedbroadcast.py).  Slice 7
+redesigns that prologue for the card: s^-1 mod n by divsteps (safegcd)
+on a lane of two threads, one inverting while the other checks the key.
 
 Counterparts (reference module -> port module):
 

@@ -19,32 +19,54 @@
 // a row is contiguous): the digest e, r, s, qx, qy as 8 little-endian
 // 32-bit words each, then one row of flags (kFlagRangeOk, kFlagPreOk,
 // kFlagRnLtP).  The host fills it from the byte planes in one copy
-// (ops/p256_core.py).  The raw-message path hands K1 the digest words
-// that SHA-256 computed on the card in place of the buffer's e rows.
+// (ops/p256_core.py).  The raw-message path hands the prologue the digest
+// words that SHA-256 computed on the card in place of the buffer's e rows.
 //
-// Arithmetic mod n is a generic Montgomery product (CIOS over 8 x 32-bit
-// words, n0' = -n^-1 mod 2^32, R = 2^256): n has no special form, unlike
-// p.  The inversion is Fermat over the fixed exponent n - 2 in 4-bit
-// windows: a table of a^0..a^15 (14 products), then 252 squarings and one
-// product per non-zero window.  The window values are those of the
-// constant exponent, so no branch depends on data.  The key check and the
-// epilogue use the ladder's P-256 field code (p256_field.cuh).
+// What bounds them on this card: neither bytes (~680 bytes a lane in and
+// out of the prologue) nor operations (a few thousand word products a
+// lane), but one lane's chain of dependent steps.  The main path calls
+// the prologue at 1 lane (the MCS check of a block), ~16 (an ingress
+// cohort) and 2048 (a validator bucket): too few lanes to hide latency,
+// so every width pays the chain.  The design shortens the chain and
+// takes work off it:
 //
-// What bounds them on this card: operations.  The prologue is ~330
-// products mod n (each 136 32-bit word products) per lane against ~680
-// bytes per lane in and out; the epilogue is 4 products mod p.  One
-// thread runs one lane, so at the main path's width (2048 lanes) the time
-// is one lane's chain of dependent products; a later design can spread
-// the inversion's chain over several threads as the ladder does.
+//  1. The inverse mod n by divsteps (Bernstein-Yang safegcd, variable
+//     time: a verify runs on public data).  A Fermat chain over n - 2 is
+//     ~320 dependent products mod n; safegcd is at most 25 and in practice
+//     ~18-19 batches of 30 divsteps on the low words, each batch's 2x2
+//     matrix then applied to 9-limb values.  No table, no run-time
+//     indexed array: every value lives in registers.
+//  2. A lane is a group of kGroup = 2 threads.  Rank 0 inverts s while
+//     rank 1 checks the key mod p (5 products, off the inversion's chain);
+//     they meet once in shared memory, then each computes one of u1, u2
+//     and writes its plane.  The ranks sit in different warps of the
+//     block (warp g holds rank g of up to 32 lanes), so the inversion and
+//     the key check never diverge inside a warp, and each rank's stores
+//     cover 32 consecutive lanes of a row.  Two threads, not more: the
+//     divsteps are one sequential chain, and past the key check and one
+//     of the two final products there is nothing independent to hand out.
+//  3. Lanes per block = width / SMs within [1, 32], so a 2048-lane call
+//     runs 137 blocks of 15 lanes over all 132 SMs, and a 16-lane call 16
+//     blocks of one lane.  A warp runs to its slowest lane's batch count.
 //
-// Padding lanes are all zeros: s = 0 inverts to 0 (0^(n-2) = 0), which
-// neither traps nor loops, and range_ok masks the lane.  An off-curve key
-// still gives window planes and runs the ladder; key_ok masks it.
+// The epilogue tests X == r'*Z (mod p) as r'*Z*R^-1 == X*R^-1: three
+// independent Montgomery products mod p (p256_field.cuh), one thread a
+// lane.
 //
-// The per-lane code is plain C++ under a host compiler (no __CUDACC__),
-// so the tests build it with g++ and hold it against Python ints and the
-// plain PyTorch prologue and epilogue.  Only the kernels and the
-// launchers need nvcc.
+// Arithmetic mod n outside the inversion is a generic Montgomery product
+// (CIOS over 8 x 32-bit words, n0' = -n^-1 mod 2^32, R = 2^256): n has no
+// special form, unlike p.
+//
+// Padding lanes are all zeros: s = 0 (and s = n, reduced mod n on the way
+// into the Montgomery domain) inverts to 0 after one batch, and range_ok
+// masks the lane.  An off-curve key still gives window planes and runs the
+// ladder; key_ok masks it.
+//
+// The per-lane and per-rank code is plain C++ under a host compiler (no
+// __CUDACC__): each intrinsic has a host twin (__ffs -> __builtin_ctz), a
+// group's ranks run in turn (FOR_MY_RANKS), and the tests build it with g++
+// and hold it against Python ints and the plain PyTorch prologue and
+// epilogue.  Only the kernels and the launchers need nvcc.
 
 #include "p256_field.cuh"
 
@@ -61,18 +83,10 @@ static_assert(kRowE == 0 && kRowFlags + 1 == kRows, "the packed buffer's layout"
 __constant__ uint32_t kN[8] = {
     0xFC632551u, 0xF3B9CAC2u, 0xA7179E84u, 0xBCE6FAADu,
     0xFFFFFFFFu, 0xFFFFFFFFu, 0x00000000u, 0xFFFFFFFFu};
-// n - 2: the Fermat exponent
-__constant__ uint32_t kNm2[8] = {
-    0xFC63254Fu, 0xF3B9CAC2u, 0xA7179E84u, 0xBCE6FAADu,
-    0xFFFFFFFFu, 0xFFFFFFFFu, 0x00000000u, 0xFFFFFFFFu};
 // R^2 mod n (R = 2^256): to-Montgomery multiplier mod n
 __constant__ uint32_t kR2N[8] = {
     0xBE79EEA2u, 0x83244C95u, 0x49BD6FA6u, 0x4699799Cu,
     0x2B6BEC59u, 0x2845B239u, 0xF3D95620u, 0x66E12D94u};
-// R mod n: Montgomery one mod n
-__constant__ uint32_t kOneN[8] = {
-    0x039CDAAFu, 0x0C46353Du, 0x58E8617Bu, 0x43190552u,
-    0x00000000u, 0x00000000u, 0xFFFFFFFFu, 0x00000000u};
 // b * R mod p: the curve's b in Montgomery form mod p
 __constant__ uint32_t kBM[8] = {
     0x29C4BDDFu, 0xD89CDF62u, 0x78843090u, 0xACF005CDu,
@@ -135,22 +149,224 @@ __device__ __forceinline__ uint32_t nibble(const uint32_t* v, int w) {
     return (v[7 - (w >> 3)] >> (28 - 4 * (w & 7))) & 15u;
 }
 
-// a^(n-2) in the Montgomery domain mod n (a < n): the inverse, 0 -> 0
-__device__ __forceinline__ Fe fn_inv(const Fe& a) {
-    Fe tab[16];
-    tab[0] = fe_load_const(kOneN);
-    tab[1] = a;
+// --- The inverse mod n by divsteps ------------------------------------------
+//
+// Bernstein-Yang safegcd in its variable-time form, as libsecp256k1's
+// modinv32_var runs it: values as 9 signed 30-bit limbs; batches of 30
+// divsteps on the low words alone, each giving a 2x2 transition matrix t
+// (entries below 2^30 in magnitude); t applied to (f, g) exactly and to
+// (d, e) mod n.  f = n, g = x, d = 0, e = 1 at the start; f = d*x and
+// g = e*x mod n throughout; the loop stops at the first batch that leaves
+// g = 0, and then f = +-1 and d = +-x^-1.  The limbs stay 9 wide (no
+// length trimming), so every limb index is a constant and the values live
+// in registers.  Right shifts of negative int32 and int64 values below are
+// arithmetic: both g++ and nvcc define them so.
+
+constexpr int32_t kM30 = 0x3FFFFFFF;
+// n in 30-bit limbs, and n^-1 mod 2^30
+__constant__ int32_t kN30[9] = {
+    0x3C632551, 0x0EE72B0B, 0x3179E84F, 0x39BEAB69, 0x3FFFFFBC,
+    0x3FFFFFFF, 0x00000FFF, 0x3FFFC000, 0x0000FFFF};
+constexpr uint32_t kNInv30 = 0x11FF43B1u;
+// safegcd from delta = 1 reaches g = 0 within (49 * 256 + 57) / 17 = 741
+// divsteps for 256-bit inputs, so 25 batches always suffice
+constexpr int kMaxBatches = 25;
+// R^3 mod n: fn_mul(x^-1, R^3) = x^-1 * R^2, the inverse of a Montgomery value
+__constant__ uint32_t kR3N[8] = {
+    0x0B65A624u, 0xAC8EBEC9u, 0x0C0555C9u, 0x111F28AEu,
+    0x6BA5E93Fu, 0x2543B924u, 0x6407BE65u, 0x503A54E7u};
+
+struct S30 {
+    int32_t v[9];
+};
+
+struct Trans {
+    int32_t u, v, q, r;
+};
+
+__device__ __forceinline__ int ctz32(uint32_t x) {
+#ifdef __CUDA_ARCH__
+    return __ffs(x) - 1;
+#else
+    return __builtin_ctz(x);
+#endif
+}
+
+// 30 divsteps on the low words f0 (odd), g0 with eta = -delta; returns the
+// new eta and the transition matrix (scaled by 2^30).  A run of zeros of
+// g is one shift; otherwise one step cancels up to min(eta + 1, i, 8) low
+// bits of g with a multiple of f.
+__device__ __forceinline__ int32_t divsteps_30_var(int32_t eta, uint32_t f0, uint32_t g0,
+                                                   Trans* t) {
+    uint32_t u = 1u, v = 0u, q = 0u, r = 1u;
+    uint32_t f = f0, g = g0;
+    int i = 30;
 #pragma unroll 1
-    for (int k = 2; k < 16; ++k) tab[k] = fn_mul(tab[k - 1], a);
-    Fe acc = tab[nibble(kNm2, 0)];
-#pragma unroll 1
-    for (int w = 1; w < 64; ++w) {
-#pragma unroll 1
-        for (int q = 0; q < 4; ++q) acc = fn_mul(acc, acc);
-        const uint32_t e = nibble(kNm2, w);    // the exponent's, not data
-        if (e != 0u) acc = fn_mul(acc, tab[e]);
+    for (;;) {
+        // the sentinel bit counts zeros only up to i
+        const int zeros = ctz32(g | (0xFFFFFFFFu << i));
+        g >>= zeros;
+        u <<= zeros;
+        v <<= zeros;
+        eta -= zeros;
+        i -= zeros;
+        if (i == 0) break;
+        if (eta < 0) {   // (f, g) <- (g, -f), and the matrix's rows alike
+            eta = -eta;
+            uint32_t tmp = f;
+            f = g;
+            g = 0u - tmp;
+            tmp = u;
+            u = q;
+            q = 0u - tmp;
+            tmp = v;
+            v = r;
+            r = 0u - tmp;
+        }
+        const int limit = (eta + 1) > i ? i : (eta + 1);
+        const uint32_t m = (0xFFFFFFFFu >> (32 - limit)) & 255u;
+        // f^-1 mod 2^10: (3f) xor 2 is exact mod 2^5, one Newton step doubles it
+        uint32_t x = (3u * f) ^ 2u;
+        x *= 2u - f * x;
+        const uint32_t w = (0u - g * x) & m;
+        g += f * w;
+        q += u * w;
+        r += v * w;
     }
-    return acc;
+    t->u = (int32_t)u;
+    t->v = (int32_t)v;
+    t->q = (int32_t)q;
+    t->r = (int32_t)r;
+    return eta;
+}
+
+// (f, g) <- t (f, g) / 2^30, exact (the low 30 bits are zero by t's making)
+__device__ __forceinline__ void update_fg_30(S30& f, S30& g, const Trans& t) {
+    int64_t cf = (int64_t)t.u * f.v[0] + (int64_t)t.v * g.v[0];
+    int64_t cg = (int64_t)t.q * f.v[0] + (int64_t)t.r * g.v[0];
+    cf >>= 30;
+    cg >>= 30;
+#pragma unroll
+    for (int i = 1; i < 9; ++i) {
+        const int32_t fi = f.v[i], gi = g.v[i];
+        cf += (int64_t)t.u * fi + (int64_t)t.v * gi;
+        cg += (int64_t)t.q * fi + (int64_t)t.r * gi;
+        f.v[i - 1] = (int32_t)cf & kM30;
+        g.v[i - 1] = (int32_t)cg & kM30;
+        cf >>= 30;
+        cg >>= 30;
+    }
+    f.v[8] = (int32_t)cf;
+    g.v[8] = (int32_t)cg;
+}
+
+// (d, e) <- (t (d, e) + n (md, me)) / 2^30 with md, me chosen to clear the
+// low 30 bits; d, e stay in (-2n, n)
+__device__ __forceinline__ void update_de_30(S30& d, S30& e, const Trans& t) {
+    const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+    int32_t md = (t.u & sd) + (t.v & se);
+    int32_t me = (t.q & sd) + (t.r & se);
+    int64_t cd = (int64_t)t.u * d.v[0] + (int64_t)t.v * e.v[0];
+    int64_t ce = (int64_t)t.q * d.v[0] + (int64_t)t.r * e.v[0];
+    md -= (int32_t)((kNInv30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)kM30);
+    me -= (int32_t)((kNInv30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)kM30);
+    cd += (int64_t)kN30[0] * md;
+    ce += (int64_t)kN30[0] * me;
+    cd >>= 30;
+    ce >>= 30;
+#pragma unroll
+    for (int i = 1; i < 9; ++i) {
+        const int32_t di = d.v[i], ei = e.v[i];
+        cd += (int64_t)t.u * di + (int64_t)t.v * ei + (int64_t)kN30[i] * md;
+        ce += (int64_t)t.q * di + (int64_t)t.r * ei + (int64_t)kN30[i] * me;
+        d.v[i - 1] = (int32_t)cd & kM30;
+        e.v[i - 1] = (int32_t)ce & kM30;
+        cd >>= 30;
+        ce >>= 30;
+    }
+    d.v[8] = (int32_t)cd;
+    e.v[8] = (int32_t)ce;
+}
+
+// carry each limb's bits above 30 into the next
+__device__ __forceinline__ void carry_30(S30& a) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        a.v[i + 1] += a.v[i] >> 30;
+        a.v[i] &= kM30;
+    }
+}
+
+// a in (-2n, n) -> a (sign >= 0) or -a (sign < 0), in [0, n)
+__device__ __forceinline__ void normalize_30(S30& a, int32_t sign) {
+    int32_t add = a.v[8] >> 31;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) a.v[i] += kN30[i] & add;
+    const int32_t neg = sign >> 31;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) a.v[i] = (a.v[i] ^ neg) - neg;
+    carry_30(a);
+    add = a.v[8] >> 31;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) a.v[i] += kN30[i] & add;
+    carry_30(a);
+}
+
+__device__ __forceinline__ S30 to_s30(const Fe& a) {
+    S30 s;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+        const int b = 30 * i, w = b >> 5, sh = b & 31;
+        uint32_t x = a.v[w] >> sh;
+        if (sh > 2 && w < 7) x |= a.v[w + 1] << (32 - sh);
+        s.v[i] = (int32_t)(x & (uint32_t)kM30);
+    }
+    return s;
+}
+
+// limbs in [0, 2^30) of a value < 2^256 -> 8 words (word k is limb
+// 32k / 30 from bit 32k mod 30 <= 14, and the next limb above it)
+__device__ __forceinline__ Fe from_s30(const S30& s) {
+    Fe a;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const int i = (32 * k) / 30, sh = (32 * k) % 30;
+        a.v[k] = ((uint32_t)s.v[i] >> sh) | ((uint32_t)s.v[i + 1] << (30 - sh));
+    }
+    return a;
+}
+
+// x^-1 mod n for x < n (plain values; 0 -> 0)
+__device__ __forceinline__ Fe fn_inv_plain(const Fe& x) {
+    S30 d, e, f, g;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+        d.v[i] = 0;
+        e.v[i] = 0;
+        f.v[i] = kN30[i];
+    }
+    e.v[0] = 1;
+    g = to_s30(x);
+    int32_t eta = -1;   // delta = 1
+#pragma unroll 1
+    for (int b = 0; b < kMaxBatches; ++b) {
+        Trans t;
+        eta = divsteps_30_var(eta, (uint32_t)f.v[0], (uint32_t)g.v[0], &t);
+        update_de_30(d, e, t);
+        update_fg_30(f, g, t);
+        int32_t any = 0;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) any |= g.v[i];
+        if (any == 0) break;
+    }
+    normalize_30(d, f.v[8]);   // f = +-1: its sign is its top limb's
+    return from_s30(d);
+}
+
+// The inverse in the Montgomery domain mod n (a = x*R < n): x^-1 * R,
+// 0 -> 0
+__device__ __forceinline__ Fe fn_inv(const Fe& a) {
+    return fn_mul(fn_inv_plain(a), fe_load_const(kR3N));
 }
 
 // --- Helpers ----------------------------------------------------------------
@@ -178,37 +394,70 @@ __device__ __forceinline__ bool fe_is_zero(const Fe& a) {
 
 // --- Per-lane code ------------------------------------------------------------
 
-// One lane of the prologue.  e: the digest rows (8 x n words: the packed
-// buffer itself, or SHA-256's output on the raw-message path); packed:
-// the kRows x n buffer.  Writes the lane's 64 window values of u1 and u2
-// (64 x n int32, most significant window first) and key_ok (0 or 1).
-__device__ __forceinline__ void prologue_lane(int lane, int n, const uint32_t* e,
-                                              const uint32_t* packed, int32_t* u1w,
-                                              int32_t* u2w, uint8_t* key_ok) {
-    const Fe ev = ld_words(e, 0, lane, n);
-    const Fe r = ld_words(packed, kRowR, lane, n);
-    const Fe s = ld_words(packed, kRowS, lane, n);
-    const Fe w_m = fn_inv(fn_mul(s, fe_load_const(kR2N)));   // s^-1 * R mod n
-    // a plain value times a Montgomery one is the plain product
-    const Fe u1 = fn_mul(ev, w_m);
-    const Fe u2 = fn_mul(r, w_m);
-#pragma unroll
-    for (int w = 0; w < 64; ++w) {
-        u1w[(std::size_t)w * n + lane] = (int32_t)nibble(u1.v, w);
-        u2w[(std::size_t)w * n + lane] = (int32_t)nibble(u2.v, w);
-    }
-    // the key: y^2 == x^3 - 3x + b (mod p), and not (0, 0) (mod p)
+// A lane of the prologue is a group of kGroup threads, each in its own
+// warp of the block (see the kernel).  On the card each thread runs its
+// own rank; on the host one call runs every rank in turn and block_sync
+// is a no-op.
+constexpr int kGroup = 2;
+
+#ifdef __CUDA_ARCH__
+#define FOR_MY_RANKS(rank, g) \
+    for (int g = (rank), g##_once = 1; g##_once; g##_once = 0)
+__device__ __forceinline__ void block_sync() { __syncthreads(); }
+#else
+#define FOR_MY_RANKS(rank, g) for (int g = 0; g < kGroup; ++g)
+__device__ __forceinline__ void block_sync() {}
+#endif
+
+// the key: y^2 == x^3 - 3x + b (mod p), and not (0, 0) (mod p)
+__device__ __forceinline__ bool key_check(const Fe& qx, const Fe& qy) {
     const Fe r2 = fe_load_const(kR2);
-    const Fe xm = fe_mul(ld_words(packed, kRowQx, lane, n), r2);
-    const Fe ym = fe_mul(ld_words(packed, kRowQy, lane, n), r2);
+    const Fe xm = fe_mul(qx, r2);
+    const Fe ym = fe_mul(qy, r2);
     const Fe x3 = fe_mul(fe_sqr(xm), xm);
     const Fe rhs = fe_add(fe_sub(x3, fe_add(fe_add(xm, xm), xm)), fe_load_const(kBM));
-    const bool on_curve = fe_eq(fe_sqr(ym), rhs);
-    key_ok[lane] = (uint8_t)(on_curve && !(fe_is_zero(xm) && fe_is_zero(ym)));
+    return fe_eq(fe_sqr(ym), rhs) && !(fe_is_zero(xm) && fe_is_zero(ym));
+}
+
+__device__ __forceinline__ void store_windows(const Fe& u, int32_t* out, int lane, int n) {
+#pragma unroll
+    for (int w = 0; w < 64; ++w) out[(std::size_t)w * n + lane] = (int32_t)nibble(u.v, w);
+}
+
+// One lane of the prologue, as the group's ranks.  e: the digest rows (8 x
+// n words: the packed buffer itself, or SHA-256's output on the raw-message
+// path); packed: the kRows x n buffer.  Rank 0 inverts s (w = s^-1 * R mod
+// n) into the lane's exchange slot while rank 1 checks the key; after the
+// sync rank 0 writes the 64 window values of u1 = e*w and rank 1 those of
+// u2 = r*w (64 x n int32, most significant window first).  A thread that
+// holds no lane (live false) still reaches the sync.
+__device__ __forceinline__ void prologue_group(int rank, bool live, int lane, int n,
+                                               const uint32_t* e, const uint32_t* packed,
+                                               int32_t* u1w, int32_t* u2w, uint8_t* key_ok,
+                                               Fe* w_slot) {
+    FOR_MY_RANKS(rank, g) {
+        if (!live) continue;
+        if (g == 0) {
+            const Fe s = ld_words(packed, kRowS, lane, n);
+            *w_slot = fn_inv(fn_mul(s, fe_load_const(kR2N)));   // s = n -> 0 -> 0
+        } else {
+            key_ok[lane] = (uint8_t)key_check(ld_words(packed, kRowQx, lane, n),
+                                              ld_words(packed, kRowQy, lane, n));
+        }
+    }
+    block_sync();
+    FOR_MY_RANKS(rank, g) {
+        if (!live) continue;
+        // a plain value times a Montgomery one is the plain product, reduced
+        const Fe a = g == 0 ? ld_words(e, 0, lane, n) : ld_words(packed, kRowR, lane, n);
+        store_windows(fn_mul(a, *w_slot), g == 0 ? u1w : u2w, lane, n);
+    }
 }
 
 // One lane of the epilogue.  X, Z: the ladder's canonical non-Montgomery
-// output words (8 x n).  Writes the lane's verdict (0 or 1).
+// output words (8 x n).  Writes the lane's verdict (0 or 1).  X == r'*Z
+// (mod p) is tested as r'*Z*R^-1 == X*R^-1: three independent products,
+// each with its second operand below p (Z, 1).
 __device__ __forceinline__ void epilogue_lane(int lane, int n, const uint32_t* X,
                                               const uint32_t* Z, const uint32_t* packed,
                                               const uint8_t* key_ok, uint8_t* ok) {
@@ -216,9 +465,8 @@ __device__ __forceinline__ void epilogue_lane(int lane, int n, const uint32_t* X
     const Fe z = ld_words(Z, 0, lane, n);
     const Fe r = ld_words(packed, kRowR, lane, n);
     const uint32_t flags = packed[(std::size_t)kRowFlags * n + lane];
-    const Fe r2 = fe_load_const(kR2);
-    // fe_mul(c, R^2) = c*R mod p for any c < 2^256; times Z (plain) = c*Z
-    const bool ok_r = fe_eq(fe_mul(fe_mul(r, r2), z), x);
+    Fe one = fe_zero();
+    one.v[0] = 1u;
     // r + n; it wraps only where rn_lt_p is false, and then goes unused
     Fe rn;
     uint64_t c = 0;
@@ -228,7 +476,9 @@ __device__ __forceinline__ void epilogue_lane(int lane, int n, const uint32_t* X
         rn.v[k] = (uint32_t)c;
         c >>= 32;
     }
-    const bool ok_rn = (flags & kFlagRnLtP) && fe_eq(fe_mul(fe_mul(rn, r2), z), x);
+    const Fe xr = fe_mul(x, one);
+    const bool ok_r = fe_eq(fe_mul(r, z), xr);
+    const bool ok_rn = (flags & kFlagRnLtP) && fe_eq(fe_mul(rn, z), xr);
     const bool live = (flags & kFlagRangeOk) && (flags & kFlagPreOk) && key_ok[lane];
     ok[lane] = (uint8_t)(live && !fe_is_zero(z) && (ok_r || ok_rn));
 }
@@ -237,15 +487,24 @@ __device__ __forceinline__ void epilogue_lane(int lane, int n, const uint32_t* X
 
 #ifdef __CUDACC__
 
+// The prologue's block: kGroup warps, warp g holding rank g of up to 32
+// lanes.  Each rank runs the same code across its warp (no divergence
+// between the inversion and the key check), and the ranks of a lane meet
+// in shared memory at one __syncthreads.  The wrapper picks the lanes per
+// block so that a call spreads over every SM.
+constexpr int kWarp = 32;
+constexpr int kPrologueThreads = kGroup * kWarp;
 constexpr int kThreads = 64;
 
-__global__ void __launch_bounds__(kThreads) verify_prologue_kernel(
+__global__ void __launch_bounds__(kPrologueThreads) verify_prologue_kernel(
         const uint32_t* __restrict__ e, const uint32_t* __restrict__ packed,
         int32_t* __restrict__ u1w, int32_t* __restrict__ u2w,
-        uint8_t* __restrict__ key_ok, int n) {
-    const int lane = blockIdx.x * kThreads + threadIdx.x;
-    if (lane >= n) return;
-    prologue_lane(lane, n, e, packed, u1w, u2w, key_ok);
+        uint8_t* __restrict__ key_ok, int n, int lanes_per_block) {
+    __shared__ Fe w[kWarp];
+    const int slot = threadIdx.x % kWarp;
+    const int lane = blockIdx.x * lanes_per_block + slot;
+    const bool live = slot < lanes_per_block && lane < n;
+    prologue_group(threadIdx.x / kWarp, live, lane, n, e, packed, u1w, u2w, key_ok, &w[slot]);
 }
 
 __global__ void __launch_bounds__(kThreads) verify_epilogue_kernel(
@@ -257,17 +516,29 @@ __global__ void __launch_bounds__(kThreads) verify_epilogue_kernel(
     epilogue_lane(lane, n, X, Z, packed, key_ok, ok);
 }
 
+// Lanes per prologue block: n spread over the SMs (at least one block per
+// SM where n allows), at most a warp's worth.
+static int prologue_lanes_per_block(int n) {
+    int dev = 0, sms = 1;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        sms = 1;
+    const int per = n / (sms > 0 ? sms : 1);
+    return per < 1 ? 1 : (per > kWarp ? kWarp : per);
+}
+
 // Launch the prologue on `stream`.  e: (8, n) digest words; packed:
 // (kRows, n); u1w, u2w: (64, n) int32 out; key_ok: (n,) bytes out.
 // Allocates nothing; returns the cudaError_t of the launch.
 extern "C" int p256_core_prologue_launch(const void* e, const void* packed, void* u1w,
                                          void* u2w, void* key_ok, int n, void* stream) {
     if (n <= 0) return 0;
-    verify_prologue_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+    const int per = prologue_lanes_per_block(n);
+    verify_prologue_kernel<<<(n + per - 1) / per, kPrologueThreads, 0,
                              reinterpret_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(e), static_cast<const uint32_t*>(packed),
         static_cast<int32_t*>(u1w), static_cast<int32_t*>(u2w),
-        static_cast<uint8_t*>(key_ok), n);
+        static_cast<uint8_t*>(key_ok), n, per);
     return static_cast<int>(cudaGetLastError());
 }
 

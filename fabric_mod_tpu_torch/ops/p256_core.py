@@ -91,6 +91,32 @@ def _limbs(words: torch.Tensor) -> torch.Tensor:
         torch.float32)
 
 
+# --- the inversion's schedule ------------------------------------------------
+
+DIVSTEP_BATCH = 30
+
+
+def divsteps(x: int) -> int:
+    """Divsteps the prologue kernel's inversion of x mod n takes until
+    g = 0 (Bernstein-Yang with delta = 1 at the start, f = n, g = x);
+    the kernel runs them in batches of DIVSTEP_BATCH and stops after the
+    first batch that leaves g = 0 (0 divsteps for x = 0: one batch)."""
+    delta, f, g, count = 1, p256.N, x % p256.N, 0
+    while g:
+        if delta > 0 and g & 1:
+            delta, f, g = 1 - delta, g, (g - f) >> 1
+        else:
+            delta, g = 1 + delta, (g + (g & 1) * f) >> 1
+        count += 1
+    return count
+
+
+def inversion_batches(s: int) -> int:
+    """Batches of 30 divsteps the prologue runs for a lane's scalar s (it
+    inverts s * 2^256 mod n, s in Montgomery form)."""
+    return max(1, -(-divsteps((s << 256) % p256.N) // DIVSTEP_BATCH))
+
+
 # --- plain versions ----------------------------------------------------------
 
 def prologue_plain(e: torch.Tensor, packed: torch.Tensor):

@@ -1,9 +1,11 @@
 """The verify core's per-lane CUDA code (fabric_mod_tpu_torch/csrc/
 p256_core.cu) built by the host C++ compiler, for the CPU tests.
 
-Outside `__CUDACC__` the source is plain C++: `prologue_lane`,
-`epilogue_lane` and the arithmetic mod n compile with g++, so the
-kernels' arithmetic is tested on a machine with no card.  `run_core`
+Outside `__CUDACC__` the source is plain C++: `prologue_group` (a
+lane's thread group, its ranks run in turn), `epilogue_lane` and the
+arithmetic mod n compile with g++, so the kernels' arithmetic is tested
+on a machine with no card.  `fn_ops` op 0 is the product mod n, op 1
+the inverse in the Montgomery domain, op 2 the plain divstep inverse.  `run_core`
 drives the whole core as the card does: the prologue lanes, the plain
 ladder on their window planes (ops/p256_cuda.ladder_words on the CPU),
 the epilogue lanes."""
@@ -25,14 +27,16 @@ extern "C" void fn_ops(int op, const uint32_t* a, const uint32_t* b,
   for (int i = 0; i < n; ++i) {{
     Fe x, y;
     for (int k = 0; k < 8; ++k) {{ x.v[k] = a[8 * i + k]; y.v[k] = b[8 * i + k]; }}
-    const Fe r = op == 0 ? fn_mul(x, y) : fn_inv(x);
+    const Fe r = op == 0 ? fn_mul(x, y) : op == 1 ? fn_inv(x) : fn_inv_plain(x);
     for (int k = 0; k < 8; ++k) out[8 * i + k] = r.v[k];
   }}
 }}
 extern "C" void prologue(const uint32_t* e, const uint32_t* packed,
                          int32_t* u1w, int32_t* u2w, uint8_t* key_ok, int n) {{
-  for (int lane = 0; lane < n; ++lane)
-    prologue_lane(lane, n, e, packed, u1w, u2w, key_ok);
+  for (int lane = 0; lane < n; ++lane) {{
+    Fe slot;
+    prologue_group(0, true, lane, n, e, packed, u1w, u2w, key_ok, &slot);
+  }}
 }}
 extern "C" void epilogue(const uint32_t* X, const uint32_t* Z,
                          const uint32_t* packed, const uint8_t* key_ok,

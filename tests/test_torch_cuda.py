@@ -113,8 +113,9 @@ def test_source_constants():
         assert got == _words(c * R256 % P), name
     # the reduction's closed form: q = -p^-1 mod 2^256 = 1 + 2^96 + 2^193 - 2^224
     assert (-pow(P, -1, R256)) % R256 == (1 + (1 << 96) + (1 << 193) - (1 << 224)) % R256
-    # the verify core's constants (csrc/p256_core.cu): mod n, b in
-    # Montgomery form mod p, n0' = -n^-1 mod 2^32, the buffer's layout
+    # the verify core's constants (csrc/p256_core.cu): mod n (n in 30-bit
+    # limbs and n^-1 mod 2^30 for the divstep inversion), b in Montgomery
+    # form mod p, n0' = -n^-1 mod 2^32, the buffer's layout
     core = _build.source_path("p256_core").read_text()
 
     def core_array(name):
@@ -122,9 +123,13 @@ def test_source_constants():
         return [int(x.strip().rstrip("u"), 16) for x in body.split(",")]
     N = p256.N
     assert core_array("kN") == _words(N)
-    assert core_array("kNm2") == _words(N - 2)
     assert core_array("kR2N") == _words(R256 * R256 % N)
-    assert core_array("kOneN") == _words(R256 % N)
+    assert core_array("kR3N") == _words(pow(R256, 3, N))
+    body = re.search(r"kN30\[9\] = \{([^}]*)\}", core).group(1)
+    assert [int(x.strip(), 16) for x in body.split(",")] == [
+        (N >> (30 * i)) & (2**30 - 1) for i in range(9)]
+    inv30 = int(re.search(r"kNInv30 = (0x[0-9A-Fa-f]+)u;", core).group(1), 16)
+    assert inv30 * N % (1 << 30) == 1
     assert core_array("kBM") == _words(p256.B * R256 % P)
     n0 = int(re.search(r"kN0Inv = (0x[0-9A-Fa-f]+)u;", core).group(1), 16)
     assert n0 == (-pow(N, -1, 1 << 32)) % (1 << 32)

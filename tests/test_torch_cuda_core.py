@@ -10,6 +10,8 @@ import random
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from fabric_mod_tpu_torch.ops import p256, p256_core, p256_cuda
 from fabric_mod_tpu_torch.utils import fixtures
@@ -80,6 +82,37 @@ def test_mod_n_inverse_on_host_compiler(core_lib):
         # a is a Montgomery value a = x R; the inverse is x^-1 R
         want = 0 if a == 0 else pow(a * pow(R256, -1, N), -1, N) * R256 % N
         assert g == want, hex(a)
+
+
+def _most_divsteps(count: int, seed: int) -> int:
+    """The value of `count` seeded ones in [1, n) whose inversion takes
+    the most divsteps."""
+    rng = random.Random(seed)
+    return max((rng.randrange(1, N) for _ in range(count)),
+               key=p256_core.divsteps)
+
+
+def test_divstep_inverse_edges_on_host_compiler(core_lib):
+    """fn_inv_plain (safegcd by batches of 30 divsteps) against pow(a, -1,
+    n) on the edges 0, 1, 2, n-1, n-2, (n-1)/2, R mod n, every 2^k mod n,
+    and the value with the most divsteps of 2000 seeded ones; that one
+    needs more batches than the typical value and stays within the 741
+    divsteps the loop's 25 batches allow."""
+    worst = _most_divsteps(2000, 8)
+    assert 19 * 30 > p256_core.divsteps(worst) > 530
+    vals = [0, 1, 2, N - 1, N - 2, (N - 1) // 2, R256 % N, worst]
+    vals += [pow(2, k, N) for k in range(256)]
+    assert max(p256_core.divsteps(v) for v in vals) <= 741
+    got = _fn_ops(core_lib, 2, vals, [0] * len(vals))
+    for a, g in zip(vals, got):
+        assert g == (pow(a, -1, N) if a else 0), hex(a)
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(min_value=0, max_value=N - 1))
+def test_divstep_inverse_property_on_host_compiler(core_lib, a):
+    """fn_inv_plain(a) == pow(a, -1, n) (0 -> 0) over [0, n)."""
+    assert _fn_ops(core_lib, 2, [a], [0]) == [pow(a, -1, N) if a else 0]
 
 
 def _packed(planes, pre_ok):
@@ -162,3 +195,66 @@ def test_pack_layout():
     assert p256_core.flag(packed, p256_core.FLAG_RN_LT_P).tolist() == \
         rn_lt_p.tolist()
     assert not p256_core.has_msg(packed).any()
+
+
+def _windows(u: int):
+    return [(u >> (4 * (63 - w))) & 15 for w in range(64)]
+
+
+def test_group_ranks_in_turn_equal_the_lane_on_host_compiler(core_lib):
+    """The prologue's thread group run rank by rank on the host (rank 0
+    the inversion and u1, rank 1 the key check and u2) gives every lane
+    the windows and key_ok that one thread computing the whole lane
+    gives, here in Python ints: u1 = e s^-1, u2 = r s^-1 mod n (s^-1 of
+    s = 0 mod n taken as 0), key_ok = on the curve mod p and not (0, 0).
+    Lanes: every edge lane of fixtures.make_core_lanes (digests >= n,
+    padding, invalid keys, s = 2^256 - 1) and one more with s = n."""
+    planes, pre_ok, _ = fixtures.make_core_lanes(16)
+    planes[2][13] = np.frombuffer(N.to_bytes(32, "big"), np.uint8)
+    packed = _packed(planes, pre_ok)
+    u1, u2, key_ok = shim.prologue(core_lib, packed[p256_core.ROW_E:
+                                                   p256_core.ROW_E + 8], packed)
+    e, r, s_, qx, qy = ([int.from_bytes(bytes(b), "big") for b in plane]
+                        for plane in planes)
+    for i in range(16):
+        w = pow(s_[i] % N, -1, N) if s_[i] % N else 0
+        assert u1[:, i].tolist() == _windows(e[i] * w % N), i
+        assert u2[:, i].tolist() == _windows(r[i] * w % N), i
+        x, y = qx[i] % P, qy[i] % P
+        on = (y * y - x ** 3 + 3 * x - p256.B) % P == 0
+        assert bool(key_ok[i]) == (on and (x, y) != (0, 0)), i
+    assert u1[:, 13].tolist() == u2[:, 13].tolist() == [0] * 64
+
+
+def test_epilogue_three_products_against_ints_on_host_compiler(core_lib):
+    """The epilogue's r' Z R^-1 == X R^-1 form against Python ints on
+    random lanes, with r + n below p, at or above p, and wrapping past
+    2^256: X == r Z, X == (r + n) Z (accepted only where r + n < p), or
+    random X; Z = 0 refused."""
+    rng = random.Random(9)
+    n = 64
+    r = [rng.choice([rng.randrange(1, P - N), rng.randrange(P - N, N),
+                     rng.randrange(R256 - N, N)]) for _ in range(n)]
+    r[:3] = [P - N - 1, P - N, R256 - N]
+    z = [rng.randrange(1, P) for _ in range(n)]
+    z[5] = 0
+    x = []
+    for i, (ri, zi) in enumerate(zip(r, z)):
+        kind = i % 3
+        x.append(ri * zi % P if kind == 0 else (ri + N) * zi % P if kind == 1
+                 else rng.randrange(P))
+    rn_lt_p = np.array([ri + N < P for ri in r])
+    planes = [np.zeros((n, 32), np.uint8) for _ in range(5)]
+    for i, ri in enumerate(r):
+        planes[1][i] = np.frombuffer(ri.to_bytes(32, "big"), np.uint8)
+    ones = np.ones(n, bool)
+    packed = p256_core.pack(planes, ones, ones, rn_lt_p)
+    X = _words(x).T.view(np.int32).copy()
+    Z = _words(z).T.view(np.int32).copy()
+    got = shim.epilogue(core_lib, X, Z, packed, torch.ones(n, dtype=torch.bool))
+    want = [zi != 0 and (xi == ri * zi % P
+                         or (ri + N < P and xi == (ri + N) * zi % P))
+            for ri, zi, xi in zip(r, z, x)]
+    assert got.tolist() == want
+    assert any(want) and not all(want)
+    assert not any(rn_lt_p[1:3]) and rn_lt_p[0]
