@@ -8,9 +8,10 @@ idemix presentation verify.
 Phases (any failure exits non-zero; none is caught):
 
 1. header — the card's name, and its name and power limit from nvidia-smi;
-2. build — both sources from fabric_mod_tpu_torch/csrc/ (nvcc, started
-   together): the ladders and the verify core's prologue and epilogue,
-   with ptxas' registers, stack and spills for each entry function;
+2. build — the three sources from fabric_mod_tpu_torch/csrc/ (nvcc,
+   started together): the ladders, the verify core's prologue and
+   epilogue, and the raw lanes' SHA-256, with ptxas' registers, stack
+   and spills for each entry function;
 3. kernel against plain — each ladder kernel at 2048 lanes against its
    plain PyTorch version on the card (random windows, distinct keys
    (i+2)G, identity-adjacent edge lanes, an off-curve and a (0, 0) key):
@@ -31,13 +32,24 @@ Phases (any failure exits non-zero; none is caught):
    kernels are timed on the device alone (CUDA events around launches
    made straight through the C entry point and queued behind a sleep)
    and through their wrappers (CUDA events over 10 calls, and host wall
-   per call), the prologue at 1, 16 and 2048 lanes;
+   per call), the prologue at 1, 16 and 2048 lanes.  Then the SHA-256
+   kernel (csrc/sha256.cu) at 2048 lanes: the block-commit fixture's
+   real creator and endorser messages and edge lengths (0 to 3000
+   bytes), every 97th lane without a message; its e rows must be
+   bit-equal to the plain sha256_blocks' on every lane (and hashlib's on
+   sampled lanes), the other rows and lanes untouched.  At the main
+   path's inputs (2048 real messages): bit-equal again, device time,
+   the plain version's time, the bound (32-bit operations over the real
+   blocks, or bytes), and the words plane's host packing time, bytes and
+   pinned upload time, as the main path packs it and with the
+   reference's power-of-two rounding;
 4. verify path — 4 blocks of 1000 transactions (3000 signatures each,
    2-of-3 endorsement) through GpuVerifier.verify_many, once per ladder;
-   the 4th block's endorser items are raw messages hashed on the card.
+   the 4th block's endorser items are raw messages hashed on the card
+   by the SHA-256 kernel (the plain torch SHA-256 must not run there).
    Verdicts must equal the fixtures' expected masks bit for bit and, on
    256 sampled lanes per block, the pure-python software verify; all
-   four kernels' launch counts (zeroed just before) must have risen;
+   five kernels' launch counts (zeroed just before) must have risen;
 5. block commit — the system's main path: 4 encoded blocks of 1000
    transactions (utils/fixtures.make_commit_blocks: every planted invalid
    kind, a VALIDATION_PARAMETER pin) through the port's Committer
@@ -45,11 +57,17 @@ Phases (any failure exits non-zero; none is caught):
    (a) the projective ladder with the tensor-policy evaluator, which must
    receive a CUDA mask on every block; (b) the same with the policy
    closures; (c) the mixed ladder with the evaluator; (d) the host
-   software verifier, the oracle.  Every arm's txflags must equal the
-   fixture's and each other, every state fingerprint must be equal, and
-   all four kernels' launch counts (zeroed just before) must have risen.
-   Prints ms per block by stage, committed tx/s and the evaluator's
-   device ms;
+   software verifier, the oracle; (e) as (a) with the vectorized MVCC
+   (`vector_mvcc=True`), which must run on every block and in no other
+   arm; (f) as (a) on make_commit_world(raw_messages=True): every item a
+   raw message, hashed by the SHA-256 kernel, which no other arm may
+   launch.  Staging runs the columnar batch decode in every arm.  Every
+   arm's txflags must equal the fixture's and each other, every state
+   fingerprint must be equal, and all five kernels' launch counts
+   (zeroed just before) must have risen.  Prints ms per block by stage
+   (the stage split into the batch decode and the rest), the spine and
+   body scans' fallback rows, committed tx/s and the evaluator's device
+   ms;
 8. e2e (run after 5) — the system's own end-to-end loop
    (fabric_mod_tpu_torch/e2e.py `Network`): one channel of 3 orgs from
    utils/fixtures.make_network_material, a solo orderer cutting 1000-tx
@@ -104,13 +122,14 @@ Phases (any failure exits non-zero; none is caught):
    a multiply, and the rest once), scaled by the schedule's static
    counts: launches per check, device busy ms, idle share;
 6. profile (run after 8) — torch.profiler over one verify of each
-   block kind, over a verify call of one signature and of one 2048-lane
-   bucket (launches per verify call), and over one whole block commit:
+   block kind, over a verify call of one signature, of one 2048-lane
+   bucket and of one raw 2048-lane bucket (which must launch the four
+   kernels once each), and over one whole block commit:
    wall time, device busy time and idle share, the heaviest device
    kernels; and over the policy evaluator's pass alone: its launches
    and device time per block.
 
-It prints one JSON line describing each of the four kernels
+It prints one JSON line describing each of the five kernels
 (`launches` counts the block-commit phase and both e2e arms), and as
 its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
@@ -120,6 +139,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -215,6 +235,26 @@ S_EQ_N_LANE = 13
 # kernels back to back and not the host
 DEVICE_REPS = 200
 SLEEP_CYCLES = 50_000_000
+
+# The SHA-256 kernel (csrc/sha256.cu): the 32-bit instructions one 64-byte
+# block needs on this card, a rotate one funnel shift (SHF), any function of
+# three words one LOP3, an add of three words one IADD3.  The message
+# schedule, 48 words x (each small sigma 2 SHF + 1 shift + 1 LOP3; the
+# 4-term sum 2 IADD3); 64 rounds x (each big sigma 3 SHF + 1 LOP3; ch and
+# maj 1 LOP3 each; t1 = h + S1 + ch + K + w 2 IADD3; e = d + t1 1; a = t1 +
+# S0 + maj 1 IADD3); the 8 adds into the state.  At the card's 32-bit
+# integer rate (INT_MADD_PER_SM_CLOCK: Hopper's 64 int32 lanes per SM).
+# Phase 3 prints the opcode counts of the built kernel's SASS beside it.
+SHA_OPS_PER_BLOCK = 48 * (2 * 4 + 2) + 64 * (4 + 1 + 2 + 4 + 1 + 1 + 1) + 8
+# (IMAD included: nvcc puts some adds on the multiply-add pipe as IMAD.IADD)
+SHA_SASS_ALU = ("LOP3", "SHF", "IADD3", "IMAD", "IADD", "SHL", "SHR")
+# phase 3's SHA lanes: the commit fixture's real creator and endorser
+# messages, then these edge lengths (bytes); every SHA_NO_MSG_EVERY-th lane
+# carries no message and must keep its e rows; hashlib checks a sample
+SHA_EDGE_LENGTHS = (0, 1, 55, 56, 63, 64, 119, 120, 1000, 2000, 3000)
+SHA_NO_MSG_EVERY = 97
+SHA_HASHLIB_SAMPLE = 256
+UPLOAD_REPS = 20
 
 # phase 8 arm (b): concurrent submitters and the lanes' drain bound
 E2E_SUBMITTERS = 32
@@ -314,6 +354,31 @@ def sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
+def sass_opcodes(path, kernel: str):
+    """{opcode: count} over `kernel`'s SASS in the built library at
+    `path` (cuobjdump of the toolkit that built it), or None where it
+    cannot be read."""
+    from fabric_mod_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    try:
+        out = subprocess.run([tool, "-sass", str(path)], check=True,
+                             capture_output=True, text=True,
+                             timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    counts, inside = {}, False
+    for line in out.splitlines():
+        text = line.strip()
+        if text.startswith("Function :"):
+            inside = kernel in text
+            continue
+        m = inside and re.match(
+            r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", text)
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts or None
+
+
 def prologue_products() -> int:
     """Word products per lane of a prologue that inverts by Fermat."""
     from fabric_mod_tpu_torch.ops import p256
@@ -363,15 +428,17 @@ def host_ms(torch, fn, reps: int) -> float:
 
 
 def kernel_counts() -> dict:
-    """Launch counts of every kernel of the path (ladders and core)."""
-    from fabric_mod_tpu_torch.ops import p256_core, p256_cuda
-    return {**p256_cuda.counts(), **p256_core.counts()}
+    """Launch counts of every kernel of the path (ladders, core and the
+    raw lanes' SHA-256)."""
+    from fabric_mod_tpu_torch.ops import p256_core, p256_cuda, sha256
+    return {**p256_cuda.counts(), **p256_core.counts(), **sha256.counts()}
 
 
 def reset_kernel_counts() -> None:
-    from fabric_mod_tpu_torch.ops import p256_core, p256_cuda
+    from fabric_mod_tpu_torch.ops import p256_core, p256_cuda, sha256
     p256_cuda.reset_counts()
     p256_core.reset_counts()
+    sha256.reset_counts()
 
 
 def require_launched(counts: dict, where: str) -> None:
@@ -525,6 +592,194 @@ def phase_core_kernels(torch, np, dev, clock, n_sm):
     return out
 
 
+def commit_messages(blocks, limit: int) -> list:
+    """The raw verify messages of encoded commit blocks, in block order,
+    as the MSP's raw-message items carry them: each tx's creator message
+    (its envelope's payload) and each endorsement's (the proposal-
+    response payload and the endorser's identity); at most `limit`."""
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    out = []
+    for raw in blocks:
+        for data in m.Block.decode(raw).data.data:
+            env = m.Envelope.decode(data)
+            out.append(env.payload)
+            tx = protoutil.extract_endorser_tx(
+                protoutil.unmarshal_envelope_payload(env))
+            for action in tx.actions:
+                _cca, prp, ends = protoutil.tx_rwset_and_endorsements(action)
+                out.extend(prp + e.endorser for e in ends)
+            if len(out) >= limit:
+                return out[:limit]
+    return out
+
+
+def phase_sha_kernel(torch, np, dev, clock, n_sm, messages):
+    """Phase 3 for the raw lanes' SHA-256.  Correctness: the kernel
+    against its plain version on the card at 2048 lanes of real
+    commit-path messages and the edge lengths, every SHA_NO_MSG_EVERY-th
+    lane without a message, in the packed buffer's e rows; hashlib on
+    sampled lanes.  Then, at the main path's inputs (2048 real messages,
+    every lane raw): the kernel against plain again, device time, the
+    plain version's time, the bound, the words plane's host packing,
+    bytes and upload."""
+    import hashlib
+
+    from fabric_mod_tpu_torch import device as _device
+    from fabric_mod_tpu_torch.bccsp import der
+    from fabric_mod_tpu_torch.ops import _build, p256_core, sha256
+    rng = np.random.default_rng(SEED + 3)
+
+    def lanes(msgs, has_msg):
+        """The plane (as bccsp/gpu.marshal_items packs it: as many blocks
+        as the longest message needs), its upload, and a packed buffer
+        of random words with FLAG_HAS_MSG where has_msg."""
+        words, nblocks, ok = der.pack_messages(msgs, LANES)
+        if not ok.all():
+            raise AssertionError("pack_messages rejected a message")
+        nblocks = np.where(has_msg, nblocks, 0).astype(np.int32)
+        base = rng.integers(-2**31, 2**31, (p256_core.ROWS, LANES)).astype(
+            np.int32)
+        base[p256_core.ROW_FLAGS] = (
+            np.where(has_msg, p256_core.FLAG_HAS_MSG, 0)
+            | p256_core.FLAG_RANGE_OK)
+        return (words, nblocks, _device.upload(words.view(np.int32), dev),
+                _device.upload(nblocks, dev), torch.from_numpy(base).to(dev))
+
+    def against_plain(w, nb, buf0, what):
+        got = buf0.clone()
+        sha256.sha256_e(w, nb, got)
+        torch.cuda.synchronize()
+        want = buf0.clone()
+        t0 = time.perf_counter()
+        sha256.sha256_e_plain(w, nb, want)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            bad = (got != want).any(0).nonzero().flatten()[:8].tolist()
+            raise AssertionError(f"sha256_e ({what}) differs from the plain "
+                                 f"SHA-256 at lanes {bad}")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        return got, plain_ms, err
+
+    # correctness on real messages, edge lengths and lanes without one
+    msgs = list(messages[:LANES - len(SHA_EDGE_LENGTHS)])
+    msgs += [rng.bytes(n) for n in SHA_EDGE_LENGTHS]
+    if len(msgs) != LANES:
+        raise AssertionError(f"{len(msgs)} SHA lanes, expected {LANES}")
+    has_msg = np.ones(LANES, bool)
+    has_msg[::SHA_NO_MSG_EVERY] = False
+    words, nblocks, w, nb, buf0 = lanes(msgs, has_msg)
+    got, _plain_ms, err = against_plain(w, nb, buf0, "edge lanes")
+    keep = torch.from_numpy(~has_msg).to(dev)
+    if not torch.equal(got[:, keep], buf0[:, keep]) or not torch.equal(
+            got[p256_core.ROW_E + 8:], buf0[p256_core.ROW_E + 8:]):
+        raise AssertionError("sha256_e wrote outside the raw lanes' e rows")
+    e_words = got[p256_core.ROW_E:p256_core.ROW_E + 8].cpu().numpy().view(
+        np.uint32)
+    raw_lanes = np.nonzero(has_msg)[0]
+    edge = list(range(LANES - len(SHA_EDGE_LENGTHS), LANES))
+    sample = sorted(set(rng.choice(raw_lanes, min(SHA_HASHLIB_SAMPLE,
+                                                  raw_lanes.size),
+                                   replace=False).tolist())
+                    | {i for i in edge if has_msg[i]})
+    for lane in sample:
+        value = sum(int(x) << (32 * k) for k, x in enumerate(e_words[:, lane]))
+        if value.to_bytes(32, "big") != hashlib.sha256(msgs[lane]).digest():
+            raise AssertionError(f"sha256_e lane {lane} differs from hashlib")
+    log(f"kernel sha256_e: {LANES} lanes ({len(msgs) - len(SHA_EDGE_LENGTHS)}"
+        f" real creator and endorser messages of the commit fixture, "
+        f"{len(SHA_EDGE_LENGTHS)} edge lengths {list(SHA_EDGE_LENGTHS)}, "
+        f"{int((~has_msg).sum())} lanes without a message): e rows bit-equal "
+        f"to the plain sha256_blocks on every lane, lanes without a message "
+        f"and the other rows untouched, == hashlib on {len(sample)} sampled "
+        f"lanes; blocks per raw lane mean {nblocks[has_msg].mean():.2f}, max "
+        f"{int(nblocks.max())}")
+
+    # the main path's inputs: a 2048-lane bucket of real messages
+    real = list(messages[:LANES])
+    all_raw = np.ones(LANES, bool)
+    words, nblocks, w, nb, buf0 = lanes(real, all_raw)
+    got, plain_ms, err_main = against_plain(w, nb, buf0, "main path")
+    err = max(err, err_main)
+    # the plane as the reference packs it, rounded up to a power of two
+    # blocks (zero blocks past the longest message's), for its upload
+    rounded = np.zeros((LANES, 1 << (words.shape[1] - 1).bit_length(), 16),
+                       np.uint32)
+    rounded[:, :words.shape[1]] = words
+
+    def upload_ms(plane):
+        arr = plane.view(np.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(UPLOAD_REPS):
+            _device.upload(arr, dev)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / UPLOAD_REPS
+    # the first pass fills the pinned-memory cache (the main path runs
+    # with it warm); the second is the reading
+    for _ in range(2):
+        up_ms, rounded_ms = upload_ms(words), upload_ms(rounded)
+    t0 = time.perf_counter()
+    der.pack_messages(real, LANES)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+
+    lib = _build.load("sha256")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = buf0.clone()
+    args = (w.data_ptr(), nb.data_ptr(), words.shape[1], scratch.data_ptr(),
+            LANES, stream)
+    if lib.sha256_e_launch(*args) != 0:
+        raise AssertionError("sha256_e: direct launch failed")
+    dev_ms = device_ms(torch, lambda: lib.sha256_e_launch(*args))
+    ev_ms = time_cuda(torch, lambda: sha256.sha256_e(w, nb, scratch), reps=10)
+    wrap_ms = host_ms(torch, lambda: sha256.sha256_e(w, nb, scratch),
+                      reps=100)
+    real_blocks = int(nblocks.sum())
+    ops = real_blocks * SHA_OPS_PER_BLOCK
+    bound_ops = ops / (INT_MADD_PER_SM_CLOCK * n_sm * clock) * 1e3
+    nbytes = real_blocks * 64 + LANES * 8 + LANES * 32
+    bound_bytes = nbytes / PEAK_BYTES * 1e3
+    b_ms = max(bound_ops, bound_bytes)
+    b_by = "operations" if bound_ops >= bound_bytes else "bytes"
+    log(f"kernel sha256_e at the main path's inputs ({LANES} real messages, "
+        f"blocks per lane mean {nblocks.mean():.2f}, max {int(nblocks.max())};"
+        f" {lib.sha256_e_geometry(LANES)} lanes per thread block): bit-equal "
+        f"to plain; device {dev_ms:.4f} ms per call (CUDA events over "
+        f"{DEVICE_REPS} direct launches queued behind a sleep), {ev_ms:.4f} ms "
+        f"per wrapper call (CUDA events, 10 calls), wrapper host wall "
+        f"{wrap_ms:.4f} ms per call; plain {plain_ms:.1f} ms per call; bound "
+        f"{b_ms:.5f} ms by {b_by} ({real_blocks} real blocks x "
+        f"{SHA_OPS_PER_BLOCK} 32-bit operations at {INT_MADD_PER_SM_CLOCK}/SM/"
+        f"clock x {n_sm} SMs x {clock / 1e6:.0f} MHz = {bound_ops:.5f} ms; "
+        f"{nbytes} bytes = {bound_bytes:.6f} ms); library_ms null (no "
+        f"PyTorch call computes SHA-256)")
+    ops_seen = sass_opcodes(_build.library_path("sha256"), "sha256_e_kernel")
+    if ops_seen is None:
+        log("sha256_e SASS: not read (cuobjdump gave nothing)")
+    else:
+        alu = {op: ops_seen.get(op, 0) for op in SHA_SASS_ALU}
+        log(f"sha256_e SASS (cuobjdump; one block's unrolled compress plus "
+            f"the set-up around it): 32-bit ALU {sum(alu.values())} ({alu}), "
+            f"all instructions {sum(ops_seen.values())} "
+            f"({dict(sorted(ops_seen.items(), key=lambda kv: -kv[1]))}); "
+            f"the bound counts {SHA_OPS_PER_BLOCK} a block")
+    log(f"sha256 words plane: packed on the host in {pack_ms:.2f} ms "
+        f"(der.pack_messages, its second call); {words.nbytes} bytes as the main path packs it "
+        f"({words.shape[1]} blocks, the longest message's), uploaded pinned "
+        f"in {up_ms:.3f} ms; {rounded.nbytes} bytes with the reference's "
+        f"rounding to a power of two ({rounded.shape[1]} blocks), "
+        f"{rounded_ms:.3f} ms (host wall per upload, {UPLOAD_REPS} uploads "
+        f"each, after a pass of both that warms the pinned-memory cache)")
+    return {"sha256_e": {
+        "name": "sha256_e", "route": "cuda",
+        "source": "fabric_mod_tpu_torch/csrc/sha256.cu",
+        "replaces": "fabric_mod_tpu/ops/sha256.py:81",
+        "launches": 0, "max_abs_err": err, "ms": dev_ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}}
+
+
 def phase_kernels(torch, np, dev):
     from fabric_mod_tpu_torch.ops import limbs9, p256, p256_cuda
     fp = p256._consts()[0]
@@ -613,7 +868,34 @@ def phase_main_path(torch, np, blocks):
     for bi, (items, _expect) in enumerate(blocks):
         idx = rng.choice(len(items), SAMPLE, replace=False)
         sw_checked[bi] = (idx, np.array([sw.verify_item(items[i]) for i in idx]))
-    per_ladder = {}
+    # the raw block's lanes must hash in the SHA-256 kernel: count every
+    # call of the plain torch SHA-256 on a CUDA tensor (there must be none)
+    from fabric_mod_tpu_torch.ops import sha256
+    plain_sha_calls = []
+    plain_sha = sha256.sha256_blocks
+
+    def counted_sha(words, nblocks):
+        if words.device.type == "cuda":
+            plain_sha_calls.append(words.shape)
+        return plain_sha(words, nblocks)
+    sha256.sha256_blocks = counted_sha
+    try:
+        _verify_blocks(torch, np, blocks, verifiers, sw_checked)
+    finally:
+        sha256.sha256_blocks = plain_sha
+    if plain_sha_calls:
+        raise AssertionError(f"the torch SHA-256 ran on the card "
+                             f"{len(plain_sha_calls)} times")
+    counts = kernel_counts()
+    require_launched(counts, "the verify path")
+    log(f"verify path: the raw block's digests came from the sha256_e "
+        f"kernel ({counts['sha256_e']} launches), 0 torch SHA-256 calls on "
+        f"the card")
+    return counts
+
+
+def _verify_blocks(torch, np, blocks, verifiers, sw_checked):
+    """Phase 4's timed run: every block through each ladder's verifier."""
     reset_kernel_counts()
     for lad, v in verifiers.items():
         before = kernel_counts()
@@ -634,7 +916,6 @@ def phase_main_path(torch, np, blocks):
         after = kernel_counts()
         launched = {k: after[k] - before[k] for k in after}
         n_items = sum(len(b[0]) for b in blocks)
-        per_ladder[lad] = launched
         log(f"verify path ({lad} ladder): {N_BLOCKS} blocks x {len(blocks[0][0])} "
             f"signatures, verdicts == expected masks and == sw on "
             f"{SAMPLE} sampled lanes/block; ms per block "
@@ -642,9 +923,6 @@ def phase_main_path(torch, np, blocks):
             f"{n_items / (sum(block_ms) / 1e3):.0f} verifies/s; "
             f"kernel launches {launched} "
             f"({sum(launched.values()) / N_BLOCKS:.1f} per 1000-tx block)")
-    counts = kernel_counts()
-    require_launched(counts, "the verify path")
-    return counts
 
 
 def device_profile(torch, fn):
@@ -686,61 +964,100 @@ def log_profile(label, wall_ms, n_kernels, busy_ms, top) -> None:
         log(f"  {t:9.2f} ms  x{c:<6d} {name[:90]}")
 
 
-def phase_block_commit(torch, np, world, blocks, expected):
+def phase_block_commit(torch, np, world, raw_world, blocks, expected):
     """The block commit through the port's Committer, arm by arm, each
     into a fresh in-memory ledger.  Returns the kernel launch counts of
     the GPU arms."""
     from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.ledger import kvledger
     from fabric_mod_tpu_torch.policy import tensorpolicy
     from fabric_mod_tpu_torch.protos import messages as m
-    arms = (("a", "projective ladder, tensor policy", "projective", True),
-            ("b", "projective ladder, policy closures", "projective", False),
-            ("c", "mixed ladder, tensor policy", "mixed", True),
-            ("d", "host software verifier (oracle)", None, False))
+    # (arm, label, ladder, tensor policy, vector MVCC, raw messages)
+    arms = (("a", "projective ladder, tensor policy", "projective", True,
+             False, False),
+            ("b", "projective ladder, policy closures", "projective", False,
+             False, False),
+            ("c", "mixed ladder, tensor policy", "mixed", True, False, False),
+            ("d", "host software verifier (oracle)", None, False, False,
+             False),
+            ("e", "projective ladder, tensor policy, vector MVCC",
+             "projective", True, True, False),
+            ("f", "projective ladder, tensor policy, raw messages hashed "
+             "by the sha256_e kernel", "projective", True, False, True))
     n_tx = sum(len(f) for f in expected)
     n_valid = sum(f == m.TxValidationCode.VALID for b in expected for f in b)
     flags_by_arm, fps = {}, {}
+    # the vectorized MVCC passes, by arm (only arm (e) may take it)
+    vector_passes = []
+    vectorized = kvledger.validate_and_prepare_batch_vectorized
+
+    def counted_vector(*args):
+        vector_passes.append(arm)
+        return vectorized(*args)
+    kvledger.validate_and_prepare_batch_vectorized = counted_vector
     reset_kernel_counts()
-    for arm, label, ladder, tensor in arms:
-        verifier = (gpu.GpuVerifier(ladder=ladder, cache_size=0)
-                    if ladder else sw.SwVerifier())
-        committer = world.committer(verifier, tensor_policy=tensor)
-        tensorpolicy.reset_counts()
-        flags_by_arm[arm] = []
-        timings = []
-        wall = 0.0
-        for bi, raw in enumerate(blocks):
-            block = m.Block.decode(raw)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            flags = committer.store_block(block)
-            wall += time.perf_counter() - t0
-            timings.append(committer.last_timings)
-            if flags != expected[bi]:
-                bad = [i for i, (g, w) in enumerate(zip(flags, expected[bi]))
-                       if g != w][:8]
-                raise AssertionError(f"arm {arm}: block {bi} txflags differ "
-                                     f"from the expected flags at {bad}")
-            flags_by_arm[arm].append(flags)
-        fps[arm] = committer.ledger.state_fingerprint()
-        passes = tensorpolicy.counts()
-        want = {"cuda": len(blocks)} if tensor else {}
-        if passes != want:
-            raise AssertionError(f"arm {arm}: policy evaluator passes "
-                                 f"{passes}, expected {want}")
-        stages = ("stage", "verify", "policy", "commit")
-        split = {k: [round(t[k] * 1e3, 1) for t in timings] for k in stages}
-        total = [round(sum(t[k] for k in stages) * 1e3, 1) for t in timings]
-        log(f"block commit arm ({arm}) {label}: {len(blocks)} blocks x "
-            f"{len(expected[0])} txs, txflags == expected; ms per block "
-            f"{total}: stage {split['stage']}, verify {split['verify']}, "
-            f"policy {split['policy']}, mvcc+commit {split['commit']}; "
-            f"{n_tx / wall:.1f} committed tx/s ({n_valid / wall:.1f} valid "
-            f"tx/s); fingerprint {fps[arm][:16]}")
-        if tensor:
-            dev_ms = [round(t["policy_device_ms"], 3) for t in timings]
-            log(f"  policy evaluator on the CUDA mask: {passes['cuda']} "
-                f"passes, device ms per block {dev_ms} (CUDA events)")
+    try:
+        for arm, label, ladder, tensor, vector, raw in arms:
+            verifier = (gpu.GpuVerifier(ladder=ladder, cache_size=0)
+                        if ladder else sw.SwVerifier())
+            committer = (raw_world if raw else world).committer(
+                verifier, tensor_policy=tensor, vector_mvcc=vector)
+            tensorpolicy.reset_counts()
+            flags_by_arm[arm] = []
+            timings = []
+            wall = 0.0
+            before = kernel_counts()
+            for bi, raw_block in enumerate(blocks):
+                block = m.Block.decode(raw_block)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                flags = committer.store_block(block)
+                wall += time.perf_counter() - t0
+                timings.append(committer.last_timings)
+                if flags != expected[bi]:
+                    bad = [i for i, (g, w) in enumerate(
+                        zip(flags, expected[bi])) if g != w][:8]
+                    raise AssertionError(f"arm {arm}: block {bi} txflags "
+                                         f"differ from the expected flags "
+                                         f"at {bad}")
+                flags_by_arm[arm].append(flags)
+            fps[arm] = committer.ledger.state_fingerprint()
+            launched = {k: v - before[k] for k, v in kernel_counts().items()}
+            passes = tensorpolicy.counts()
+            want = {"cuda": len(blocks)} if tensor else {}
+            if passes != want:
+                raise AssertionError(f"arm {arm}: policy evaluator passes "
+                                     f"{passes}, expected {want}")
+            if (launched["sha256_e"] > 0) != raw:
+                raise AssertionError(f"arm {arm}: sha256_e launched "
+                                     f"{launched['sha256_e']} times")
+            if vector_passes.count(arm) != (len(blocks) if vector else 0):
+                raise AssertionError(f"arm {arm}: {vector_passes.count(arm)}"
+                                     f" vectorized MVCC passes")
+            stages = ("stage", "verify", "policy", "commit")
+            split = {k: [round(t[k] * 1e3, 1) for t in timings]
+                     for k in stages + ("decode",)}
+            rest = [round((t["stage"] - t["decode"]) * 1e3, 1)
+                    for t in timings]
+            total = [round(sum(t[k] for k in stages) * 1e3, 1)
+                     for t in timings]
+            log(f"block commit arm ({arm}) {label}: {len(blocks)} blocks x "
+                f"{len(expected[0])} txs, txflags == expected; ms per block "
+                f"{total}: stage {split['stage']} (batch decode "
+                f"{split['decode']}, the rest {rest}), verify "
+                f"{split['verify']}, policy {split['policy']}, mvcc+commit "
+                f"{split['commit']}; spine fallbacks "
+                f"{[t['spine_fallbacks'] for t in timings]}, body fallbacks "
+                f"{[t['body_fallbacks'] for t in timings]}; "
+                f"{n_tx / wall:.1f} committed tx/s ({n_valid / wall:.1f} "
+                f"valid tx/s); kernel launches {launched}; fingerprint "
+                f"{fps[arm][:16]}")
+            if tensor:
+                dev_ms = [round(t["policy_device_ms"], 3) for t in timings]
+                log(f"  policy evaluator on the CUDA mask: {passes['cuda']} "
+                    f"passes, device ms per block {dev_ms} (CUDA events)")
+    finally:
+        kvledger.validate_and_prepare_batch_vectorized = vectorized
     if len({tuple(map(tuple, f)) for f in flags_by_arm.values()}) != 1:
         raise AssertionError("arms disagree on txflags")
     if len(set(fps.values())) != 1:
@@ -763,17 +1080,25 @@ def phase_profile(torch, blocks, world, commit_blocks):
     from fabric_mod_tpu_torch.protos import messages as m
     v = gpu.GpuVerifier(ladder="projective", cache_size=0)
     digest_items = blocks[0][0]
+    raw_items = blocks[-1][0]
     for label, items in (("digest block", digest_items),
-                         ("raw-endorser block", blocks[-1][0]),
+                         ("raw-endorser block", raw_items),
                          ("verify call, 1 signature", digest_items[:1]),
                          ("verify call, one 2048-lane bucket",
-                          digest_items[:LANES])):
+                          digest_items[:LANES]),
+                         ("raw verify call, one 2048-lane bucket",
+                          raw_items[:LANES])):
         v.verify_many(items)                               # warm
         before = kernel_counts()
         prof = device_profile(torch, lambda: v.verify_many(items))
         kernels = {k: c - before[k] for k, c in kernel_counts().items()}
         log_profile(f"{label} ({len(items)} signatures; kernel launches "
                     f"{kernels}; {prof[1]} device launches in all)", *prof)
+        if label.startswith("raw verify call") and kernels != {
+                "ladder_projective": 1, "ladder_mixed": 0,
+                "verify_prologue": 1, "verify_epilogue": 1, "sha256_e": 1}:
+            raise AssertionError(f"a raw verify call launched {kernels}, "
+                                 f"expected the four kernels once each")
     committer = world.committer(v, tensor_policy=True)
     block = m.Block.decode(commit_blocks[0])
     log_profile(f"block commit ({len(block.data.data)} txs, tensor policy)",
@@ -1327,8 +1652,20 @@ def main() -> int:
                     or "entry function" in line):
                 log(f"  ptxas[{src}]: {line.strip()}")
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions; the SHA-256 kernel on the
+    # block-commit fixture's real messages (made here, committed in 5)
     kernels = phase_kernels(torch, np, dev)
+    t0 = time.perf_counter()
+    world = fixtures.make_commit_world()
+    raw_world = fixtures.make_commit_world(raw_messages=True)
+    commit_blocks, expected = fixtures.make_commit_blocks(
+        world, N_BLOCKS, TX_PER_BLOCK, plant_every=PLANT_EVERY)
+    log(f"fixtures: {N_BLOCKS} encoded blocks of {TX_PER_BLOCK} txs signed "
+        f"in {time.perf_counter() - t0:.1f} s (pure-python signer)")
+    kernels.update(phase_sha_kernel(
+        torch, np, dev, sm_clock_hz(),
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        commit_messages(commit_blocks, LANES)))
 
     # 4. the verify path
     t0 = time.perf_counter()
@@ -1341,13 +1678,8 @@ def main() -> int:
     log(f"verify path kernel launches {counts}")
 
     # 5. the block commit: the main path
-    t0 = time.perf_counter()
-    world = fixtures.make_commit_world()
-    commit_blocks, expected = fixtures.make_commit_blocks(
-        world, N_BLOCKS, TX_PER_BLOCK, plant_every=PLANT_EVERY)
-    log(f"fixtures: {N_BLOCKS} encoded blocks of {TX_PER_BLOCK} txs signed "
-        f"in {time.perf_counter() - t0:.1f} s (pure-python signer)")
-    counts = phase_block_commit(torch, np, world, commit_blocks, expected)
+    counts = phase_block_commit(torch, np, world, raw_world, commit_blocks,
+                                expected)
 
     # 8. the end-to-end network, in turns: (a) unstaged, (b) staged
     t0 = time.perf_counter()

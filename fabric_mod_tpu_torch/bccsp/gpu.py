@@ -61,7 +61,11 @@ def marshal_items(items: Sequence[VerifyItem], size: Optional[int] = None
     padded to `size`, the (size,) host validity mask (DER, lengths and
     the low-S rule — False rows never yield a True verdict), and the
     message lane: None when no item carries a raw message, else
-    (words, nblocks, has_msg) from der.pack_messages."""
+    (words, nblocks, has_msg) from der.pack_messages, as many blocks
+    wide as the longest message needs (the reference rounds the width
+    up to a power of two to bound its compiled shapes; the SHA-256
+    kernel loops over each lane's own blocks, so the port sends no
+    padding blocks)."""
     n = len(items)
     size = n if size is None else size
     msgs = [getattr(it, "message", None) for it in items]
@@ -76,8 +80,7 @@ def marshal_items(items: Sequence[VerifyItem], size: Optional[int] = None
     msg = None
     if any_raw:
         words, nblocks, msg_ok = _der.pack_messages(
-            [m if m is not None else b"" for m in msgs], size,
-            round_blocks_pow2=True)
+            [m if m is not None else b"" for m in msgs], size)
         has_msg = np.zeros(size, bool)
         has_msg[:n] = [m is not None for m in msgs]
         d_ok = np.where(has_msg, msg_ok, d_ok)

@@ -80,11 +80,14 @@ class Network:
     `BatchingVerifyService` over `verifier`; `staged_batch` > 0 stages
     Broadcast's normal txs in lanes that drain up to that many at a
     time (reference e2e.py:85-97).  Behind lanes the service flushes
-    with no deadline wait: a lane's drain is already the cohort."""
+    with no deadline wait: a lane's drain is already the cohort.
+    `vector_mvcc` commits the peer's blocks through the vectorized MVCC
+    over the validator's columnar decode (ledger/kvledger.py)."""
 
     def __init__(self, root_dir: str, material: NetworkMaterial,
                  verifier=None, device=None, tensor_policy: bool = False,
-                 ingress_batching: bool = False, staged_batch: int = 0):
+                 ingress_batching: bool = False, staged_batch: int = 0,
+                 vector_mvcc: bool = False):
         if verifier is None:
             from fabric_mod_tpu_torch.bccsp.gpu import GpuVerifier
             verifier = GpuVerifier(device=device)
@@ -119,7 +122,8 @@ class Network:
         self.deliver = DeliverService(self.support)
 
         # the committing peer
-        self.ledger_mgr = LedgerManager(os.path.join(root_dir, "peer"))
+        self.ledger_mgr = LedgerManager(os.path.join(root_dir, "peer"),
+                                        vector_mvcc=vector_mvcc)
         self.ledger = self.ledger_mgr.create_or_open(channel_id)
         self.channel = Channel(channel_id, self.ledger, verifier,
                                Bundle(channel_id, config, self.csp),

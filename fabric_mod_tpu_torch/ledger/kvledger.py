@@ -7,11 +7,17 @@ txmgmt/txmgr/lockbased_txmgr.go and query_executor.go; ledgermgmt's
 ledger manager): `QueryExecutor` and `TxSimulator` (:61, :100),
 `KvLedger.commit_block` (:369) — MVCC validate -> append the block
 (flags in its metadata) -> apply the state batch — and `LedgerManager`
-(:841).  Blocks live in a file-backed `BlockStore` (ledger/blkstorage.py),
-in a temporary directory when the ledger is given none.  State is in
+(:841).  `commit_block` takes the validator's stage-time columnar decode
+(protos/batchdecode.BlockRWSets) and reuses its tx ids and header types;
+a ledger built with `vector_mvcc=True` (the reference's
+FABRIC_MOD_TPU_VECTOR_MVCC) sends the accepted rows through the
+vectorized MVCC over its planes, with the same flags and state.
+Blocks live in a file-backed `BlockStore` (ledger/blkstorage.py), in a
+temporary directory when the ledger is given none.  State is in
 memory: on open, the block store's blocks are replayed into it from
-their stored txflags.  Left out: the durable state DB, history, private data,
-config history and snapshots.
+their stored txflags.  Left out: the durable state DB, history, private data
+(so commit has no transient-store branch for pvt-bearing txs), config
+history and snapshots.
 
 `state_fingerprint` uses the reference's exact row, metadata and height
 encoding (`_fp_row`, `_fp_meta`, `_fp_scan_acc`, `state_fingerprint`,
@@ -29,7 +35,9 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 from fabric_mod_tpu_torch.ledger.blkstorage import BlockStore
-from fabric_mod_tpu_torch.ledger.mvcc import validate_and_prepare_batch
+from fabric_mod_tpu_torch.ledger.mvcc import (
+    COLUMNAR, validate_and_prepare_batch,
+    validate_and_prepare_batch_vectorized)
 from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder, parse_tx_rwset
 from fabric_mod_tpu_torch.ledger.statedb import UpdateBatch, VersionedDB
 from fabric_mod_tpu_torch.protos import messages as m
@@ -155,11 +163,14 @@ class KvLedger:
     The blocks go to a BlockStore under `<ledger_dir>/chains`, and
     reopening the directory replays them into the state.  `ledger_dir`
     None gives the ledger a temporary directory of its own, removed on
-    `close()`."""
+    `close()`.  `vector_mvcc` selects the vectorized MVCC pass for
+    blocks committed with their stage-time `rwsets`."""
 
     def __init__(self, ledger_id: str = "ch",
-                 ledger_dir: Optional[str] = None):
+                 ledger_dir: Optional[str] = None,
+                 vector_mvcc: bool = False):
         self.ledger_id = ledger_id
+        self.vector_mvcc = vector_mvcc
         self._tmp = None
         if ledger_dir is None:
             self._tmp = tempfile.TemporaryDirectory(prefix="kvledger-")
@@ -205,10 +216,15 @@ class KvLedger:
 
     # -- commit ----------------------------------------------------------
     def commit_block(self, block: m.Block,
-                     incoming_flags: Optional[List[int]] = None) -> List[int]:
+                     incoming_flags: Optional[List[int]] = None,
+                     rwsets=None) -> List[int]:
         """MVCC-validate + commit a block whose signature/policy
         verdicts are `incoming_flags` (defaults to the flags already in
-        the block metadata).  Returns the final flags."""
+        the block metadata).  Returns the final flags.  `rwsets`
+        (batchdecode.BlockRWSets | None), the validator's stage-time
+        columnar decode: its tx ids and header types are reused instead
+        of re-decoded, and with `vector_mvcc` its accepted rows take the
+        vectorized MVCC (the same flags)."""
         with self._lock:
             num = block.header.number
             if num != self.height:
@@ -223,20 +239,37 @@ class KvLedger:
                 raise LedgerError(
                     f"flags length {len(incoming_flags)} != "
                     f"{len(envs)} txs")
+            vec = rwsets is not None and self.vector_mvcc
             txs = []
-            for env, flag in zip(envs, incoming_flags):
-                try:
-                    ch = protoutil.envelope_channel_header(env)
-                except Exception:
-                    txs.append(("", None, m.TxValidationCode.BAD_PAYLOAD))
-                    continue
-                if ch.type != m.HeaderType.ENDORSER_TRANSACTION:
-                    # config/control txs commit with no state effects
-                    txs.append((ch.tx_id, m.TxReadWriteSet(), flag))
+            any_col = False
+            for tx_num, (env, flag) in enumerate(zip(envs, incoming_flags)):
+                if rwsets is not None and rwsets.txids[tx_num] is not None:
+                    # stage-time spine facts, value-identical to the
+                    # generic header decode below
+                    txid = rwsets.txids[tx_num]
+                    ch_type = rwsets.types[tx_num]
                 else:
-                    txs.append((ch.tx_id, tx_rwset_from_envelope(env), flag))
-            flags, batch, _tx_writes = validate_and_prepare_batch(
-                txs, self.state, num)
+                    try:
+                        ch = protoutil.envelope_channel_header(env)
+                        txid, ch_type = ch.tx_id, ch.type
+                    except Exception:
+                        txs.append(("", None, m.TxValidationCode.BAD_PAYLOAD))
+                        continue
+                if ch_type != m.HeaderType.ENDORSER_TRANSACTION:
+                    # config/control txs commit with no state effects
+                    txs.append((txid, m.TxReadWriteSet(), flag))
+                elif vec and rwsets.bodies[tx_num] is not None:
+                    txs.append((txid, COLUMNAR, flag))
+                    any_col = True
+                else:
+                    txs.append((txid, tx_rwset_from_envelope(env), flag))
+            if any_col:
+                flags, batch, _tx_writes = \
+                    validate_and_prepare_batch_vectorized(
+                        txs, self.state, num, rwsets)
+            else:
+                flags, batch, _tx_writes = validate_and_prepare_batch(
+                    txs, self.state, num)
             protoutil.set_block_txflags(block, bytes(flags))
             self.blockstore.add_block(block)
             self.state.apply_updates(batch, num)
@@ -288,17 +321,19 @@ class KvLedger:
 
 class LedgerManager:
     """Open/create ledgers by id under one directory (reference:
-    ledgermgmt/ledger_mgmt.go)."""
+    ledgermgmt/ledger_mgmt.go); each takes `vector_mvcc`."""
 
-    def __init__(self, root_dir: str):
+    def __init__(self, root_dir: str, vector_mvcc: bool = False):
         self.root = root_dir
+        self.vector_mvcc = vector_mvcc
         os.makedirs(root_dir, exist_ok=True)
         self._ledgers: Dict[str, KvLedger] = {}
 
     def create_or_open(self, ledger_id: str) -> KvLedger:
         if ledger_id not in self._ledgers:
             self._ledgers[ledger_id] = KvLedger(
-                ledger_id, os.path.join(self.root, ledger_id))
+                ledger_id, os.path.join(self.root, ledger_id),
+                vector_mvcc=self.vector_mvcc)
         return self._ledgers[ledger_id]
 
     def ledger_ids(self) -> List[str]:

@@ -57,6 +57,18 @@ class VersionedDB:
         got = self._data.get((ns, key))
         return got[1] if got else None
 
+    def get_versions_many(self, pairs) -> List[Optional[Version]]:
+        """The committed versions of many (ns, key) pairs in one call:
+        the vectorized MVCC's hash-join resolves every key a block
+        touches here, once per block instead of once per read
+        (reference: statedb.BulkOptimizable LoadCommittedVersions)."""
+        data = self._data
+        out = []
+        for pair in pairs:
+            got = data.get(pair)
+            out.append(got[1] if got else None)
+        return out
+
     def get_metadata(self, ns: str, key: str) -> Optional[Dict[str, bytes]]:
         """Key metadata (e.g. the VALIDATION_PARAMETER endorsement
         override)."""

@@ -527,16 +527,17 @@ def batch_verify_raw(words, nblocks, has_msg, digests, r_bytes, s_bytes,
                      lazy: bool = False, pre_ok=None):
     """`batch_verify` with the digest computed on the device for raw-
     message lanes (`words`: (batch, max_blocks, 16) uint32 from
-    bccsp/der.pack_messages); lanes with has_msg False use `digests`.
-    The torch SHA-256 (ops/sha256.py) runs in front of the prologue."""
+    bccsp/der.pack_messages, `nblocks` their real block counts); lanes
+    with has_msg False use `digests`.  The words go to the device in one
+    pinned copy, as int32 bit patterns; ops/sha256.sha256_e then writes
+    each raw lane's digest into the packed buffer's e rows in front of
+    the prologue: on CUDA a raw call is four launches (SHA-256,
+    prologue, ladder, epilogue)."""
     from fabric_mod_tpu_torch.ops import p256_core, sha256
     dev = _device.resolve(device)
     buf = _packed(dev, digests, r_bytes, s_bytes, qx_bytes, qy_bytes,
                   pre_ok, has_msg)
-    w = torch.as_tensor(np.asarray(words, np.uint32).astype(np.int64),
-                        device=dev)
-    nb = torch.as_tensor(np.asarray(nblocks, np.int64), device=dev)
-    dw = sha256.sha256_blocks(w, nb)                 # (batch, 8) big-endian
-    e = torch.where(p256_core.has_msg(buf)[None], digest_words_le(dw),
-                    p256_core.rows(buf, p256_core.ROW_E)).contiguous()
-    return _core(e, buf, mixed, lazy)
+    w = _device.upload(np.asarray(words, np.uint32).view(np.int32), dev)
+    nb = _device.upload(np.asarray(nblocks, np.int32), dev)
+    sha256.sha256_e(w, nb, buf)
+    return _core(p256_core.rows(buf, p256_core.ROW_E), buf, mixed, lazy)

@@ -1,12 +1,19 @@
-"""Batched SHA-256 in PyTorch.
+"""Batched SHA-256: the raw-message lanes' digest in front of the verify
+core.
 
-The port of fabric_mod_tpu/ops/sha256.py (`sha256_blocks`).  The batch
-axis carries the parallelism; mixed lengths are handled by padding to
-the batch's max block count and freezing a lane's state once its own
-blocks run out.  Words are carried in int64 masked to 32 bits, since
-torch's uint32 op coverage is partial.  This is not a kernel port (the
-reference is a jitted XLA program, not a Pallas kernel): torch ops are
-its implementation.
+The port of fabric_mod_tpu/ops/sha256.py (`sha256_blocks`, :81, a
+jitted lax.scan).  On the card `sha256_e` launches the hand-written
+CUDA kernel of csrc/sha256.cu: one thread a lane, hashing the lane's
+own pre-padded blocks and writing the digest straight into the e rows
+of the verify core's packed buffer (ops/p256_core.py) for the lanes
+whose FLAG_HAS_MSG is set.  For a CPU tensor `sha256_e` is the plain
+version, `sha256_e_plain`: `sha256_blocks` in torch ops (the batch
+axis carries the parallelism; mixed lengths are padded to the batch's
+max block count and a lane's state freezes once its own blocks run
+out; words in int64 masked to 32 bits, since torch's uint32 op
+coverage is partial), then `p256.digest_words_le` and a select.  The
+kernel has a launch count (`LAUNCHES`), raised by one where the wrapper
+launches it and nowhere else.
 """
 from __future__ import annotations
 
@@ -91,3 +98,77 @@ def digest_to_bytes(digest_words) -> np.ndarray:
     for i in range(4):
         out[..., i::4] = ((d >> (24 - 8 * i)) & 0xFF).astype(np.uint8)
     return out
+
+
+# --- the verify core's e rows ------------------------------------------------
+
+KERNELS = ("sha256_e",)
+LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def reset_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def sha256_e_plain(words: torch.Tensor, nblocks: torch.Tensor,
+                   packed: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version: `sha256_blocks` of every lane, its
+    digest as the verify core's e words (p256.digest_words_le), written
+    in place into `packed`'s e rows where the lane's FLAG_HAS_MSG is
+    set.  words: (batch, max_blocks, 16) int32 bit patterns of the
+    big-endian message words; nblocks: (batch,) int32.  Returns
+    `packed`."""
+    from fabric_mod_tpu_torch.ops import p256, p256_core
+    dw = sha256_blocks(words.to(torch.int64) & M32, nblocks.to(torch.int64))
+    e = p256_core.rows(packed, p256_core.ROW_E)
+    e.copy_(torch.where(p256_core.has_msg(packed)[None],
+                        p256.digest_words_le(dw), e))
+    return packed
+
+
+def sha256_e(words: torch.Tensor, nblocks: torch.Tensor,
+             packed: torch.Tensor) -> torch.Tensor:
+    """Hash the raw-message lanes into `packed`'s e rows, in place
+    (lanes without FLAG_HAS_MSG keep theirs); returns `packed`.
+
+    words: (batch, max_blocks, 16) int32 bit patterns of the uint32
+    big-endian words bccsp/der.pack_messages gives; nblocks: (batch,)
+    int32 real block counts; packed: the (ROWS, batch) int32 buffer of
+    ops/p256_core.pack.  The CUDA kernel for CUDA tensors (raising on
+    any fault), the plain version for CPU tensors."""
+    from fabric_mod_tpu_torch.ops import p256_core, p256_cuda
+    dev = packed.device
+    if dev.type == "cpu":
+        return sha256_e_plain(words, nblocks, packed)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from fabric_mod_tpu_torch.ops import _build
+    n = packed.shape[1]
+    p256_cuda.check_plane(packed, "packed", torch.int32, p256_core.ROWS, n,
+                          dev)
+    if words.device != dev or words.dtype != torch.int32 \
+            or words.dim() != 3 or words.shape[0] != n \
+            or words.shape[2] != 16 or not words.is_contiguous() \
+            or words.data_ptr() % 16:
+        raise ValueError(f"words: expected contiguous, 16-byte aligned "
+                         f"int32 ({n}, max_blocks, 16) on {dev}, got "
+                         f"{words.dtype} {tuple(words.shape)} on "
+                         f"{words.device}")
+    if nblocks.device != dev or nblocks.dtype != torch.int32 \
+            or tuple(nblocks.shape) != (n,) or not nblocks.is_contiguous():
+        raise ValueError(f"nblocks: expected contiguous int32 ({n},) on "
+                         f"{dev}")
+    lib = _build.load("sha256")
+    with torch.cuda.device(dev):
+        rc = lib.sha256_e_launch(
+            words.data_ptr(), nblocks.data_ptr(), words.shape[1],
+            packed.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sha256_e launch failed: cudaError {rc}")
+    LAUNCHES["sha256_e"] += 1
+    return packed

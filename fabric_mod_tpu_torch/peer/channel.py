@@ -140,8 +140,7 @@ class Channel:
         flags — but overlapping callers pipeline."""
         pipe = self.commit_pipeline()
         if pipe is None:
-            flags = self.validator().validate(block)
-            return self.ledger.commit_block(block, flags)
+            return self.commit_staged(self.stage_block(block))
         try:
             return pipe.store_block(block)
         except Exception:
@@ -195,7 +194,7 @@ class Channel:
         # finish on the validator that staged: its pending evaluations
         # hold that validator's batch slots
         flags = staged.validator.finish(staged)
-        return self.ledger.commit_block(staged.block, flags)
+        return self.ledger.commit_block(staged.block, flags, staged.rwsets)
 
     def close(self) -> None:
         """Drain and join the shared commit pipe, if one was built."""

@@ -62,7 +62,7 @@ class ValidatorCommitTarget:
 
     def commit_staged(self, staged) -> List[int]:
         flags = staged.validator.finish(staged)
-        return self.ledger.commit_block(staged.block, flags)
+        return self.ledger.commit_block(staged.block, flags, staged.rwsets)
 
 
 class PipelinedCommitter:

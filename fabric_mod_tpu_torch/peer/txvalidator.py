@@ -21,13 +21,19 @@ statebased/validator_keylevel.go:245-258.)
                   each endorsement-policy decision, duplicate tx ids,
                   key-level VALIDATION_PARAMETER overrides, the txflags
 
-Staging takes the reference's generic per-tx decode (`_stage_tx`,
-`_stage_key_policies`), the path its columnar batch decoder falls back
-to with identical outcomes.  MVCC and the commit follow in the ledger
-(ledger/kvledger.py); `Committer` composes the three.
+Staging runs the reference's two batch pre-passes over the whole block
+(protos/batchdecode.py): the envelope spine in one vectorized scan, then
+every spine-accepted endorser tx's body in one columnar decode.  A tx
+both scans accepted is staged from the decoded values; a row the
+scanner could not prove clean takes the generic per-tx decode
+(`_written_groups`) with identical outcomes.  The columnar decode
+rides on the StagedBlock (`rwsets`) to the ledger's commit
+(ledger/kvledger.py), which reuses its tx ids and, with vector MVCC,
+its planes; `Committer` composes the three.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -39,6 +45,7 @@ from fabric_mod_tpu_torch.peer.lifecycle import LIFECYCLE_NS
 from fabric_mod_tpu_torch.peer.plugins import PluginRegistry
 from fabric_mod_tpu_torch.policy import BatchCollector
 from fabric_mod_tpu_torch.policy import tensorpolicy
+from fabric_mod_tpu_torch.protos import batchdecode
 from fabric_mod_tpu_torch.protos import messages as m
 from fabric_mod_tpu_torch.protos import protoutil
 from fabric_mod_tpu_torch.protos.protoutil import SignedData
@@ -114,23 +121,47 @@ def _host_mask(raw) -> np.ndarray:
     return np.asarray(raw, bool)
 
 
+def _written_groups(results: bytes) -> list:
+    """The generic decode of an action's rwset bytes into its written
+    view per namespace occurrence, as batchdecode.TxBody.groups holds
+    it: [(ns, [write keys], [(metadata key, [(name, value)])])].  Bytes
+    that do not decode give no view (no key-level evals); a malformed
+    inner rwset raises."""
+    try:
+        rwset = m.TxReadWriteSet.decode(results)
+    except Exception:
+        return []
+    return [(ns, [w.key for w in kv.writes],
+             [(mw.key, [(e.name, e.value) for e in mw.entries])
+              for mw in kv.metadata_writes])
+            for ns, kv in parse_tx_rwset(rwset)]
+
+
 class StagedBlock:
     """A block after passes 1+2: host staging done, device batch
     dispatched, verdicts pending (resolved by TxValidator.finish).
     `session` (tensor_policy only) is the block's tensor-policy
     session: resolve_mask hands it the verify mask before the host
-    sync, so a device mask flows straight into the evaluator."""
+    sync, so a device mask flows straight into the evaluator.  `rwsets`
+    is the block's columnar body decode (batchdecode.BlockRWSets, None
+    for blocks under 4 rows) for the ledger's commit; `spine_fallbacks`
+    counts the rows the spine scan left to the generic decode, and
+    `decode_secs` is the host time of the two batch pre-passes."""
 
     __slots__ = ("block", "validator", "works", "mask_fn", "_mask",
-                 "session")
+                 "session", "rwsets", "spine_fallbacks", "decode_secs")
 
-    def __init__(self, block, validator, works, mask_fn, session=None):
+    def __init__(self, block, validator, works, mask_fn, session=None,
+                 rwsets=None, spine_fallbacks=0, decode_secs=0.0):
         self.block = block
         self.validator = validator
         self.works = works
         self.mask_fn = mask_fn
         self._mask = None
         self.session = session
+        self.rwsets = rwsets
+        self.spine_fallbacks = spine_fallbacks
+        self.decode_secs = decode_secs
 
     def resolve_mask(self) -> np.ndarray:
         """Await the device verdicts (idempotent)."""
@@ -199,20 +230,28 @@ class TxValidator:
     # -- pass 1: host unpack + staging -----------------------------------
     def _stage_tx(self, env: m.Envelope, work: _TxWork,
                   collector: BatchCollector, inblock_vp,
-                  session=None) -> None:
+                  session=None, spine=None, body=None) -> None:
         """Syntactic validation + creator/endorsement staging for one
         tx.  Sets work.flag on terminal failure, else leaves it pending
-        the device verdicts (reference: msgvalidation.go:248)."""
+        the device verdicts (reference: msgvalidation.go:248).
+        `spine` (batchdecode.SpineRow) is the batch pre-pass's decoded
+        payload and headers, `body` (batchdecode.TxBody) its decoded
+        endorser-tx body: value-identical to the generic decode below,
+        which stays for the rows the scanner rejected."""
         if not env.payload:
             work.flag = V.NIL_ENVELOPE
             return
-        try:
-            payload = protoutil.unmarshal_envelope_payload(env)
-            ch = m.ChannelHeader.decode(payload.header.channel_header)
-            sh = m.SignatureHeader.decode(payload.header.signature_header)
-        except Exception:
-            work.flag = V.BAD_PAYLOAD
-            return
+        if spine is not None:
+            payload, ch, sh = spine.payload, spine.ch, spine.sh
+        else:
+            try:
+                payload = protoutil.unmarshal_envelope_payload(env)
+                ch = m.ChannelHeader.decode(payload.header.channel_header)
+                sh = m.SignatureHeader.decode(
+                    payload.header.signature_header)
+            except Exception:
+                work.flag = V.BAD_PAYLOAD
+                return
         if not ch.channel_id or ch.channel_id != self.channel_id:
             work.flag = V.BAD_CHANNEL_HEADER
             return
@@ -254,67 +293,84 @@ class TxValidator:
         # validation_logic.go:185 + validator_keylevel.go:245-258:
         # data = proposal-response-payload ‖ endorser-identity)
         try:
+            if body is not None:
+                # the batch decoder's body: one action (the scanner
+                # rejects multi-action txs into the generic decode)
+                if body.no_action:
+                    work.flag = V.NIL_TXACTION
+                    return
+                if not body.endorsements:
+                    work.flag = V.ENDORSEMENT_POLICY_FAILURE
+                    return
+                self._stage_action(body.ns, body.prp, body.endorsements,
+                                   lambda: body.groups, work, collector,
+                                   inblock_vp, session)
+                return
             tx = protoutil.extract_endorser_tx(payload)
             if not tx.actions:
                 work.flag = V.NIL_TXACTION
                 return
             for action in tx.actions:
-                cca, prp_bytes, endorsements = \
+                cca, prp, endorsements = \
                     protoutil.tx_rwset_and_endorsements(action)
                 if not endorsements:
                     work.flag = V.ENDORSEMENT_POLICY_FAILURE
                     return
                 ns = (cca.chaincode_id.name
                       if cca.chaincode_id is not None else "")
-                # one rwset decode per action, shared by key-level
-                # policy staging
-                try:
-                    rwset = m.TxReadWriteSet.decode(cca.results)
-                except Exception:
-                    rwset = None
-                plugin_name, policy_bytes = self._vinfo.validation_info(ns)
-                evaluator = self._plugins.resolve(plugin_name,
-                                                  self._policy_eval)
-                if evaluator is None:
-                    # the definition names a plugin this peer does not
-                    # have: fail closed
-                    work.flag = V.INVALID_OTHER_REASON
+                if not self._stage_action(
+                        ns, prp, [(e.endorser, e.signature)
+                                  for e in endorsements],
+                        functools.partial(_written_groups, cca.results),
+                        work, collector, inblock_vp, session):
                     return
-                sds = [SignedData(data=prp_bytes + e.endorser,
-                                  identity=e.endorser,
-                                  signature=e.signature)
-                       for e in endorsements]
-                # the session rides only through evaluators that opt
-                # in; plugins keep their 3-arg prepare contract
-                if session is not None and getattr(
-                        evaluator, "supports_tensor_session", False):
-                    cc_pending = evaluator.prepare(
-                        policy_bytes, sds, collector, session)
-                else:
-                    cc_pending = evaluator.prepare(
-                        policy_bytes, sds, collector)
-                key_evals = self._stage_key_policies(
-                    rwset, sds, collector, inblock_vp, work, session)
-                work.actions.append(_ActionEval(cc_pending, key_evals))
         except Exception:
             work.flag = V.INVALID_ENDORSER_TRANSACTION
             return
 
-    def _stage_key_policies(self, rwset, sds, collector, inblock_vp,
+    def _stage_action(self, ns: str, prp: bytes, endorsements, written,
+                      work: _TxWork, collector: BatchCollector, inblock_vp,
+                      session) -> bool:
+        """Stage one action's chaincode-wide policy, then its key-level
+        policies over `written()`, its written view per namespace
+        occurrence (called after the chaincode-wide policy is staged: the
+        generic decode of a malformed inner rwset raises there, as in the
+        reference's order).  False (work.flag set) when the namespace's
+        definition names a plugin this peer does not have: fail closed."""
+        plugin_name, policy_bytes = self._vinfo.validation_info(ns)
+        evaluator = self._plugins.resolve(plugin_name, self._policy_eval)
+        if evaluator is None:
+            work.flag = V.INVALID_OTHER_REASON
+            return False
+        sds = [SignedData(data=prp + endorser, identity=endorser,
+                          signature=signature)
+               for endorser, signature in endorsements]
+        # the session rides only through evaluators that opt in; plugins
+        # keep their 3-arg prepare contract
+        if session is not None and getattr(
+                evaluator, "supports_tensor_session", False):
+            cc_pending = evaluator.prepare(policy_bytes, sds, collector,
+                                           session)
+        else:
+            cc_pending = evaluator.prepare(policy_bytes, sds, collector)
+        key_evals = self._stage_key_policies(written(), sds, collector,
+                                             inblock_vp, work, session)
+        work.actions.append(_ActionEval(cc_pending, key_evals))
+        return True
+
+    def _stage_key_policies(self, groups, sds, collector, inblock_vp,
                             work, session=None):
         """Stage every candidate key-level endorsement policy of this
         action's written keys: the committed VALIDATION_PARAMETER plus
         any same-block overrides whose applicability pass 3 resolves in
-        order.  `rwset` None (malformed) stages no key evals."""
+        order.  `groups` is the action's written view per namespace
+        occurrence (batchdecode.TxBody.groups, or `_written_groups`')."""
         key_evals = []
-        if rwset is None:
-            return key_evals
-        for ns, kv in parse_tx_rwset(rwset):
-            if kv.writes or kv.metadata_writes:
+        for ns, wkeys, metas in groups:
+            if wkeys or metas:
                 work.written_ns.add(ns)
             written = dict.fromkeys(
-                [w.key for w in kv.writes]
-                + [mw.key for mw in kv.metadata_writes])
+                list(wkeys) + [mkey for mkey, _entries in metas])
             for key in written:
                 committed_pending = None
                 if self._state_metadata is not None:
@@ -333,10 +389,10 @@ class TxValidator:
                     _KeyEval(ns, key, committed_pending, inblock))
             # this tx's own VALIDATION_PARAMETER writes, for later txs
             # in the block (applied only if this tx is VALID)
-            for mw in kv.metadata_writes:
-                for e in mw.entries:
-                    if e.name == VALIDATION_PARAMETER:
-                        work.vp_writes.append((ns, mw.key, e.value))
+            for mkey, entries in metas:
+                for name, value in entries:
+                    if name == VALIDATION_PARAMETER:
+                        work.vp_writes.append((ns, mkey, value))
         return key_evals
 
     # -- the three passes -------------------------------------------------
@@ -352,15 +408,42 @@ class TxValidator:
         # (ns, key) -> [(tx_idx, ApplicationPolicy bytes)]: the
         # VALIDATION_PARAMETER writes of EARLIER txs in this block
         inblock_vp: Dict[tuple, list] = {}
-        for idx, data in enumerate(block.data.data):
+        datas = block.data.data
+        t0 = time.perf_counter()
+        # batch pre-passes (reference :549-591): the whole block's
+        # envelope spine in one vectorized scan, then every spine-
+        # accepted endorser tx's payload.data in one columnar body
+        # decode; rows either scan could not prove clean come back None
+        # and take the generic per-tx decode below (identical outcomes)
+        spines = batchdecode.decode_block_spine(datas)
+        body_datas: List[Optional[bytes]] = [
+            spine.payload.data if spine is not None
+            and spine.ch.type == m.HeaderType.ENDORSER_TRANSACTION else None
+            for spine in spines]
+        rwsets = batchdecode.decode_block_rwsets(body_datas)
+        if rwsets is not None:
+            # the header facts ride along to the commit, value-identical
+            # to the generic envelope_channel_header decode
+            for idx, spine in enumerate(spines):
+                if spine is not None:
+                    rwsets.txids[idx] = spine.ch.tx_id
+                    rwsets.types[idx] = spine.ch.type
+        decode_secs = time.perf_counter() - t0
+        for idx, data in enumerate(datas):
             work = _TxWork()
             works.append(work)
-            try:
-                env = m.Envelope.decode(data)
-            except Exception:
-                work.flag = V.BAD_PAYLOAD
-                continue
-            self._stage_tx(env, work, collector, inblock_vp, session)
+            spine = spines[idx]
+            if spine is not None:
+                env = spine.env
+            else:
+                try:
+                    env = m.Envelope.decode(data)
+                except Exception:
+                    work.flag = V.BAD_PAYLOAD
+                    continue
+            body = rwsets.bodies[idx] if rwsets is not None else None
+            self._stage_tx(env, work, collector, inblock_vp, session,
+                           spine, body)
             for ns, key, vp in work.vp_writes:
                 inblock_vp.setdefault((ns, key), []).append((idx, vp))
         if session is not None and len(session):
@@ -379,7 +462,9 @@ class TxValidator:
         else:
             items = collector.items
             mask_fn = lambda: self._verifier.verify_many(items)  # noqa: E731
-        return StagedBlock(block, self, works, mask_fn, session)
+        return StagedBlock(block, self, works, mask_fn, session, rwsets,
+                           sum(spine is None for spine in spines),
+                           decode_secs)
 
     def finish(self, staged: StagedBlock) -> List[int]:
         """Pass 3: await the verdicts, then resolve flags in block
@@ -458,11 +543,14 @@ class Committer:
     StoreBlock -> validator -> kvledger CommitLegacy).  Strictly serial.
 
     `last_timings` holds, for the block committed last, the host-clock
-    seconds of each stage: "stage" (pass 1 and the enqueue of pass 2),
-    "verify" (waiting for the verify mask, and on the tensor path the
-    policy evaluator queued behind it), "policy" (pass 3) and "commit"
-    (MVCC and the ledger write); and "policy_device_ms", the
-    evaluator's device time when it ran on a CUDA mask, else None."""
+    seconds of each stage: "stage" (pass 1 and the enqueue of pass 2;
+    "decode" is its batch pre-passes), "verify" (waiting for the verify
+    mask, and on the tensor path the policy evaluator queued behind it),
+    "policy" (pass 3) and "commit" (MVCC and the ledger write);
+    "policy_device_ms", the evaluator's device time when it ran on a
+    CUDA mask, else None; and the rows the spine and body scans left to
+    the generic decode, "spine_fallbacks" and "body_fallbacks" (None
+    when the block was too small to scan)."""
 
     def __init__(self, validator: TxValidator, ledger):
         self.validator = validator
@@ -477,12 +565,16 @@ class Committer:
         t2 = time.perf_counter()
         flags = self.validator.finish(staged)
         t3 = time.perf_counter()
-        flags = self.ledger.commit_block(block, flags)
+        flags = self.ledger.commit_block(block, flags, staged.rwsets)
         t4 = time.perf_counter()
         session = staged.session
+        rwsets = staged.rwsets
         self.last_timings = {
-            "stage": t1 - t0, "verify": t2 - t1, "policy": t3 - t2,
-            "commit": t4 - t3,
+            "stage": t1 - t0, "decode": staged.decode_secs,
+            "verify": t2 - t1, "policy": t3 - t2, "commit": t4 - t3,
             "policy_device_ms": (session.device_ms() if session is not None
-                                 else None)}
+                                 else None),
+            "spine_fallbacks": staged.spine_fallbacks,
+            "body_fallbacks": (rwsets.fallbacks if rwsets is not None
+                               else None)}
         return flags

@@ -200,15 +200,17 @@ class CommitWorld:
     policy: bytes
     channel_id: str = CHANNEL
 
-    def committer(self, verifier, tensor_policy: bool = False):
-        """A Committer over a fresh in-memory ledger, wired for
-        key-level policies and duplicate-txid checks against it."""
+    def committer(self, verifier, tensor_policy: bool = False,
+                  vector_mvcc: bool = False):
+        """A Committer over a fresh in-memory ledger (with the vectorized
+        MVCC if `vector_mvcc`), wired for key-level policies and
+        duplicate-txid checks against it."""
         from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
         from fabric_mod_tpu_torch.peer.txvalidator import (
             VALIDATION_PARAMETER, Committer, TxValidator,
             ValidationInfoProvider)
         from fabric_mod_tpu_torch.policy import ApplicationPolicyEvaluator
-        led = KvLedger(self.channel_id)
+        led = KvLedger(self.channel_id, vector_mvcc=vector_mvcc)
 
         def state_vp(ns, key):
             meta = led.state.get_metadata(ns, key)

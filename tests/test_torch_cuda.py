@@ -1,6 +1,8 @@
 """The CUDA ladder kernels (fabric_mod_tpu_torch/csrc/p256_ladder.cu), the
 verify core's prologue and epilogue kernels (csrc/p256_core.cu; their
-host-compiled lanes are tests/test_torch_cuda_core.py) and the other
+host-compiled lanes are tests/test_torch_cuda_core.py), the raw lanes'
+SHA-256 kernel (csrc/sha256.cu; host-compiled in
+tests/test_torch_sha256_kernel.py) and the other
 device paths of the port on the card (the policy evaluator, a
 block commit, the batched FP256BN pairing, the e2e network).
 
@@ -446,6 +448,93 @@ def test_digest_verify_call_is_three_launches(cuda_device):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
     assert len(kernels) <= 6, kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 5])
+def test_sha256_kernel_matches_plain_on_card(cuda_device, n):
+    """sha256_e on the card writes the plain SHA-256's e words (and
+    hashlib's digests) into the raw lanes' e rows, and nothing else."""
+    import hashlib
+
+    from fabric_mod_tpu_torch import device as _device
+    from fabric_mod_tpu_torch.bccsp import der
+    from fabric_mod_tpu_torch.ops import sha256
+    rng = random.Random(n)
+    msgs = [rng.randbytes(k) for k in (0, 1, 55, 56, 63, 64, 119, 120)]
+    msgs = (msgs + [rng.randbytes(rng.randrange(3000))
+                    for _ in range(n)])[:n]
+    words, nblocks, _ok = der.pack_messages(msgs)
+    # zero blocks past every lane's own, as the reference's rounded plane
+    words = np.concatenate(
+        [words, np.zeros((n, 64 - words.shape[1], 16), np.uint32)], 1)
+    base = np.random.default_rng(n).integers(
+        -2**31, 2**31, (p256_core.ROWS, n)).astype(np.int32)
+    has_msg = np.arange(n) % 7 != 3
+    base[p256_core.ROW_FLAGS] = np.where(has_msg, p256_core.FLAG_HAS_MSG, 0)
+    w = _device.upload(words.view(np.int32), cuda_device)
+    nb = _device.upload(nblocks, cuda_device)
+    got = torch.from_numpy(base).to(cuda_device)
+    before = sha256.counts()["sha256_e"]
+    sha256.sha256_e(w, nb, got)
+    want = sha256.sha256_e_plain(w, nb, torch.from_numpy(base).to(
+        cuda_device))
+    torch.cuda.synchronize()
+    assert sha256.counts()["sha256_e"] == before + 1
+    assert torch.equal(got, want)
+    e = got[:8].cpu().numpy().view(np.uint32)
+    for lane in range(n):
+        if has_msg[lane]:
+            value = sum(int(x) << (32 * k) for k, x in enumerate(e[:, lane]))
+            assert value.to_bytes(32, "big") == \
+                hashlib.sha256(msgs[lane]).digest()
+        else:
+            assert got[:, lane].cpu().numpy().tolist() == \
+                base[:, lane].tolist()
+
+
+@pytest.mark.cuda
+def test_raw_verify_call_is_four_launches(cuda_device):
+    """A GpuVerifier call with raw-message lanes runs the SHA-256 kernel,
+    the prologue, one ladder and the epilogue once each, and no torch
+    SHA-256 op."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.ops import sha256
+    from torch.profiler import ProfilerActivity, profile
+    items, expect = fixtures.make_block(3, n_tx=8, raw_endorsers=True)
+    v = gpu.GpuVerifier(cache_size=0)
+    assert v.verify_many(items).tolist() == expect.tolist()      # warm
+    p256_core.reset_counts()
+    p256_cuda.reset_counts()
+    sha256.reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = v.verify_many(items)
+        torch.cuda.synchronize()
+    assert got.tolist() == expect.tolist()
+    assert sha256.counts() == {"sha256_e": 1}
+    assert p256_core.counts() == {"verify_prologue": 1, "verify_epilogue": 1}
+    assert p256_cuda.counts() == {"ladder_projective": 1, "ladder_mixed": 0}
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(kernels) <= 7, kernels
+
+
+@pytest.mark.cuda
+def test_raw_block_commits_on_card(cuda_device):
+    """A raw-message world's 16-tx blocks commit on the card through the
+    SHA-256 kernel, with vector MVCC: flags equal the fixture's."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.ops import sha256
+    from fabric_mod_tpu_torch.protos import messages as m
+    world = fixtures.make_commit_world(raw_messages=True)
+    blocks, expected = fixtures.make_commit_blocks(world, 2, 16)
+    committer = world.committer(gpu.GpuVerifier(cache_size=0),
+                                tensor_policy=True, vector_mvcc=True)
+    before = sha256.counts()["sha256_e"]
+    for raw, want in zip(blocks, expected):
+        assert committer.store_block(m.Block.decode(raw)) == want
+    assert sha256.counts()["sha256_e"] >= before + len(blocks)
 
 
 @pytest.mark.cuda

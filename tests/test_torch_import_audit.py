@@ -1,11 +1,12 @@
 """The port imports neither jax, nor any module of the JAX package, nor
 the `cryptography` wheel: a fresh interpreter imports every port module,
 runs the CPU verify path, commits one small block through the port's
-Committer on the CPU, verifies one idemix presentation on the host
-path, orders and commits one 8-tx block through the port's e2e Network
-(with the host verifier: the GPU verifier's CPU path ran above) and one
-through a staged Network from 4 submitter threads, then inspects
-sys.modules."""
+Committer on the CPU and two 16-tx blocks through the columnar decode
+and the vectorized MVCC (host verifier), verifies one idemix
+presentation on the host path, orders and commits one 8-tx block
+through the port's e2e Network (with the host verifier: the GPU
+verifier's CPU path ran above) and one through a staged, vector-MVCC
+Network from 4 submitter threads, then inspects sys.modules."""
 import json
 import os
 import pathlib
@@ -34,6 +35,12 @@ blocks, flags = fixtures.make_commit_blocks(world, 1, 2)
 committer = world.committer(gpu.GpuVerifier(device="cpu"), tensor_policy=True)
 assert committer.store_block(messages.Block.decode(blocks[0])) == flags[0]
 assert committer.ledger.height == 1
+from fabric_mod_tpu_torch.bccsp import sw
+blocks, flags = fixtures.make_commit_blocks(world, 2, 16)
+committer = world.committer(sw.SwVerifier(), vector_mvcc=True)
+for raw, want in zip(blocks, flags):
+    assert committer.store_block(messages.Block.decode(raw)) == want
+    assert committer.last_timings["body_fallbacks"] == 0
 from fabric_mod_tpu_torch.idemix import credential
 idemix = fixtures.make_idemix_world(seed=1, n_users=1)
 pres, want = fixtures.make_presentations(idemix, 1)
@@ -41,7 +48,6 @@ assert credential.batch_verify(idemix.issuer.key, pres,
                                use_device=False) == want == [True]
 import tempfile
 from fabric_mod_tpu_torch import e2e
-from fabric_mod_tpu_torch.bccsp import sw
 from fabric_mod_tpu_torch.protos import protoutil
 material = fixtures.make_network_material(2, max_message_count=8,
                                           batch_timeout="60s")
@@ -59,7 +65,7 @@ with tempfile.TemporaryDirectory() as root:
         net.close()
     net = e2e.Network(root + "/staged", material=material,
                       verifier=sw.SwVerifier(), ingress_batching=True,
-                      staged_batch=8)
+                      staged_batch=8, vector_mvcc=True)
     try:
         submits, want = fixtures.make_e2e_stream(net, 8, plant_every=8,
                                                  order_free=True)

@@ -25,7 +25,7 @@ def _messages(seed=11):
 def test_sha256_blocks_matches_reference_and_hashlib():
     import jax.numpy as jnp
     msgs = _messages()
-    words, nb, ok = tder.pack_messages(msgs, round_blocks_pow2=True)
+    words, nb, ok = tder.pack_messages(msgs)
     assert ok.all()
     got = tsha.sha256_blocks(torch.as_tensor(words.astype(np.int64)),
                              torch.as_tensor(nb.astype(np.int64)))

@@ -94,3 +94,50 @@ def test_port_raw_items_and_tensor_masks(port):
     assert items and all(it.message is not None and it.digest == b""
                          for it in items)
     assert passes == {"cpu": N_BLOCKS}
+
+
+def test_raw_lanes_hash_into_the_packed_e_rows(case, monkeypatch):
+    """On the CPU the raw route runs the SHA-256 kernel's plain twin
+    (ops/sha256.sha256_e on CPU tensors) once per verify call: each raw
+    lane's digest lands in the packed buffer's e rows, the lanes without
+    a message keep theirs, and the block's flags are the fixture's."""
+    import hashlib
+
+    import numpy as np
+
+    from fabric_mod_tpu_torch.ops import p256_core, sha256
+    from fabric_mod_tpu_torch.protos import messages as m
+    world, blocks, expected, _ref = case
+    calls, items = [], []
+    real_sha, real_marshal = sha256.sha256_e, gpu.marshal_items
+
+    def recording_sha(words, nblocks, packed):
+        before = packed.clone()
+        out = real_sha(words, nblocks, packed)
+        calls.append((words, before, packed.clone()))
+        return out
+
+    def recording_marshal(batch, size=None):
+        items.append(list(batch))
+        return real_marshal(batch, size)
+    monkeypatch.setattr(sha256, "sha256_e", recording_sha)
+    monkeypatch.setattr(gpu, "marshal_items", recording_marshal)
+    launches = sha256.counts()
+    committer = world.committer(gpu.GpuVerifier(device="cpu", cache_size=0),
+                                vector_mvcc=True)
+    assert committer.store_block(m.Block.decode(blocks[0])) == expected[0]
+    assert sha256.counts() == launches
+    assert len(calls) == len(items) >= 1
+    for (words, before, after), batch in zip(calls, items):
+        assert words.device.type == "cpu" and words.dtype == torch.int32
+        has_msg = p256_core.has_msg(after).numpy()
+        assert has_msg[:len(batch)].all() and not has_msg[len(batch):].any()
+        e = after[p256_core.ROW_E:p256_core.ROW_E + 8].numpy().view(np.uint32)
+        for lane, item in enumerate(batch):
+            value = sum(int(x) << (32 * k) for k, x in enumerate(e[:, lane]))
+            assert value.to_bytes(32, "big") == \
+                hashlib.sha256(item.message).digest()
+        rest = torch.ones(p256_core.ROWS, dtype=torch.bool)
+        rest[p256_core.ROW_E:p256_core.ROW_E + 8] = False
+        assert torch.equal(after[rest], before[rest])
+        assert torch.equal(after[:, len(batch):], before[:, len(batch):])
