@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's device paths once on one CUDA card: the
-block commit, the end-to-end network around it (the main path) and the
-idemix presentation verify.
+block commit, the end-to-end network around it (the main path) on a solo
+and on a three-node Raft ordering service, and the idemix presentation
+verify.
 
     python3 chip_smoke.py
 
@@ -57,11 +58,12 @@ Phases (any failure exits non-zero; none is caught):
    (a) the projective ladder with the tensor-policy evaluator, which must
    receive a CUDA mask on every block; (b) the same with the policy
    closures; (c) the mixed ladder with the evaluator; (d) the host
-   software verifier, the oracle; (e) as (a) with the vectorized MVCC
-   (`vector_mvcc=True`), which must run on every block and in no other
-   arm; (f) as (a) on make_commit_world(raw_messages=True): every item a
-   raw message, hashed by the SHA-256 kernel, which no other arm may
-   launch.  Staging runs the columnar batch decode in every arm.  Every
+   software verifier, the oracle; (f) as (a) on
+   make_commit_world(raw_messages=True): every item a raw message,
+   hashed by the SHA-256 kernel, which no other arm may launch (arm (e)
+   of earlier versions, the vectorized MVCC, is now every arm's).
+   Staging runs the columnar batch decode, and the commit the vectorized
+   MVCC, in every arm, which must take it on every block.  Every
    arm's txflags must equal the fixture's and each other, every state
    fingerprint must be equal, and all five kernels' launch counts
    (zeroed just before) must have risen.  Prints ms per block by stage
@@ -121,7 +123,7 @@ Phases (any failure exits non-zero; none is caught):
    precompute, a Miller doubling step, an add step, a cyclotomic square,
    a multiply, and the rest once), scaled by the schedule's static
    counts: launches per check, device busy ms, idle share;
-6. profile (run after 8) — torch.profiler over one verify of each
+6. profile (run after 9) — torch.profiler over one verify of each
    block kind, over a verify call of one signature, of one 2048-lane
    bucket and of one raw 2048-lane bucket (which must launch the four
    kernels once each), and over one whole block commit:
@@ -129,9 +131,31 @@ Phases (any failure exits non-zero; none is caught):
    kernels; and over the policy evaluator's pass alone: its launches
    and device time per block.
 
+9. Raft e2e (run after 8) — phase 8's two arms again, each on a fresh
+   network of three Raft orderers (utils/fixtures.make_network_material
+   with consensus_type="etcdraft": one RaftChain per orderer over one
+   in-process RaftTransport, each orderer its own registrar, store and
+   WAL), with Fabric's documented etcdraft timing (election 5-10 s,
+   heartbeat 0.5 s); the first election happens before the timed span
+   and the peer delivers from the first orderer.  The arms reuse phase
+   8's endorsed streams (the networks share the seed's certificates):
+   (c) unstaged, one submitter sending every envelope to a follower,
+   which forwards it to the leader; per-block flags in submission
+   order; (d) staged (`ingress_batching=True, staged_batch=256`, each
+   orderer its own ingress service over the one verifier), 32
+   submitters spread round-robin over the three orderers; flags per
+   txid.  Every check of phase 8 holds, and the three orderers' stores
+   must hold the same chain (heights, header hashes, metadata slot 3,
+   a signature of each node's own), the leader must not change during
+   the span, submits must have been forwarded, and (c)'s state
+   fingerprint must equal (a)'s (the same envelopes in the same
+   order).  Prints phase 8's figures and the forwarded submits, the
+   elections and leader changes during the span and each node's WAL
+   fsyncs.
+
 It prints one JSON line describing each of the five kernels
-(`launches` counts the block-commit phase and both e2e arms), and as
-its last line
+(`launches` counts the block-commit phase and the four e2e arms), and
+as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -259,6 +283,13 @@ UPLOAD_REPS = 20
 # phase 8 arm (b): concurrent submitters and the lanes' drain bound
 E2E_SUBMITTERS = 32
 E2E_STAGED_BATCH = 256
+
+# phase 9: BASELINE.md #3's three orderers, with Fabric's documented
+# etcdraft timing (sampleconfig/configtx.yaml EtcdRaft.Options:
+# TickInterval 500 ms, ElectionTick 10, HeartbeatTick 1)
+RAFT_ORDERERS = 3
+RAFT_ELECTION_TIMEOUT = (5.0, 10.0)
+RAFT_HEARTBEAT_S = 0.5
 
 
 def log(msg: str) -> None:
@@ -972,22 +1003,20 @@ def phase_block_commit(torch, np, world, raw_world, blocks, expected):
     from fabric_mod_tpu_torch.ledger import kvledger
     from fabric_mod_tpu_torch.policy import tensorpolicy
     from fabric_mod_tpu_torch.protos import messages as m
-    # (arm, label, ladder, tensor policy, vector MVCC, raw messages)
+    # (arm, label, ladder, tensor policy, raw messages); every arm commits
+    # through the vectorized MVCC (arm (e) of earlier runs is arm (a))
     arms = (("a", "projective ladder, tensor policy", "projective", True,
-             False, False),
-            ("b", "projective ladder, policy closures", "projective", False,
-             False, False),
-            ("c", "mixed ladder, tensor policy", "mixed", True, False, False),
-            ("d", "host software verifier (oracle)", None, False, False,
              False),
-            ("e", "projective ladder, tensor policy, vector MVCC",
-             "projective", True, True, False),
+            ("b", "projective ladder, policy closures", "projective", False,
+             False),
+            ("c", "mixed ladder, tensor policy", "mixed", True, False),
+            ("d", "host software verifier (oracle)", None, False, False),
             ("f", "projective ladder, tensor policy, raw messages hashed "
-             "by the sha256_e kernel", "projective", True, False, True))
+             "by the sha256_e kernel", "projective", True, True))
     n_tx = sum(len(f) for f in expected)
     n_valid = sum(f == m.TxValidationCode.VALID for b in expected for f in b)
     flags_by_arm, fps = {}, {}
-    # the vectorized MVCC passes, by arm (only arm (e) may take it)
+    # the vectorized MVCC passes, by arm (one a block in every arm)
     vector_passes = []
     vectorized = kvledger.validate_and_prepare_batch_vectorized
 
@@ -997,11 +1026,11 @@ def phase_block_commit(torch, np, world, raw_world, blocks, expected):
     kvledger.validate_and_prepare_batch_vectorized = counted_vector
     reset_kernel_counts()
     try:
-        for arm, label, ladder, tensor, vector, raw in arms:
+        for arm, label, ladder, tensor, raw in arms:
             verifier = (gpu.GpuVerifier(ladder=ladder, cache_size=0)
                         if ladder else sw.SwVerifier())
             committer = (raw_world if raw else world).committer(
-                verifier, tensor_policy=tensor, vector_mvcc=vector)
+                verifier, tensor_policy=tensor)
             tensorpolicy.reset_counts()
             flags_by_arm[arm] = []
             timings = []
@@ -1031,7 +1060,7 @@ def phase_block_commit(torch, np, world, raw_world, blocks, expected):
             if (launched["sha256_e"] > 0) != raw:
                 raise AssertionError(f"arm {arm}: sha256_e launched "
                                      f"{launched['sha256_e']} times")
-            if vector_passes.count(arm) != (len(blocks) if vector else 0):
+            if vector_passes.count(arm) != len(blocks):
                 raise AssertionError(f"arm {arm}: {vector_passes.count(arm)}"
                                      f" vectorized MVCC passes")
             stages = ("stage", "verify", "policy", "commit")
@@ -1121,14 +1150,21 @@ def phase_profile(torch, blocks, world, commit_blocks):
 
 def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
               block_txs=TX_PER_BLOCK, plant_every=PLANT_EVERY,
-              submitters=E2E_SUBMITTERS, staged_batch=E2E_STAGED_BATCH):
-    """One arm of the end-to-end network (phase 8) on a fresh network.
-    (a): unstaged, the Writers check on the host, one submitter, the
-    full plant stream, per-block flags.  (b): staged ingress with the
-    Writers check batched on the card (`ingress_batching`,
-    `staged_batch`), `submitters` threads, the order-free stream, flags
-    per txid.  Returns the kernels' launch counts of the timed run, and
-    (material, block 1, its expected flags) for profile_e2e_block."""
+              submitters=E2E_SUBMITTERS, staged_batch=E2E_STAGED_BATCH,
+              stream=None):
+    """One arm of the end-to-end network on a fresh network: phase 8 on
+    a solo orderer, phase 9 on three Raft orderers.  (a), (c): unstaged,
+    the Writers check on the host, one submitter, the full plant stream,
+    per-block flags; in (c) the submitter sends every envelope to a
+    follower, which forwards it to the leader.  (b), (d): staged ingress
+    with the Writers check batched on the card (`ingress_batching`,
+    `staged_batch`; in (d) each orderer its own service), `submitters`
+    threads (in (d) spread round-robin over the three orderers), the
+    order-free stream, flags per txid.  `stream` (submits, flags) reuses
+    an earlier arm's endorsed stream (the networks share the seed's
+    certificates).  Returns the kernels' launch counts of the timed
+    run, (material, block 1, its expected flags) for profile_e2e_block,
+    the stream and the peer's state fingerprint."""
     from fabric_mod_tpu_torch import e2e
     from fabric_mod_tpu_torch.bccsp import gpu
     from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
@@ -1138,22 +1174,38 @@ def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
     from fabric_mod_tpu_torch.protos import messages as m
     from fabric_mod_tpu_torch.protos import protoutil
     from fabric_mod_tpu_torch.utils import fixtures
-    staged = arm == "b"
+    staged = arm in "bd"
+    raft = arm in "cd"
     n_tx = n_blocks * block_txs
     material = fixtures.make_network_material(
-        SEED, max_message_count=block_txs, batch_timeout=E2E_BATCH_TIMEOUT,
+        SEED, consensus_type="etcdraft" if raft else "solo",
+        orderers=RAFT_ORDERERS if raft else 1,
+        max_message_count=block_txs, batch_timeout=E2E_BATCH_TIMEOUT,
         preferred_max_bytes=E2E_PREFERRED_MAX_BYTES)
     # no verdict cache: every block's mask is the device tensor
     verifier = gpu.GpuVerifier(device=dev, ladder="projective", cache_size=0)
+    raft_timing = (dict(election_timeout=RAFT_ELECTION_TIMEOUT,
+                        heartbeat_s=RAFT_HEARTBEAT_S) if raft else {})
     with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
         net = e2e.Network(os.path.join(root, "timed"), material=material,
                           verifier=verifier, tensor_policy=True,
                           ingress_batching=staged,
-                          staged_batch=staged_batch if staged else 0)
+                          staged_batch=staged_batch if staged else 0,
+                          **raft_timing)
         try:
+            if raft:
+                leader = net.raft_leader()
+                log(f"e2e arm ({arm}): {len(net.orderers)} Raft orderers "
+                    f"{[o.id for o in net.orderers]}, leader {leader} "
+                    f"elected in {time.perf_counter() - t0:.1f} s (before "
+                    f"the timed span)")
+                follower = next(o for o in net.orderers if o.id != leader)
             t0 = time.perf_counter()
-            submits, flat = fixtures.make_e2e_stream(
-                net, n_tx, plant_every, order_free=staged)
+            if stream is None:
+                stream = fixtures.make_e2e_stream(
+                    net, n_tx, plant_every, order_free=staged)
+            submits, flat = stream
             planted = sum(not ok for _env, ok in submits)
             expected = [flat[b * block_txs:(b + 1) * block_txs]
                         for b in range(n_blocks)]
@@ -1165,7 +1217,8 @@ def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
             log(f"e2e arm ({arm}) fixtures: {n_tx} txs endorsed by the "
                 f"network's endorsers (+{planted} tampered"
                 f"{', order-free kinds only' if staged else ''}) in "
-                f"{time.perf_counter() - t0:.1f} s (pure-python signer)")
+                f"{time.perf_counter() - t0:.1f} s (pure-python signer; "
+                f"0 s when an earlier arm's stream is reused)")
             if staged and len(want_by_txid) != len(accepted):
                 raise AssertionError("the order-free stream repeats a txid")
 
@@ -1216,21 +1269,21 @@ def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
                 return commit_staged(staged_block)
             net.channel.commit_staged = keep_session
             if staged:
-                processor = net.support.processor
-                ingress_verify = processor._verify_many
+                for o in net.orderers:
+                    processor = o.support.processor
 
-                def cohort(items):
-                    cohorts.append(len(items))
-                    return ingress_verify(items)
-                processor._verify_many = cohort
+                    def cohort(items, ingress_verify=processor._verify_many):
+                        cohorts.append(len(items))
+                        return ingress_verify(items)
+                    processor._verify_many = cohort
 
             rejected, device_errors, lock = set(), [], threading.Lock()
 
-            def submit(share):
+            def submit(share, broadcast):
                 for i in share:
                     env, ok = submits[i]
                     try:
-                        net.broadcast.submit(env)
+                        broadcast.submit(env)
                     except BroadcastError:
                         if ok:
                             raise
@@ -1249,13 +1302,16 @@ def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
                 nonlocal ingress_s
                 order = list(range(len(submits)))
                 if not staged:
-                    submit(order)
+                    submit(order, follower.broadcast if raft
+                           else net.broadcast)
                 else:
                     errors = []
 
                     def run(k):
                         try:
-                            submit(order[k::submitters])
+                            submit(order[k::submitters],
+                                   net.orderers[k % len(net.orderers)]
+                                   .broadcast)
                         except Exception as e:  # re-raised below
                             errors.append(e)
                     threads = [threading.Thread(target=run, args=(k,),
@@ -1271,6 +1327,12 @@ def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
                         raise errors[0]
                 ingress_s = time.perf_counter() - t0
             ingress_s = 0.0
+            chains = [o.support.chain for o in net.orderers]
+
+            def raft_counters():
+                return [(c.raft.elections, c.raft.leader_changes,
+                         c.raft.wal_syncs, c.forwarded) for c in chains]
+            before = raft_counters() if raft else None
             p256._core = tagged_core
             try:
                 reset_kernel_counts()
@@ -1283,7 +1345,26 @@ def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
                 p256._core = core
             counts = kernel_counts()
             passes = tensorpolicy.counts()
-
+            raft_note = ""
+            if raft:
+                during = [tuple(a - b for a, b in zip(x, y))
+                          for x, y in zip(raft_counters(), before)]
+                require_same_chain(net, n_blocks)
+                if net.raft_leader() != leader:
+                    raise AssertionError(f"the leader changed during the "
+                                         f"span: {leader} -> "
+                                         f"{net.raft_leader()}")
+                ids = [o.id for o in net.orderers]
+                forwarded = sum(d[3] for d in during)
+                if forwarded == 0 or chains[ids.index(leader)].forwarded:
+                    raise AssertionError(f"forwarded submits {during}")
+                raft_note = (
+                    f"; Raft: {forwarded} submits forwarded to the leader "
+                    f"{leader}, elections {sum(d[0] for d in during)} and "
+                    f"leader changes {sum(d[1] for d in during)} during "
+                    f"the span, WAL fsyncs by node "
+                    f"{dict(zip(ids, (d[2] for d in during)))}; the "
+                    f"{len(ids)} orderers hold the same chain")
             # every block full, every flag the construction's
             if net.ledger.height != 1 + n_blocks:
                 sizes = [len(net.ledger.get_block_by_number(b).data.data)
@@ -1376,6 +1457,11 @@ def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
             label = (f"staged, {submitters} submitters, Writers batched on "
                      "the card" if staged else
                      "unstaged, 1 submitter, Writers on the host")
+            if raft:
+                label = (f"{len(net.orderers)} Raft orderers, " + label
+                         + (" of each orderer, submitters round-robin over "
+                            "the orderers" if staged else
+                            ", every submit to a follower"))
             log(f"e2e arm ({arm}) {label}: {n_blocks} blocks x {block_txs} txs ordered, MCS-verified "
                 f"and committed; txflags == construction"
                 f"{' per txid' if staged else ''} ({n_valid} VALID); "
@@ -1390,13 +1476,41 @@ def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
                 f"s; MCS {client.mcs_secs / n_blocks * 1e3:.1f} ms per "
                 f"block; verifier calls {calls}; kernel launches {counts} "
                 f"(by path {by_path}); evaluator passes {passes}, fallbacks "
-                f"{fallbacks}{ingress_note}")
+                f"{fallbacks}{ingress_note}{raft_note}")
             first = net.support.store.get_block_by_number(1)
             first_flags = list(protoutil.block_txflags(
                 net.ledger.get_block_by_number(1)))
         finally:
             net.close()
-    return counts, (material, first, first_flags)
+    return counts, (material, first, first_flags), stream, fp
+
+
+def require_same_chain(net, n_blocks: int) -> None:
+    """Raise unless every orderer of a Raft network holds the same chain:
+    the same heights, header hashes and metadata slot 3 (the raft
+    index), with a signature of its own on every block."""
+    from fabric_mod_tpu_torch.orderer import RaftChain
+    from fabric_mod_tpu_torch.protos import protoutil
+    stores = [o.support.store for o in net.orderers]
+    # the peer delivers from the first orderer; the others may lag it by
+    # an apply
+    deadline = time.monotonic() + 60
+    while {s.height for s in stores} != {n_blocks + 1} \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if {s.height for s in stores} != {n_blocks + 1}:
+        raise AssertionError(f"orderer heights "
+                             f"{[s.height for s in stores]}")
+    slot = RaftChain.RAFT_INDEX_MD_SLOT
+    for num in range(1, n_blocks + 1):
+        blocks = [s.get_block_by_number(num) for s in stores]
+        if len({protoutil.block_header_hash(b.header) for b in blocks}) != 1 \
+                or len({bytes(b.metadata.metadata[slot])
+                        for b in blocks}) != 1 \
+                or len({bytes(b.metadata.metadata[0])
+                        for b in blocks}) != len(blocks):
+            raise AssertionError(f"block {num} differs across orderers, or "
+                                 f"two orderers share a signature")
 
 
 def profile_e2e_block(torch, material, block, expected):
@@ -1681,15 +1795,28 @@ def main() -> int:
     counts = phase_block_commit(torch, np, world, raw_world, commit_blocks,
                                 expected)
 
-    # 8. the end-to-end network, in turns: (a) unstaged, (b) staged
+    # 8. the end-to-end network on a solo orderer, in turns: (a)
+    # unstaged, (b) staged
     t0 = time.perf_counter()
-    e2e_counts, e2e_block = phase_e2e(torch, dev, arm="a")
-    staged_counts, _ = phase_e2e(torch, dev, arm="b")
+    arms = {}
+    arms["a"], e2e_block, full, solo_fp = phase_e2e(torch, dev, arm="a")
+    arms["b"], _, order_free, _ = phase_e2e(torch, dev, arm="b")
     profile_e2e_block(torch, *e2e_block)
     log(f"e2e phase: {time.perf_counter() - t0:.1f} s wall")
+
+    # 9. the same streams through three Raft orderers: (c) unstaged via a
+    # follower, (d) staged over every orderer
+    t0 = time.perf_counter()
+    arms["c"], _, _, raft_fp = phase_e2e(torch, dev, arm="c", stream=full)
+    if raft_fp != solo_fp:
+        raise AssertionError("arm (c)'s state fingerprint differs from arm "
+                             "(a)'s on the same stream in the same order")
+    arms["d"], _, _, _ = phase_e2e(torch, dev, arm="d", stream=order_free)
+    log(f"Raft e2e phase: {time.perf_counter() - t0:.1f} s wall; arm (c)'s "
+        f"fingerprint == arm (a)'s ({raft_fp[:16]})")
     for k in kernels.values():
-        k["launches"] = (counts[k["name"]] + e2e_counts[k["name"]]
-                         + staged_counts[k["name"]])
+        k["launches"] = counts[k["name"]] + sum(
+            c[k["name"]] for c in arms.values())
 
     # 6. where a block's time goes (after the counted runs)
     phase_profile(torch, blocks, world, commit_blocks)

@@ -126,6 +126,18 @@ class OrdererConfig:
     org_mspids: Tuple[str, ...]
     capabilities: Tuple[str, ...]
 
+    def consenters(self) -> Tuple[str, ...]:
+        """The Raft consenter ids from the consensus metadata
+        (reference: bundle.py:134, etcdraft.ConfigMetadata's consenter
+        list); empty when the channel carries no such metadata."""
+        if not self.consensus_metadata:
+            return ()
+        try:
+            md = m.RaftMetadata.decode(self.consensus_metadata)
+        except Exception:
+            return ()
+        return tuple(md.consenters)
+
 
 @dataclasses.dataclass(frozen=True)
 class ApplicationConfig:

@@ -3,7 +3,8 @@
 The port's copy of fabric_mod_tpu/e2e.py `Network` (:41) and
 `run_pipeline` (:208) (reference: the integration/nwo network builder,
 network.go:44-60, shrunk to one process): client -> endorsers ->
-Broadcast.submit -> solo consenter -> block cutting and signing ->
+Broadcast.submit -> the consenter (solo, or three Raft orderers with
+forwarding to the leader) -> block cutting and signing ->
 DeliverService -> the peer's MCS block-signature verify -> the
 pipelined TxValidator -> MVCC -> the ledger commit.
 
@@ -31,13 +32,15 @@ import os
 import tempfile
 import threading
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from fabric_mod_tpu_torch.bccsp.sw import SwCSP
 from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerManager
 from fabric_mod_tpu_torch.msp.identities import SigningIdentity, deserialize_cert
-from fabric_mod_tpu_torch.orderer import Broadcast, DeliverService, Registrar
+from fabric_mod_tpu_torch.orderer import (Broadcast, DeliverService,
+                                          RaftChain, RaftTransport,
+                                          Registrar)
 from fabric_mod_tpu_torch.peer.chaincode import ChaincodeRegistry, KvContract
 from fabric_mod_tpu_torch.peer.channel import Channel
 from fabric_mod_tpu_torch.peer.deliverclient import DeliverClient
@@ -46,6 +49,8 @@ from fabric_mod_tpu_torch.protos import messages as m
 
 # (mspid, certificate PEM, PKCS#8 private-key PEM)
 SignerPems = Tuple[str, bytes, bytes]
+# how long a Raft network's constructor waits for its first leader
+LEADER_TIMEOUT_S = 60.0
 
 
 @dataclasses.dataclass
@@ -54,8 +59,10 @@ class NetworkMaterial:
     application org's CA certificate PEM, the orderer org's, the
     signers (an Org1-style client of the first org, one peer and one
     admin per org, the orderer) and the encoded genesis block.  The
-    genesis block fixes the channel id, the orgs and the batch
-    configuration."""
+    genesis block fixes the channel id, the orgs, the batch
+    configuration and the consensus type.  An etcdraft genesis lists
+    its consenter ids, and `consenters` maps each to its orderer
+    signer (`orderer` is then the first's)."""
     ca_pems: Dict[str, bytes]
     orderer_ca_pem: bytes
     client: SignerPems
@@ -63,6 +70,8 @@ class NetworkMaterial:
     admins: Dict[str, SignerPems]
     orderer: SignerPems
     genesis: bytes
+    consenters: Dict[str, SignerPems] = dataclasses.field(
+        default_factory=dict)
 
 
 def _signer(csp, pems: SignerPems) -> SigningIdentity:
@@ -70,30 +79,52 @@ def _signer(csp, pems: SignerPems) -> SigningIdentity:
     return SigningIdentity(mspid, deserialize_cert(cert_pem), key_pem, csp)
 
 
+@dataclasses.dataclass
+class OrdererNode:
+    """One ordering node of the network: its registrar and the channel's
+    chain support on it, its Broadcast, and with ingress batching its
+    own BatchingVerifyService."""
+    id: str
+    registrar: Registrar
+    support: object
+    broadcast: Broadcast
+    ingress_service: object = None
+
+
 class Network:
-    """One channel, N orgs, one solo orderer, one committing peer, one
-    endorser per org — all in-process, built from `material` (its
-    genesis block fixes the channel, the orgs and the batch
-    configuration).  `verifier` None builds `GpuVerifier(device=device)`:
-    on CUDA unless `device="cpu"`, and it raises without a card.
-    `ingress_batching` sends the orderer's Writers checks through a
-    `BatchingVerifyService` over `verifier`; `staged_batch` > 0 stages
-    Broadcast's normal txs in lanes that drain up to that many at a
-    time (reference e2e.py:85-97).  Behind lanes the service flushes
+    """One channel, N orgs, the ordering service, one committing peer,
+    one endorser per org — all in-process, built from `material` (its
+    genesis block fixes the channel, the orgs, the batch configuration
+    and the consensus type).  `verifier` None builds
+    `GpuVerifier(device=device)`: on CUDA unless `device="cpu"`, and it
+    raises without a card.  `ingress_batching` sends each orderer's
+    Writers checks through a `BatchingVerifyService` of its own over
+    `verifier` (one card stands in for each node's); `staged_batch` > 0
+    stages Broadcast's normal txs in lanes that drain up to that many at
+    a time (reference e2e.py:85-97).  Behind lanes the service flushes
     with no deadline wait: a lane's drain is already the cohort.
-    `vector_mvcc` commits the peer's blocks through the vectorized MVCC
-    over the validator's columnar decode (ledger/kvledger.py)."""
+
+    A solo genesis gets one solo orderer.  An etcdraft genesis gets one
+    orderer per consenter, each a Registrar whose chain is a RaftChain,
+    all over one in-process RaftTransport (reference:
+    soak/world.py:386-411); `election_timeout`, `heartbeat_s` and
+    `clock` are the RaftChains' (the defaults are the reference's).  The
+    constructor waits up to LEADER_TIMEOUT_S until one leader is elected
+    and known to every node: with a manual clock, the caller advances it
+    meanwhile.  The peer delivers from the first orderer;
+    `orderers` lists them all, and `registrar`, `support`, `broadcast`
+    and `ingress_service` are the first's."""
 
     def __init__(self, root_dir: str, material: NetworkMaterial,
                  verifier=None, device=None, tensor_policy: bool = False,
                  ingress_batching: bool = False, staged_batch: int = 0,
-                 vector_mvcc: bool = False):
+                 election_timeout: Tuple[float, float] = (0.15, 0.3),
+                 heartbeat_s: float = 0.05, clock=None):
         if verifier is None:
             from fabric_mod_tpu_torch.bccsp.gpu import GpuVerifier
             verifier = GpuVerifier(device=device)
         self.csp = SwCSP()
         self.verifier = verifier
-        self.orderer_signer = _signer(self.csp, material.orderer)
         self.peer_signers = {org: _signer(self.csp, p)
                              for org, p in material.peers.items()}
         self.admins = {org: _signer(self.csp, p)
@@ -102,31 +133,45 @@ class Network:
         self.genesis_block = m.Block.decode(material.genesis)
         channel_id, config = config_from_block(self.genesis_block)
         self.channel_id = channel_id
+        bundle = Bundle(channel_id, config, self.csp)
+        self.consensus_type = bundle.orderer.consensus_type
 
-        # the ordering service: the Writers check verifies on the host,
-        # or with ingress batching through the coalescing service
-        self.ingress_service = None
-        ingress_verify = None
-        if ingress_batching:
-            from fabric_mod_tpu_torch.bccsp.gpu import BatchingVerifyService
-            self.ingress_service = (
-                BatchingVerifyService(verifier, deadline_s=0.0)
-                if staged_batch else BatchingVerifyService(verifier))
-            ingress_verify = self.ingress_service.verify_many
-        self.registrar = Registrar(os.path.join(root_dir, "orderer"),
-                                   self.orderer_signer, self.csp,
-                                   verify_many=ingress_verify)
-        self.support = self.registrar.create_channel(
-            m.Block.decode(material.genesis))
-        self.broadcast = Broadcast(self.registrar, staged_batch=staged_batch)
+        # the ordering service: solo, or one node per Raft consenter
+        self.orderers: List[OrdererNode] = []
+        self.transport = None
+        try:
+            if self.consensus_type == "etcdraft":
+                ids = list(bundle.orderer.consenters())
+                if not ids or set(ids) - set(material.consenters):
+                    raise ValueError("the etcdraft genesis needs a signer "
+                                     "for each of its consenters")
+                self.transport = RaftTransport()
+                for oid in ids:
+                    self.orderers.append(self._boot_orderer(
+                        root_dir, oid, material.consenters[oid],
+                        ingress_batching, staged_batch,
+                        self._raft_factory(root_dir, oid, ids,
+                                           election_timeout, heartbeat_s,
+                                           clock)))
+                self._wait_leader(LEADER_TIMEOUT_S)
+            else:
+                self.orderers.append(self._boot_orderer(
+                    root_dir, "orderer", material.orderer,
+                    ingress_batching, staged_batch, None))
+        except BaseException:
+            self._close_orderers()
+            raise
+        first = self.orderers[0]
+        self.registrar = first.registrar
+        self.support = first.support
+        self.broadcast = first.broadcast
+        self.ingress_service = first.ingress_service
         self.deliver = DeliverService(self.support)
 
         # the committing peer
-        self.ledger_mgr = LedgerManager(os.path.join(root_dir, "peer"),
-                                        vector_mvcc=vector_mvcc)
+        self.ledger_mgr = LedgerManager(os.path.join(root_dir, "peer"))
         self.ledger = self.ledger_mgr.create_or_open(channel_id)
-        self.channel = Channel(channel_id, self.ledger, verifier,
-                               Bundle(channel_id, config, self.csp),
+        self.channel = Channel(channel_id, self.ledger, verifier, bundle,
                                self.csp, tensor_policy=tensor_policy)
         if self.ledger.height == 0:
             self.channel.init_from_genesis(self.genesis_block)
@@ -138,17 +183,87 @@ class Network:
             org: Endorser(self.channel, self.chaincodes, signer)
             for org, signer in self.peer_signers.items()}
 
+    def _raft_factory(self, root_dir, oid, ids, election_timeout,
+                      heartbeat_s, clock):
+        def factory(support):
+            return RaftChain(
+                oid, list(ids), self.transport,
+                os.path.join(root_dir, "orderer", oid,
+                             f"{support.channel_id}.wal"),
+                support, election_timeout=election_timeout,
+                heartbeat_s=heartbeat_s, clock=clock)
+        return factory
+
+    def _boot_orderer(self, root_dir, oid, pems, ingress_batching,
+                      staged_batch, raft_factory) -> OrdererNode:
+        """One ordering node: the Writers check verifies on the host, or
+        with ingress batching through its own coalescing service; the
+        registrar picks the chain by the genesis' consensus type."""
+        service = ingress_verify = None
+        if ingress_batching:
+            from fabric_mod_tpu_torch.bccsp.gpu import BatchingVerifyService
+            service = (BatchingVerifyService(self.verifier, deadline_s=0.0)
+                       if staged_batch else
+                       BatchingVerifyService(self.verifier))
+            ingress_verify = service.verify_many
+        try:
+            registrar = Registrar(
+                os.path.join(root_dir, "orderer", oid),
+                _signer(self.csp, pems), self.csp,
+                verify_many=ingress_verify,
+                consenters={"etcdraft": raft_factory} if raft_factory
+                else None)
+        except BaseException:
+            if service is not None:
+                service.close()
+            raise
+        support = registrar.get_chain(self.channel_id) or \
+            registrar.create_channel(self.genesis_block)
+        return OrdererNode(oid, registrar, support,
+                           Broadcast(registrar, staged_batch=staged_batch),
+                           service)
+
+    def raft_leader(self) -> Optional[str]:
+        """The id of the one Raft leader every node knows, or None (an
+        election in flight, or a solo network)."""
+        if self.transport is None:
+            return None
+        chains = [o.support.chain for o in self.orderers]
+        leaders = [o.id for o, c in zip(self.orderers, chains)
+                   if c.is_leader]
+        if len(leaders) != 1 or any(c.leader_id != leaders[0]
+                                    for c in chains):
+            return None
+        return leaders[0]
+
+    def _wait_leader(self, timeout_s: float) -> None:
+        deadline = time.monotonic() + timeout_s
+        while self.raft_leader() is None:
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"no Raft leader elected within "
+                                   f"{timeout_s} s")
+            time.sleep(0.01)
+
     def deliver_client(self) -> DeliverClient:
         return DeliverClient(self.channel, self.deliver)
 
+    def _close_orderers(self) -> None:
+        """Stop the broadcast lanes (no submitter is left blocked) and
+        the ingress services, halt every chain, then close the stores."""
+        for o in self.orderers:
+            o.broadcast.close()
+            if o.ingress_service is not None:
+                o.ingress_service.close()
+        for o in self.orderers:
+            o.support.halt()
+        for o in self.orderers:
+            o.registrar.close()
+
     def close(self) -> None:
-        """Stop, in order: the broadcast lanes (no submitter is left
-        blocked), the ingress service, the orderer, the peer's channel
-        and the ledger."""
-        self.broadcast.close()
-        if self.ingress_service is not None:
-            self.ingress_service.close()
-        self.registrar.close()
+        """Stop, in order: the ordering service (lanes, ingress
+        services, every chain, then the stores), the peer's channel and
+        the ledger."""
+        self._close_orderers()
         self.channel.close()
         self.ledger_mgr.close()
 

@@ -8,10 +8,10 @@ ledger manager): `QueryExecutor` and `TxSimulator` (:61, :100),
 `KvLedger.commit_block` (:369) — MVCC validate -> append the block
 (flags in its metadata) -> apply the state batch — and `LedgerManager`
 (:841).  `commit_block` takes the validator's stage-time columnar decode
-(protos/batchdecode.BlockRWSets) and reuses its tx ids and header types;
-a ledger built with `vector_mvcc=True` (the reference's
-FABRIC_MOD_TPU_VECTOR_MVCC) sends the accepted rows through the
-vectorized MVCC over its planes, with the same flags and state.
+(protos/batchdecode.BlockRWSets), reuses its tx ids and header types,
+and sends the decoded rows through the vectorized MVCC over its planes
+(the reference's FABRIC_MOD_TPU_VECTOR_MVCC pass), with the same flags
+and state as the generic pass.
 Blocks live in a file-backed `BlockStore` (ledger/blkstorage.py), in a
 temporary directory when the ledger is given none.  State is in
 memory: on open, the block store's blocks are replayed into it from
@@ -163,14 +163,12 @@ class KvLedger:
     The blocks go to a BlockStore under `<ledger_dir>/chains`, and
     reopening the directory replays them into the state.  `ledger_dir`
     None gives the ledger a temporary directory of its own, removed on
-    `close()`.  `vector_mvcc` selects the vectorized MVCC pass for
-    blocks committed with their stage-time `rwsets`."""
+    `close()`.  Blocks committed with their stage-time `rwsets` take
+    the vectorized MVCC pass."""
 
     def __init__(self, ledger_id: str = "ch",
-                 ledger_dir: Optional[str] = None,
-                 vector_mvcc: bool = False):
+                 ledger_dir: Optional[str] = None):
         self.ledger_id = ledger_id
-        self.vector_mvcc = vector_mvcc
         self._tmp = None
         if ledger_dir is None:
             self._tmp = tempfile.TemporaryDirectory(prefix="kvledger-")
@@ -223,8 +221,9 @@ class KvLedger:
         the block metadata).  Returns the final flags.  `rwsets`
         (batchdecode.BlockRWSets | None), the validator's stage-time
         columnar decode: its tx ids and header types are reused instead
-        of re-decoded, and with `vector_mvcc` its accepted rows take the
-        vectorized MVCC (the same flags)."""
+        of re-decoded, and its decoded rows take the vectorized MVCC
+        (the same flags as the generic pass, which takes the rows the
+        decode fell back on and blocks committed without `rwsets`)."""
         with self._lock:
             num = block.header.number
             if num != self.height:
@@ -239,7 +238,7 @@ class KvLedger:
                 raise LedgerError(
                     f"flags length {len(incoming_flags)} != "
                     f"{len(envs)} txs")
-            vec = rwsets is not None and self.vector_mvcc
+            vec = rwsets is not None
             txs = []
             any_col = False
             for tx_num, (env, flag) in enumerate(zip(envs, incoming_flags)):
@@ -321,19 +320,17 @@ class KvLedger:
 
 class LedgerManager:
     """Open/create ledgers by id under one directory (reference:
-    ledgermgmt/ledger_mgmt.go); each takes `vector_mvcc`."""
+    ledgermgmt/ledger_mgmt.go)."""
 
-    def __init__(self, root_dir: str, vector_mvcc: bool = False):
+    def __init__(self, root_dir: str):
         self.root = root_dir
-        self.vector_mvcc = vector_mvcc
         os.makedirs(root_dir, exist_ok=True)
         self._ledgers: Dict[str, KvLedger] = {}
 
     def create_or_open(self, ledger_id: str) -> KvLedger:
         if ledger_id not in self._ledgers:
             self._ledgers[ledger_id] = KvLedger(
-                ledger_id, os.path.join(self.root, ledger_id),
-                vector_mvcc=self.vector_mvcc)
+                ledger_id, os.path.join(self.root, ledger_id))
         return self._ledgers[ledger_id]
 
     def ledger_ids(self) -> List[str]:

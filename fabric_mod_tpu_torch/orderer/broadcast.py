@@ -11,12 +11,20 @@ reference :94-102, :146-153), concurrent submitters' normal txs go
 through the per-channel lanes of orderer/stagedbroadcast.py, which
 judge each cohort with one batched `verify_many` call; the verdict comes
 back to the submitter's thread, and `chain.order` stays there.  Config
-updates always take the blocking path.  Not ported: the admission gate
-and the NOT_LEADER retrier (solo always has a leader).
+updates always take the blocking path.
+
+A Raft consenter with no leader to forward to raises the typed
+NotLeaderError; `submit` retries it with a backoff (0.05 s doubling to
+0.5 s) for up to NOT_LEADER_RETRY_S, the reference's default budget,
+then re-raises it (reference :84-89, :140-153).  Not ported: the
+admission gate.
 """
 from __future__ import annotations
 
+import time
+
 from fabric_mod_tpu_torch.channelconfig import ConfigTxError
+from fabric_mod_tpu_torch.orderer.consensus import NotLeaderError
 from fabric_mod_tpu_torch.orderer.msgprocessor import MsgRejectedError
 from fabric_mod_tpu_torch.orderer.registrar import Registrar
 from fabric_mod_tpu_torch.orderer.stagedbroadcast import StagedIngress
@@ -25,6 +33,7 @@ from fabric_mod_tpu_torch.protos import messages as m
 # client-attributable rejections -> BAD_REQUEST on the wire; anything
 # else propagates as an internal error
 _CLIENT_FAULTS = (MsgRejectedError, ConfigTxError, ValueError)
+NOT_LEADER_RETRY_S = 5.0
 
 
 class BroadcastError(Exception):
@@ -41,6 +50,19 @@ class Broadcast:
         self._registrar = registrar
         self._staged = StagedIngress(staged_batch) if staged_batch else None
 
+    @staticmethod
+    def _retry_not_leader(fn, *args) -> None:
+        deadline = time.monotonic() + NOT_LEADER_RETRY_S
+        pause = 0.05
+        while True:
+            try:
+                return fn(*args)
+            except NotLeaderError:
+                if time.monotonic() + pause > deadline:
+                    raise
+            time.sleep(pause)
+            pause = min(0.5, 2 * pause)
+
     def close(self) -> None:
         """Stop the lanes (nothing to stop unstaged); a submitter racing
         the close gets a typed error, never a hang."""
@@ -49,7 +71,8 @@ class Broadcast:
 
     def submit(self, env: m.Envelope) -> None:
         """Accept one envelope for ordering; raises BroadcastError on a
-        client-caused rejection."""
+        client-caused rejection, NotLeaderError when the consenter found
+        no leader within the retry budget."""
         try:
             support, is_config_update = \
                 self._registrar.broadcast_channel_support(env)
@@ -59,9 +82,11 @@ class Broadcast:
             try:
                 wrapped, seq = \
                     support.processor.process_config_update_msg(env)
+                # a consenter's pre-order check (Raft's one-membership-
+                # change rule) is a client fault too
+                self._retry_not_leader(support.chain.configure, wrapped, seq)
             except _CLIENT_FAULTS as e:
                 raise BroadcastError(f"config update rejected: {e}") from e
-            support.chain.configure(wrapped, seq)
             return
         try:
             if self._staged is not None:
@@ -71,4 +96,4 @@ class Broadcast:
                 seq = support.processor.process_normal_msg(env)
         except _CLIENT_FAULTS as e:
             raise BroadcastError(f"rejected: {e}") from e
-        support.chain.order(env, seq)
+        self._retry_not_leader(support.chain.order, env, seq)

@@ -27,6 +27,18 @@ class ChainHaltedError(Exception):
     pass
 
 
+class NotLeaderError(Exception):
+    """This consenter cannot take the submission now: it is not the
+    leader and knows no live leader to forward it to (an election in
+    flight, or a deposed leader stepping down).  `leader_hint` is the
+    best-known leader's id, or None (reference: consensus.py:29; the
+    reference's Submit redirect carries the same hint)."""
+
+    def __init__(self, msg: str, leader_hint=None):
+        super().__init__(msg)
+        self.leader_hint = leader_hint
+
+
 class _Msg:
     __slots__ = ("env", "is_config", "config_seq")
 

@@ -3,16 +3,19 @@
 The port's copy of fabric_mod_tpu/orderer/registrar.py `Registrar` (:95)
 and `ChainSupport` (:35) (reference: orderer/common/multichannel/
 registrar.go — Initialize :155, BroadcastChannelSupport :259,
-CreateChain :340 — and chainsupport.go:288).  Every channel runs the
-solo consenter; channel participation (join, follower, remove) is not
-ported.
+CreateChain :340 — and chainsupport.go:288).  A channel's consenter is
+chosen by its ConsensusType: `consenters` maps a type to a factory
+(`support -> chain`), `chain_factory` overrides it for every channel,
+and an unregistered type runs solo (reference :99-138, :157-165).
+Channel participation (join, follower, remove) is not ported.
 
 A ChainSupport owns one channel's bundle (swapped atomically on config
 commit), block cutter, block writer, ingress processor and consenter.
 The registrar's `verify_many` (None: the host) is every channel
 processor's Writers-check verifier (reference :39, :98).
 The registrar bootstraps each channel found on disk from its tip config
-block on open: the ledger is the config store.
+block on open: the ledger is the config store, and a Raft channel's
+chain reopens over its existing WAL.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ class ChainSupport:
     """(reference: multichannel/chainsupport.go ChainSupport)"""
 
     def __init__(self, channel_id: str, store: BlockStore, bundle: Bundle,
-                 signer, csp, verify_many=None):
+                 signer, csp, verify_many=None, chain_factory=None):
         self.channel_id = channel_id
         self.store = store
         self._bundle = bundle
@@ -49,7 +52,9 @@ class ChainSupport:
         self.writer = BlockWriter(store, signer, channel_id)
         self.processor = StandardChannelProcessor(
             self.bundle, signer=signer, verify_many=verify_many)
-        self.chain = SoloChain(self)
+        # the consenter (reference :39-54): solo unless a factory is given
+        self.chain = (chain_factory(self) if chain_factory is not None
+                      else SoloChain(self))
 
     def bundle(self) -> Bundle:
         with self._bundle_lock:
@@ -90,11 +95,14 @@ class ChainSupport:
 class Registrar:
     """(reference: multichannel/registrar.go)"""
 
-    def __init__(self, root_dir: str, signer, csp, verify_many=None):
+    def __init__(self, root_dir: str, signer, csp, verify_many=None,
+                 chain_factory=None, consenters=None):
         self._root = root_dir
         self._signer = signer
         self._csp = csp
         self._verify_many = verify_many
+        self._chain_factory = chain_factory
+        self._consenters = dict(consenters or {})
         self._chains: Dict[str, ChainSupport] = {}
         self._lock = threading.Lock()
         os.makedirs(root_dir, exist_ok=True)
@@ -103,6 +111,14 @@ class Registrar:
             path = os.path.join(root_dir, name)
             if os.path.isdir(path):
                 self._open_channel(name, path)
+
+    def _resolve_factory(self, bundle: Bundle):
+        """The consenter factory for a channel's ConsensusType
+        (reference: registrar.go consenters[consensusType]); an explicit
+        chain_factory wins, an unregistered type runs solo (None)."""
+        if self._chain_factory is not None:
+            return self._chain_factory
+        return self._consenters.get(bundle.orderer.consensus_type)
 
     def _open_channel(self, channel_id: str, path: str) -> None:
         store = BlockStore(path)
@@ -117,8 +133,10 @@ class Registrar:
             store.close()
             raise RegistrarError(
                 f"directory {channel_id!r} holds channel {cid!r}")
-        support = ChainSupport(cid, store, Bundle(cid, config, self._csp),
-                               self._signer, self._csp, self._verify_many)
+        bundle = Bundle(cid, config, self._csp)
+        support = ChainSupport(cid, store, bundle, self._signer, self._csp,
+                               self._verify_many,
+                               self._resolve_factory(bundle))
         self._chains[cid] = support
         support.start()
 
@@ -132,8 +150,10 @@ class Registrar:
             store = BlockStore(os.path.join(self._root, cid))
             if store.height == 0:
                 store.add_block(genesis_block)
-            support = ChainSupport(cid, store, Bundle(cid, config, self._csp),
-                                   self._signer, self._csp, self._verify_many)
+            bundle = Bundle(cid, config, self._csp)
+            support = ChainSupport(cid, store, bundle, self._signer,
+                                   self._csp, self._verify_many,
+                                   self._resolve_factory(bundle))
             self._chains[cid] = support
         support.start()
         return support

@@ -200,17 +200,15 @@ class CommitWorld:
     policy: bytes
     channel_id: str = CHANNEL
 
-    def committer(self, verifier, tensor_policy: bool = False,
-                  vector_mvcc: bool = False):
-        """A Committer over a fresh in-memory ledger (with the vectorized
-        MVCC if `vector_mvcc`), wired for key-level policies and
-        duplicate-txid checks against it."""
+    def committer(self, verifier, tensor_policy: bool = False):
+        """A Committer over a fresh in-memory ledger, wired for key-level
+        policies and duplicate-txid checks against it."""
         from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
         from fabric_mod_tpu_torch.peer.txvalidator import (
             VALIDATION_PARAMETER, Committer, TxValidator,
             ValidationInfoProvider)
         from fabric_mod_tpu_torch.policy import ApplicationPolicyEvaluator
-        led = KvLedger(self.channel_id, vector_mvcc=vector_mvcc)
+        led = KvLedger(self.channel_id)
 
         def state_vp(ns, key):
             meta = led.state.get_metadata(ns, key)
@@ -433,19 +431,25 @@ NETWORK_ORGS = ("Org1", "Org2", "Org3")
 
 
 def make_network_material(seed: int = 0, channel_id: str = "testchannel",
+                          consensus_type: str = "solo", orderers: int = 1,
                           **batch_config):
     """An e2e.NetworkMaterial made from `seed`: a CA per org of
     NETWORK_ORGS and one for the orderer org, a peer and an admin per
-    org, a client of the first org, the orderer's signer, and the
-    standard genesis block (the
-    configtxgen step of the reference's e2e Network) with the orderer
-    group's `batch_config` (genesis.orderer_group's max_message_count,
+    org, a client of the first org, `orderers` orderer signers under the
+    orderer CA (consenter ids "orderer0", "orderer1", ...; as the
+    reference's soak/world.py:387-390 makes one per consenter), and
+    the standard genesis block (the configtxgen step of the reference's
+    e2e Network) with `consensus_type` ("solo", or "etcdraft" with the
+    consenter ids in its RaftMetadata) and the orderer group's
+    `batch_config` (genesis.orderer_group's max_message_count,
     batch_timeout, preferred_max_bytes, ...).  Certificates and keys
     are the same for the same seed; the genesis envelope carries a
     fresh nonce."""
     from fabric_mod_tpu_torch.channelconfig import genesis
     from fabric_mod_tpu_torch.e2e import NetworkMaterial
     from fabric_mod_tpu_torch.msp import ca as calib
+    if orderers < 1 or (consensus_type == "solo" and orderers != 1):
+        raise ValueError("solo takes one orderer; etcdraft one or more")
     tag = b"network|%d" % seed
 
     def signer(ca, cn, org, ou):
@@ -456,20 +460,27 @@ def make_network_material(seed: int = 0, channel_id: str = "testchannel",
     orderer_ca = calib.CA("ca.orderer", "OrdererOrg", seed=tag,
                           now=CERT_EPOCH)
     first = NETWORK_ORGS[0]
+    ids = [f"orderer{i}" for i in range(orderers)]
+    if consensus_type != "solo":
+        batch_config = dict(batch_config, consenters=ids)
     block = genesis.standard_network(
         channel_id, {org: [ca.cert_pem()] for org, ca in cas.items()},
-        {"OrdererOrg": [orderer_ca.cert_pem()]}, **batch_config)
+        {"OrdererOrg": [orderer_ca.cert_pem()]},
+        consensus_type=consensus_type, **batch_config)
+    client = signer(cas[first], f"client@{first.lower()}", first, "client")
+    peers = {org: signer(ca, f"peer0.{org.lower()}", org, "peer")
+             for org, ca in cas.items()}
+    admins = {org: signer(ca, f"admin@{org.lower()}", org, "admin")
+              for org, ca in cas.items()}
+    consenters = {oid: signer(orderer_ca, oid, "OrdererOrg", "orderer")
+                  for oid in ids}
     return NetworkMaterial(
         ca_pems={org: ca.cert_pem() for org, ca in cas.items()},
         orderer_ca_pem=orderer_ca.cert_pem(),
-        client=signer(cas[first], f"client@{first.lower()}", first,
-                      "client"),
-        peers={org: signer(ca, f"peer0.{org.lower()}", org, "peer")
-               for org, ca in cas.items()},
-        admins={org: signer(ca, f"admin@{org.lower()}", org, "admin")
-                for org, ca in cas.items()},
-        orderer=signer(orderer_ca, "orderer0", "OrdererOrg", "orderer"),
-        genesis=block.encode())
+        client=client, peers=peers, admins=admins,
+        orderer=consenters[ids[0]],
+        genesis=block.encode(),
+        consenters=consenters if consensus_type != "solo" else {})
 
 
 # the key-level endorsement policy the e2e stream's setvp txs pin

@@ -523,14 +523,14 @@ def test_raw_verify_call_is_four_launches(cuda_device):
 @pytest.mark.cuda
 def test_raw_block_commits_on_card(cuda_device):
     """A raw-message world's 16-tx blocks commit on the card through the
-    SHA-256 kernel, with vector MVCC: flags equal the fixture's."""
+    SHA-256 kernel and the vectorized MVCC: flags equal the fixture's."""
     from fabric_mod_tpu_torch.bccsp import gpu
     from fabric_mod_tpu_torch.ops import sha256
     from fabric_mod_tpu_torch.protos import messages as m
     world = fixtures.make_commit_world(raw_messages=True)
     blocks, expected = fixtures.make_commit_blocks(world, 2, 16)
     committer = world.committer(gpu.GpuVerifier(cache_size=0),
-                                tensor_policy=True, vector_mvcc=True)
+                                tensor_policy=True)
     before = sha256.counts()["sha256_e"]
     for raw, want in zip(blocks, expected):
         assert committer.store_block(m.Block.decode(raw)) == want
@@ -654,5 +654,47 @@ def test_e2e_network_on_card(cuda_device, tmp_path):
         assert tp.counts() == {"cuda": 2}
         # one MCS verify and one validator bucket per block at least
         assert p256_cuda.counts()["ladder_projective"] >= before + 4
+    finally:
+        net.close()
+
+
+@pytest.mark.cuda
+def test_raft_e2e_network_on_card(cuda_device, tmp_path):
+    """Two 8-tx blocks through three Raft orderers on the card, submitted
+    through a follower with the Writers check batched on the card (each
+    orderer its own ingress service): the construction's flags, the
+    same chain on every orderer, and the verify core launched for the
+    MCS, the validator and ingress."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.protos import protoutil
+    material = fixtures.make_network_material(
+        6, consensus_type="etcdraft", orderers=3, max_message_count=8,
+        batch_timeout="60s")
+    net = e2e.Network(str(tmp_path), material=material,
+                      verifier=gpu.GpuVerifier(cache_size=0),
+                      tensor_policy=True, ingress_batching=True,
+                      election_timeout=(5.0, 10.0), heartbeat_s=0.5)
+    try:
+        follower = next(o for o in net.orderers
+                        if o.id != net.raft_leader())
+        submits, expected = fixtures.make_e2e_stream(net, 16, plant_every=8)
+        before = dict(p256_core.counts())
+
+        def feed():
+            for env, ok in submits:
+                if ok:
+                    follower.broadcast.submit(env)
+        assert e2e.commit_until(net, 16, 300, feed=feed)[1] == 16
+        got = [f for b in (1, 2) for f in protoutil.block_txflags(
+            net.ledger.get_block_by_number(b))]
+        assert got == expected
+        stores = [o.support.store for o in net.orderers]
+        for b in (1, 2):
+            assert len({protoutil.block_header_hash(
+                s.get_block_by_number(b).header) for s in stores}) == 1
+        # ingress (18 checks), 2 MCS checks and 2 validator calls
+        after = p256_core.counts()
+        assert all(after[k] >= before[k] + 5 for k in after)
     finally:
         net.close()

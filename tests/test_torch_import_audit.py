@@ -5,8 +5,9 @@ Committer on the CPU and two 16-tx blocks through the columnar decode
 and the vectorized MVCC (host verifier), verifies one idemix
 presentation on the host path, orders and commits one 8-tx block
 through the port's e2e Network (with the host verifier: the GPU
-verifier's CPU path ran above) and one through a staged, vector-MVCC
-Network from 4 submitter threads, then inspects sys.modules."""
+verifier's CPU path ran above), one through a staged Network from 4
+submitter threads and one through a Network of three Raft orderers (a
+follower forwarding to the leader), then inspects sys.modules."""
 import json
 import os
 import pathlib
@@ -37,7 +38,7 @@ assert committer.store_block(messages.Block.decode(blocks[0])) == flags[0]
 assert committer.ledger.height == 1
 from fabric_mod_tpu_torch.bccsp import sw
 blocks, flags = fixtures.make_commit_blocks(world, 2, 16)
-committer = world.committer(sw.SwVerifier(), vector_mvcc=True)
+committer = world.committer(sw.SwVerifier())
 for raw, want in zip(blocks, flags):
     assert committer.store_block(messages.Block.decode(raw)) == want
     assert committer.last_timings["body_fallbacks"] == 0
@@ -65,7 +66,7 @@ with tempfile.TemporaryDirectory() as root:
         net.close()
     net = e2e.Network(root + "/staged", material=material,
                       verifier=sw.SwVerifier(), ingress_batching=True,
-                      staged_batch=8, vector_mvcc=True)
+                      staged_batch=8)
     try:
         submits, want = fixtures.make_e2e_stream(net, 8, plant_every=8,
                                                  order_free=True)
@@ -79,6 +80,24 @@ with tempfile.TemporaryDirectory() as root:
                                  protoutil.block_txflags(block))}
         assert got == {protoutil.envelope_channel_header(env).tx_id: flag
                        for env, flag in zip(envs, want)}
+    finally:
+        net.close()
+from fabric_mod_tpu_torch.orderer import raft, raftchain
+material = fixtures.make_network_material(2, consensus_type="etcdraft",
+                                          orderers=3, max_message_count=8,
+                                          batch_timeout="60s")
+with tempfile.TemporaryDirectory() as root:
+    net = e2e.Network(root, material=material, verifier=sw.SwVerifier())
+    try:
+        assert isinstance(net.support.chain, raftchain.RaftChain)
+        follower = next(o for o in net.orderers if o.id != net.raft_leader())
+        submits, want = fixtures.make_e2e_stream(net, 8, plant_every=8)
+        for env, ok in submits:
+            if ok:
+                follower.broadcast.submit(env)
+        assert e2e.commit_until(net, 8, 120)[1] == 8
+        block = net.ledger.get_block_by_number(1)
+        assert list(protoutil.block_txflags(block)) == want
     finally:
         net.close()
 bad = sorted(n for n in sys.modules

@@ -123,8 +123,7 @@ def test_raw_lanes_hash_into_the_packed_e_rows(case, monkeypatch):
     monkeypatch.setattr(sha256, "sha256_e", recording_sha)
     monkeypatch.setattr(gpu, "marshal_items", recording_marshal)
     launches = sha256.counts()
-    committer = world.committer(gpu.GpuVerifier(device="cpu", cache_size=0),
-                                vector_mvcc=True)
+    committer = world.committer(gpu.GpuVerifier(device="cpu", cache_size=0))
     assert committer.store_block(m.Block.decode(blocks[0])) == expected[0]
     assert sha256.counts() == launches
     assert len(calls) == len(items) >= 1

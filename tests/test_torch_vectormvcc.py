@@ -1,8 +1,9 @@
 """The port's vectorized MVCC (fabric_mod_tpu_torch/ledger/mvcc.py
 `validate_and_prepare_batch_vectorized` over protos/batchdecode.py's
 planes) against the reference's and against the port's own generic
-pass, and the block commit with `vector_mvcc=True` against the reference
-TxValidator run with FABRIC_MOD_TPU_VECTOR_MVCC on.
+pass, and the block commit (handed its stage-time rwsets, so the
+vectorized pass, or committed without them, so the generic one) against
+the reference TxValidator run with FABRIC_MOD_TPU_VECTOR_MVCC on.
 
 The MVCC differential runs seeded random blocks (stale and fresh reads,
 reads of absent keys, deletes, range queries with honest and bogus
@@ -217,13 +218,22 @@ def test_vector_commit_equals_reference(stream, tmp_path, monkeypatch,
         return real(txs, db, num, planes)
     monkeypatch.setattr(kvledger, "validate_and_prepare_batch_vectorized",
                         counted)
-    committer = world.committer(sw.SwVerifier(), vector_mvcc=vector)
+    committer = world.committer(sw.SwVerifier())
     flags, fallbacks = [], []
     for raw in blocks:
-        flags.append(committer.store_block(m.Block.decode(raw)))
-        fallbacks.append(committer.last_timings["body_fallbacks"])
-        assert committer.last_timings["spine_fallbacks"] == 0
-    # every scanner-accepted row took the columnar route when armed
+        block = m.Block.decode(raw)
+        if vector:
+            flags.append(committer.store_block(block))
+            fallbacks.append(committer.last_timings["body_fallbacks"])
+            assert committer.last_timings["spine_fallbacks"] == 0
+        else:
+            # committed without the stage-time rwsets: the generic pass
+            staged = committer.validator.stage(block)
+            fallbacks.append(staged.rwsets.fallbacks)
+            flags.append(committer.ledger.commit_block(
+                block, committer.validator.finish(staged)))
+    # every scanner-accepted row took the columnar route when handed
+    # the rwsets, and none without them
     assert passes == ([16, 16, 15] if vector else [])
     assert flags == ref_flags
     assert fallbacks == ref_fallbacks
