@@ -11,8 +11,12 @@ Phases (any failure exits non-zero; none is caught):
 1. header — the card's name, and its name and power limit from nvidia-smi;
 2. build — the three sources from fabric_mod_tpu_torch/csrc/ (nvcc,
    started together): the ladders, the verify core's prologue and
-   epilogue, and the raw lanes' SHA-256, with ptxas' registers, stack
-   and spills for each entry function;
+   epilogue, and the raw lanes' SHA-256, with ptxas' registers, stack,
+   spills and barriers for each entry function; with them the
+   measurement scripts/sha256_latency_probe.cu (into build/probe/), whose
+   clock64 readings of dependent chains on one warp (the cycles a link
+   of SHF -> LOP3 -> IADD3, of a shuffle and an add, and of the SHA-256
+   round's own chain) phase 3's chain floor uses;
 3. kernel against plain — each ladder kernel at 2048 lanes against its
    plain PyTorch version on the card (random windows, distinct keys
    (i+2)G, identity-adjacent edge lanes, an off-curve and a (0, 0) key):
@@ -41,9 +45,16 @@ Phases (any failure exits non-zero; none is caught):
    sampled lanes), the other rows and lanes untouched.  At the main
    path's inputs (2048 real messages): bit-equal again, device time,
    the plain version's time, the bound (32-bit operations over the real
-   blocks, or bytes), and the words plane's host packing time, bytes and
-   pinned upload time, as the main path packs it and with the
-   reference's power-of-two rounding;
+   blocks, or bytes) and the launch geometry; bit-equal and timed at 16
+   and 1 lanes too; at each width the cycles a round of the longest
+   lane, the chain floor (the kernel's longest dependent chain in its
+   SASS, a step, times the cycles a dependent instruction takes, from
+   phase 2's probe, and the round's chain measured whole; "not
+   measured" where cuobjdump cannot read the SASS) and the dispatch
+   floor (its ALU-pipe instructions a step x 2 cycles); its SASS opcode
+   counts; and the
+   words plane's host packing time, bytes and pinned upload time, as the
+   main path packs it and with the reference's power-of-two rounding;
 4. verify path — 4 blocks of 1000 transactions (3000 signatures each,
    2-of-3 endorsement) through GpuVerifier.verify_many, once per ladder;
    the 4th block's endorser items are raw messages hashed on the card
@@ -169,6 +180,7 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 LANES = 2048
 N_BLOCKS = 4
@@ -272,6 +284,28 @@ SLEEP_CYCLES = 50_000_000
 SHA_OPS_PER_BLOCK = 48 * (2 * 4 + 2) + 64 * (4 + 1 + 2 + 4 + 1 + 1 + 1) + 8
 # (IMAD included: nvcc puts some adds on the multiply-add pipe as IMAD.IADD)
 SHA_SASS_ALU = ("LOP3", "SHF", "IADD3", "IMAD", "IADD", "SHL", "SHR")
+# The round's chain in the SASS: integer instructions on the ALU pipe and on
+# the FMA pipe (IMAD), each a warp instruction in 2 dispatch cycles (16 lanes
+# of each pipe a scheduler: INT_MADD_PER_SM_CLOCK / 4 schedulers), and the
+# instructions that end a straight-line segment (the consumer's 64 unrolled
+# rounds are the segment with the longest dependent chain)
+SASS_ALU_PIPE = ("SHF", "LOP3", "IADD3", "IADD", "SHL", "SHR", "LEA", "PRMT",
+                 "VIADD", "SEL")
+SASS_FMA_PIPE = ("IMAD",)
+SASS_SEGMENT_END = ("BRA", "BSSY", "BSYNC", "BAR", "EXIT", "RET", "WARPSYNC",
+                    "CALL", "NANOSLEEP")
+DISPATCH_CYCLES_PER_WARP_OP = 2
+# scripts/sha256_latency_probe.cu, built beside the package's sources
+# into build/probe/ (a directory .gitignore lists); iterations of 8 links
+# a launch; its modes
+PROBE_SOURCE = Path(__file__).resolve().parent / "scripts" / \
+    "sha256_latency_probe.cu"
+PROBE_ITERS = 4096
+PROBE_MODES = {"alu": 0, "shuffle": 1, "round": 2}
+# phase 3's other widths of the SHA kernel: an ingress cohort, an MCS check
+SHA_WIDTHS = (16, 1)
+# steps a block of the two-thread consumer: 64 rounds, the a-side two behind
+SHA_PAIR_STEPS = 66
 # phase 3's SHA lanes: the commit fixture's real creator and endorser
 # messages, then these edge lengths (bytes); every SHA_NO_MSG_EVERY-th lane
 # carries no message and must keep its e rows; hashlib checks a sample
@@ -385,10 +419,11 @@ def sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
-def sass_opcodes(path, kernel: str):
-    """{opcode: count} over `kernel`'s SASS in the built library at
-    `path` (cuobjdump of the toolkit that built it), or None where it
-    cannot be read."""
+def sass_listing(path, kernel: str):
+    """[(opcode, operands)] of the first function in the built library at
+    `path` whose name contains `kernel` (cuobjdump of the toolkit that
+    built it; a label is ("<label>:", "")), or None where it cannot be
+    read."""
     from fabric_mod_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     try:
@@ -397,17 +432,69 @@ def sass_opcodes(path, kernel: str):
                              timeout=120).stdout
     except (OSError, subprocess.SubprocessError):
         return None
-    counts, inside = {}, False
+    listing, state = [], "before"
     for line in out.splitlines():
         text = line.strip()
         if text.startswith("Function :"):
-            inside = kernel in text
+            if state == "inside":
+                break
+            state = "inside" if kernel in text else state
             continue
-        m = inside and re.match(
-            r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", text)
+        if state != "inside":
+            continue
+        if re.match(r"\.L_\w+:", text):
+            listing.append((text, ""))
+            continue
+        m = re.match(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", text)
         if m:
-            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
-    return counts or None
+            listing.append((m.group(1), m.group(2)))
+    return listing or None
+
+
+def sass_opcodes(path, kernel: str):
+    """{opcode: count} over `kernel`'s SASS (sass_listing), or None."""
+    listing = sass_listing(path, kernel)
+    if listing is None:
+        return None
+    counts = {}
+    for op, _args in listing:
+        if not op.endswith(":"):
+            base = op.split(".")[0]
+            counts[base] = counts.get(base, 0) + 1
+    return counts
+
+
+def sass_chain(listing):
+    """The straight-line segment of a SASS listing with the longest chain
+    of dependent integer instructions (ALU or FMA pipe; a load's or a
+    shuffle's result starts a chain at 0): (that chain's length in
+    instructions, {opcode: count} of the segment's instructions)."""
+    best = (0, {})
+    depth, counts, longest = {}, {}, 0
+    for op, args in listing + [("EXIT", "")]:
+        base = op.split(".")[0]
+        if op.endswith(":") or base in SASS_SEGMENT_END:
+            if longest > best[0]:
+                best = (longest, counts)
+            depth, counts, longest = {}, {}, 0
+            continue
+        counts[base] = counts.get(base, 0) + 1
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", args)]
+        if not regs:
+            continue
+        if (base in SASS_ALU_PIPE or base in SASS_FMA_PIPE) and re.match(
+                r"R\d+\b", args):
+            d = 1 + max((depth.get(r, 0) for r in regs[1:]), default=0)
+            longest = max(longest, d)
+            width = 2 if ".WIDE" in op else 1
+        else:
+            # a load or shuffle: its result starts a chain
+            d = 0
+            width = 4 if ".128" in op else (2 if ".64" in op else 1)
+        for k in range(width):
+            depth[regs[0] + k] = d
+    return best
 
 
 def prologue_products() -> int:
@@ -645,15 +732,75 @@ def commit_messages(blocks, limit: int) -> list:
     return out
 
 
-def phase_sha_kernel(torch, np, dev, clock, n_sm, messages):
+def sha_geometry(lib) -> str:
+    """The SHA-256 kernel's launch geometry, described."""
+    import ctypes
+    vals = [ctypes.c_int() for _ in range(4)]
+    lib.sha256_e_geometry(*(ctypes.byref(v) for v in vals))
+    lanes, producers, depth, ring_bytes = (v.value for v in vals)
+    return (f"{lanes} lanes a thread block, 1 consumer warp (two threads a "
+            f"lane: e-side and a-side, a shuffle a round) and {producers} "
+            f"producer warp, a ring of {depth} slots = {ring_bytes} bytes of "
+            f"dynamic shared memory a block")
+
+
+def start_probe_build():
+    """nvcc of PROBE_SOURCE into build/probe/, started (Popen) to run
+    beside the package's builds; finish_probe_build waits for it."""
+    from fabric_mod_tpu_torch.ops import _build
+    out = _build.BUILD_DIR.parent / "probe" / "sha256_latency_probe.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(
+        [_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+         "-Xcompiler", "-fPIC", "-o", str(out), str(PROBE_SOURCE)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def finish_probe_build(started):
+    """The built probe as a ctypes library; raises if nvcc failed."""
+    import ctypes
+    proc, out = started
+    log_text, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc of {PROBE_SOURCE} exited {proc.returncode}"
+                           f"\n{log_text}")
+    fn = ctypes.CDLL(str(out)).sha256_latency_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    return fn
+
+
+def latency_probe(torch, dev, probe_fn) -> dict:
+    """Cycles a link of a dependent chain takes on this card, by the
+    probe's clock64 over a chain on one warp (its second launch; the
+    first warms the instruction cache): {"alu": one of SHF -> LOP3 ->
+    IADD3 (a third of it is a dependent instruction), "shuffle": a
+    butterfly shuffle and an add, "round": the round's chain, three SHF
+    into a LOP3 into an IADD3}."""
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cycles = {}
+    for name, mode in PROBE_MODES.items():
+        for _ in range(2):
+            if probe_fn(out.data_ptr(), PROBE_ITERS, mode, stream) != 0:
+                raise AssertionError("sha256_latency_probe: launch failed")
+            torch.cuda.synchronize()
+        cycles[name] = out[0].item() / out[1].item()
+    return cycles
+
+
+def phase_sha_kernel(torch, np, dev, clock, n_sm, messages, probe):
     """Phase 3 for the raw lanes' SHA-256.  Correctness: the kernel
     against its plain version on the card at 2048 lanes of real
     commit-path messages and the edge lengths, every SHA_NO_MSG_EVERY-th
     lane without a message, in the packed buffer's e rows; hashlib on
     sampled lanes.  Then, at the main path's inputs (2048 real messages,
     every lane raw): the kernel against plain again, device time, the
-    plain version's time, the bound, the words plane's host packing,
-    bytes and upload."""
+    plain version's time, the bound, the widths 16 and 1, the chain and
+    dispatch floors (probe: latency_probe's readings), the
+    words plane's host packing, bytes and upload."""
     import hashlib
 
     from fabric_mod_tpu_torch import device as _device
@@ -775,7 +922,7 @@ def phase_sha_kernel(torch, np, dev, clock, n_sm, messages):
     b_by = "operations" if bound_ops >= bound_bytes else "bytes"
     log(f"kernel sha256_e at the main path's inputs ({LANES} real messages, "
         f"blocks per lane mean {nblocks.mean():.2f}, max {int(nblocks.max())};"
-        f" {lib.sha256_e_geometry(LANES)} lanes per thread block): bit-equal "
+        f" {sha_geometry(lib)}): bit-equal "
         f"to plain; device {dev_ms:.4f} ms per call (CUDA events over "
         f"{DEVICE_REPS} direct launches queued behind a sleep), {ev_ms:.4f} ms "
         f"per wrapper call (CUDA events, 10 calls), wrapper host wall "
@@ -785,13 +932,62 @@ def phase_sha_kernel(torch, np, dev, clock, n_sm, messages):
         f"clock x {n_sm} SMs x {clock / 1e6:.0f} MHz = {bound_ops:.5f} ms; "
         f"{nbytes} bytes = {bound_bytes:.6f} ms); library_ms null (no "
         f"PyTorch call computes SHA-256)")
-    ops_seen = sass_opcodes(_build.library_path("sha256"), "sha256_e_kernel")
+
+    # the chain: what the SASS and the card (phase 2's probe) say a round
+    # can take; without the SASS the chain and dispatch floors are not
+    # measured
+    kernel = "sha256_e_kernel"
+    listing = sass_listing(_build.library_path("sha256"), kernel)
+    chain, seg = sass_chain(listing) if listing else (0, {})
+    steps = SHA_PAIR_STEPS
+    dep_step = chain / steps
+    alu = sum(seg.get(op, 0) for op in SASS_ALU_PIPE) / steps
+    fma = sum(seg.get(op, 0) for op in SASS_FMA_PIPE) / steps
+    dispatch_step = DISPATCH_CYCLES_PER_WARP_OP * max(alu, fma)
+    per_dep = probe["alu"] / 3
+    for width in (LANES,) + SHA_WIDTHS:
+        if width == LANES:
+            ms_w, max_nb = dev_ms, int(nblocks.max())
+        else:
+            buf_w = buf0[:, :width].contiguous()
+            against_plain(w[:width], nb[:width], buf_w, f"{width} lanes")
+            a_w = (w.data_ptr(), nb.data_ptr(), words.shape[1],
+                   buf_w.data_ptr(), width, stream)
+            ms_w = device_ms(torch, lambda a=a_w: lib.sha256_e_launch(*a))
+            max_nb = int(nblocks[:width].max())
+        cycles = max_nb * steps / clock * 1e3
+        if chain:
+            floors = (f"chain floor {cycles * dep_step * per_dep:.4f} ms "
+                      f"({max_nb} blocks x {steps} steps x {dep_step:.2f} "
+                      f"dependent instructions a step x {per_dep:.2f} cycles "
+                      f"each / {clock / 1e6:.0f} MHz); dispatch floor "
+                      f"{cycles * dispatch_step:.4f} ms")
+        else:
+            floors = ("chain floor not measured, dispatch floor not "
+                      "measured (cuobjdump gave no SASS)")
+        log(f"sha256_e at {width} lanes (longest lane {max_nb} blocks): "
+            f"device {ms_w:.4f} ms per call (bit-equal to plain); "
+            f"{ms_w * 1e-3 * clock / (max_nb * 64):.1f} cycles a round of "
+            f"the longest lane; {floors}; {cycles * probe['round']:.4f} ms "
+            f"at the round's chain measured whole ({probe['round']:.2f} "
+            f"cycles a link)")
+    if chain:
+        log(f"sha256_e round (SASS, cuobjdump): the longest dependent chain "
+            f"{chain} instructions over a block's {steps} unrolled steps, "
+            f"{dep_step:.2f} a step; a step dispatches {alu:.2f} ALU-pipe and "
+            f"{fma:.2f} FMA-pipe instructions (the segment: "
+            f"{dict(sorted(seg.items()))}), so one warp dispatches a step in "
+            f"no fewer than {dispatch_step:.1f} cycles "
+            f"({DISPATCH_CYCLES_PER_WARP_OP} cycles a warp instruction on a "
+            f"pipe of 16 lanes)")
+    ops_seen = sass_opcodes(_build.library_path("sha256"), kernel)
     if ops_seen is None:
         log("sha256_e SASS: not read (cuobjdump gave nothing)")
     else:
-        alu = {op: ops_seen.get(op, 0) for op in SHA_SASS_ALU}
-        log(f"sha256_e SASS (cuobjdump; one block's unrolled compress plus "
-            f"the set-up around it): 32-bit ALU {sum(alu.values())} ({alu}), "
+        counted = {op: ops_seen.get(op, 0) for op in SHA_SASS_ALU}
+        log(f"sha256_e SASS (cuobjdump; the consumer's 64 unrolled rounds, "
+            f"the producer's unrolled schedule and the set-up around them): "
+            f"32-bit ALU {sum(counted.values())} ({counted}), "
             f"all instructions {sum(ops_seen.values())} "
             f"({dict(sorted(ops_seen.items(), key=lambda kv: -kv[1]))}); "
             f"the bound counts {SHA_OPS_PER_BLOCK} a block")
@@ -1758,13 +1954,21 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
+    probe_build = start_probe_build()
     logs = _build.build_many()
-    log(f"build: {time.perf_counter() - t0:.1f} s for {list(_build.SOURCES)}")
+    probe_fn = finish_probe_build(probe_build)
+    log(f"build: {time.perf_counter() - t0:.1f} s for {list(_build.SOURCES)} "
+        f"and {PROBE_SOURCE.name}")
     for src, out in logs.items():
         for line in out.splitlines():
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 log(f"  ptxas[{src}]: {line.strip()}")
+    probe = latency_probe(torch, dev, probe_fn)
+    log(f"sha256_latency_probe (clock64 on one warp, cycles a link): SHF -> "
+        f"LOP3 -> IADD3 {probe['alu']:.2f}, a shuffle and an add "
+        f"{probe['shuffle']:.2f}, three SHF -> LOP3 -> IADD3 "
+        f"{probe['round']:.2f}")
 
     # 3. kernels against their plain versions; the SHA-256 kernel on the
     # block-commit fixture's real messages (made here, committed in 5)
@@ -1779,7 +1983,7 @@ def main() -> int:
     kernels.update(phase_sha_kernel(
         torch, np, dev, sm_clock_hz(),
         torch.cuda.get_device_properties(0).multi_processor_count,
-        commit_messages(commit_blocks, LANES)))
+        commit_messages(commit_blocks, LANES), probe))
 
     # 4. the verify path
     t0 = time.perf_counter()

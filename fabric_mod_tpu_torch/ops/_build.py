@@ -45,7 +45,8 @@ SIGNATURES = {
     "sha256": {
         "sha256_e_launch": (ctypes.c_int,
                             [_P, _P, ctypes.c_int, _P, ctypes.c_int, _P]),
-        "sha256_e_geometry": (ctypes.c_int, [ctypes.c_int]),
+        "sha256_e_geometry": (ctypes.c_int,
+                              [ctypes.POINTER(ctypes.c_int)] * 4),
     },
 }
 

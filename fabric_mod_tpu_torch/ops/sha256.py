@@ -3,17 +3,33 @@ core.
 
 The port of fabric_mod_tpu/ops/sha256.py (`sha256_blocks`, :81, a
 jitted lax.scan).  On the card `sha256_e` launches the hand-written
-CUDA kernel of csrc/sha256.cu: one thread a lane, hashing the lane's
-own pre-padded blocks and writing the digest straight into the e rows
-of the verify core's packed buffer (ops/p256_core.py) for the lanes
-whose FLAG_HAS_MSG is set.  For a CPU tensor `sha256_e` is the plain
-version, `sha256_e_plain`: `sha256_blocks` in torch ops (the batch
-axis carries the parallelism; mixed lengths are padded to the batch's
-max block count and a lane's state freezes once its own blocks run
-out; words in int64 masked to 32 bits, since torch's uint32 op
-coverage is partial), then `p256.digest_words_le` and a select.  The
-kernel has a launch count (`LAUNCHES`), raised by one where the wrapper
-launches it and nowhere else.
+CUDA kernel of csrc/sha256.cu, which writes each digest straight into
+the e rows of the verify core's packed buffer (ops/p256_core.py) for
+the lanes whose FLAG_HAS_MSG is set.
+
+What bounds that kernel is the chain, not operations: a lane's blocks
+are one chain of 64 dependent rounds each, so a call lasts as long as
+its longest lane, and the warp that runs a lane's rounds is the limit
+(a full warp's dependent ALU instruction takes ~5.8 cycles on an H100,
+and its integer ALU takes a warp instruction in two).  A thread block
+is therefore split by role: a producer warp loads each lane's blocks,
+expands the message schedule and writes the 64 K_t + W_t of each block
+into a ring in shared memory; the consumer warp runs only the rounds,
+two threads a lane (one the e-side of each round, the other the a-side
+two rounds behind, one shuffle a round), so that each thread dispatches 8
+ALU instructions a round on a 3-instruction chain.  The geometry is
+fixed (16 lanes a block, one producer warp) from a sweep measured on an
+H100, in which lane counts and producer warps moved nothing and the
+consumer set the time (PERF.md §6).
+
+For a CPU tensor `sha256_e` is the plain version, `sha256_e_plain`:
+`sha256_blocks` in torch ops (the batch axis carries the parallelism;
+mixed lengths are padded to the batch's max block count and a lane's
+state freezes once its own blocks run out; words in int64 masked to 32
+bits, since torch's uint32 op coverage is partial), then
+`p256.digest_words_le` and a select.  The kernel has a launch count
+(`LAUNCHES`), raised by one where the wrapper launches it and nowhere
+else.
 """
 from __future__ import annotations
 

@@ -451,7 +451,7 @@ def test_digest_verify_call_is_three_launches(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2048, 5])
+@pytest.mark.parametrize("n", [2048, 5, 1, 16, 4096])
 def test_sha256_kernel_matches_plain_on_card(cuda_device, n):
     """sha256_e on the card writes the plain SHA-256's e words (and
     hashlib's digests) into the raw lanes' e rows, and nothing else."""
@@ -491,6 +491,38 @@ def test_sha256_kernel_matches_plain_on_card(cuda_device, n):
         else:
             assert got[:, lane].cpu().numpy().tolist() == \
                 base[:, lane].tolist()
+
+
+@pytest.mark.cuda
+def test_sha256_kernel_long_lane_and_clamped_nblocks_on_card(cuda_device):
+    """One 48-block lane among short and message-free lanes, two lanes
+    whose nblocks lie out of range: the wrapper's launch (one count)
+    writes the plain version's e rows, bit for bit."""
+    from fabric_mod_tpu_torch import device as _device
+    from fabric_mod_tpu_torch.bccsp import der
+    from fabric_mod_tpu_torch.ops import sha256
+    n = 64
+    rng = random.Random(48)
+    msgs = [rng.randbytes(rng.randrange(200)) for _ in range(n)]
+    msgs[7] = rng.randbytes(3000)
+    words, nblocks, _ok = der.pack_messages(msgs)
+    assert words.shape[1] == 48 and nblocks[7] == 48
+    nblocks[3], nblocks[11] = -2, 48 + 9
+    base = np.random.default_rng(48).integers(
+        -2**31, 2**31, (p256_core.ROWS, n)).astype(np.int32)
+    # every fifth lane from lane 4 without a message; lanes 3, 7, 11 raw
+    base[p256_core.ROW_FLAGS] = np.where(np.arange(n) % 5 != 4,
+                                         p256_core.FLAG_HAS_MSG, 0)
+    w = _device.upload(words.view(np.int32), cuda_device)
+    nb = _device.upload(nblocks, cuda_device)
+    want = sha256.sha256_e_plain(w, nb, torch.from_numpy(base).to(
+        cuda_device))
+    got = torch.from_numpy(base).to(cuda_device)
+    before = sha256.counts()["sha256_e"]
+    sha256.sha256_e(w, nb, got)
+    torch.cuda.synchronize()
+    assert sha256.counts()["sha256_e"] == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

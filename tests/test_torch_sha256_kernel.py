@@ -1,11 +1,13 @@
 """The SHA-256 kernel (fabric_mod_tpu_torch/csrc/sha256.cu) held on this
 CPU: its per-lane code is plain C++ outside `__CUDACC__`, so g++ builds
-it (tests/_torch_sha256_shim.py) and it is compared with hashlib and
-with the plain PyTorch version (ops/sha256.sha256_e_plain over
-sha256_blocks), digest by digest in the verify core's packed buffer.
-The CPU route of the raw verify path (ops/p256.batch_verify_raw) goes
-through the same plain version.  The card's own runs of the kernel are
-the `cuda` tests in tests/test_torch_cuda.py."""
+it (tests/_torch_sha256_shim.py), composing the producers' schedule and
+the consumer's rounds through the kernel's shared-memory ring, and it is
+compared with hashlib, with the plain PyTorch version
+(ops/sha256.sha256_e_plain over sha256_blocks) and with the JAX
+reference's sha256_blocks, digest by digest in the verify core's packed
+buffer.  The CPU route of the raw verify path (ops/p256.batch_verify_raw)
+goes through the same plain version.  The card's own runs of the kernel
+are the `cuda` tests in tests/test_torch_cuda.py."""
 import hashlib
 import random
 
@@ -15,11 +17,30 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from fabric_mod_tpu.ops import sha256 as jsha
 from fabric_mod_tpu_torch.bccsp import der
 from fabric_mod_tpu_torch.ops import p256_core, sha256
 from tests import _torch_sha256_shim as shim
 
 EDGE_LENGTHS = [0, 1, 55, 56, 63, 64, 119, 120]
+# the ring test's input sets: message lengths in bytes, and the lanes
+# whose nblocks is set out of range (_ring_inputs)
+_rng = random.Random(14)
+RING_CASES = {
+    # 3000 bytes: 48 blocks, far more than the ring's 4 slots
+    "edge_and_long_lengths": ([0, 1, 55, 56, 63, 64, 119, 120, 1000, 3000],
+                              ()),
+    # 4, 5 and 9 blocks: the ring full, wrapped once, wrapped twice
+    "ring_wraps": ([247, 311, 567, 0, 3000], ()),
+    # one thread block of 16 lanes of different lengths
+    "mixed_lengths_in_one_block": ([_rng.randrange(3001) for _ in range(16)],
+                                   ()),
+    # a second thread block: 5 lanes, its other 11 past the batch
+    "two_thread_blocks": ([_rng.randrange(701) for _ in range(21)], ()),
+    "nblocks_out_of_range": ([200, 200, 200, 900, 10, 0], (0, 1, 2)),
+    # the width of an MCS check
+    "one_lane": ([1000], ()),
+}
 
 
 @pytest.fixture(scope="module")
@@ -142,3 +163,53 @@ def test_cpu_raw_route_writes_the_digest_e_rows():
     for lane, m in enumerate(msgs):
         assert _e_digest(t.numpy(), lane) == hashlib.sha256(m).digest()
     assert np.array_equal(t.numpy()[:, 3], buf[:, 3])
+
+
+def _ring_inputs(case):
+    """RING_CASES[case] packed: words, nblocks (with the case's lanes set
+    out of range: -3, max_blocks + 5, 2^31 - 1 in turn) and messages."""
+    lengths, out_of_range = RING_CASES[case]
+    rng = random.Random(sum(map(ord, case)))
+    msgs = [rng.randbytes(n) for n in lengths]
+    words, nblocks, ok = der.pack_messages(msgs)
+    assert ok.all()
+    nblocks = nblocks.copy()
+    for lane, nb in zip(out_of_range, (-3, words.shape[1] + 5, 2**31 - 1)):
+        nblocks[lane] = nb
+    return words, nblocks, msgs
+
+
+def _jax_digests(words, nblocks):
+    """The JAX reference's sha256_blocks of the same numpy words, in
+    batches of at most 16 lanes (int64 words)."""
+    import jax.numpy as jnp
+    out = [np.asarray(jsha.sha256_blocks(jnp.asarray(words[i:i + 16]),
+                                         jnp.asarray(nblocks[i:i + 16])))
+           for i in range(0, words.shape[0], 16)]
+    return np.concatenate(out).astype(np.int64)
+
+
+@pytest.mark.parametrize("case", list(RING_CASES))
+def test_ring_composition_matches_three_references(sha_lib, case):
+    """The producer's schedule -> ring -> the consumer's rounds, composed
+    as the kernel composes them in its thread blocks (each lane looping
+    to its block's longest): equal to the JAX reference's sha256_blocks
+    and the port's plain sha256_blocks on every lane (out-of-range
+    nblocks clamped), and to hashlib on the in-range ones."""
+    words, nblocks, msgs = _ring_inputs(case)
+    want = _jax_digests(words, nblocks)
+    plain = sha256.sha256_blocks(torch.from_numpy(words.astype(np.int64)),
+                                 torch.from_numpy(nblocks.astype(np.int64)))
+    assert np.array_equal(plain.numpy(), want)
+    buf = _packed(len(msgs), np.ones(len(msgs), bool))
+    got = shim.sha256_e(sha_lib, words, nblocks, buf)
+    e_words = got[p256_core.ROW_E:p256_core.ROW_E + 8].view(np.uint32)
+    assert np.array_equal(e_words.T[:, ::-1].astype(np.int64), want)
+    assert np.array_equal(got, _plain(words, nblocks, buf))
+    out_of_range = RING_CASES[case][1]
+    for lane, m in enumerate(msgs):
+        if lane not in out_of_range:
+            assert _e_digest(got, lane) == hashlib.sha256(m).digest()
+    if out_of_range:                       # nblocks -3: no block hashed
+        assert [int(w) for w in e_words[::-1, out_of_range[0]]] == \
+            [int(v) for v in sha256._H0]
