@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's device paths once on one CUDA card: the
 block commit, the end-to-end network around it (the main path) on a solo
-and on a three-node Raft ordering service, and the idemix presentation
-verify.
+and on a three-node Raft ordering service, gossip around it, and the
+idemix presentation verify.
 
     python3 chip_smoke.py
 
@@ -164,9 +164,41 @@ Phases (any failure exits non-zero; none is caught):
    elections and leader changes during the span and each node's WAL
    fsyncs.
 
+10. gossip (run last, after 9, 6 and 7: after (b)'s long profiled
+   window, later torch.profiler windows on the card recorded none of the
+   hand-written kernels; BASELINE.md #5, the reference's bench.py:1278
+   and :2229) — (a) the storm: 96 puts ordered by a solo network into
+   three 32-tx blocks; 50 peer threads, each its own MCS over one
+   bundle, start on a barrier and verify the blocks 3 times over: on
+   the host verifier (the oracle), then through one
+   BatchingVerifyService over the card's GpuVerifier with no memo-cache
+   (a warm-up run, the timed run, a profiled run) and with the default
+   memo-cache; every peer must accept every block and, in every arm,
+   reject a copy with one flipped orderer-signature byte.  Prints block
+   verifies/s of each arm and their ratio, the calls into the
+   GpuVerifier and the mean cohort, the launches, and the split of
+   sampled MCS calls (every 10th peer's) into host time, verify_many's
+   wall and the device span of the calls they rode on.  (b) the
+   network: a solo network orders the first 2 blocks of phase 8 arm
+   (a)'s stream (1000 txs each, arm (a)'s order); 50 gossip peers, each
+   its own ledger, Channel (tensor policy, commit pipe of depth 2),
+   GossipNode and GossipService, every channel's verifier one
+   BatchingVerifyService over one GpuVerifier, join by one round of
+   signed alive messages (each peer to every other; fresh news is
+   forwarded); a copy of block 1 with a flipped signature byte is pushed
+   to every peer, which must reject it; the minimum-PKI-ID peer, pinned
+   as static leader, delivers and pushes, the others commit what the
+   pushes and their pulls bring.  Every peer must reach the orderer's
+   height with arm (a)'s flags and state, keep no error, and the three
+   digest kernels must have launched.  Prints the wall from the first
+   delivered block to the last peer's last commit, peer-blocks/s, the
+   envelopes sent, the envelope, MCS and commit verify calls, the calls
+   into the GpuVerifier by size, the launches, and torch.profiler over
+   the last block's spread.
+
 It prints one JSON line describing each of the five kernels
-(`launches` counts the block-commit phase and the four e2e arms), and
-as its last line
+(`launches` counts the block-commit phase, the four e2e arms and
+phase 10's two parts), and as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -324,6 +356,24 @@ E2E_STAGED_BATCH = 256
 RAFT_ORDERERS = 3
 RAFT_ELECTION_TIMEOUT = (5.0, 10.0)
 RAFT_HEARTBEAT_S = 0.5
+
+# phase 10: BASELINE.md #5's 50-peer gossip (bench.py:1278 measure_gossip,
+# bench.py:2229's composed peers).  The storm's 96 puts are cut on count
+# into three 32-tx blocks (the reference's 50 ms timeout would cut them
+# at the pace of the host's Writers checks instead); every 10th storm
+# peer's MCS calls are split by time.  The network's peers keep the
+# reference's anti-entropy cadence (0.5 s): a push reaches ~sqrt(N) peers
+# a hop, and the pull repairs the peers it missed.
+GOSSIP_PEERS = 50
+STORM_TXS = 96
+STORM_BLOCK_TXS = 32
+STORM_BATCH_TIMEOUT = "2s"
+STORM_REPS = 3
+STORM_SAMPLE_EVERY = 10
+# (b) is cut to the stream's first 2 blocks (depth): its 4 blocks took
+# 217 s of phase 10 on the card, the 50 peers' commits holding one GIL
+GOSSIP_BLOCKS = 2
+GOSSIP_TIMEOUT_S = 900.0
 
 
 def log(msg: str) -> None:
@@ -1750,6 +1800,601 @@ def profile_e2e_block(torch, material, block, expected):
             net.close()
 
 
+# --- phase 10: gossip (BASELINE.md #5) --------------------------------------
+
+class _CountingNetwork:
+    """Wraps an InProcNetwork's send to count the envelopes sent."""
+
+    def __init__(self, network):
+        self.network = network
+        self.sent = 0
+        self._lock = threading.Lock()
+        send = network.send
+
+        def counted(*args):
+            with self._lock:
+                self.sent += 1
+            return send(*args)
+        network.send = counted
+
+
+def _cohorts(verifier) -> list:
+    """Record the size of every call the coalescing service makes into
+    `verifier` (its device calls before the memo-cache)."""
+    sizes = []
+    inner = verifier.verify_many_async
+
+    def recorded(items):
+        sizes.append(len(items))
+        return inner(items)
+    verifier.verify_many_async = recorded
+    return sizes
+
+
+class McsSplit:
+    """The split of sampled MCS calls' wall: host time outside
+    `verify_many` (data hash, decode, policy prepare), `verify_many`'s
+    wall (the queue, the device, the resolve), and for the device calls
+    that carried a sampled item the device span from before its enqueue
+    to after its last kernel (CUDA events on the flusher's stream) and
+    its host enqueue time."""
+
+    def __init__(self, torch, device_verifier):
+        self._torch = torch
+        self._local = threading.local()
+        self._marked = set()
+        self._lock = threading.Lock()
+        self.calls = []                    # (mcs wall s, verify_many wall s)
+        self.device = []                   # (start, end, enqueue s, items)
+        inner = device_verifier.verify_many_async
+
+        def spanned(items):
+            with self._lock:
+                hit = any(id(it) in self._marked for it in items)
+            if not hit:
+                return inner(items)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            out = inner(items)
+            enqueue_s = time.perf_counter() - t0
+            end.record()
+            self.device.append((start, end, enqueue_s, len(items)))
+            return out
+        device_verifier.verify_many_async = spanned
+
+    def verifier(self, service):
+        """A verifier seam for one sampled peer's MCS."""
+        split = self
+
+        class Timed:
+            def verify_many(self, items):
+                with split._lock:
+                    split._marked.update(id(it) for it in items)
+                t0 = time.perf_counter()
+                try:
+                    return service.verify_many(items)
+                finally:
+                    split._local.vm = time.perf_counter() - t0
+                    with split._lock:
+                        split._marked.difference_update(id(it)
+                                                        for it in items)
+        return Timed()
+
+    def mcs(self, mcs):
+        """Time each verify_block of one sampled peer's MCS."""
+        inner = mcs.verify_block
+
+        def timed(*args, **kw):
+            self._local.vm = 0.0
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kw)
+            finally:
+                self.calls.append((time.perf_counter() - t0,
+                                   self._local.vm))
+        mcs.verify_block = timed
+        return mcs
+
+    def summary(self) -> str:
+        self._torch.cuda.synchronize()
+        n = len(self.calls)
+        if not n:
+            return "no sampled calls"
+        wall = sum(c for c, _ in self.calls) / n * 1e3
+        vm = sum(v for _, v in self.calls) / n * 1e3
+        dev = [(s.elapsed_time(e), q * 1e3, k) for s, e, q, k in self.device]
+        dev_note = "device spans not measured"
+        if dev:
+            dev_note = (
+                f"the {len(dev)} device calls they rode on: device span "
+                f"{sum(d for d, _, _ in dev) / len(dev):.3f} ms each (CUDA "
+                f"events from before the enqueue to after the last kernel; "
+                f"max {max(d for d, _, _ in dev):.3f}), of which the host "
+                f"enqueue {sum(q for _, q, _ in dev) / len(dev):.3f} ms, "
+                f"{sum(k for _, _, k in dev) / len(dev):.1f} items each")
+        return (f"{n} sampled MCS calls: wall {wall:.3f} ms each = host "
+                f"(data hash, decode, policy prepare) {wall - vm:.3f} ms + "
+                f"verify_many {vm:.3f} ms (queue + device + resolve); "
+                f"{dev_note}")
+
+
+def phase_gossip_storm(torch, dev):
+    """Phase 10 (a): GOSSIP_PEERS peer threads, each its own
+    MessageCryptoService over one bundle, verify the same orderer-signed
+    blocks STORM_REPS times (bench.py:1278 measure_gossip): on the host
+    verifier (the oracle), on one BatchingVerifyService over the card's
+    GpuVerifier with no memo-cache (every check reaches the card; timed
+    after a warm-up run, then once more under torch.profiler) and with
+    the default memo-cache; in every arm every peer must reject a copy
+    with a flipped signature byte.  Returns the kernels' launches of the
+    timed card run."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+    from fabric_mod_tpu_torch.peer.mcs import (BlockVerificationError,
+                                               MessageCryptoService)
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.utils import fixtures
+    t_phase = time.perf_counter()
+    material = fixtures.make_network_material(
+        SEED + 10, max_message_count=STORM_BLOCK_TXS,
+        batch_timeout=STORM_BATCH_TIMEOUT)
+    with tempfile.TemporaryDirectory() as root:
+        net = e2e.Network(root, material=material, verifier=sw.SwVerifier())
+        try:
+            envs = []
+            for i in range(STORM_TXS):
+                sp, prop, _ = protoutil.create_chaincode_proposal(
+                    net.channel_id, "mycc", [b"put", b"k%d" % i, b"v%d" % i],
+                    net.client)
+                envs.append(protoutil.create_tx_from_responses(
+                    prop, [net.endorsers[o].process_proposal(sp)
+                           for o in ("Org1", "Org2")], net.client))
+            for env in envs:
+                net.broadcast.submit(env)
+            store = net.support.store
+            deadline = time.monotonic() + E2E_TIMEOUT_S
+            while sum(len(store.get_block_by_number(b).data.data)
+                      for b in range(1, store.height)) < STORM_TXS:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the storm's blocks were not cut")
+                time.sleep(0.01)
+            blocks = [store.get_block_by_number(b)
+                      for b in range(1, store.height)]
+        finally:
+            net.close()
+    channel_id, config = config_from_block(m.Block.decode(material.genesis))
+    bundle = Bundle(channel_id, config, sw.SwCSP())
+    tampered = m.Block.decode(
+        fixtures.tamper_block_signature(blocks[0].encode()))
+    log(f"gossip (a) storm fixtures: {STORM_TXS} puts ordered into "
+        f"{len(blocks)} orderer-signed blocks of "
+        f"{[len(b.data.data) for b in blocks]} txs in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    def storm(verifier, split=None, check=None):
+        """Every peer verifies every block STORM_REPS times (or, with
+        `check`, the tampered copy once); seconds between the barrier and
+        the last peer's end."""
+        svcs = []
+        for i in range(GOSSIP_PEERS):
+            sampled = split is not None and i % STORM_SAMPLE_EVERY == 0
+            svc = MessageCryptoService(
+                lambda: bundle,
+                split.verifier(verifier) if sampled else verifier)
+            svcs.append(split.mcs(svc) if sampled else svc)
+        start = threading.Barrier(GOSSIP_PEERS + 1)
+        errors, rejected = [], []
+
+        def peer(svc):
+            start.wait()
+            try:
+                if check is not None:
+                    try:
+                        svc.verify_block(channel_id, check)
+                    except BlockVerificationError:
+                        rejected.append(1)
+                    return
+                for _ in range(STORM_REPS):
+                    for blk in blocks:
+                        svc.verify_block(channel_id, blk)
+            except Exception as e:          # re-raised below
+                errors.append(e)
+        threads = [threading.Thread(target=peer, args=(s,), daemon=True)
+                   for s in svcs]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=E2E_TIMEOUT_S)
+        dt = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a storm peer is still running")
+        if errors:
+            raise errors[0]
+        if check is not None and len(rejected) != GOSSIP_PEERS:
+            raise AssertionError(f"{len(rejected)} of {GOSSIP_PEERS} peers "
+                                 f"rejected the tampered block")
+        return dt
+
+    n_verifies = GOSSIP_PEERS * STORM_REPS * len(blocks)
+    host = sw.SwVerifier()
+    host_s = storm(host)
+    storm(host, check=tampered)
+    host_rate = n_verifies / host_s
+    log(f"gossip (a) arm 1, host verifier (the oracle): {n_verifies} block "
+        f"verifies ({GOSSIP_PEERS} peers x {STORM_REPS} reps x "
+        f"{len(blocks)} blocks) in {host_s:.3f} s: {host_rate:.1f} block "
+        f"verifies/s; every peer rejected the tampered block")
+
+    card = gpu.GpuVerifier(device=dev, cache_size=0)
+    service = gpu.BatchingVerifyService(card)
+    try:
+        sizes = _cohorts(card)
+        storm(service)                                   # warm-up
+        split = McsSplit(torch, card)
+        del sizes[:]
+        reset_kernel_counts()
+        card_s = storm(service, split=split)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        calls, items = len(sizes), sum(sizes)
+        if items != n_verifies:
+            raise AssertionError(f"{items} items reached the card, "
+                                 f"{n_verifies} verifies were made")
+        if counts["verify_prologue"] == 0 or counts["ladder_projective"] \
+                != counts["verify_prologue"] or counts["verify_epilogue"] \
+                != counts["verify_prologue"] or counts["ladder_mixed"]:
+            raise AssertionError(f"storm kernel launches {counts}")
+        card_rate = n_verifies / card_s
+        log(f"gossip (a) arm 2, one BatchingVerifyService over the card's "
+            f"GpuVerifier (memo-cache off: every check reaches the card): "
+            f"{card_s:.3f} s, {card_rate:.1f} block verifies/s, "
+            f"{card_rate / host_rate:.2f}x the host arm; {calls} calls into "
+            f"the GpuVerifier, mean cohort {items / calls:.2f} items (max "
+            f"{max(sizes)}); kernel launches {counts}; verdicts == the "
+            f"host arm's (every genuine block accepted)")
+        log(f"gossip (a) MCS wall split under the storm: {split.summary()}")
+        wall_ms, n_k, busy_ms, top = device_profile(
+            torch, lambda: storm(service))
+        log_profile(f"gossip (a) storm of {n_verifies} block verifies "
+                    f"(arm 2, profiled)", wall_ms, n_k, busy_ms, top)
+        storm(service, check=tampered)
+    finally:
+        service.close()
+    cached = gpu.BatchingVerifyService(gpu.GpuVerifier(device=dev))
+    try:
+        storm(cached)                                     # fills the cache
+        cached_s = storm(cached)
+        storm(cached, check=tampered)
+    finally:
+        cached.close()
+    log(f"gossip (a) arm 3, as arm 2 with the GpuVerifier's default "
+        f"memo-cache (the reference bench's setting): "
+        f"{n_verifies / cached_s:.1f} block verifies/s "
+        f"({n_verifies / cached_s / host_rate:.2f}x the host arm; after "
+        f"one run every check is a cache hit); every peer rejected the "
+        f"tampered block in arms 2 and 3; phase (a) "
+        f"{time.perf_counter() - t_phase:.1f} s wall")
+    return counts
+
+
+class _GatedSource:
+    """A deliver source that holds block `gate_at` until `release` is
+    set, and notes when it hands out its first block."""
+
+    def __init__(self, source, gate_at: int):
+        self._source = source
+        self.gate_at = gate_at
+        self.release = threading.Event()
+        self.first_at = None
+
+    def blocks(self, start=0, stop=None, stop_event=None, timeout_s=30.0):
+        for block in self._source.blocks(start, stop=stop,
+                                         stop_event=stop_event,
+                                         timeout_s=timeout_s):
+            if block.header.number == self.gate_at:
+                while not self.release.wait(0.05):
+                    if stop_event is not None and stop_event.is_set():
+                        return
+            if self.first_at is None:
+                self.first_at = time.perf_counter()
+            yield block
+
+
+def phase_gossip_network(torch, dev, stream, fingerprint):
+    """Phase 10 (b): GOSSIP_PEERS gossip peers at BASELINE.md #5's width
+    around a solo e2e Network that orders the head of phase 8's stream
+    (arm (a)'s envelopes in arm (a)'s order, GOSSIP_BLOCKS blocks of
+    TX_PER_BLOCK):
+    each peer its own ledger, Channel (tensor policy, commit pipe of
+    depth 2), GossipNode and GossipService on one in-process network,
+    every channel's verifier one BatchingVerifyService over one
+    GpuVerifier.  One round of signed alive messages joins them; the
+    minimum-PKI-ID peer is pinned as the static leader (bench.py:2229),
+    the others commit what its pushes (and their forwards) bring.  A
+    copy of block 1 with a flipped orderer-signature byte is pushed to
+    every peer first.  Every peer must reach the orderer's height with
+    arm (a)'s flags and its state after those blocks (its flags replayed
+    into a fresh ledger; `fingerprint`, arm (a)'s own, when the whole
+    stream is ordered), take no tampered block and keep no error.  The
+    last block's spread runs under torch.profiler.  Returns the kernels'
+    launches from the join to the last commit."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+    from fabric_mod_tpu_torch.gossip import (GossipNode, GossipService,
+                                             InProcNetwork)
+    from fabric_mod_tpu_torch.ledger.kvledger import LedgerManager
+    from fabric_mod_tpu_torch.msp.identities import (SigningIdentity,
+                                                     deserialize_cert)
+    from fabric_mod_tpu_torch.orderer import BroadcastError, DeliverService
+    from fabric_mod_tpu_torch.peer.channel import Channel
+    from fabric_mod_tpu_torch.peer.mcs import BlockVerificationError
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.utils import fixtures
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    t_phase = time.perf_counter()
+    submits, flat = stream
+    n_blocks = GOSSIP_BLOCKS
+    n_tx = n_blocks * TX_PER_BLOCK
+    if len(flat) < n_tx:
+        raise AssertionError(f"phase 8's stream holds {len(flat)} txs")
+    material = fixtures.make_network_material(
+        SEED, max_message_count=TX_PER_BLOCK, batch_timeout=E2E_BATCH_TIMEOUT,
+        preferred_max_bytes=E2E_PREFERRED_MAX_BYTES,
+        gossip_peers=GOSSIP_PEERS)
+    with tempfile.TemporaryDirectory() as root:
+        net = e2e.Network(os.path.join(root, "orderer"), material=material,
+                          verifier=sw.SwVerifier())
+        card = gpu.GpuVerifier(device=dev)
+        service = gpu.BatchingVerifyService(card)
+        services, nodes, channels, mgrs = [], [], [], []
+        lead = None
+        try:
+            accepted = 0
+            for env, ok in submits:
+                if accepted == n_tx:
+                    break
+                try:
+                    net.broadcast.submit(env)
+                except BroadcastError:
+                    if ok:
+                        raise
+                    continue
+                if not ok:
+                    raise AssertionError("Broadcast accepted a tampered "
+                                         "creator signature")
+                accepted += 1
+            store = net.support.store
+            deadline = time.monotonic() + E2E_TIMEOUT_S
+            while store.height < n_blocks + 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"orderer height {store.height}")
+                time.sleep(0.01)
+            ordered_s = time.perf_counter() - t_phase
+            # arm (a)'s state after these blocks: its flags replayed
+            # into a fresh ledger (the whole stream's is arm (a)'s own)
+            oracle = KvLedger(net.channel_id)
+            genesis = m.Block.decode(material.genesis)
+            oracle.commit_block(genesis, [m.TxValidationCode.VALID]
+                                * len(genesis.data.data))
+            for b in range(1, n_blocks + 1):
+                oracle.commit_block(store.get_block_by_number(b),
+                                    flat[(b - 1) * TX_PER_BLOCK:
+                                         b * TX_PER_BLOCK])
+            want_fp = oracle.state_fingerprint()
+            oracle.close()
+            if len(flat) == n_tx and want_fp != fingerprint:
+                raise AssertionError("the replayed state differs from arm "
+                                     "(a)'s")
+
+            # the peers
+            t0 = time.perf_counter()
+            channel_id, config = config_from_block(genesis)
+            fabric = InProcNetwork()
+            sent = _CountingNetwork(fabric)
+            tag = threading.local()
+            calls = {"envelope": 0, "mcs": 0, "commit": 0}
+            rejections = [0]
+            lock = threading.Lock()
+            shared_verify = service.verify_many
+
+            def tagged(items, timeout=30.0):
+                with lock:
+                    calls[getattr(tag, "name", None) or "commit"] += 1
+                return shared_verify(items, timeout)
+            service.verify_many = tagged
+
+            def tagging(name, fn, on_reject=None):
+                def call(*args, **kw):
+                    outer = getattr(tag, "name", None)
+                    tag.name = outer or name
+                    try:
+                        return fn(*args, **kw)
+                    except BlockVerificationError:
+                        if on_reject is not None:
+                            with lock:
+                                on_reject[0] += 1
+                        raise
+                    finally:
+                        tag.name = outer
+                return call
+            for i, (mspid, cert_pem, key_pem) in enumerate(
+                    material.gossip_peers):
+                csp = sw.SwCSP()
+                mgr = LedgerManager(os.path.join(root, f"gossip{i}"))
+                mgrs.append(mgr)
+                channel = Channel(channel_id, mgr.create_or_open(channel_id),
+                                  service, Bundle(channel_id, config, csp),
+                                  csp, tensor_policy=True, pipeline_depth=2)
+                channel.init_from_genesis(m.Block.decode(material.genesis))
+                channel.mcs.verify_block = tagging(
+                    "mcs", channel.mcs.verify_block, rejections)
+                channels.append(channel)
+                node = GossipNode(
+                    f"gossip{i}:7051", SigningIdentity(
+                        mspid, deserialize_cert(cert_pem), key_pem, csp),
+                    channel, fabric)
+                node.mapper.verify = tagging("envelope", node.mapper.verify)
+                nodes.append(node)
+            lead = min(range(GOSSIP_PEERS), key=lambda i: nodes[i].pki_id)
+            source = _GatedSource(DeliverService(net.support), n_blocks)
+            for i, node in enumerate(nodes):
+                services.append(GossipService(node, lambda: source,
+                                              static_leader=(i == lead)))
+            built_s = time.perf_counter() - t0
+
+            # membership: one signed alive round, every peer to every other
+            reset_kernel_counts()
+            sizes = _cohorts(card)
+            t0 = time.perf_counter()
+            endpoints = [n.endpoint for n in nodes]
+            for node in nodes:
+                node.join(endpoints)
+            join_s = time.perf_counter() - t0
+            views = [len(n.discovery.alive_members()) for n in nodes]
+            if min(views) != GOSSIP_PEERS - 1:
+                raise AssertionError(f"membership views {sorted(views)[:5]}")
+            join_sent, join_calls = sent.sent, dict(calls)
+
+            # a tampered block 1 pushed to every peer
+            other = nodes[(lead + 1) % GOSSIP_PEERS]
+            evil = m.Block.decode(fixtures.tamper_block_signature(
+                store.get_block_by_number(1).encode()))
+            msg = m.GossipMessage(
+                nonce=1, channel=channel_id.encode(),
+                data_msg=m.DataMessage(payload=m.GossipPayload(
+                    seq_num=1, data=evil.encode())))
+            other.comm.broadcast([e for e in endpoints
+                                  if e != other.endpoint], msg)
+            if rejections[0] != GOSSIP_PEERS - 1 or any(
+                    n.state.buffer.missing_range() is not None
+                    or c.ledger.height != 1 for n, c in zip(nodes, channels)):
+                raise AssertionError(f"{rejections[0]} peers rejected the "
+                                     "tampered block")
+
+            # the spread: the leader delivers, pushes; the rest follow
+            def heights():
+                return [c.ledger.height for c in channels]
+            for s in services:
+                s.start()
+
+            def wait_height(h):
+                deadline = time.monotonic() + GOSSIP_TIMEOUT_S
+                while min(heights()) < h:
+                    errors = [e for s in services for e in s.errors] + [
+                        e for n in nodes for e in n.state.errors]
+                    if errors:
+                        raise errors[0]
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"heights {sorted(heights())}")
+                    time.sleep(0.005)
+                return time.perf_counter()
+            before_last = wait_height(n_blocks)
+            spread_s = before_last - source.first_at
+            mid_sent = sent.sent
+            wall_ms, n_k, busy_ms, top = device_profile(
+                torch, lambda: (source.release.set(),
+                                wait_height(n_blocks + 1)))
+            done = time.perf_counter()
+            for n in nodes:
+                n.state.flush(E2E_TIMEOUT_S)
+            counts = kernel_counts()
+            wall_s = done - source.first_at
+
+            # every peer: the chain, arm (a)'s flags and state
+            for i, c in enumerate(channels):
+                if c.ledger.height != n_blocks + 1:
+                    raise AssertionError(f"peer {i} at {c.ledger.height}")
+                for b in range(1, n_blocks + 1):
+                    got = c.ledger.get_block_by_number(b)
+                    want = store.get_block_by_number(b)
+                    slot = m.BlockMetadataIndex.SIGNATURES
+                    if protoutil.block_header_hash(got.header) != \
+                            protoutil.block_header_hash(want.header) or \
+                            bytes(got.metadata.metadata[slot]) != \
+                            bytes(want.metadata.metadata[slot]):
+                        raise AssertionError(f"peer {i} block {b} is not "
+                                             "the orderer's")
+                    flags = list(protoutil.block_txflags(got))
+                    if flags != flat[(b - 1) * TX_PER_BLOCK:b * TX_PER_BLOCK]:
+                        raise AssertionError(f"peer {i} block {b}: txflags "
+                                             "differ from arm (a)'s")
+                if c.ledger.state_fingerprint() != want_fp:
+                    raise AssertionError(f"peer {i}: state fingerprint "
+                                         "differs from arm (a)'s")
+            errors = [e for s in services for e in s.errors] + [
+                e for n in nodes for e in n.state.errors]
+            if errors:
+                raise errors[0]
+            if services[lead].client is None or any(
+                    s.client is not None for i, s in enumerate(services)
+                    if i != lead):
+                raise AssertionError("a peer other than the leader pulled")
+            require_launched({k: counts[k] for k in (
+                "verify_prologue", "ladder_projective", "verify_epilogue")},
+                "the gossip network")
+            spread_calls = {k: calls[k] - join_calls[k] for k in calls}
+            direct = GOSSIP_PEERS * (GOSSIP_PEERS - 1)
+            log(f"gossip (b) {GOSSIP_PEERS} peers over one "
+                f"BatchingVerifyService on the card: the orderer "
+                f"ordered phase 8's stream's first {n_blocks} blocks "
+                f"({n_blocks} x {TX_PER_BLOCK} txs) in {ordered_s:.1f} s; "
+                f"peers built in {built_s:.1f} s; membership: one signed "
+                f"alive round in {join_s:.1f} s, {join_sent} envelopes sent "
+                f"({direct} direct, {join_sent - direct} forwarded), verify "
+                f"calls {join_calls}; the tampered block 1 rejected by all "
+                f"{rejections[0]} peers it reached")
+            head = n_blocks - 1
+            log(f"gossip (b) spread: leader gossip{lead} (the minimum "
+                f"PKI-ID, static); {n_blocks} blocks to {GOSSIP_PEERS} peers "
+                f"in {wall_s:.2f} s from the first delivered block to the "
+                f"last peer's last commit "
+                f"({GOSSIP_PEERS * n_blocks / wall_s:.1f} peer-blocks "
+                f"committed/s; blocks 1-{head} unprofiled {spread_s:.2f} s, "
+                f"{GOSSIP_PEERS * head / spread_s:.1f} peer-blocks/s); "
+                f"gossip envelopes sent {sent.sent - join_sent} "
+                f"({mid_sent - join_sent} for blocks 1-{head}); verify "
+                f"calls {spread_calls} (envelope, MCS, commit); calls into "
+                f"the GpuVerifier {len(sizes)} (join and spread), mean "
+                f"cohort {sum(sizes) / len(sizes):.2f} items (max "
+                f"{max(sizes)}); kernel launches {counts}; every peer at "
+                f"height {n_blocks + 1} with arm (a)'s txflags and state "
+                f"({want_fp[:16]}), no error kept, no tampered block taken")
+            small = [k for k in sizes if k < 64]
+            log(f"gossip (b) calls into the GpuVerifier by size: "
+                f"{sizes.count(1)} of {len(sizes)} carry one item (the "
+                f"serial envelope and MCS checks), median "
+                f"{sorted(sizes)[len(sizes) // 2]}, {len(sizes) - len(small)} "
+                f"of 64 items or more (commit groups); mean of the others "
+                f"{sum(small) / max(1, len(small)):.2f}")
+            log_profile(f"gossip (b) block {n_blocks}'s spread to "
+                        f"{GOSSIP_PEERS} peers", wall_ms, n_k, busy_ms, top)
+        finally:
+            # the leader first: no push races the others' teardown
+            if lead is not None and services:
+                services[lead].stop()
+            for i, s in enumerate(services):
+                if i != lead:
+                    s.stop()
+            for n in nodes:
+                n.stop()
+            for c in channels:
+                c.close()
+            for mg in mgrs:
+                mg.close()
+            service.close()
+            net.close()
+    log(f"gossip (b) phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return counts
+
+
 def phase_idemix(torch, np):
     """The idemix presentation verify on the card (phase 7)."""
     from fabric_mod_tpu_torch.idemix import credential
@@ -2018,15 +2663,24 @@ def main() -> int:
     arms["d"], _, _, _ = phase_e2e(torch, dev, arm="d", stream=order_free)
     log(f"Raft e2e phase: {time.perf_counter() - t0:.1f} s wall; arm (c)'s "
         f"fingerprint == arm (a)'s ({raft_fp[:16]})")
-    for k in kernels.values():
-        k["launches"] = counts[k["name"]] + sum(
-            c[k["name"]] for c in arms.values())
 
     # 6. where a block's time goes (after the counted runs)
     phase_profile(torch, blocks, world, commit_blocks)
 
     # 7. the idemix presentation verify
     phase_idemix(torch, np)
+
+    # 10. gossip: (a) the 50-peer MCS storm, (b) 50 gossip peers over
+    # one verifier around a solo network ordering arm (a)'s stream.  Run
+    # last: after (b)'s long profiled window, later torch.profiler
+    # windows on the card recorded none of the hand-written kernels
+    t0 = time.perf_counter()
+    arms["gossip_storm"] = phase_gossip_storm(torch, dev)
+    arms["gossip_network"] = phase_gossip_network(torch, dev, full, solo_fp)
+    log(f"gossip phase: {time.perf_counter() - t0:.1f} s wall")
+    for k in kernels.values():
+        k["launches"] = counts[k["name"]] + sum(
+            c[k["name"]] for c in arms.values())
 
     log(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -62,7 +62,9 @@ class NetworkMaterial:
     genesis block fixes the channel id, the orgs, the batch
     configuration and the consensus type.  An etcdraft genesis lists
     its consenter ids, and `consenters` maps each to its orderer
-    signer (`orderer` is then the first's)."""
+    signer (`orderer` is then the first's).  `gossip_peers` are peer
+    signers for the gossip peers a caller composes around the network
+    (each a ledger, a Channel and a gossip.GossipNode of its own)."""
     ca_pems: Dict[str, bytes]
     orderer_ca_pem: bytes
     client: SignerPems
@@ -72,6 +74,7 @@ class NetworkMaterial:
     genesis: bytes
     consenters: Dict[str, SignerPems] = dataclasses.field(
         default_factory=dict)
+    gossip_peers: List[SignerPems] = dataclasses.field(default_factory=list)
 
 
 def _signer(csp, pems: SignerPems) -> SigningIdentity:

@@ -75,15 +75,19 @@ class PipelinedCommitter:
     submit; `close()` drains and joins them."""
 
     def __init__(self, channel, depth: int = 2, in_queue: int = 8,
+                 on_commit: Optional[Callable] = None,
                  on_error: Optional[Callable] = None):
         """`channel`: stage_block/commit_staged/.ledger (peer.Channel
         or ValidatorCommitTarget).  `depth`: max staged-but-uncommitted
-        blocks (floor 1).  `on_error(exc)` fires once on the first
-        failure."""
+        blocks (floor 1).  `on_commit(block, flags)` fires on the commit
+        loop after each commit, in block order; what it raises fails
+        the pipe like a failed commit (the reference logs it).
+        `on_error(exc)` fires once on the first failure."""
         self._channel = channel
         self.depth = max(1, depth)
         self._in_q: "queue.Queue" = queue.Queue(max(1, in_queue))
         self._staged_q: "queue.Queue" = queue.Queue()
+        self._on_commit = on_commit
         self._on_error = on_error
         # one condition guards the pipeline state: the inflight count
         # (the depth bound), the committed height (barrier and flush
@@ -258,12 +262,10 @@ class PipelinedCommitter:
                 t0 = time.perf_counter()
                 staged.resolve_mask()      # the device-verdict wait
                 t1 = time.perf_counter()
-                self._channel.commit_staged(staged)
+                flags = self._channel.commit_staged(staged)
                 t2 = time.perf_counter()
             except Exception as e:
-                self._fail(e)
-                while self._staged_q.get() is not None:
-                    pass
+                self._drain_failed(e)
                 return
             self.await_secs += t1 - t0
             self.commit_secs += t2 - t1
@@ -271,3 +273,16 @@ class PipelinedCommitter:
                 self._inflight -= 1
                 self._height = staged.block.header.number + 1
                 self._cv.notify_all()
+            if self._on_commit is not None:
+                try:
+                    self._on_commit(staged.block, flags)
+                except Exception as e:
+                    self._drain_failed(e)
+                    return
+
+    def _drain_failed(self, e: Exception) -> None:
+        """The commit loop's failure: keep it, then drain the staged
+        queue so the stage loop never blocks on it."""
+        self._fail(e)
+        while self._staged_q.get() is not None:
+            pass

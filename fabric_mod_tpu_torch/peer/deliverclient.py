@@ -19,17 +19,21 @@ Stages 2 and 3 are peer/commitpipe.PipelinedCommitter at depth 2,
 always, as in the reference; this client owns stage 1 and the MCS gate.
 Commit order is block-number order by construction (one puller).  A
 block that fails the MCS is dropped, recorded in `rejected`, and ends
-the pull.
+the pull.  `on_commit(block)` fires after each commit (the gossip
+service pushes the leader's blocks to the other peers from it); what it
+raises fails the pipe and is re-raised by `run()`, where the reference
+logs it as advisory.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 from fabric_mod_tpu_torch.peer.channel import Channel
 from fabric_mod_tpu_torch.peer.commitpipe import PipelinedCommitter
 from fabric_mod_tpu_torch.peer.mcs import BlockVerificationError
+from fabric_mod_tpu_torch.protos import messages as m
 from fabric_mod_tpu_torch.protos import protoutil
 
 PIPELINE_DEPTH = 2
@@ -52,9 +56,11 @@ class DeliverClient:
     `source` provides `blocks(start, stop_event=None, timeout_s=...)`
     (orderer/deliver.DeliverService)."""
 
-    def __init__(self, channel: Channel, source):
+    def __init__(self, channel: Channel, source,
+                 on_commit: Optional[Callable[[m.Block], None]] = None):
         self._channel = channel
         self._source = source
+        self._on_commit = on_commit
         self._stop = threading.Event()
         # stage/await/commit seconds of pipes already closed (run()
         # builds a fresh engine per invocation: the client is reusable)
@@ -68,7 +74,11 @@ class DeliverClient:
         # the stop event)
         return PipelinedCommitter(
             self._channel, depth=PIPELINE_DEPTH, in_queue=IN_QUEUE,
+            on_commit=self._handle_commit if self._on_commit else None,
             on_error=lambda _e: self._stop.set())
+
+    def _handle_commit(self, block: m.Block, _flags) -> None:
+        self._on_commit(block)
 
     # cumulative wall seconds per stage; commit_secs is everything after
     # the dispatch: verdict await + resolve + MVCC + ledger commit

@@ -432,7 +432,7 @@ NETWORK_ORGS = ("Org1", "Org2", "Org3")
 
 def make_network_material(seed: int = 0, channel_id: str = "testchannel",
                           consensus_type: str = "solo", orderers: int = 1,
-                          **batch_config):
+                          gossip_peers: int = 0, **batch_config):
     """An e2e.NetworkMaterial made from `seed`: a CA per org of
     NETWORK_ORGS and one for the orderer org, a peer and an admin per
     org, a client of the first org, `orderers` orderer signers under the
@@ -442,9 +442,11 @@ def make_network_material(seed: int = 0, channel_id: str = "testchannel",
     e2e Network) with `consensus_type` ("solo", or "etcdraft" with the
     consenter ids in its RaftMetadata) and the orderer group's
     `batch_config` (genesis.orderer_group's max_message_count,
-    batch_timeout, preferred_max_bytes, ...).  Certificates and keys
-    are the same for the same seed; the genesis envelope carries a
-    fresh nonce."""
+    batch_timeout, preferred_max_bytes, ...).  `gossip_peers` more peer
+    signers, round-robin over the orgs ("gossip<i>.<org>"), go to the
+    material's `gossip_peers`: one identity for each gossip peer of a
+    composed network.  Certificates and keys are the same for the same
+    seed; the genesis envelope carries a fresh nonce."""
     from fabric_mod_tpu_torch.channelconfig import genesis
     from fabric_mod_tpu_torch.e2e import NetworkMaterial
     from fabric_mod_tpu_torch.msp import ca as calib
@@ -474,13 +476,34 @@ def make_network_material(seed: int = 0, channel_id: str = "testchannel",
               for org, ca in cas.items()}
     consenters = {oid: signer(orderer_ca, oid, "OrdererOrg", "orderer")
                   for oid in ids}
+    gossip = []
+    for i in range(gossip_peers):
+        org = NETWORK_ORGS[i % len(NETWORK_ORGS)]
+        gossip.append(signer(cas[org], f"gossip{i}.{org.lower()}", org,
+                             "peer"))
     return NetworkMaterial(
         ca_pems={org: ca.cert_pem() for org, ca in cas.items()},
         orderer_ca_pem=orderer_ca.cert_pem(),
         client=client, peers=peers, admins=admins,
         orderer=consenters[ids[0]],
         genesis=block.encode(),
-        consenters=consenters if consensus_type != "solo" else {})
+        consenters=consenters if consensus_type != "solo" else {},
+        gossip_peers=gossip)
+
+
+def tamper_block_signature(raw_block: bytes) -> bytes:
+    """An encoded orderer-signed block with the last byte of its first
+    block signature flipped (inside s, so the DER still parses): the
+    MCS must refuse it."""
+    from fabric_mod_tpu_torch.protos import messages as m
+    block = m.Block.decode(raw_block)
+    slot = m.BlockMetadataIndex.SIGNATURES
+    meta = m.Metadata.decode(block.metadata.metadata[slot])
+    sig = bytearray(meta.signatures[0].signature)
+    sig[-1] ^= 0x01
+    meta.signatures[0].signature = bytes(sig)
+    block.metadata.metadata[slot] = meta.encode()
+    return block.encode()
 
 
 # the key-level endorsement policy the e2e stream's setvp txs pin

@@ -730,3 +730,73 @@ def test_raft_e2e_network_on_card(cuda_device, tmp_path):
         assert all(after[k] >= before[k] + 5 for k in after)
     finally:
         net.close()
+
+
+@pytest.mark.cuda
+def test_gossip_peers_share_one_card(cuda_device, tmp_path):
+    """One 8-tx block pushed into 4 gossip peers whose channels share one
+    BatchingVerifyService over one GpuVerifier on the card (envelope
+    checks, MCS checks and block commits), and a copy with a flipped
+    orderer-signature byte pushed after it: every peer commits the block
+    with the flags and fingerprint the same peers get on the host
+    verifier, no peer takes the copy, and the verify core launched."""
+    from tests._torch_gossip_world import PortPeer, seed_membership
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.gossip import InProcNetwork
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    material = fixtures.make_network_material(
+        7, max_message_count=8, batch_timeout="60s", gossip_peers=4)
+    net = e2e.Network(str(tmp_path / "net"), material=material,
+                      verifier=sw.SwVerifier())
+    try:
+        submits, expected = fixtures.make_e2e_stream(net, 8, plant_every=8)
+        for env, ok in submits:
+            if ok:
+                net.broadcast.submit(env)
+        assert e2e.commit_until(net, 8, 300)[1] == 8
+        raw = net.support.store.get_block_by_number(1).encode()
+    finally:
+        net.close()
+    outcomes = []
+    for arm, verifier in (("host", sw.SwVerifier()),
+                          ("card", gpu.BatchingVerifyService(
+                              gpu.GpuVerifier(cache_size=0)))):
+        fabric = InProcNetwork()
+        peers = [PortPeer(str(tmp_path / arm), i, material.genesis, pems,
+                          fabric, verifier, tensor_policy=True,
+                          pipeline_depth=2)
+                 for i, pems in enumerate(material.gossip_peers)]
+        before = dict(p256_core.counts())
+        try:
+            seed_membership([p.node for p in peers], m)
+            leader = peers[0].node
+            assert leader.state.add_block(m.Block.decode(raw))
+            assert leader.state.drain() == 1
+            assert leader.state.flush(300)
+            leader.gossip_block(m.Block.decode(raw))
+            evil = m.Block.decode(fixtures.tamper_block_signature(raw))
+            evil.header.number = 2
+            leader.gossip_block(evil)
+            for p in peers:
+                p.node.state.drain()
+                assert p.node.state.flush(300)
+            outcomes.append((
+                [p.ledger.height for p in peers],
+                [list(protoutil.block_txflags(p.ledger.get_block_by_number(1)))
+                 for p in peers],
+                {p.ledger.state_fingerprint() for p in peers},
+                [p.node.state.errors for p in peers]))
+        finally:
+            for p in peers:
+                p.close()
+            if arm == "card":
+                verifier.close()
+        if arm == "card":
+            after = p256_core.counts()
+            assert all(after[k] > before[k] for k in after), (before, after)
+    assert outcomes[0] == outcomes[1]
+    heights, flags, fps, errors = outcomes[1]
+    assert heights == [2] * 4 and flags == [expected] * 4
+    assert len(fps) == 1 and errors == [[]] * 4

@@ -7,7 +7,9 @@ presentation on the host path, orders and commits one 8-tx block
 through the port's e2e Network (with the host verifier: the GPU
 verifier's CPU path ran above), one through a staged Network from 4
 submitter threads and one through a Network of three Raft orderers (a
-follower forwarding to the leader), then inspects sys.modules."""
+follower forwarding to the leader), pushes one ordered block through
+three gossip peers that joined by signed alive messages, then inspects
+sys.modules."""
 import json
 import os
 import pathlib
@@ -100,6 +102,47 @@ with tempfile.TemporaryDirectory() as root:
         assert list(protoutil.block_txflags(block)) == want
     finally:
         net.close()
+from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+from fabric_mod_tpu_torch.gossip import GossipNode, InProcNetwork
+from fabric_mod_tpu_torch.ledger.kvledger import LedgerManager
+from fabric_mod_tpu_torch.peer.channel import Channel
+material = fixtures.make_network_material(2, max_message_count=8,
+                                          batch_timeout="60s", gossip_peers=3)
+with tempfile.TemporaryDirectory() as root:
+    net = e2e.Network(root + "/net", material=material,
+                      verifier=sw.SwVerifier())
+    try:
+        submits, want = fixtures.make_e2e_stream(net, 8, plant_every=8)
+        for env, ok in submits:
+            if ok:
+                net.broadcast.submit(env)
+        assert e2e.commit_until(net, 8, 120)[1] == 8
+        block = net.support.store.get_block_by_number(1)
+    finally:
+        net.close()
+    fabric, nodes, mgrs = InProcNetwork(), [], []
+    for i, pems in enumerate(material.gossip_peers):
+        genesis = messages.Block.decode(material.genesis)
+        cid, config = config_from_block(genesis)
+        mgrs.append(LedgerManager(f"{root}/gossip{i}"))
+        channel = Channel(cid, mgrs[-1].create_or_open(cid), sw.SwVerifier(),
+                          Bundle(cid, config, sw.SwCSP()), sw.SwCSP())
+        channel.init_from_genesis(genesis)
+        nodes.append(GossipNode(f"gossip{i}:7051", e2e._signer(
+            sw.SwCSP(), pems), channel, fabric))
+    for node in nodes:
+        node.join([n.endpoint for n in nodes])
+    assert nodes[0].state.add_block(block) and nodes[0].state.drain() == 1
+    nodes[0].gossip_block(block)
+    for node in nodes:
+        node.state.drain()
+    for node, mgr in zip(nodes, mgrs):
+        assert node._channel.ledger.height == 2
+        assert list(protoutil.block_txflags(
+            node._channel.ledger.get_block_by_number(1))) == want
+        assert node.state.errors == []
+        node.stop()
+        mgr.close()
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")
