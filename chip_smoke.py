@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's device paths once on one CUDA card: the
 block commit, the end-to-end network around it (the main path) on a solo
-and on a three-node Raft ordering service, gossip around it, and the
-idemix presentation verify.
+and on a three-node Raft ordering service, gossip around it, the
+dissemination tree and the deliver fan-out, and the idemix presentation
+verify.
 
     python3 chip_smoke.py
 
@@ -196,9 +197,47 @@ Phases (any failure exits non-zero; none is caught):
    into the GpuVerifier by size, the launches, and torch.profiler over
    the last block's spread.
 
+11. deliver fan-out and dissemination trees (run after 10) — (a)
+   bench.py:2383's top point: a solo network (50 ms batch timeout)
+   orders 6 one-put blocks; 128 all-pull peers, each its own
+   DeliverClient and orderer stream, then 128 relay-mode peers
+   (dissemination.RelayService, degree 4, per-child queue 64; membership
+   and each tree parent's identity seeded as bench.py:2229 does, the
+   leadership pinned to the minimum (PKI-ID, endpoint)); in both arms
+   every channel (tensor policy, commit pipe of depth 2) verifies through
+   one BatchingVerifyService over one GpuVerifier.  The orderer must have
+   served 1 stream to the relay arm and 128 to the pull arm, every
+   non-leader must have taken the whole chain through the tree with each
+   frame byte-identical to the pull arm's encoding, both arms must hold
+   one state fingerprint, a copy of block 1 with a flipped
+   orderer-signature byte relayed to a leaf must be rejected by its MCS,
+   and no peer may keep an error.  Prints both arms' blocks*peers/s over
+   the same blocks and their ratio, the relay's stats, the envelope, MCS
+   and commit verify calls, the calls into the GpuVerifier and the mean
+   cohort, the launches, and torch.profiler over the relay arm's last
+   block.  (b) phase 10 (b)'s 50 peers and 2 x 1000-tx blocks with the
+   relay in place of the epidemic push (seeded membership): every peer
+   must reach arm (a)'s flags and state with no error kept; prints the
+   spread wall, peer-blocks/s, envelopes and MCS checks a peer-block
+   beside phase 10 (b)'s.  (c) bench.py:2027's top point: 10,000
+   subscribers, half full and half filtered, over 8 threads, read the
+   20-block fan-out chain (utils/fixtures.make_fanout_chain, block 10 a
+   CONFIG block) through one FanoutEngine whose session ACL is an
+   ACLProvider over the channel's bundle with the card's GpuVerifier,
+   4 groups of real client identities; every stream's digest must equal
+   the per-stream encoding's, each (block, form) be materialized and
+   encoded once with no fallback, and the ACL checks lie between the
+   group count and twice it; prints shared and per-stream blocks*subs/s
+   and the ACL checks.
+
+   python3 chip_smoke.py --phase 11
+
+runs phase 11 alone after the header (its (b) on a stream endorsed
+there, without phase 10 (b) beside it) and prints no kernels line.
+
 It prints one JSON line describing each of the five kernels
-(`launches` counts the block-commit phase, the four e2e arms and
-phase 10's two parts), and as its last line
+(`launches` counts the block-commit phase, the four e2e arms, phase
+10's two parts and phase 11's three), and as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -374,6 +413,25 @@ STORM_SAMPLE_EVERY = 10
 # 217 s of phase 10 on the card, the 50 peers' commits holding one GIL
 GOSSIP_BLOCKS = 2
 GOSSIP_TIMEOUT_S = 900.0
+
+# phase 11 (a): bench.py:2383 `measure_dissemination`'s top point: 128
+# peers, 6 one-put blocks (a 50 ms batch timeout, 12-tx cap), the relay
+# at the reference's defaults (degree 4, per-child queue 64) and
+# bench.py:2229's long anti-entropy cadence (the relay's repair prod
+# stays live)
+RELAY_PEERS = 128
+RELAY_BLOCKS = 6
+RELAY_BATCH_TXS = 12
+RELAY_BATCH_TIMEOUT = "50ms"
+RELAY_DEGREE = 4
+RELAY_QUEUE = 64
+RELAY_ANTI_ENTROPY_S = 120.0
+RELAY_TIMEOUT_S = 600.0
+# phase 11 (c): bench.py:2027 `measure_deliverfanout`'s top point
+FANOUT_SUBSCRIBERS = 10_000
+FANOUT_WORKERS = 8
+FANOUT_GROUPS = 4
+FANOUT_PER_STREAM_SAMPLE = 128
 
 
 def log(msg: str) -> None:
@@ -1802,6 +1860,16 @@ def profile_e2e_block(torch, material, block, expected):
 
 # --- phase 10: gossip (BASELINE.md #5) --------------------------------------
 
+def _put_envelope(net, key: bytes, value: bytes):
+    """One put endorsed by Org1 and Org2 (the network's MAJORITY)."""
+    from fabric_mod_tpu_torch.protos import protoutil
+    sp, prop, _ = protoutil.create_chaincode_proposal(
+        net.channel_id, "mycc", [b"put", key, value], net.client)
+    return protoutil.create_tx_from_responses(
+        prop, [net.endorsers[o].process_proposal(sp)
+               for o in ("Org1", "Org2")], net.client)
+
+
 class _CountingNetwork:
     """Wraps an InProcNetwork's send to count the envelopes sent."""
 
@@ -1816,6 +1884,44 @@ class _CountingNetwork:
                 self.sent += 1
             return send(*args)
         network.send = counted
+
+
+class VerifyCallTags:
+    """Counts the calls into a BatchingVerifyService by the path that made
+    them: "envelope" (a gossip envelope's signature), "mcs" (a block's
+    orderer signature) or "commit" (everything else: a block's validation)
+    — the outermost tagged path of the calling thread — and the MCS's
+    rejections."""
+
+    def __init__(self, service):
+        self.calls = {"envelope": 0, "mcs": 0, "commit": 0}
+        self.rejections = 0
+        self._tag = threading.local()
+        self._lock = threading.Lock()
+        inner = service.verify_many
+
+        def tagged(items, timeout=30.0):
+            with self._lock:
+                self.calls[getattr(self._tag, "name", None) or "commit"] += 1
+            return inner(items, timeout)
+        service.verify_many = tagged
+
+    def tagging(self, name, fn):
+        """`fn` with its verify calls tagged `name`."""
+        from fabric_mod_tpu_torch.peer.mcs import BlockVerificationError
+
+        def call(*args, **kw):
+            outer = getattr(self._tag, "name", None)
+            self._tag.name = outer or name
+            try:
+                return fn(*args, **kw)
+            except BlockVerificationError:
+                with self._lock:
+                    self.rejections += 1
+                raise
+            finally:
+                self._tag.name = outer
+        return call
 
 
 def _cohorts(verifier) -> list:
@@ -1936,7 +2042,6 @@ def phase_gossip_storm(torch, dev):
     from fabric_mod_tpu_torch.peer.mcs import (BlockVerificationError,
                                                MessageCryptoService)
     from fabric_mod_tpu_torch.protos import messages as m
-    from fabric_mod_tpu_torch.protos import protoutil
     from fabric_mod_tpu_torch.utils import fixtures
     t_phase = time.perf_counter()
     material = fixtures.make_network_material(
@@ -1945,14 +2050,8 @@ def phase_gossip_storm(torch, dev):
     with tempfile.TemporaryDirectory() as root:
         net = e2e.Network(root, material=material, verifier=sw.SwVerifier())
         try:
-            envs = []
-            for i in range(STORM_TXS):
-                sp, prop, _ = protoutil.create_chaincode_proposal(
-                    net.channel_id, "mycc", [b"put", b"k%d" % i, b"v%d" % i],
-                    net.client)
-                envs.append(protoutil.create_tx_from_responses(
-                    prop, [net.endorsers[o].process_proposal(sp)
-                           for o in ("Org1", "Org2")], net.client))
+            envs = [_put_envelope(net, b"k%d" % i, b"v%d" % i)
+                    for i in range(STORM_TXS)]
             for env in envs:
                 net.broadcast.submit(env)
             store = net.support.store
@@ -2123,7 +2222,9 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
     into a fresh ledger; `fingerprint`, arm (a)'s own, when the whole
     stream is ordered), take no tampered block and keep no error.  The
     last block's spread runs under torch.profiler.  Returns the kernels'
-    launches from the join to the last commit."""
+    launches from the join to the last commit, and the spread's figures
+    (its wall, peer-blocks/s, envelopes sent, MCS checks a peer-block)
+    for phase 11 (b) to print beside its own."""
     from fabric_mod_tpu_torch import e2e
     from fabric_mod_tpu_torch.bccsp import gpu, sw
     from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
@@ -2134,7 +2235,6 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
                                                      deserialize_cert)
     from fabric_mod_tpu_torch.orderer import BroadcastError, DeliverService
     from fabric_mod_tpu_torch.peer.channel import Channel
-    from fabric_mod_tpu_torch.peer.mcs import BlockVerificationError
     from fabric_mod_tpu_torch.protos import messages as m
     from fabric_mod_tpu_torch.protos import protoutil
     from fabric_mod_tpu_torch.utils import fixtures
@@ -2199,32 +2299,8 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
             channel_id, config = config_from_block(genesis)
             fabric = InProcNetwork()
             sent = _CountingNetwork(fabric)
-            tag = threading.local()
-            calls = {"envelope": 0, "mcs": 0, "commit": 0}
-            rejections = [0]
-            lock = threading.Lock()
-            shared_verify = service.verify_many
-
-            def tagged(items, timeout=30.0):
-                with lock:
-                    calls[getattr(tag, "name", None) or "commit"] += 1
-                return shared_verify(items, timeout)
-            service.verify_many = tagged
-
-            def tagging(name, fn, on_reject=None):
-                def call(*args, **kw):
-                    outer = getattr(tag, "name", None)
-                    tag.name = outer or name
-                    try:
-                        return fn(*args, **kw)
-                    except BlockVerificationError:
-                        if on_reject is not None:
-                            with lock:
-                                on_reject[0] += 1
-                        raise
-                    finally:
-                        tag.name = outer
-                return call
+            tags = VerifyCallTags(service)
+            calls = tags.calls
             for i, (mspid, cert_pem, key_pem) in enumerate(
                     material.gossip_peers):
                 csp = sw.SwCSP()
@@ -2234,14 +2310,15 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
                                   service, Bundle(channel_id, config, csp),
                                   csp, tensor_policy=True, pipeline_depth=2)
                 channel.init_from_genesis(m.Block.decode(material.genesis))
-                channel.mcs.verify_block = tagging(
-                    "mcs", channel.mcs.verify_block, rejections)
+                channel.mcs.verify_block = tags.tagging(
+                    "mcs", channel.mcs.verify_block)
                 channels.append(channel)
                 node = GossipNode(
                     f"gossip{i}:7051", SigningIdentity(
                         mspid, deserialize_cert(cert_pem), key_pem, csp),
                     channel, fabric)
-                node.mapper.verify = tagging("envelope", node.mapper.verify)
+                node.mapper.verify = tags.tagging("envelope",
+                                                  node.mapper.verify)
                 nodes.append(node)
             lead = min(range(GOSSIP_PEERS), key=lambda i: nodes[i].pki_id)
             source = _GatedSource(DeliverService(net.support), n_blocks)
@@ -2273,10 +2350,10 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
                     seq_num=1, data=evil.encode())))
             other.comm.broadcast([e for e in endpoints
                                   if e != other.endpoint], msg)
-            if rejections[0] != GOSSIP_PEERS - 1 or any(
+            if tags.rejections != GOSSIP_PEERS - 1 or any(
                     n.state.buffer.missing_range() is not None
                     or c.ledger.height != 1 for n, c in zip(nodes, channels)):
-                raise AssertionError(f"{rejections[0]} peers rejected the "
+                raise AssertionError(f"{tags.rejections} peers rejected the "
                                      "tampered block")
 
             # the spread: the leader delivers, pushes; the rest follow
@@ -2350,7 +2427,7 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
                 f"alive round in {join_s:.1f} s, {join_sent} envelopes sent "
                 f"({direct} direct, {join_sent - direct} forwarded), verify "
                 f"calls {join_calls}; the tampered block 1 rejected by all "
-                f"{rejections[0]} peers it reached")
+                f"{tags.rejections} peers it reached")
             head = n_blocks - 1
             log(f"gossip (b) spread: leader gossip{lead} (the minimum "
                 f"PKI-ID, static); {n_blocks} blocks to {GOSSIP_PEERS} peers "
@@ -2376,6 +2453,12 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
                 f"{sum(small) / max(1, len(small)):.2f}")
             log_profile(f"gossip (b) block {n_blocks}'s spread to "
                         f"{GOSSIP_PEERS} peers", wall_ms, n_k, busy_ms, top)
+            figures = {
+                "wall_s": wall_s,
+                "peer_blocks_s": GOSSIP_PEERS * n_blocks / wall_s,
+                "envelopes": sent.sent - join_sent,
+                "mcs_per_peer_block": spread_calls["mcs"] / (
+                    GOSSIP_PEERS * n_blocks)}
         finally:
             # the leader first: no push races the others' teardown
             if lead is not None and services:
@@ -2392,6 +2475,685 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
             service.close()
             net.close()
     log(f"gossip (b) phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return counts, figures
+
+
+# --- phase 11: deliver fan-out and dissemination trees ----------------------
+
+def _relay_channel(root, name, genesis_raw, verifier):
+    """A peer's ledger and Channel (tensor policy, a commit pipe of depth
+    2) over the genesis block, `verifier` its verifier."""
+    from fabric_mod_tpu_torch.bccsp import sw
+    from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+    from fabric_mod_tpu_torch.ledger.kvledger import LedgerManager
+    from fabric_mod_tpu_torch.peer.channel import Channel
+    from fabric_mod_tpu_torch.protos import messages as m
+    genesis = m.Block.decode(genesis_raw)
+    cid, config = config_from_block(genesis)
+    csp = sw.SwCSP()
+    mgr = LedgerManager(os.path.join(root, name))
+    channel = Channel(cid, mgr.create_or_open(cid), verifier,
+                      Bundle(cid, config, csp), csp, tensor_policy=True,
+                      pipeline_depth=2)
+    channel.init_from_genesis(genesis)
+    return mgr, channel
+
+
+class RelayPeers:
+    """`material.gossip_peers` relay-mode gossip peers over one in-process
+    network, composed as bench.py:2229 `_build_relay_world` does: each a
+    ledger, Channel (tensor policy, commit pipe of depth 2), GossipNode,
+    RelayService (`degree`, `queue_cap`) and GossipService with that
+    relay, the leadership pinned to the minimum (PKI-ID, endpoint) peer.
+    Membership and each peer's tree parent's identity are seeded (no alive
+    round); the anti-entropy tick runs every RELAY_ANTI_ENTROPY_S.  Every
+    channel's verifier is `service`, whose calls `tags` tags; every frame
+    a relay verified is tapped."""
+
+    def __init__(self, root, material, service, tags, source_factory,
+                 degree=4, queue_cap=64):
+        from fabric_mod_tpu_torch.bccsp import sw
+        from fabric_mod_tpu_torch.dissemination import RelayService
+        from fabric_mod_tpu_torch.gossip import (GossipNode, GossipService,
+                                                 InProcNetwork)
+        from fabric_mod_tpu_torch.msp.identities import (SigningIdentity,
+                                                         deserialize_cert)
+        from fabric_mod_tpu_torch.protos import messages as m
+        self.fabric = InProcNetwork()
+        self.sent = _CountingNetwork(self.fabric)
+        self.mgrs, self.channels, self.nodes = [], [], []
+        self.relays, self.taps, self.services = [], [], []
+        self.streams = []
+        self.lead = None
+        for i, (mspid, cert_pem, key_pem) in enumerate(material.gossip_peers):
+            mgr, channel = _relay_channel(root, f"relay{i}", material.genesis,
+                                          service)
+            self.mgrs.append(mgr)
+            channel.mcs.verify_block = tags.tagging(
+                "mcs", channel.mcs.verify_block)
+            self.channels.append(channel)
+            node = GossipNode(f"gossip{i}:7051", SigningIdentity(
+                mspid, deserialize_cert(cert_pem), key_pem, sw.SwCSP()),
+                channel, self.fabric)
+            node.mapper.verify = tags.tagging("envelope", node.mapper.verify)
+            self.nodes.append(node)
+            relay = RelayService(node, degree=degree, queue_cap=queue_cap)
+            tap = []
+            relay.relay.on_deliver = \
+                lambda num, frame, acc=tap: acc.append((num, frame))
+            self.relays.append(relay)
+            self.taps.append(tap)
+        nodes = self.nodes
+        for node in nodes:
+            for other in nodes:
+                if other is not node:
+                    node.discovery.handle_alive(other.pki_id, m.AliveMessage(
+                        membership=m.GossipMember(endpoint=other.endpoint,
+                                                  pki_id=other.pki_id),
+                        timestamp=m.PeerTime(inc_num=1, seq_num=1)))
+        self.lead = min(range(len(nodes)),
+                        key=lambda i: (nodes[i].pki_id, nodes[i].endpoint))
+        self.tree = self.relays[self.lead].tree()
+        self.by_ep = {nd.endpoint: nd for nd in nodes}
+        for node in nodes:
+            parent = self.tree.parent(node.endpoint)
+            if parent is not None:
+                # the one inbound signer a peer must verify
+                node.mapper.put(self.by_ep[parent]._identity)
+
+        def factory():
+            src = source_factory()
+            self.streams.append(src)
+            return src
+        for i, (node, relay) in enumerate(zip(nodes, self.relays)):
+            self.services.append(GossipService(
+                node, factory, static_leader=(i == self.lead), relay=relay))
+            # pinned before GossipService.start's idempotent start
+            node.state.start(interval_s=RELAY_ANTI_ENTROPY_S)
+
+    def start_children(self):
+        for i, s in enumerate(self.services):
+            if i != self.lead:
+                s.start()
+
+    def heights(self):
+        return [c.ledger.height for c in self.channels]
+
+    def errors(self):
+        return ([e for s in self.services for e in s.errors]
+                + [e for nd in self.nodes for e in nd.state.errors]
+                + [e for r in self.relays for e in r.errors])
+
+    def wait_height(self, h, timeout_s):
+        deadline = time.monotonic() + timeout_s
+        while min(self.heights()) < h:
+            errors = self.errors()
+            if errors:
+                raise errors[0]
+            if time.monotonic() > deadline:
+                raise AssertionError(f"heights {sorted(self.heights())[:8]}")
+            time.sleep(0.005)
+        return time.perf_counter()
+
+    def stats(self) -> dict:
+        return {k: sum(r.stats[k] for r in self.relays) for k in (
+            "pushed", "forwarded", "received", "dropped", "send_failures",
+            "repair_prods", "duplicates")}
+
+    def close(self):
+        # the root first: no push races the others' teardown
+        if self.lead is not None and self.services:
+            self.services[self.lead].stop()
+        for i, s in enumerate(self.services):
+            if i != self.lead:
+                s.stop()
+        for nd in self.nodes:
+            nd.stop()
+        for c in self.channels:
+            c.close()
+        for mg in self.mgrs:
+            mg.close()
+
+
+def phase_dissemination(torch, dev):
+    """Phase 11 (a): bench.py:2383 `measure_dissemination`'s top point on
+    the card.  A solo network orders RELAY_BLOCKS one-put blocks (each put
+    submitted once the previous block is cut).  The all-pull arm first:
+    RELAY_PEERS peers, each its own DeliverClient on its own orderer
+    stream; its first peer's ledger encodes the byte-identity oracle.  Then
+    the relay arm: RELAY_PEERS relay-mode peers (RelayPeers, degree
+    RELAY_DEGREE), the pinned leader the only one that pulls.  In both
+    arms every channel's verifier is one BatchingVerifyService over one
+    GpuVerifier (no memo-cache: a peer verifies its own traffic).  Both
+    arms' sources hold the last block until the others are in everywhere,
+    so their rates cover the same blocks; the relay arm's last block runs
+    under torch.profiler.  Gates: 1 orderer stream in the relay arm and
+    RELAY_PEERS in the pull arm; every non-leader took the whole chain
+    through the tree, every frame byte-identical to the pull arm's
+    encoding; one state fingerprint across both arms; a copy of block 1
+    with a flipped orderer-signature byte, relayed to a leaf by its
+    parent, rejected by the MCS; no error kept.  Returns the kernels'
+    launches of both arms."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.orderer import DeliverService
+    from fabric_mod_tpu_torch.peer.deliverclient import DeliverClient
+    from fabric_mod_tpu_torch.peer.fanout import encode_frame
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    t_phase = time.perf_counter()
+    material = fixtures.make_network_material(
+        SEED + 11, max_message_count=RELAY_BATCH_TXS,
+        batch_timeout=RELAY_BATCH_TIMEOUT, gossip_peers=RELAY_PEERS)
+    n, last = RELAY_PEERS, RELAY_BLOCKS
+    with tempfile.TemporaryDirectory() as root:
+        net = e2e.Network(os.path.join(root, "orderer"), material=material,
+                          verifier=sw.SwVerifier())
+        card = gpu.GpuVerifier(device=dev, cache_size=0)
+        service = gpu.BatchingVerifyService(card)
+        pulls, world = [], None
+        try:
+            store = net.support.store
+            for i in range(last):
+                net.broadcast.submit(_put_envelope(net, b"dk%d" % i,
+                                                   b"dv%d" % i))
+                deadline = time.monotonic() + E2E_TIMEOUT_S
+                while store.height < i + 2:
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"orderer height {store.height}")
+                    time.sleep(0.002)
+            txs = [len(store.get_block_by_number(b).data.data)
+                   for b in range(1, store.height)]
+            if txs != [1] * last:
+                raise AssertionError(f"a chain of {txs} txs")
+            cid = net.channel_id
+            tags = VerifyCallTags(service)
+            sizes = _cohorts(card)
+            reset_kernel_counts()
+            ordered_s = time.perf_counter() - t_phase
+
+            # -- the all-pull arm: its ledgers are the oracle ------------
+            t0 = time.perf_counter()
+            gate = threading.Event()
+
+            def pull_source():
+                src = _GatedSource(DeliverService(net.support), last)
+                src.release = gate
+                return src
+            for i in range(n):
+                mgr, channel = _relay_channel(root, f"pull{i}",
+                                              material.genesis, service)
+                channel.mcs.verify_block = tags.tagging(
+                    "mcs", channel.mcs.verify_block)
+                pulls.append((mgr, channel, DeliverClient(channel,
+                                                          pull_source())))
+            pull_built_s = time.perf_counter() - t0
+            errors = []
+
+            def run(client):
+                try:
+                    client.run(idle_timeout_s=E2E_TIMEOUT_S)
+                except Exception as e:     # re-raised below
+                    errors.append(e)
+
+            def pull_heights():
+                return [c.ledger.height for _, c, _ in pulls]
+
+            def wait_pulls(h):
+                deadline = time.monotonic() + RELAY_TIMEOUT_S
+                while min(pull_heights()) < h:
+                    if errors:
+                        raise errors[0]
+                    if time.monotonic() > deadline:
+                        raise AssertionError(
+                            f"pull heights {sorted(pull_heights())[:8]}")
+                    time.sleep(0.005)
+                return time.perf_counter()
+            threads = [threading.Thread(target=run, args=(c,), daemon=True)
+                       for _, _, c in pulls]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            pull_s = wait_pulls(last) - t0
+            gate.set()
+            wait_pulls(last + 1)
+            for _, _, c in pulls:
+                c.stop()
+            for t in threads:
+                t.join(timeout=60)
+            if errors:
+                raise errors[0]
+            if any(c.rejected for _, _, c in pulls):
+                raise AssertionError("a pull peer's MCS rejected a block")
+            pull_calls = dict(tags.calls)
+            pull_cohorts = list(sizes)
+            ref = pulls[0][1].ledger
+            refs = {num: encode_frame(cid, "full",
+                                      ref.get_block_by_number(num))
+                    for num in range(1, last + 1)}
+            fps = {c.ledger.state_fingerprint() for _, c, _ in pulls}
+            if len(fps) != 1:
+                raise AssertionError(f"{len(fps)} pull-arm fingerprints")
+
+            # -- the relay arm -------------------------------------------
+            t0 = time.perf_counter()
+            world = RelayPeers(
+                root, material, service, tags,
+                lambda: _GatedSource(DeliverService(net.support), last),
+                degree=RELAY_DEGREE, queue_cap=RELAY_QUEUE)
+            relay_built_s = time.perf_counter() - t0
+            tree, lead = world.tree, world.lead
+            depth = max(tree.depth(e) for e in tree.order)
+            world.start_children()
+            # a tampered block 1, relayed to a leaf by its parent
+            leaf_ep = tree.order[-1]
+            leaf = next(i for i, nd in enumerate(world.nodes)
+                        if nd.endpoint == leaf_ep)
+            parent = world.by_ep[tree.parent(leaf_ep)]
+            evil = m.Block.decode(fixtures.tamper_block_signature(
+                store.get_block_by_number(1).encode()))
+            env = parent.comm.sign_once(m.GossipMessage(
+                channel=cid.encode(), relay_msg=m.RelayMessage(
+                    seq_num=1, frame=encode_frame(cid, "full", evil))))
+            before = tags.rejections
+            if not parent.comm.send_signed(leaf_ep, env) or \
+                    tags.rejections != before + 1 or world.taps[leaf] or \
+                    world.relays[leaf].stats["received"] != 1 or \
+                    world.channels[leaf].ledger.height != 1:
+                raise AssertionError("the leaf took the tampered frame")
+            if world.errors():
+                raise world.errors()[0]
+            calls0, cohorts0 = dict(tags.calls), len(sizes)
+            sent0 = world.sent.sent
+            t0 = time.perf_counter()
+            world.services[lead].start()
+            relay_s = world.wait_height(last, RELAY_TIMEOUT_S) - t0
+            mid_sent = world.sent.sent - sent0
+            wall_ms, n_k, busy_ms, top = device_profile(
+                torch, lambda: (world.streams[0].release.set(),
+                                world.wait_height(last + 1,
+                                                  RELAY_TIMEOUT_S)))
+            for nd in world.nodes:
+                nd.state.flush(E2E_TIMEOUT_S)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+
+            # -- the gates -------------------------------------------------
+            errors = world.errors()
+            if errors:
+                raise errors[0]
+            if len(world.streams) != 1 or len(pulls) != n:
+                raise AssertionError(f"orderer streams: relay "
+                                     f"{len(world.streams)}, pull {len(pulls)}")
+            if any(s.client is not None for i, s in enumerate(world.services)
+                   if i != lead):
+                raise AssertionError("a peer other than the leader pulled")
+            for i, tap in enumerate(world.taps):
+                got = dict(tap)
+                if i == lead:
+                    if got:
+                        raise AssertionError("the root received frames")
+                    continue
+                if set(got) != set(refs):
+                    raise AssertionError(f"peer {i} got frames {sorted(got)}")
+                for num, frame in got.items():
+                    if frame != refs[num]:
+                        raise AssertionError(f"peer {i} frame {num} differs "
+                                             "from the direct pull's")
+            fps |= {c.ledger.state_fingerprint() for c in world.channels}
+            if len(fps) != 1 or min(world.heights()) != last + 1:
+                raise AssertionError(f"{len(fps)} fingerprints over both arms")
+            require_launched({k: counts[k] for k in (
+                "verify_prologue", "ladder_projective", "verify_epilogue")},
+                "phase 11 (a)")
+            relay_calls = {k: tags.calls[k] - calls0[k] for k in tags.calls}
+            relay_cohorts = sizes[cohorts0:]
+            stats = world.stats()
+            pull_rate = (last - 1) * n / pull_s
+            relay_rate = (last - 1) * n / relay_s
+            log(f"dissemination (a) {n} peers x {last} one-tx blocks (ordered "
+                f"in {ordered_s:.1f} s; peers built in {pull_built_s:.1f} / "
+                f"{relay_built_s:.1f} s): all-pull {pull_rate:.1f} vs relay "
+                f"{relay_rate:.1f} blocks*peers/s over blocks 1-{last - 1} "
+                f"({relay_rate / pull_rate:.2f}x); orderer streams 1 vs {n}; "
+                f"tree degree {RELAY_DEGREE}, depth {depth}, root gossip{lead}")
+            log(f"dissemination (a) relay stats {stats}; envelopes sent "
+                f"{world.sent.sent - sent0} ({mid_sent} for blocks 1-"
+                f"{last - 1}); verify calls: pull arm {pull_calls}, relay "
+                f"arm {relay_calls} (envelope, MCS, commit)")
+            for label, cohorts in (("pull", pull_cohorts),
+                                   ("relay", relay_cohorts)):
+                log(f"dissemination (a) {label} arm: {len(cohorts)} calls "
+                    f"into the GpuVerifier, mean cohort "
+                    f"{sum(cohorts) / max(1, len(cohorts)):.2f} items (max "
+                    f"{max(cohorts, default=0)}, "
+                    f"{sum(1 for k in cohorts if k == 1)} of one item)")
+            log(f"dissemination (a) every non-leader took blocks 1-{last} "
+                f"through the tree, each frame == the pull arm's encoding; one "
+                f"state fingerprint over {2 * n} peers ({fps.pop()[:16]}); the "
+                f"tampered block 1 relayed to leaf gossip{leaf} rejected by "
+                f"its MCS; kernel launches {counts}")
+            log_profile(f"dissemination (a) block {last}'s relay to {n} peers",
+                        wall_ms, n_k, busy_ms, top)
+        finally:
+            if world is not None:
+                world.close()
+            for mgr, channel, client in pulls:
+                client.stop()
+                channel.close()
+                mgr.close()
+            service.close()
+            net.close()
+    log(f"dissemination (a) phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return counts
+
+
+def phase_relay_gossip(torch, dev, stream, fingerprint, gossip_figures):
+    """Phase 11 (b): phase 10 (b)'s world with the relay in place of the
+    epidemic push.  A solo network orders the same first GOSSIP_BLOCKS x
+    TX_PER_BLOCK txs of phase 8 arm (a)'s stream; GOSSIP_PEERS relay-mode
+    peers (RelayPeers at the reference's defaults) over one
+    BatchingVerifyService on one GpuVerifier, membership seeded (no alive
+    round).  Every peer must reach the orderer's height with arm (a)'s
+    flags and phase 10 (b)'s state, and keep no error.  Prints the spread
+    beside phase 10 (b)'s from the same run.  Returns the kernels'
+    launches."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    from fabric_mod_tpu_torch.orderer import BroadcastError, DeliverService
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.utils import fixtures
+    t_phase = time.perf_counter()
+    submits, flat = stream
+    n_blocks = GOSSIP_BLOCKS
+    n_tx = n_blocks * TX_PER_BLOCK
+    material = fixtures.make_network_material(
+        SEED, max_message_count=TX_PER_BLOCK, batch_timeout=E2E_BATCH_TIMEOUT,
+        preferred_max_bytes=E2E_PREFERRED_MAX_BYTES,
+        gossip_peers=GOSSIP_PEERS)
+    with tempfile.TemporaryDirectory() as root:
+        net = e2e.Network(os.path.join(root, "orderer"), material=material,
+                          verifier=sw.SwVerifier())
+        card = gpu.GpuVerifier(device=dev)
+        service = gpu.BatchingVerifyService(card)
+        world = None
+        try:
+            accepted = 0
+            for env, ok in submits:
+                if accepted == n_tx:
+                    break
+                try:
+                    net.broadcast.submit(env)
+                except BroadcastError:
+                    if ok:
+                        raise
+                    continue
+                accepted += 1
+            store = net.support.store
+            deadline = time.monotonic() + E2E_TIMEOUT_S
+            while store.height < n_blocks + 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"orderer height {store.height}")
+                time.sleep(0.01)
+            oracle = KvLedger(net.channel_id)
+            genesis = m.Block.decode(material.genesis)
+            oracle.commit_block(genesis, [m.TxValidationCode.VALID]
+                                * len(genesis.data.data))
+            for b in range(1, n_blocks + 1):
+                oracle.commit_block(store.get_block_by_number(b),
+                                    flat[(b - 1) * TX_PER_BLOCK:
+                                         b * TX_PER_BLOCK])
+            want_fp = oracle.state_fingerprint()
+            oracle.close()
+            if fingerprint is not None and len(flat) == n_tx and \
+                    want_fp != fingerprint:
+                raise AssertionError("the replayed state differs from arm "
+                                     "(a)'s")
+            tags = VerifyCallTags(service)
+            # gate_at 0: no block is held, the source only notes its first
+            world = RelayPeers(
+                root, material, service, tags,
+                lambda: _GatedSource(DeliverService(net.support), 0))
+            reset_kernel_counts()
+            sizes = _cohorts(card)
+            world.start_children()
+            world.services[world.lead].start()
+            done = world.wait_height(n_blocks + 1, GOSSIP_TIMEOUT_S)
+            for nd in world.nodes:
+                nd.state.flush(E2E_TIMEOUT_S)
+            counts = kernel_counts()
+            wall_s = done - world.streams[0].first_at
+            for i, c in enumerate(world.channels):
+                for b in range(1, n_blocks + 1):
+                    flags = list(protoutil.block_txflags(
+                        c.ledger.get_block_by_number(b)))
+                    if flags != flat[(b - 1) * TX_PER_BLOCK:b * TX_PER_BLOCK]:
+                        raise AssertionError(f"peer {i} block {b}: txflags "
+                                             "differ from arm (a)'s")
+                if c.ledger.state_fingerprint() != want_fp:
+                    raise AssertionError(f"peer {i}: state fingerprint "
+                                         "differs from arm (a)'s")
+            errors = world.errors()
+            if errors:
+                raise errors[0]
+            require_launched({k: counts[k] for k in (
+                "verify_prologue", "ladder_projective", "verify_epilogue")},
+                "phase 11 (b)")
+            peer_blocks = GOSSIP_PEERS * n_blocks
+            g = gossip_figures
+            beside = ("phase 10 (b) did not run" if g is None else
+                      f"phase 10 (b) in this run: {g['wall_s']:.2f} s, "
+                      f"{g['peer_blocks_s']:.2f} peer-blocks/s, "
+                      f"{g['envelopes']} envelopes, "
+                      f"{g['mcs_per_peer_block']:.2f} MCS checks a peer-block")
+            log(f"dissemination (b) {GOSSIP_PEERS} relay peers, {n_blocks} x "
+                f"{TX_PER_BLOCK}-tx blocks (tree degree "
+                f"{world.relays[0]._degree}, depth "
+                f"{max(world.tree.depth(e) for e in world.tree.order)}): "
+                f"spread {wall_s:.2f} s from the first delivered block to the "
+                f"last peer's commit, {peer_blocks / wall_s:.2f} "
+                f"peer-blocks/s, {world.sent.sent} envelopes sent, "
+                f"{tags.calls['mcs'] / peer_blocks:.2f} MCS checks a "
+                f"peer-block; {beside}")
+            log(f"dissemination (b) relay stats {world.stats()}; verify calls "
+                f"{tags.calls}; {len(sizes)} calls into the GpuVerifier, mean "
+                f"cohort {sum(sizes) / max(1, len(sizes)):.2f} items; kernel "
+                f"launches {counts}; every peer at height {n_blocks + 1} with "
+                f"arm (a)'s txflags and state ({want_fp[:16]}), no error kept")
+        finally:
+            if world is not None:
+                world.close()
+            service.close()
+            net.close()
+    log(f"dissemination (b) phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return counts
+
+
+class _RevealLedger:
+    """A ledger-shaped replay source (bench.py:2002): a built chain
+    revealed block by block."""
+
+    def __init__(self, blocks):
+        self._blocks = blocks
+        self._revealed = 0
+        self.height_changed = threading.Condition()
+
+    @property
+    def height(self):
+        return self._revealed
+
+    def get_block_by_number(self, num):
+        if 0 <= num < self._revealed:
+            return self._blocks[num]
+        return None
+
+    def reveal(self):
+        self._revealed += 1
+        with self.height_changed:
+            self.height_changed.notify_all()
+
+
+def phase_fanout(torch, dev):
+    """Phase 11 (c): bench.py:2027 `measure_deliverfanout`'s top point.
+    The fan-out chain (fixtures.make_fanout_chain) revealed block by block
+    to FANOUT_SUBSCRIBERS subscribers, half full and half filtered, over
+    FANOUT_WORKERS threads, through one FanoutEngine whose session ACL is
+    an ACLProvider over the channel's bundle with the card's GpuVerifier
+    as its verify_many; the seeks are signed by FANOUT_GROUPS real client
+    identities (one group each).  The config block's commit moves the
+    bundle's sequence.  Gates: every stream's digest equals the
+    per-stream batch=False encoding's; one materialization and one encode
+    per (block, form), no fallback; the ACL checks between the number of
+    groups and twice that.  Returns the kernels' launches (the ACL
+    checks')."""
+    import hashlib
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+    from fabric_mod_tpu_torch.peer.aclmgmt import ACLProvider
+    from fabric_mod_tpu_torch.peer.fanout import FanoutEngine, encode_frame
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos.protoutil import SignedData
+    from fabric_mod_tpu_torch.utils import fixtures
+    t_phase = time.perf_counter()
+    material = fixtures.make_network_material(SEED + 12)
+    cid, config = config_from_block(m.Block.decode(material.genesis))
+    csp = sw.SwCSP()
+    moved = m.Config.decode(config.encode())
+    moved.sequence = config.sequence + 1
+    bundles = [Bundle(cid, config, csp)]
+    next_bundle = Bundle(cid, moved, csp)
+    card = gpu.GpuVerifier(device=dev, cache_size=0)
+    acl = ACLProvider(lambda: bundles[-1], card.verify_many)
+    signers = [material.client] + [material.peers[o]
+                                   for o in ("Org1", "Org2", "Org3")]
+    sds = []
+    for i, pems in enumerate(signers[:FANOUT_GROUPS]):
+        ident = e2e._signer(csp, pems)
+        data = b"seek-info-%d" % i
+        sds.append(SignedData(data=data, identity=ident.serialize(),
+                              signature=ident.sign_message(data)))
+    blocks = fixtures.make_fanout_chain(cid)
+    n_blocks, n_subs = len(blocks), FANOUT_SUBSCRIBERS
+    config_at = fixtures.FANOUT_CONFIG_AT
+    refs = {}
+    for form in ("full", "filtered"):
+        h = hashlib.sha256()
+        for blk in blocks:
+            h.update(encode_frame(cid, form, blk, batch=False))
+        refs[form] = h.hexdigest()
+    led = _RevealLedger(blocks)
+    eng = FanoutEngine(cid, led, acl, ring_size=max(128, n_blocks))
+    forms = ["full" if i % 2 else "filtered" for i in range(n_subs)]
+    seq0 = acl.config_sequence()
+    sessions = [eng.acl_groups.join(
+        "event/Block" if forms[i] == "full" else "event/FilteredBlock",
+        sds[i % FANOUT_GROUPS], seq0) for i in range(n_subs)]
+    for f in forms:
+        eng.attach(f)
+    digests = [hashlib.sha256() for _ in range(n_subs)]
+    nexts = [0] * n_subs
+    slices = [list(range(w, n_subs, FANOUT_WORKERS))
+              for w in range(FANOUT_WORKERS)]
+    errors = []
+    log(f"fanout (c) fixtures: {n_blocks} blocks, {FANOUT_GROUPS} signed "
+        f"seeks and the bundles in {time.perf_counter() - t_phase:.1f} s")
+
+    def run_slice(idx):
+        try:
+            waiter = eng.notifier.waiter()
+            pending = set(slices[idx])
+            while pending:
+                progress = False
+                for s in list(pending):
+                    while nexts[s] < n_blocks:
+                        fr = eng.get_frame(forms[s], nexts[s])
+                        if fr is None:
+                            break
+                        if fr.is_config:
+                            sessions[s].recheck(force=True,
+                                                config_mark=fr.num)
+                        else:
+                            sessions[s].recheck()
+                        digests[s].update(fr.payload)
+                        nexts[s] += 1
+                        progress = True
+                    if nexts[s] >= n_blocks:
+                        pending.discard(s)
+                if pending and not progress:
+                    low = min(nexts[s] for s in pending)
+                    if eng.notifier.wait_above(
+                            low, waiter, timeout_s=60.0) == "timeout":
+                        raise RuntimeError("fanout stall")
+            eng.notifier.release(waiter)
+        except Exception as e:             # re-raised below
+            errors.append(e)
+
+    def pace():
+        for b in range(n_blocks):
+            if b == config_at:
+                bundles.append(next_bundle)    # the config commit
+            led.reveal()
+            time.sleep(0.001)                  # sustained, not a batch
+
+    reset_kernel_counts()
+    workers = [threading.Thread(target=run_slice, args=(w,), daemon=True)
+               for w in range(FANOUT_WORKERS)]
+    t0 = time.perf_counter()
+    pacer = threading.Thread(target=pace, daemon=True)
+    pacer.start()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=E2E_TIMEOUT_S)
+    shared_s = time.perf_counter() - t0
+    pacer.join(timeout=60)
+    for f in forms:
+        eng.detach(f)
+    eng.close()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    if errors:
+        raise errors[0]
+    if any(w.is_alive() for w in workers) or eng.notifier.errors:
+        raise AssertionError("a fan-out worker is still running or the "
+                             "notifier kept an error")
+    for i in range(n_subs):
+        if digests[i].hexdigest() != refs[forms[i]]:
+            raise AssertionError(f"stream {i} ({forms[i]}) differs from the "
+                                 "per-stream encoding")
+    for form in ("full", "filtered"):
+        st = eng.stats[form]
+        if st["materialized"] != n_blocks or st["encoded"] != n_blocks \
+                or st["fallbacks"]:
+            raise AssertionError(f"{form} ring {st}")
+    n_groups, checks = len(eng.acl_groups), eng.acl_groups.stats["checks"]
+    if not n_groups <= checks <= 2 * n_groups:
+        raise AssertionError(f"{checks} ACL checks for {n_groups} groups")
+    require_launched({k: counts[k] for k in (
+        "verify_prologue", "ladder_projective", "verify_epilogue")},
+        "phase 11 (c)")
+    sample = min(n_subs, FANOUT_PER_STREAM_SAMPLE)
+    t0 = time.perf_counter()
+    for i in range(sample):
+        h = hashlib.sha256()
+        for blk in blocks:
+            h.update(encode_frame(cid, forms[i], blk, batch=False))
+        if h.hexdigest() != refs[forms[i]]:
+            raise AssertionError("the per-stream arm is not deterministic")
+    per_s = time.perf_counter() - t0
+    shared_rate = n_blocks * n_subs / shared_s
+    per_rate = n_blocks * sample / per_s
+    log(f"fanout (c) {n_subs} subscribers x {n_blocks} blocks over "
+        f"{FANOUT_WORKERS} workers: shared {shared_rate:.1f} vs per-stream "
+        f"{per_rate:.1f} blocks*subs/s ({shared_rate / per_rate:.1f}x, "
+        f"per-stream sample {sample}); every stream's digest == the "
+        f"per-stream encoding's; rings {eng.stats}; ACL checks {checks} for "
+        f"{n_groups} groups ({eng.acl_groups.stats['reuses']} reuses), each "
+        f"one verify on the card; kernel launches {counts}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s wall")
     return counts
 
 
@@ -2576,7 +3338,47 @@ def profile_pairing_check(torch, ik, a_pts, b_pts, check_wall_ms):
             f"pieces sum to {wall:.1f} ms)")
 
 
+def main_phase11(torch, dev) -> int:
+    """`--phase 11`: phase 11 alone, its (b) on a stream made here (phase 8
+    arm (a)'s first GOSSIP_BLOCKS blocks' worth, endorsed as phase 8 does);
+    no kernels line."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import sw
+    from fabric_mod_tpu_torch.ops import _build
+    from fabric_mod_tpu_torch.utils import fixtures
+    t0 = time.perf_counter()
+    _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    material = fixtures.make_network_material(
+        SEED, max_message_count=TX_PER_BLOCK, batch_timeout=E2E_BATCH_TIMEOUT,
+        preferred_max_bytes=E2E_PREFERRED_MAX_BYTES)
+    with tempfile.TemporaryDirectory() as root:
+        net = e2e.Network(root, material=material, verifier=sw.SwVerifier())
+        try:
+            stream = fixtures.make_e2e_stream(
+                net, GOSSIP_BLOCKS * TX_PER_BLOCK, PLANT_EVERY)
+        finally:
+            net.close()
+    log(f"phase 11 (b) stream: {GOSSIP_BLOCKS * TX_PER_BLOCK} txs endorsed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_dissemination(torch, dev)
+    phase_relay_gossip(torch, dev, stream, None, None)
+    phase_fanout(torch, dev)
+    log(f"dissemination phase: {time.perf_counter() - t0:.1f} s wall")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phase", choices=["11"], default=None,
+                        help="run one phase alone (after the header)")
+    phase11_only = parser.parse_args().phase == "11"
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2596,6 +3398,9 @@ def main() -> int:
     log(smi)
     _device.require_exact_fp32()
     dev = _device.resolve(None)
+
+    if phase11_only:
+        return main_phase11(torch, dev)
 
     # 2. build
     t0 = time.perf_counter()
@@ -2676,8 +3481,19 @@ def main() -> int:
     # windows on the card recorded none of the hand-written kernels
     t0 = time.perf_counter()
     arms["gossip_storm"] = phase_gossip_storm(torch, dev)
-    arms["gossip_network"] = phase_gossip_network(torch, dev, full, solo_fp)
+    arms["gossip_network"], gossip_figures = phase_gossip_network(
+        torch, dev, full, solo_fp)
     log(f"gossip phase: {time.perf_counter() - t0:.1f} s wall")
+
+    # 11. deliver fan-out and dissemination trees: (a) 128 peers, relay
+    # against all-pull; (b) phase 10 (b)'s world over the relay; (c) the
+    # fan-out to 10,000 subscribers
+    t0 = time.perf_counter()
+    arms["dissemination"] = phase_dissemination(torch, dev)
+    arms["relay_gossip"] = phase_relay_gossip(torch, dev, full, solo_fp,
+                                              gossip_figures)
+    arms["fanout"] = phase_fanout(torch, dev)
+    log(f"dissemination phase: {time.perf_counter() - t0:.1f} s wall")
     for k in kernels.values():
         k["launches"] = counts[k["name"]] + sum(
             c[k["name"]] for c in arms.values())

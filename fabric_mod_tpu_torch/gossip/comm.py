@@ -6,8 +6,9 @@ and `GossipComm` (:510) (reference: gossip/comm/comm_impl.go — every
 delivered message is attributed to the sender that the authenticated
 handshake of :411 established; here attribution is by sender PKI-ID).
 The gRPC transport (`GRPCGossipNetwork`, `GossipAuth`) stays out with
-comm/, and the relay's pre-signed sends (`sign_once`, `send_signed`)
-come with the dissemination layer.
+comm/.  `sign_once` and `send_signed` (reference :526, :534) are the
+dissemination relay's pre-signed sends: one signature per frame, the
+same envelope bytes to every tree child.
 
 `InProcNetwork.send` runs the receiver's handler on the sender's thread.
 The reference answers any exception of the handler with "not delivered";
@@ -72,6 +73,17 @@ class GossipComm:
         env = sign_message(msg, self._signer)
         return self._network.send(self.endpoint, self.pki_id,
                                   dst_endpoint, env.encode())
+
+    def sign_once(self, msg: m.GossipMessage) -> bytes:
+        """Pre-sign a message into its envelope bytes: the relay signs
+        each frame once and ships the same envelope to every tree child
+        (degree sends must not mean degree signatures)."""
+        return sign_message(msg, self._signer).encode()
+
+    def send_signed(self, dst_endpoint: str, env_bytes: bytes) -> bool:
+        """Ship pre-signed envelope bytes (from sign_once)."""
+        return self._network.send(self.endpoint, self.pki_id,
+                                  dst_endpoint, env_bytes)
 
     def broadcast(self, dst_endpoints, msg: m.GossipMessage) -> int:
         got = 0

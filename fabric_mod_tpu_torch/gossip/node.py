@@ -17,7 +17,8 @@ in the reference; what else a check raises (the verifier's own errors)
 propagates to the sender's thread (gossip/comm.py).  The private-data
 messages (`private_data`, `pvt_req`, `pvt_resp`) are ignored: their
 paths are not ported.  `on_relay` is the dissemination layer's receive
-hook and stays None until a relay is composed.
+hook: `RelayService.start` sets it to its `BlockRelay.on_relay`; without
+a relay, relay messages are dropped.
 """
 from __future__ import annotations
 
@@ -71,8 +72,8 @@ class GossipNode:
             on_tick=self.pull_tick)
         # TTL'd duplicate suppression (reference: gossip msgstore)
         self._seen = TTLMessageStore(ttl_s=120.0)
-        # the dissemination layer's receive hook; relay messages are
-        # dropped until a relay is composed
+        # the dissemination layer's receive hook (RelayService.start);
+        # relay messages are dropped while it is None
         self.on_relay: Optional[Callable[[m.GossipMessage], None]] = None
         network.register(endpoint, self.on_message)
 

@@ -14,7 +14,10 @@ the client).
         │ on_commit(block)
         ▼
   GossipNode.gossip_block                  — the epidemic fan-out to the
-                                             others' state buffers
+                                             others' state buffers, or
+  RelayService.on_leader_commit            — with a relay: the block's
+                                             frame pushed down the relay
+                                             tree (dissemination/)
 
 A demoted leader stops its client; a promoted peer starts one from the
 channel's current height.  While a peer leads, a client that ends is
@@ -50,10 +53,11 @@ class GossipService:
         """`node`: a GossipNode.  `deliver_source_factory`: () -> a
         deliver source (orderer/deliver.DeliverService), called afresh on
         every promotion.  `static_leader` pins leadership (the
-        reference's static org-leader mode).  `relay`: a dissemination
-        relay service that replaces the epidemic push with tree relay
-        (its `start`, `stop`, `on_leadership` and `on_leader_commit`);
-        None (the default) pushes epidemically."""
+        reference's static org-leader mode).  `relay`: a
+        dissemination.RelayService over the same node, which replaces
+        the epidemic push with the tree relay (its `start`, `stop`,
+        `on_leadership` and `on_leader_commit` are called here); None
+        (the default) pushes epidemically."""
         self._node = node
         self._factory = deliver_source_factory
         self._interval = election_interval_s

@@ -164,7 +164,10 @@ class KvLedger:
     reopening the directory replays them into the state.  `ledger_dir`
     None gives the ledger a temporary directory of its own, removed on
     `close()`.  Blocks committed with their stage-time `rwsets` take
-    the vectorized MVCC pass."""
+    the vectorized MVCC pass.  `height_changed` is notified after each
+    commit, once the block is readable and outside the commit lock
+    (reference kvledger.py:245, :472): the deliver fan-out's commit
+    notifier parks on it."""
 
     def __init__(self, ledger_id: str = "ch",
                  ledger_dir: Optional[str] = None):
@@ -176,6 +179,7 @@ class KvLedger:
         self.dir = ledger_dir
         self.state = VersionedDB()
         self._lock = threading.Lock()
+        self.height_changed = threading.Condition()
         os.makedirs(ledger_dir, exist_ok=True)
         self.blockstore = BlockStore(os.path.join(ledger_dir, "chains"))
         for block in self.blockstore.iter_blocks():
@@ -272,6 +276,8 @@ class KvLedger:
             protoutil.set_block_txflags(block, bytes(flags))
             self.blockstore.add_block(block)
             self.state.apply_updates(batch, num)
+        with self.height_changed:
+            self.height_changed.notify_all()
         return flags
 
     # -- queries ---------------------------------------------------------

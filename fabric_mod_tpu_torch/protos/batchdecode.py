@@ -11,9 +11,10 @@ extends the scan down through each endorser tx's body (Transaction ->
 ... -> ChaincodeAction -> TxReadWriteSet -> KVRWSet -> its reads,
 writes, range queries and metadata writes) into flat per-block planes
 that the vectorized MVCC (ledger/mvcc.py) compares with numpy, and a
-`TxBody` per tx that staging reads instead of re-decoding.  The
-deliver fan-out's `decode_filtered_actions` is not ported (the port has
-no peer/fanout.py).
+`TxBody` per tx that staging reads instead of re-decoding.
+`decode_filtered_actions` (reference :330) walks the same body layers
+down to the chaincode event for the deliver fan-out's filtered
+projection (peer/fanout.py).
 
 Correctness stance (as the reference's): the scanner's ACCEPTANCE must
 be sound, not complete.  A row the scanner accepts produces values
@@ -313,6 +314,160 @@ def decode_block_spine(datas: Sequence[bytes]
 
 
 # ---------------------------------------------------------------------------
+# Tx-body layers: the deliver fan-out's shared filtered
+# projection walks Transaction -> TransactionAction ->
+# ChaincodeActionPayload -> ChaincodeEndorsedAction ->
+# ProposalResponsePayload -> ChaincodeAction -> ChaincodeEvent — the
+# "residual per-tx staging python" tail — in the same one-scan-per-
+# layer style as the spine.  Every DECLARED field of each message is
+# in its spec so a wrong-wire-type occurrence rejects the row exactly
+# where the generic decoder would raise; `actions` is spec'd single
+# (a multi-action tx dup-rejects into the sound per-tx fallback), and
+# the submessages the per-tx decode parses (each endorsement, the
+# chaincode action's response and chaincode id) get sub-scans.
+# ---------------------------------------------------------------------------
+
+_TX_SPEC = {1: "b"}                    # Transaction.actions (1 action)
+_TXA_SPEC = {1: "b", 2: "b"}           # TransactionAction
+_CAP_SPEC = {1: "b", 2: "b"}           # ChaincodeActionPayload
+_PRP_SPEC = {1: "b", 2: "b"}           # ProposalResponsePayload
+_CCA_SPEC = {1: "b", 2: "b", 3: "b", 4: "b"}   # ChaincodeAction
+_CEV_SPEC = {1: "s", 2: "s", 3: "s", 4: "b"}   # ChaincodeEvent
+
+
+def decode_filtered_actions(tx_datas: Sequence[Optional[bytes]]
+                            ) -> List[Optional[
+                                m.FilteredTransactionActions]]:
+    """Batch-build FilteredTransactionActions for a block's endorser
+    txs (payload.data per tx; None rows are skipped).
+
+    Same contract as :func:`decode_block_spine`: an entry is either
+    value-identical to the per-tx generic path
+    (``peer/fanout._filtered_actions`` — chaincode event payloads
+    STRIPPED) or ``None``, and the caller re-runs the generic decoder
+    for exactly the ``None`` rows, which keeps ownership of every
+    malformed-input outcome.  Unlike the reference's scanner, this one
+    also validates the submessages the per-tx decode parses and the
+    reference skips (each Endorsement, the ChaincodeAction's response
+    and chaincode_id): a row malformed only there is ``None`` here, where
+    the reference returns actions that its per-tx path would not.
+    """
+    n = len(tx_datas)
+    out: List[Optional[m.FilteredTransactionActions]] = [None] * n
+    live = [i for i, d in enumerate(tx_datas) if d is not None]
+    nl = len(live)
+    if nl < 4:
+        return out                    # numpy setup beats tiny batches
+    try:
+        lens = np.fromiter((len(tx_datas[i]) for i in live), np.int64, nl)
+        joined = b"".join(tx_datas[i] for i in live)
+    except TypeError:
+        return out
+    if not joined:
+        return out
+    flat = np.frombuffer(joined, np.uint8)
+    starts = np.zeros(nl, np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    ends = starts + lens
+
+    def gated(off, ln, mask):
+        """Empty spans for rows outside `mask`: their layer scan is a
+        trivially-ok no-op (absent parents stay absent)."""
+        return np.where(mask, off, 0), np.where(mask, off + ln, 0)
+
+    # L1: Transaction(actions) — dup field 1 (a multi-action tx)
+    # rejects into the fallback, so accepted rows have 0 or 1 action
+    tx_res, ok = scan_message(flat, starts, ends, _TX_SPEC)
+    act_off, act_ln = _span(tx_res, 1)
+    act_present = tx_res[1]["present"]
+
+    # L2: TransactionAction(header, payload)
+    s, e = gated(act_off, act_ln, ok & act_present)
+    ta_res, ok2 = scan_message(flat, s, e, _TXA_SPEC)
+    ok &= ok2
+    pay_off, pay_ln = _span(ta_res, 2)
+
+    # L3: ChaincodeActionPayload(ccpp, action)
+    s, e = gated(pay_off, pay_ln, ok & act_present)
+    cap_res, ok3 = scan_message(flat, s, e, _CAP_SPEC)
+    ok &= ok3
+    ea_off, ea_ln = _span(cap_res, 2)
+    # absent action => the generic loop `continue`s (empty actions
+    # list); PRESENT-but-empty still decodes the cascade of defaults
+    ea_present = cap_res[2]["present"]
+
+    # L4: ChaincodeEndorsedAction(prp, endorsements*) — the generic
+    # decode parses every Endorsement, so each occurrence gets a
+    # validating sub-scan (the reference skips them, spec "r", and so
+    # accepts rows whose endorsement the per-tx decode rejects)
+    deep = ok & act_present & ea_present
+    s, e = gated(ea_off, ea_ln, deep)
+    cea_res, ok4, cea_rep = scan_collect(flat, s, e, _CEA_RW_SPEC)
+    ok &= ok4
+    e_rows, e_off, e_ln = cea_rep[2]
+    _, ok_e = scan_message(flat, e_off, e_off + e_ln, _END_SPEC)
+    bad = e_rows[~ok_e]
+    if bad.size:
+        ok[np.unique(bad)] = False
+    prp_off, prp_ln = _span(cea_res, 1)
+
+    # L5: ProposalResponsePayload(hash, extension)
+    s, e = gated(prp_off, prp_ln, deep)
+    prp_res, ok5 = scan_message(flat, s, e, _PRP_SPEC)
+    ok &= ok5
+    ext_off, ext_ln = _span(prp_res, 2)
+
+    # L6: ChaincodeAction(results, events, response, chaincode_id) —
+    # response and chaincode_id are submessages the generic decode
+    # parses, so both get validating sub-scans (the reference's scanner
+    # does not)
+    s, e = gated(ext_off, ext_ln, deep)
+    cca_res, ok6 = scan_message(flat, s, e, _CCA_SPEC)
+    ok &= ok6
+    for fnum, spec in ((3, _RESP_SPEC), (4, _CCID_SPEC)):
+        off, ln = _span(cca_res, fnum)
+        _, ok_sub = scan_message(flat, *gated(off, ln, deep), spec)
+        ok &= ok_sub
+    ev_off, ev_ln = _span(cca_res, 2)
+
+    # L7: ChaincodeEvent — only for non-empty `events` (the generic
+    # path's `if cca.events:` truthiness gate)
+    has_ev = deep & (ev_ln > 0)
+    s, e = gated(ev_off, ev_ln, ok & has_ev)
+    cev_res, ok7 = scan_message(flat, s, e, _CEV_SPEC)
+    ok &= ok7
+
+    ccid_o, ccid_l = (a.tolist() for a in _span(cev_res, 1))
+    txid_o, txid_l = (a.tolist() for a in _span(cev_res, 2))
+    name_o, name_l = (a.tolist() for a in _span(cev_res, 3))
+    act_p = act_present.tolist()
+    ea_p = ea_present.tolist()
+    has_e = has_ev.tolist()
+
+    for j in np.nonzero(ok)[0].tolist():
+        i = live[j]
+        if not (act_p[j] and ea_p[j]):
+            out[i] = m.FilteredTransactionActions(chaincode_actions=[])
+            continue
+        event = None
+        if has_e[j]:
+            try:
+                event = m.ChaincodeEvent(
+                    chaincode_id=joined[ccid_o[j]:ccid_o[j]
+                                        + ccid_l[j]].decode(),
+                    tx_id=joined[txid_o[j]:txid_o[j]
+                                 + txid_l[j]].decode(),
+                    event_name=joined[name_o[j]:name_o[j]
+                                      + name_l[j]].decode())
+            except UnicodeDecodeError:
+                continue              # generic decode raises: fallback
+        out[i] = m.FilteredTransactionActions(
+            chaincode_actions=[m.FilteredChaincodeAction(
+                chaincode_event=event)])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Rwset columnar planes: extend the scan downward through
 # the endorser-tx body — Transaction -> TransactionAction ->
 # ChaincodeActionPayload -> ChaincodeEndorsedAction (endorsements
@@ -326,11 +481,6 @@ def decode_block_spine(datas: Sequence[bytes]
 # owns the verdict.
 # ---------------------------------------------------------------------------
 
-_TX_SPEC = {1: "b"}                    # Transaction.actions (1 action)
-_TXA_SPEC = {1: "b", 2: "b"}           # TransactionAction
-_CAP_SPEC = {1: "b", 2: "b"}           # ChaincodeActionPayload
-_PRP_SPEC = {1: "b", 2: "b"}           # ProposalResponsePayload
-_CCA_SPEC = {1: "b", 2: "b", 3: "b", 4: "b"}   # ChaincodeAction
 _CEA_RW_SPEC = {1: "b", 2: "*"}        # ChaincodeEndorsedAction (collect)
 _END_SPEC = {1: "b", 2: "b"}           # Endorsement
 _RESP_SPEC = {1: "i", 2: "s", 3: "b"}  # Response

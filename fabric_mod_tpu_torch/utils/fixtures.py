@@ -724,3 +724,65 @@ def make_pairing_lanes(world: IdemixWorld, n: int, tamper_every: int = 97,
         expect.append(not bad)
         a, abar = g1_add(a, g), g1_add(abar, xg)
     return a_pts, abar_pts, np.array(expect)
+
+
+# the deliver fan-out cell's chain (bench.py:1948 `_fanout_chain`): 20
+# blocks, the CONFIG block in the middle
+FANOUT_BLOCKS = 20
+FANOUT_CONFIG_AT = 10
+
+
+def make_fanout_chain(channel_id: str, n_blocks: int = FANOUT_BLOCKS,
+                      config_at: int = FANOUT_CONFIG_AT):
+    """A committed chain for the deliver fan-out (the shape of the
+    reference's bench.py:1948 `_fanout_chain`): each block holds three
+    one-action endorser txs with a chaincode event (the filtered
+    projection has real work) and one two-action tx (the batch scanner
+    rejects it into the per-tx fallback); block `config_at` holds one
+    CONFIG tx instead (the forced session re-check).  Every tx VALID,
+    nonces and previous hashes fixed.  The reference's helper appends
+    only the last action of its multi-action tx; this one appends both,
+    as its docstring intends."""
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+
+    def tx_bytes(txid, nactions=1):
+        actions = []
+        for _ in range(nactions):
+            ev = m.ChaincodeEvent(chaincode_id="cc", tx_id=txid,
+                                  event_name="moved",
+                                  payload=b"p" * 64).encode()
+            cca = m.ChaincodeAction(results=b"rw" * 32, events=ev)
+            prp = m.ProposalResponsePayload(proposal_hash=b"h" * 32,
+                                            extension=cca.encode())
+            cap = m.ChaincodeActionPayload(
+                chaincode_proposal_payload=b"cpp",
+                action=m.ChaincodeEndorsedAction(
+                    proposal_response_payload=prp.encode(),
+                    endorsements=[m.Endorsement(endorser=b"e" * 64,
+                                                signature=b"s" * 70)]))
+            actions.append(m.TransactionAction(header=b"sh",
+                                               payload=cap.encode()))
+        return m.Transaction(actions=actions).encode()
+
+    def env(txid, htype=m.HeaderType.ENDORSER_TRANSACTION, data=b""):
+        ch = protoutil.make_channel_header(htype, channel_id, tx_id=txid)
+        sh = protoutil.make_signature_header(b"creator", b"\x00" * 24)
+        payload = protoutil.make_payload(ch, sh, data)
+        return m.Envelope(payload=payload.encode(), signature=b"sig")
+
+    blocks = []
+    for b in range(n_blocks):
+        if b == config_at:
+            envs = [env(f"cfg-{b}", htype=m.HeaderType.CONFIG,
+                        data=b"new-config")]
+        else:
+            envs = [env(f"t{b}-{i}", data=tx_bytes(f"t{b}-{i}"))
+                    for i in range(3)]
+            envs.append(env(f"t{b}-multi",
+                            data=tx_bytes(f"t{b}-multi", nactions=2)))
+        blk = protoutil.new_block(b, b"\x00" * 32, envs)
+        protoutil.set_block_txflags(
+            blk, bytes([m.TxValidationCode.VALID] * len(envs)))
+        blocks.append(blk)
+    return blocks

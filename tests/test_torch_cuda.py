@@ -800,3 +800,67 @@ def test_gossip_peers_share_one_card(cuda_device, tmp_path):
     heights, flags, fps, errors = outcomes[1]
     assert heights == [2] * 4 and flags == [expected] * 4
     assert len(fps) == 1 and errors == [[]] * 4
+
+
+@pytest.mark.cuda
+def test_relay_tree_over_one_card(cuda_device, tmp_path):
+    """Two 8-tx blocks relayed down an 8-peer dissemination tree (degree
+    2, depth 3) whose channels share one BatchingVerifyService over one
+    GpuVerifier on the card (tensor policy, a commit pipe of depth 2):
+    one orderer stream, every non-leader gets both frames through the
+    tree, each byte-identical to a direct pull's, one state fingerprint
+    equal to the direct-pull peer's, no error kept, and the verify core
+    launched."""
+    import threading
+    import time
+    from tests._torch_relay_world import RelayWorld
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.orderer import DeliverService
+    from fabric_mod_tpu_torch.peer.fanout import encode_frame
+    material = fixtures.make_network_material(
+        8, max_message_count=8, batch_timeout="60s", gossip_peers=8)
+    net = e2e.Network(str(tmp_path / "net"), material=material,
+                      verifier=sw.SwVerifier())
+    service = gpu.BatchingVerifyService(gpu.GpuVerifier(cache_size=0))
+    world = None
+    try:
+        submits, _ = fixtures.make_e2e_stream(net, 16, plant_every=8)
+        world = RelayWorld(str(tmp_path), material,
+                           lambda: DeliverService(net.support),
+                           [service] * 8, degree=2, tensor_policy=True,
+                           pipeline_depth=2)
+        world.start()
+        before = dict(p256_core.counts())
+        for env, ok in submits:
+            if ok:
+                net.broadcast.submit(env)
+        deadline = time.monotonic() + 300
+        while min(world.heights()) < 3 and time.monotonic() < deadline:
+            assert world.errors() == []
+            time.sleep(0.01)
+        assert world.heights() == [3] * 8 and world.errors() == []
+        assert len(world.streams) == 1
+        client = net.deliver_client()
+        t = threading.Thread(target=client.run, daemon=True)
+        t.start()
+        while net.ledger.height < 3 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        client.stop()
+        t.join(timeout=60)
+        for i, tap in enumerate(world.taps):
+            got = dict(tap)
+            assert set(got) == (set() if i == world.lead else {1, 2})
+            for num, frame in got.items():
+                assert frame == encode_frame(
+                    net.channel_id, "full",
+                    net.ledger.get_block_by_number(num))
+        assert {p.ledger.state_fingerprint() for p in world.peers} == \
+            {net.ledger.state_fingerprint()}
+        after = p256_core.counts()
+        assert all(after[k] > before[k] for k in after)
+    finally:
+        if world is not None:
+            world.close()
+        service.close()
+        net.close()

@@ -8,7 +8,9 @@ through the port's e2e Network (with the host verifier: the GPU
 verifier's CPU path ran above), one through a staged Network from 4
 submitter threads and one through a Network of three Raft orderers (a
 follower forwarding to the leader), pushes one ordered block through
-three gossip peers that joined by signed alive messages, then inspects
+three gossip peers that joined by signed alive messages, relays it down
+a three-peer dissemination tree and serves one filtered frame of it
+through a deliver FanoutEngine with a session ACL check, then inspects
 sys.modules."""
 import json
 import os
@@ -141,6 +143,61 @@ with tempfile.TemporaryDirectory() as root:
         assert list(protoutil.block_txflags(
             node._channel.ledger.get_block_by_number(1))) == want
         assert node.state.errors == []
+        node.stop()
+        mgr.close()
+import time
+from fabric_mod_tpu_torch.dissemination import RelayService
+from fabric_mod_tpu_torch.peer.aclmgmt import ACLProvider
+from fabric_mod_tpu_torch.peer.fanout import FanoutEngine, encode_frame
+with tempfile.TemporaryDirectory() as root:
+    fabric, nodes, mgrs, relays = InProcNetwork(), [], [], []
+    for i, pems in enumerate(material.gossip_peers):
+        genesis = messages.Block.decode(material.genesis)
+        cid, config = config_from_block(genesis)
+        mgrs.append(LedgerManager(f"{root}/relay{i}"))
+        channel = Channel(cid, mgrs[-1].create_or_open(cid), sw.SwVerifier(),
+                          Bundle(cid, config, sw.SwCSP()), sw.SwCSP())
+        channel.init_from_genesis(genesis)
+        nodes.append(GossipNode(f"relay{i}:7051", e2e._signer(
+            sw.SwCSP(), pems), channel, fabric))
+    for node in nodes:
+        node.join([n.endpoint for n in nodes])
+    relays = [RelayService(node, degree=1) for node in nodes]
+    lead = min(range(3), key=lambda i: (nodes[i].pki_id, nodes[i].endpoint))
+    assert max(relays[lead].tree().depth(n.endpoint) for n in nodes) == 2
+    for relay in relays:
+        relay.start()
+    relays[lead].on_leadership(True)
+    assert nodes[lead].state.add_block(block) and nodes[lead].state.drain() == 1
+    relays[lead].on_leader_commit(block)
+    deadline = time.monotonic() + 120
+    while min(n._channel.ledger.height for n in nodes) < 2:
+        assert time.monotonic() < deadline
+        for node in nodes:
+            node.state.drain()
+        time.sleep(0.01)
+    ledger = nodes[lead]._channel.ledger
+    for node, relay in zip(nodes, relays):
+        relay.stop()
+        assert relay.errors == [] and node.state.errors == []
+        assert list(protoutil.block_txflags(
+            node._channel.ledger.get_block_by_number(1))) == want
+    assert sum(r.stats["forwarded"] for r in relays) == 2
+    client = e2e._signer(sw.SwCSP(), material.client)
+    engine = FanoutEngine(cid, ledger, ACLProvider(
+        nodes[lead]._channel.bundle, sw.SwVerifier().verify_many))
+    engine.attach("filtered")
+    frame = engine.get_frame("filtered", 1)
+    assert frame.payload == encode_frame(
+        cid, "filtered", ledger.get_block_by_number(1), batch=False)
+    session = engine.acl_groups.join(
+        "event/FilteredBlock", protoutil.SignedData(
+            data=b"seek", identity=client.serialize(),
+            signature=client.sign_message(b"seek")), 0)
+    session.recheck(force=True, config_mark=1)
+    assert engine.acl_groups.stats["checks"] == 1
+    engine.close()
+    for node, mgr in zip(nodes, mgrs):
         node.stop()
         mgr.close()
 bad = sorted(n for n in sys.modules
