@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's device paths once on one CUDA card: the
 block commit, the end-to-end network around it (the main path) on a solo
 and on a three-node Raft ordering service, gossip around it, the
-dissemination tree and the deliver fan-out, and the idemix presentation
-verify.
+dissemination tree and the deliver fan-out, channel sharding, and the
+idemix presentation verify.
 
     python3 chip_smoke.py
 
@@ -230,14 +230,49 @@ Phases (any failure exits non-zero; none is caught):
    group count and twice it; prints shared and per-stream blocks*subs/s
    and the ACL checks.
 
-   python3 chip_smoke.py --phase 11
+12. channel sharding (run after 11) — (a) bench.py:1677's multichannel
+   curve at BASELINE.md #2's 1000-tx blocks: 4 channels mc0-mc3 of 2
+   blocks each (utils/fixtures.make_channel_stream over
+   make_commit_world's 3 orgs and 2-of-3 policy, every 4th tx endorsed
+   by Org1 alone), placed by one sharding.ChannelShardRouter (depth-2
+   pipes, tensor policy) on its slices — slice meshes where the cards
+   split evenly, else unmeshed GpuVerifiers on the one card, without
+   memo-cache — while riders verify 8 items (every 3rd tampered) every
+   20 ms through the router's shared CrossChannelVerifyService.  The 7
+   points of bench.py:1857-1871's axes (slices 1, 2, 4; channels 1, 2,
+   4; riders 0, 4, 16), after one untimed warm point; each is gated,
+   before any rate, on every channel's per-block flags and fingerprint
+   equal to an independent unsharded synchronous run on one GpuVerifier
+   (flags holding VALID and ENDORSEMENT_POLICY_FAILURE) and every rider
+   verdict the construction's.  Prints per point committed tx/s, rider
+   verifies/s, meshed, the calls into each slice's GpuVerifier and
+   their mean items, the service's flushes and dispatch groups per
+   slice, and the launches; once, the serial independent tx/s and
+   vs_baseline at the middle point (2, 2, 4), and torch.profiler over
+   the last round of a 4-slice, 4-channel point: kernels, the
+   hand-written launches it recorded against those made, busy and idle
+   share (bounds when it missed any), and how many kernels overlapped
+   an earlier one.  (b) in one flush window a raising slice
+   verifier fails only its own futures while the other slice's riders
+   resolve on the card; a channel whose block has one flipped byte in
+   every 10th creator signature gets exactly those txs
+   BAD_CREATOR_SIGNATURE while the other channel's flags and
+   fingerprint equal its independent run.  (c) with two or more cards
+   only: GpuVerifier(mesh=data_mesh()) and each slice_meshes(2)
+   verifier equal a one-card GpuVerifier on 2048 planted lanes; on one
+   card it says so and runs nothing.
 
-runs phase 11 alone after the header (its (b) on a stream endorsed
-there, without phase 10 (b) beside it) and prints no kernels line.
+   python3 chip_smoke.py --phase 11
+   python3 chip_smoke.py --phase 12
+
+run phase 11 (its (b) on a stream endorsed there, without phase 10 (b)
+beside it) or phase 12 alone after the header, and print no kernels
+line.
 
 It prints one JSON line describing each of the five kernels
 (`launches` counts the block-commit phase, the four e2e arms, phase
-10's two parts and phase 11's three), and as its last line
+10's two parts, phase 11's three and phase 12 (a)'s sweep), and as its
+last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -432,6 +467,26 @@ FANOUT_SUBSCRIBERS = 10_000
 FANOUT_WORKERS = 8
 FANOUT_GROUPS = 4
 FANOUT_PER_STREAM_SAMPLE = 128
+
+# phase 12: bench.py:1677 `measure_multichannel` on the card, at
+# BASELINE.md #2's 1000-tx blocks (bench.py used 4): 4 channels of 2
+# blocks, bench.py:1857-1871's axes (each varied about the middle point,
+# 7 points), riders of 8 items every 20 ms through the shared service
+MC_CHANNELS = 4
+MC_BLOCKS = 2
+MC_BLOCK_TXS = 1000
+MC_SLICES = (1, 2, 4)
+MC_CHANNEL_AXIS = (1, 2, 4)
+MC_RIDERS = (0, 4, 16)
+MC_MIDDLE = tuple(axis[len(axis) // 2]
+                  for axis in (MC_SLICES, MC_CHANNEL_AXIS, MC_RIDERS))
+MC_RIDER_ITEMS = 8
+MC_RIDER_EVERY_S = 0.02
+MC_RIDER_TIMEOUT_S = 30.0
+MC_PROFILED = (4, 4, 4)
+MC_TAMPER_EVERY = 10
+# phase 12 (c): lanes of the mesh differential (two or more cards only)
+MESH_LANES = 2048
 
 
 def log(msg: str) -> None:
@@ -3157,6 +3212,457 @@ def phase_fanout(torch, dev):
     return counts
 
 
+def mc_sweep() -> list:
+    """bench.py:1857-1871's points: each axis varied through its values
+    with the other two at their middle."""
+    s_mid, c_mid, p_mid = MC_MIDDLE
+    return sorted({(s, c_mid, p_mid) for s in MC_SLICES}
+                  | {(s_mid, c, p_mid) for c in MC_CHANNEL_AXIS}
+                  | {(s_mid, c_mid, p) for p in MC_RIDERS})
+
+
+def counted_verifier(**kwargs):
+    """A GpuVerifier counting the calls into it and their items."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+
+    class Counted(gpu.GpuVerifier):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.calls = 0
+            self.items = 0
+            self._count_lock = threading.Lock()
+
+        def _verify_async(self, items, keep_device):
+            with self._count_lock:
+                self.calls += 1
+                self.items += len(items)
+            return super()._verify_async(items, keep_device)
+    return Counted(**kwargs)
+
+
+def mc_target(world, cid, verifier):
+    """A fresh channel commit target: the port's TxValidator (tensor
+    policy) over `verifier` and an in-memory ledger."""
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    from fabric_mod_tpu_torch.peer.commitpipe import ValidatorCommitTarget
+    from fabric_mod_tpu_torch.peer.txvalidator import (TxValidator,
+                                                       ValidationInfoProvider)
+    from fabric_mod_tpu_torch.policy import ApplicationPolicyEvaluator
+    led = KvLedger(cid)
+    return ValidatorCommitTarget(TxValidator(
+        cid, world.mgr, ApplicationPolicyEvaluator(world.mgr), verifier,
+        ValidationInfoProvider(world.policy), tx_id_exists=led.tx_id_exists,
+        tensor_policy=True), led)
+
+
+def mc_flags(ledger) -> list:
+    from fabric_mod_tpu_torch.protos import protoutil
+    return [list(protoutil.block_txflags(ledger.get_block_by_number(n)))
+            for n in range(ledger.height)]
+
+
+def mc_meshes(torch, s):
+    """bench.py:1725-1731: slice meshes where the cards split evenly into
+    `s`, else None (unmeshed: each slice its own GpuVerifier on the
+    current card, its default stream)."""
+    from fabric_mod_tpu_torch.parallel import slice_meshes
+    n = torch.cuda.device_count()
+    return slice_meshes(s) if s <= n and n % s == 0 else None
+
+
+def kernel_intervals(torch, fn):
+    """fn() under torch.profiler: (wall ms, [(start us, end us)] of the
+    device kernels or None when none was recorded, {name: count} of the
+    recorded device kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    names: dict = {}
+    for e in kernels:
+        names[e.name] = names.get(e.name, 0) + 1
+    return wall_ms, (spans or None), names
+
+
+def recorded_launches(names: dict, key: str) -> int:
+    """How many of the profiler's kernels are the hand-written kernel
+    counted under `key` (its CUDA name is `key` + "_kernel")."""
+    return sum(c for name, c in names.items()
+               if name.startswith(f"{key}_kernel"))
+
+
+def overlapping_kernels(spans) -> int:
+    """How many kernels started before an earlier kernel had ended."""
+    n, end = 0, None
+    for lo, hi in spans:
+        if end is not None and lo < end:
+            n += 1
+        end = hi if end is None else max(end, hi)
+    return n
+
+
+def mc_point(torch, world, streams, baseline, s, c, p, profile=False):
+    """One point of the curve: `c` channels on `s` slices of one
+    ChannelShardRouter (depth-2 pipes), their blocks submitted round
+    robin while `p` riders verify 8 items every 20 ms through the shared
+    service.  Gated before any rate: per channel, per-block flags and the
+    fingerprint equal the independent run's; every rider verdict the
+    construction's.  With `profile`, the last round runs under
+    torch.profiler after the earlier rounds were flushed."""
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.sharding import ChannelShardRouter
+    from fabric_mod_tpu_torch.utils import fixtures
+    cids = sorted(streams)[:c]
+    meshes = mc_meshes(torch, s)
+    router = ChannelShardRouter(
+        n_slices=s, meshes=meshes, depth=2,
+        verifier_factory=lambda i, mesh: counted_verifier(
+            mesh=mesh, cache_size=0) if mesh is not None
+        else counted_verifier(cache_size=0))
+    rider_items, rider_expect = fixtures.make_verify_items(
+        MC_RIDER_ITEMS, invalid_every=3, seed=b"mc-rider")
+    stop = threading.Event()
+    rider_counts = [0] * p
+    rider_errs: list = []
+
+    def rider(k):
+        i = k
+        while not stop.is_set():
+            cid = cids[i % len(cids)]
+            try:
+                got = router.service.verify_many_for(
+                    cid, rider_items, timeout=MC_RIDER_TIMEOUT_S)
+            except Exception as e:           # the gate below raises it
+                rider_errs.append(f"rider {k}: {e!r}")
+                return
+            if got != rider_expect:
+                rider_errs.append(f"rider {k}: verdicts {got} != "
+                                  f"{rider_expect}")
+                return
+            rider_counts[k] += 1
+            i += 1
+            stop.wait(MC_RIDER_EVERY_S)
+
+    riders = [threading.Thread(target=rider, args=(k,), daemon=True)
+              for k in range(p)]
+    targets = {}
+    profiled = None
+    try:
+        for cid in cids:
+            targets[cid] = mc_target(world, cid, router.add_channel(cid))
+            router.bind_target(cid, targets[cid])
+        for t in riders:
+            t.start()
+
+        def round_(n):
+            for cid in cids:
+                router.submit_block(cid, m.Block.decode(streams[cid][n]))
+            if not router.flush(timeout_s=600):
+                raise AssertionError("multichannel flush timed out")
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        for n in range(MC_BLOCKS - (1 if profile else 0)):
+            round_(n)
+        if profile:
+            pre = kernel_counts()
+            profiled = kernel_intervals(torch, lambda: round_(MC_BLOCKS - 1))
+            post = kernel_counts()
+            profiled += ({k: post[k] - pre[k] for k in post},)
+        dt = time.perf_counter() - t0
+        after = kernel_counts()
+    finally:
+        stop.set()
+        for t in riders:
+            t.join(timeout=MC_RIDER_TIMEOUT_S + 60)
+        router.close()
+    if any(t.is_alive() for t in riders):
+        raise AssertionError("a rider outlived the point")
+    if rider_errs:
+        raise AssertionError(rider_errs[0])
+    for cid in cids:
+        led = targets[cid].ledger
+        if mc_flags(led) != baseline[cid][0]:
+            raise AssertionError(f"sharded txflags diverge from the "
+                                 f"independent run on {cid}")
+        if led.state_fingerprint() != baseline[cid][1]:
+            raise AssertionError(f"sharded state fingerprint diverges on "
+                                 f"{cid}")
+    txs = c * MC_BLOCKS * MC_BLOCK_TXS
+    return {
+        "slices": s, "channels": c, "riders": p,
+        "tx_per_sec": txs / dt,
+        "rider_verifies_per_sec": sum(rider_counts) * MC_RIDER_ITEMS / dt,
+        "meshed": meshes is not None,
+        "slice_calls": {i: (v.calls, v.items / max(v.calls, 1))
+                        for i, v in router.verifiers.items()},
+        "flushes": router.service.flushes,
+        "groups": dict(router.service.groups),
+        "launches": {k: after[k] - before[k] for k in after},
+        "wall_s": dt,
+        "profiled": profiled,
+    }
+
+
+def log_mc_point(pt) -> None:
+    calls = ", ".join(f"slice {i}: {n} calls of {mean:.1f} items"
+                      for i, (n, mean) in pt["slice_calls"].items())
+    groups = ", ".join(f"{i}: {g}" for i, g in pt["groups"].items())
+    # the profiled point's wall holds the profiler's own processing: no
+    # rate is read from it
+    rates = (f"{pt['tx_per_sec']:.1f} committed tx/s, "
+             f"{pt['rider_verifies_per_sec']:.1f} rider verifies/s, "
+             f"{pt['wall_s']:.3f} s" if pt["profiled"] is None
+             else "profiled (no rate)")
+    log(f"multichannel point slices={pt['slices']} channels="
+        f"{pt['channels']} riders={pt['riders']}: {rates}, meshed="
+        f"{pt['meshed']}; "
+        f"GpuVerifier {calls}; shared service {pt['flushes']} flushes, "
+        f"dispatch groups by slice {{{groups}}}; launches "
+        f"{pt['launches']}")
+
+
+def phase_multichannel(torch, dev):
+    """Phase 12 (a): bench.py:1677's multichannel curve on the card.
+    Returns the kernel counts of the sweep and the profiled point."""
+    from fabric_mod_tpu_torch.utils import fixtures
+    t0 = time.perf_counter()
+    world = fixtures.make_commit_world()
+    streams = {f"mc{c}": fixtures.make_channel_stream(
+        world.signers, f"mc{c}", MC_BLOCKS, MC_BLOCK_TXS)
+        for c in range(MC_CHANNELS)}
+    log(f"multichannel (a) streams: {MC_CHANNELS} channels x {MC_BLOCKS} "
+        f"blocks x {MC_BLOCK_TXS} txs signed in "
+        f"{time.perf_counter() - t0:.1f} s (pure-python signer)")
+    # the oracle: an independent unsharded synchronous run a channel on
+    # one GpuVerifier; the first run warms the card, the second is timed
+    # and must agree with it
+    oracle = lambda cid: mc_target(world, cid,                 # noqa: E731
+                                   counted_verifier(cache_size=0))
+    baseline = fixtures.independent_baseline(streams, oracle)
+    timed = fixtures.independent_baseline(streams, oracle)
+    for cid, (flags, fp, _) in baseline.items():
+        if timed[cid][:2] != (flags, fp):
+            raise AssertionError(f"two independent runs of {cid} differ")
+    kinds = {f for flags, _, _ in baseline.values()
+             for blk in flags for f in blk}
+    from fabric_mod_tpu_torch.protos import messages as m
+    V = m.TxValidationCode
+    if kinds != {V.VALID, V.ENDORSEMENT_POLICY_FAILURE}:
+        raise AssertionError(f"multichannel flags {kinds}: the stream "
+                             "must hold VALID and ENDORSEMENT_POLICY_FAILURE")
+    warm = mc_point(torch, world, streams, baseline, *mc_sweep()[0])
+    log(f"multichannel warm point (untimed): {warm['wall_s']:.3f} s")
+    reset_kernel_counts()
+    points = []
+    for s, c, p in mc_sweep():
+        pt = mc_point(torch, world, streams, baseline, s, c, p)
+        log_mc_point(pt)
+        points.append(pt)
+    prof = mc_point(torch, world, streams, baseline, *MC_PROFILED,
+                    profile=True)
+    counts = kernel_counts()
+    require_launched({k: counts[k] for k in (
+        "verify_prologue", "ladder_projective", "verify_epilogue")},
+        "the multichannel router's slices")
+    log_mc_point(prof)
+    # vs_baseline at one fixed point, the sweep's middle: each point is
+    # one pass, so the best of seven would read high
+    mid = next(pt for pt in points
+               if (pt["slices"], pt["channels"], pt["riders"]) == MC_MIDDLE)
+    mid_cids = sorted(streams)[:mid["channels"]]
+    serial = (mid["channels"] * MC_BLOCKS * MC_BLOCK_TXS
+              / sum(timed[cid][2] for cid in mid_cids))
+    log(f"multichannel: {mid['tx_per_sec']:.1f} tx/s at the middle point "
+        f"slices={mid['slices']} channels={mid['channels']} riders="
+        f"{mid['riders']}; serial independent {serial:.1f} tx/s over the "
+        f"same {mid['channels']} channels (one GpuVerifier, one block at "
+        f"a time); vs_baseline {mid['tx_per_sec'] / serial:.3f} (one pass "
+        "each)")
+    wall_ms, spans, names, launched = prof["profiled"]
+    s, c, p = MC_PROFILED
+    head = (f"profile multichannel slices={s} channels={c} riders={p}, last "
+            f"round: wall {wall_ms:.1f} ms")
+    if spans is None:
+        log(f"{head}; device time not measured (the profiler recorded no "
+            "device kernels)")
+        return counts
+    path = ("verify_prologue", "ladder_projective", "verify_epilogue")
+    seen = {k: recorded_launches(names, k) for k in path}
+    whole = all(seen[k] >= launched[k] for k in path)
+    busy_ms = sum(hi - lo for lo, hi in spans) / 1e3
+    recorded = ", ".join(f"{k} {seen[k]} of {launched[k]}" for k in path)
+    if whole:
+        times = (f"device busy {busy_ms:.1f} ms, device idle share "
+                 f"{1 - busy_ms / wall_ms:.3f}")
+    else:
+        # kernels the profiler missed would add to busy: a lower bound
+        times = (f"device busy >= {busy_ms:.1f} ms and device idle share "
+                 f"<= {1 - busy_ms / wall_ms:.3f} (lower and upper bounds: "
+                 "the profiler missed hand-written launches)")
+    log(f"{head}, device kernels {len(spans)}; hand-written launches "
+        f"recorded / made in the round: {recorded}; {times}; recorded "
+        f"kernels that overlapped an earlier one: "
+        f"{overlapping_kernels(spans)} (every slice enqueues on the card's "
+        "default stream)")
+    return counts
+
+
+class _DownSlice:
+    """A slice verifier whose every call raises."""
+
+    def verify_many_async(self, items):
+        raise RuntimeError("slice 0 verifier down (injected)")
+
+
+def phase_multichannel_isolation(torch, dev):
+    """Phase 12 (b): a raising slice fails only its own group in a flush
+    window it shares with a card slice; a channel's block with flipped
+    creator-signature bytes changes that channel's flags alone."""
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.sharding import (ChannelShardRouter,
+                                               CrossChannelVerifyService,
+                                               ShardMap)
+    from fabric_mod_tpu_torch.utils import fixtures
+    V = m.TxValidationCode
+    shard_map = ShardMap(2)
+    shard_map.assign("victim")
+    shard_map.assign("bystander")
+    card = counted_verifier(cache_size=0)
+    service = CrossChannelVerifyService(
+        {0: _DownSlice(), 1: card},
+        lambda tag: shard_map.slice_of(tag, default=0), deadline_s=0.25)
+    items, expect = fixtures.make_verify_items(MC_RIDER_ITEMS,
+                                               invalid_every=3)
+    try:
+        victims = [service.submit(it, tag="victim") for it in items]
+        riders = [service.submit(it, tag="bystander") for it in items]
+        got = [f.result(timeout=60) for f in riders]
+        failed = 0
+        for f in victims:
+            if isinstance(f.exception(timeout=60), RuntimeError):
+                failed += 1
+    finally:
+        service.close()
+    if got != expect or failed != len(victims) or service.flushes != 1 \
+            or service.groups != {0: 1, 1: 1} or card.calls != 1:
+        raise AssertionError(
+            f"isolation (b): bystander verdicts {got == expect}, victims "
+            f"failed {failed}/{len(victims)}, flushes {service.flushes}, "
+            f"card calls {card.calls}")
+    log(f"multichannel (b) one flush window: slice 0 raised for its "
+        f"{failed} futures, slice 1's {len(got)} riders resolved to the "
+        f"construction's verdicts on the card ({card.calls} call)")
+
+    world = fixtures.make_commit_world()
+    streams = {cid: fixtures.make_channel_stream(
+        world.signers, cid, MC_BLOCKS, MC_BLOCK_TXS) for cid in ("ta", "tb")}
+    base = fixtures.independent_baseline(
+        streams, lambda cid: mc_target(world, cid,
+                                       counted_verifier(cache_size=0)))
+    block = m.Block.decode(streams["ta"][0])
+    tampered = set(range(0, MC_BLOCK_TXS, MC_TAMPER_EVERY))
+    for i in tampered:
+        env = m.Envelope.decode(block.data.data[i])
+        sig = bytearray(env.signature)
+        sig[10] ^= 1                          # a bit of r: still strict DER
+        block.data.data[i] = m.Envelope(payload=env.payload,
+                                        signature=bytes(sig)).encode()
+    router = ChannelShardRouter(n_slices=2, verifier_factory=(
+        lambda i, mesh: counted_verifier(cache_size=0)))
+    targets, a_flags, errs = {}, [], []
+    try:
+        for cid in streams:
+            targets[cid] = mc_target(world, cid, router.add_channel(cid))
+            router.bind_target(cid, targets[cid])
+
+        def run_a():
+            try:
+                a_flags.append(router.store_block("ta", block))
+                a_flags.append(router.store_block(
+                    "ta", m.Block.decode(streams["ta"][1])))
+            except Exception as e:            # raised below
+                errs.append(e)
+        t = threading.Thread(target=run_a, daemon=True)
+        t.start()
+        for raw in streams["tb"]:
+            router.store_block("tb", m.Block.decode(raw))
+        t.join(timeout=300)
+    finally:
+        router.close()
+    if errs:
+        raise errs[0]
+    if t.is_alive() or len(a_flags) != 2:
+        raise AssertionError("the tampered channel did not commit")
+    want_a = [list(f) for f in base["ta"][0]]
+    for i in tampered:
+        want_a[0][i] = V.BAD_CREATOR_SIGNATURE
+    b_run = (mc_flags(targets["tb"].ledger),
+             targets["tb"].ledger.state_fingerprint())
+    if [list(f) for f in a_flags] != want_a \
+            or mc_flags(targets["ta"].ledger) != want_a:
+        raise AssertionError("the tampered channel's flags are not its "
+                             "independent run's with the tampered txs "
+                             "BAD_CREATOR_SIGNATURE")
+    if targets["ta"].ledger.state_fingerprint() == base["ta"][1]:
+        raise AssertionError("the tampered channel's state did not change")
+    if b_run != base["tb"][:2]:
+        raise AssertionError("the other channel's flags or state moved")
+    log(f"multichannel (b) tampered channel: {len(tampered)} of "
+        f"{MC_BLOCK_TXS} txs of ta's block 0 BAD_CREATOR_SIGNATURE, the "
+        f"rest and block 1 as its independent run; tb's flags and "
+        f"fingerprint equal its independent run ({b_run[1][:16]})")
+
+
+def phase_mesh_cards(torch):
+    """Phase 12 (c), two or more cards only: GpuVerifier(mesh=data_mesh())
+    over every card and each verifier of slice_meshes(2) against a
+    one-card GpuVerifier on 2048 lanes with planted lanes."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.parallel import data_mesh, slice_meshes
+    from fabric_mod_tpu_torch.utils import fixtures
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"multichannel (c): needs two CUDA cards, this machine has {n}: "
+            "not run")
+        return
+    items, expect = fixtures.make_block(2, n_tx=MESH_LANES // 3 + 1,
+                                        raw_endorsers=True)
+    items, expect = items[:MESH_LANES], expect[:MESH_LANES]
+    want = gpu.GpuVerifier(cache_size=0).verify_many(items)
+    if want.tolist() != expect.tolist():
+        raise AssertionError("one-card verdicts differ from the construction")
+    meshes = [data_mesh()] + (slice_meshes(2) if n % 2 == 0 else [])
+    for mesh in meshes:
+        v = gpu.GpuVerifier(mesh=mesh, cache_size=0)
+        fused = v.verify_many_fused_async(items)()
+        if v.verify_many(items).tolist() != want.tolist() \
+                or fused.device != mesh[0] \
+                or fused.cpu().tolist() != want.tolist():
+            raise AssertionError(f"mesh {mesh}: verdicts differ from one "
+                                 "card's")
+        log(f"multichannel (c) mesh {[str(d) for d in mesh]}: {MESH_LANES} "
+            f"lanes equal one card's verdicts")
+
+
+def phase_sharding(torch, dev):
+    """Phase 12: (a) the curve, (b) isolation, (c) the mesh (two or more
+    cards); the counts of (a)'s sweep."""
+    t0 = time.perf_counter()
+    counts = phase_multichannel(torch, dev)
+    phase_multichannel_isolation(torch, dev)
+    phase_mesh_cards(torch)
+    log(f"sharding phase: {time.perf_counter() - t0:.1f} s wall")
+    return counts
+
+
 def phase_idemix(torch, np):
     """The idemix presentation verify on the card (phase 7)."""
     from fabric_mod_tpu_torch.idemix import credential
@@ -3373,12 +3879,25 @@ def main_phase11(torch, dev) -> int:
     return 0
 
 
+def main_phase12(torch, dev) -> int:
+    """`--phase 12`: phase 12 alone; no kernels line."""
+    from fabric_mod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    phase_sharding(torch, dev)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=["11"], default=None,
+    parser.add_argument("--phase", choices=["11", "12"], default=None,
                         help="run one phase alone (after the header)")
-    phase11_only = parser.parse_args().phase == "11"
+    only = parser.parse_args().phase
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -3399,8 +3918,10 @@ def main() -> int:
     _device.require_exact_fp32()
     dev = _device.resolve(None)
 
-    if phase11_only:
+    if only == "11":
         return main_phase11(torch, dev)
+    if only == "12":
+        return main_phase12(torch, dev)
 
     # 2. build
     t0 = time.perf_counter()
@@ -3494,6 +4015,11 @@ def main() -> int:
                                               gossip_figures)
     arms["fanout"] = phase_fanout(torch, dev)
     log(f"dissemination phase: {time.perf_counter() - t0:.1f} s wall")
+
+    # 12. channel sharding: (a) bench.py's multichannel curve at 1000-tx
+    # blocks, (b) per-slice and per-channel isolation, (c) the mesh over
+    # two or more cards
+    arms["multichannel"] = phase_sharding(torch, dev)
     for k in kernels.values():
         k["launches"] = counts[k["name"]] + sum(
             c[k["name"]] for c in arms.values())

@@ -86,6 +86,10 @@ ops/fp256bn_dev.py              ops/fp256bn_dev.py (the batched pairing
 idemix/credential.py,           idemix/ (copies; seeded `rng=`, the RA
 revocation.py                   over bccsp/sw.py)
 msp/idemixmsp.py                msp/idemixmsp.py (copy)
+parallel/mesh.py                parallel/mesh.py (device tuples; the
+                                lane split in place of NamedShardings)
+sharding/shardmap.py, router.py sharding/ (copies; knobs as arguments,
+verifyservice.py, multihost.py  no metrics; multihost a stub, as there)
 (none)                          convert.py (constants, layouts, a
                                 world's bytes, a network's material and
                                 idemix data across)

@@ -13,10 +13,13 @@ Kept from the reference: the buckets, vectorised marshalling
 tensor-policy evaluator the verdict mask on the device, and
 `BatchingVerifyService` (reference :645), which coalesces concurrent
 callers' verifies into shared device batches (the staged ingress path:
-orderer/stagedbroadcast.py).  Left out: metrics, tracing, fault points,
-the service's routing tag, and the circuit breaker with its software
-failover — a CUDA error here raises; no path answers a device batch in
-software.
+orderer/stagedbroadcast.py), with the routing tag its `submit` and
+`verify_many` carry for a subclass's `_route_batch` to group by
+(sharding/verifyservice.py); and the mesh: `GpuVerifier(mesh=...)`
+splits each bucket over the mesh's devices, one contiguous lane range
+each (parallel/mesh.py).  Left out: metrics, tracing, fault points, and
+the circuit breaker with its software failover — a CUDA error here
+raises; no path answers a device batch in software.
 """
 from __future__ import annotations
 
@@ -45,12 +48,15 @@ _P256_N = 0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551
 _LOW_S_BOUND = (_P256_N // 2 + 1).to_bytes(32, "big")
 
 
-def _bucket(n: int, buckets: Sequence[int] = BUCKETS) -> int:
-    """Smallest bucket holding n (n <= the largest bucket)."""
+def _bucket(n: int, min_div: int = 1, buckets: Sequence[int] = BUCKETS
+            ) -> int:
+    """Smallest bucket holding n that `min_div` divides (a mesh's size
+    must divide the lanes it splits; n <= the largest bucket)."""
     for b in buckets:
-        if n <= b:
+        if n <= b and b % min_div == 0:
             return b
-    raise ValueError(f"no bucket >= {n} (max {buckets[-1]})")
+    raise ValueError(
+        f"no bucket >= {n} divisible by {min_div} (max {buckets[-1]})")
 
 
 def marshal_items(items: Sequence[VerifyItem], size: Optional[int] = None
@@ -159,7 +165,13 @@ class GpuVerifier:
     """Marshals VerifyItems to the device batch verifier.
 
     `device`: None (the default) runs on CUDA and raises when there is
-    no card; "cpu" runs the plain PyTorch path (the tests).  `ladder`:
+    no card; "cpu" runs the plain PyTorch path (the tests).  `mesh`
+    (exclusive with `device`): a device tuple (parallel.data_mesh); each
+    bucket then splits into one contiguous lane range per device, each
+    packed, uploaded and verified on its own device, and the verdicts
+    gather onto `mesh[0]` (the verifier's `device`).  The mesh size must
+    divide the largest bucket; buckets it does not divide are skipped.
+    `ladder`:
     "projective" (complete projective adds, the default) or "mixed"
     (affine tables + complete mixed adds) — the two CUDA kernels.
     `cache_size` bounds the verdict memo-cache (0 disables); pass a
@@ -170,12 +182,24 @@ class GpuVerifier:
 
     def __init__(self, device=None, ladder: str = "projective",
                  cache: Optional[VerdictCache] = None,
-                 cache_size: int = 8192, buckets: Sequence[int] = BUCKETS):
+                 cache_size: int = 8192, buckets: Sequence[int] = BUCKETS,
+                 mesh=None):
         if ladder not in LADDERS:
             raise ValueError(f"ladder must be one of {LADDERS}, got {ladder!r}")
         if not buckets or list(buckets) != sorted(set(buckets)) \
                 or buckets[0] < 1:
             raise ValueError(f"buckets must be ascending sizes, got {buckets}")
+        self.mesh = None
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass device OR mesh, not both")
+            from fabric_mod_tpu_torch.parallel import data_mesh
+            self.mesh = data_mesh(devices=mesh)
+            if buckets[-1] % len(self.mesh) != 0:
+                raise ValueError(
+                    f"mesh size {len(self.mesh)} must divide the largest "
+                    f"bucket {buckets[-1]}")
+            device = self.mesh[0]
         self.device = _device.resolve(device)
         if self.device.type == "cuda":
             _device.require_exact_fp32()
@@ -280,19 +304,40 @@ class GpuVerifier:
         if n > top:
             return torch.cat([self._dispatch(items[i:i + top])
                               for i in range(0, n, top)])
+        from fabric_mod_tpu_torch.parallel import lane_ranges
+        devs = self.mesh or (self.device,)
+        size = _bucket(n, len(devs), self.buckets)
+        *planes, msg = marshal_items(items, size)
+        parts = [self._verify_lanes(
+            dev, *(p[lo:hi] for p in planes),
+            None if msg is None else tuple(x[lo:hi] for x in msg))
+            for dev, (lo, hi) in zip(devs, lane_ranges(size, len(devs)))]
+        return _gather(parts, self.device)[:n]
+
+    def _verify_lanes(self, dev, d, r, s, qx, qy, pre_ok, msg
+                      ) -> torch.Tensor:
+        """One device's lane range of a bucket (the whole bucket without
+        a mesh) verified on `dev`: the (lanes,) bool verdicts there,
+        enqueued on its current stream."""
         from fabric_mod_tpu_torch.ops import p256
-        d, r, s, qx, qy, pre_ok, msg = marshal_items(
-            items, _bucket(n, self.buckets))
         mixed = self.ladder == "mixed"
         if msg is not None:
             words, nblocks, has_msg = msg
-            ok = p256.batch_verify_raw(
+            return p256.batch_verify_raw(
                 words, nblocks, has_msg, d, r, s, qx, qy,
-                device=self.device, mixed=mixed, lazy=True, pre_ok=pre_ok)
-        else:
-            ok = p256.batch_verify(d, r, s, qx, qy, device=self.device,
-                                   mixed=mixed, lazy=True, pre_ok=pre_ok)
-        return ok[:n]
+                device=dev, mixed=mixed, lazy=True, pre_ok=pre_ok)
+        return p256.batch_verify(d, r, s, qx, qy, device=dev, mixed=mixed,
+                                 lazy=True, pre_ok=pre_ok)
+
+
+def _gather(parts: Sequence[torch.Tensor], dst: torch.device) -> torch.Tensor:
+    """The mesh devices' verdict tensors concatenated on `dst`.  A copy
+    from another card is ordered by PyTorch after that card's current
+    stream and before `dst`'s, so it follows the chunk's kernels and
+    precedes what `dst` does with the verdicts next."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.to(dst, non_blocking=True) for p in parts])
 
 
 # --- the coalescing front end (reference: bccsp/tpu.py:603-938) -------------
@@ -362,30 +407,36 @@ class BatchingVerifyService:
         self._resolver.start()
         self._worker.start()
 
-    def submit(self, item: VerifyItem) -> Future:
-        """Queue one item; its future resolves to the bool verdict."""
-        return self._submit_group([item])[0]
+    def submit(self, item: VerifyItem, tag=None) -> Future:
+        """Queue one item; its future resolves to the bool verdict.
+        `tag` rides with the item through the flusher; a routing
+        subclass's `_route_batch` groups by it (sharding/
+        verifyservice.py), this class ignores it."""
+        return self._submit_group([item], tag)[0]
 
-    def _submit_group(self, items: Sequence[VerifyItem]) -> List[Future]:
-        """Queue `items` as one group, which the flusher never splits
-        below `max_batch`; one future per item."""
-        group = [(item, Future()) for item in items]
+    def _submit_group(self, items: Sequence[VerifyItem], tag=None
+                      ) -> List[Future]:
+        """Queue `items` as one group of (item, future, tag) entries,
+        which the flusher never splits below `max_batch`; one future
+        per item."""
+        group = [(item, Future(), tag) for item in items]
         with self._lifecycle:
             if self._stop.is_set():
-                for _, fut in group:
+                for _, fut, _ in group:
                     fut.set_exception(RuntimeError("verify service is closed"))
             elif group:
                 self._q.put(group)
-        return [fut for _, fut in group]
+        return [fut for _, fut, _ in group]
 
     def verify_many(self, items: Sequence[VerifyItem],
-                    timeout: Optional[float] = 30.0) -> List[bool]:
+                    timeout: Optional[float] = 30.0, tag=None) -> List[bool]:
         """The policy engine's seam (GpuVerifier's shape): submit the
         items as one group and gather the verdicts.  Concurrent callers'
         groups share device batches.  `timeout` bounds the whole call
         (None waits forever); on expiry every pending future fails with
-        VerifyDeadlineExceeded and the call raises it."""
-        futs = self._submit_group(items)
+        VerifyDeadlineExceeded and the call raises it.  `tag`: as in
+        `submit`."""
+        futs = self._submit_group(items, tag)
         deadline = None if timeout is None else time.monotonic() + timeout
         out = []
         for f in futs:
@@ -417,13 +468,14 @@ class BatchingVerifyService:
                 group = self._q.get_nowait()
             except queue.Empty:
                 break
-            for _, fut in group:
+            for _, fut, _ in group:
                 _complete(fut, exc=RuntimeError("verify service is closed"))
         if self._worker.is_alive() or self._resolver.is_alive():
             raise RuntimeError("verify service threads did not stop")
 
     def _route_batch(self, batch):
-        """[(verifier, sub-batch)]: one program, one group."""
+        """[(verifier, sub-batch)] of (item, future, tag) entries: one
+        program, one group."""
         return [(self._verifier, batch)]
 
     def _flush(self, batch) -> None:
@@ -432,7 +484,7 @@ class BatchingVerifyService:
         surfaces on the resolver."""
         dispatched = []
         for verifier, group in self._route_batch(batch):
-            items = [it for it, _ in group]
+            items = [it for it, _, _ in group]
             try:
                 async_fn = getattr(verifier, "verify_many_async", None)
                 if async_fn is not None:
@@ -441,7 +493,7 @@ class BatchingVerifyService:
                     mask = verifier.verify_many(items)
                     resolve = lambda m=mask: m           # noqa: E731
             except Exception as e:                   # the group's verdict
-                for _, fut in group:
+                for _, fut, _ in group:
                     _complete(fut, exc=e)
                 continue
             dispatched.append((group, resolve))
@@ -490,8 +542,8 @@ class BatchingVerifyService:
             group, resolve = got
             try:
                 mask = resolve()
-                for (_, fut), ok in zip(group, mask):
+                for (_, fut, _), ok in zip(group, mask):
                     _complete(fut, bool(ok))
             except Exception as e:                   # the group's verdict
-                for _, fut in group:
+                for _, fut, _ in group:
                     _complete(fut, exc=e)

@@ -9,7 +9,9 @@ The Channel owns the mutable piece, the current Bundle, and rebuilds
 the per-bundle objects (policy evaluator, validator) atomically when a
 CONFIG tx commits; everything downstream reads through `bundle()` and
 `validator()`, so a block validates under exactly one config snapshot.
-Left out: private data and the shard router.
+`use_shard_router` binds the channel to a sharding.ChannelShardRouter,
+whose slice-pinned pipe then commits its blocks.  Left out: private
+data.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ class Channel:
     `tensor_policy` evaluates each block's endorsement policies in one
     tensor pass on the verify mask's device (policy/tensorpolicy.py).
     `pipeline_depth` > 0 routes `store_block` through the channel's
-    shared PipelinedCommitter of that depth; 0 commits synchronously."""
+    shared PipelinedCommitter of that depth; 0 commits synchronously
+    (unless a shard router is bound: `use_shard_router`)."""
 
     def __init__(self, channel_id: str, ledger, verifier, bundle: Bundle,
                  csp, vinfo: Optional[ValidationInfoProvider] = None,
@@ -53,6 +56,7 @@ class Channel:
         self._pipeline_depth = pipeline_depth
         self._lock = threading.Lock()
         self._commit_pipe: Optional[PipelinedCommitter] = None
+        self._shard_router = None
         # serializes pipe rebuilds; never held by the pipe's threads,
         # so the drain-join inside cannot deadlock
         self._pipe_rebuild_lock = threading.Lock()
@@ -152,14 +156,38 @@ class Channel:
                 raise
             return retry.store_block(block)
 
+    def use_shard_router(self, router) -> None:
+        """Bind this channel to a ChannelShardRouter (sharding/):
+        commit_pipeline() then delegates to the router's slice-pinned
+        engine, which carries the same rebuild-on-poison contract.  The
+        router must already hold this channel (add_channel); binding is
+        one-way for the channel's lifetime.  A pipe built before the
+        binding is DRAINED first, and the router target binds only after
+        that drain, so the router cannot build the slice engine while
+        the old one still commits."""
+        with self._pipe_rebuild_lock:
+            with self._lock:
+                old, self._commit_pipe = self._commit_pipe, None
+            if old is not None:
+                old.close()
+            router.bind_target(self.channel_id, self)
+            with self._lock:
+                self._shard_router = router
+
     def commit_pipeline(self) -> Optional[PipelinedCommitter]:
-        """The channel's shared PipelinedCommitter (None at depth 0).
+        """The channel's shared PipelinedCommitter: the shard router's
+        slice-pinned one when a router is bound, else its own (None at
+        depth 0).
 
         A failed pipe is sticky only until its error has been surfaced:
         the next call here discards it and builds a fresh one from the
         committed height, so one bad block never bricks the channel.
         The old engine is fully drained first: two engines never run
         against the ledger at once."""
+        with self._lock:
+            router = self._shard_router
+        if router is not None:
+            return router.pipeline_for(self.channel_id)
         if self._pipeline_depth <= 0:
             return None
 
@@ -172,6 +200,12 @@ class Channel:
         if pipe is not None:
             return pipe
         with self._pipe_rebuild_lock:
+            with self._lock:
+                router = self._shard_router
+            if router is not None:
+                # a use_shard_router() bind landed while we waited on
+                # the rebuild lock: delegate, never a second engine
+                return router.pipeline_for(self.channel_id)
             pipe = healthy()
             if pipe is not None:
                 return pipe                # another caller rebuilt
@@ -197,7 +231,8 @@ class Channel:
         return self.ledger.commit_block(staged.block, flags, staged.rwsets)
 
     def close(self) -> None:
-        """Drain and join the shared commit pipe, if one was built."""
+        """Drain and join the channel's own commit pipe, if one was built
+        (a bound shard router's pipe is the router's to close)."""
         with self._lock:
             pipe, self._commit_pipe = self._commit_pipe, None
         if pipe is not None:

@@ -5,9 +5,11 @@ The port's copy of fabric_mod_tpu/utils/fixtures.py's verify fixtures
 (`make_verify_items`, `signature_arrays`), plus `make_block`: the
 signature traffic of one committed block — 1000 transactions under a
 2-of-3 endorsement policy (the txvalidator configuration of BASELINE.md
-#2), so 1000 creator + 2000 endorser signatures.  Everything is made by
-the pure-python signer (bccsp/sw.py) from a seed: no `cryptography`
-wheel and no randomness outside the seed.
+#2), so 1000 creator + 2000 endorser signatures; and the sharding
+differentials' `make_channel_stream` and `independent_baseline`.
+Everything is made by the pure-python signer (bccsp/sw.py) from a seed:
+no `cryptography` wheel, and no randomness outside the seed but the tx
+nonces of protoutil.create_signed_tx.
 """
 from __future__ import annotations
 
@@ -633,6 +635,62 @@ def _plant_adversarial(items, keys, expect) -> None:
                                    signature=sw.encode_dss_signature(r, sw.N - s))
         expect[[base, base + 1, base + 3, base + 4, base + 5, base + 6,
                 base + 7]] = False
+
+
+# --- channel sharding: N channels' streams and their independent oracle ----
+
+def make_channel_stream(signers, cid: str, n_blocks: int,
+                        txs_per_block: int, under_endorse_every: int = 4,
+                        namespace: str = NAMESPACE) -> List[bytes]:
+    """One channel's encoded block stream for the sharding differentials
+    (the reference's make_channel_stream): every `under_endorse_every`-th
+    tx is endorsed by Org1 alone (fails a 2-of-3 policy, so the flags
+    carry signal), keys are per channel (`{cid}-b{n}t{j}` holding
+    `cid`) so fingerprints differ across channels.  `signers` maps org
+    -> SigningIdentity for Org1/Org2 (Org1 is the creator).  Nonces, and
+    so tx ids, are random (protoutil.create_signed_tx, as in the
+    reference): a differential makes a stream once and feeds every arm
+    the same bytes."""
+    from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder
+    from fabric_mod_tpu_torch.protos import protoutil
+    blocks, prev = [], b""
+    for n in range(n_blocks):
+        envs = []
+        for j in range(txs_per_block):
+            b = RWSetBuilder()
+            b.add_write(namespace, f"{cid}-b{n}t{j}", cid.encode())
+            endorsers = (("Org1",)
+                         if (n * txs_per_block + j) % under_endorse_every
+                         == under_endorse_every - 1
+                         else ("Org1", "Org2"))
+            envs.append(protoutil.create_signed_tx(
+                cid, namespace, b.build().encode(), signers["Org1"],
+                [signers[o] for o in endorsers]))
+        blk = protoutil.new_block(n, prev, envs)
+        prev = protoutil.block_header_hash(blk.header)
+        blocks.append(blk.encode())
+    return blocks
+
+
+def independent_baseline(streams, make_target) -> dict:
+    """The sharding differentials' oracle: per channel, an INDEPENDENT
+    unsharded synchronous run of its stream into a fresh ledger —
+    {cid: (per_block_flags, state_fingerprint, wall_secs)}.
+    `make_target(cid)` builds a fresh ValidatorCommitTarget-shaped
+    (validator, ledger) pair with its own unsharded verifier."""
+    import time
+    from fabric_mod_tpu_torch.peer.txvalidator import Committer
+    from fabric_mod_tpu_torch.protos import messages as m
+    out = {}
+    for cid, raws in streams.items():
+        t = make_target(cid)
+        committer = Committer(t.validator, t.ledger)
+        t0 = time.perf_counter()
+        flags = [list(committer.store_block(m.Block.decode(raw)))
+                 for raw in raws]
+        out[cid] = (flags, t.ledger.state_fingerprint(),
+                    time.perf_counter() - t0)
+    return out
 
 
 # --- idemix: BASELINE.md config #4, an idemix MSP channel -------------------

@@ -864,3 +864,84 @@ def test_relay_tree_over_one_card(cuda_device, tmp_path):
             world.close()
         service.close()
         net.close()
+
+
+@pytest.mark.cuda
+def test_two_slice_router_commits_on_one_card(cuda_device):
+    """Two channels on a 2-slice ChannelShardRouter whose slices are
+    unmeshed GpuVerifiers on the one card (tensor policy, depth-2 pipes),
+    blocks submitted round robin: per channel the flags and fingerprint
+    equal an independent run on one GpuVerifier, the flags carry both
+    outcomes, a rider through the shared service gets the construction's
+    verdicts, and the verify core launched."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    from fabric_mod_tpu_torch.peer.commitpipe import ValidatorCommitTarget
+    from fabric_mod_tpu_torch.peer.txvalidator import (
+        TxValidator, ValidationInfoProvider)
+    from fabric_mod_tpu_torch.policy import ApplicationPolicyEvaluator
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.sharding import ChannelShardRouter
+    world = fixtures.make_commit_world()
+
+    def target(cid, verifier):
+        led = KvLedger(cid)
+        return ValidatorCommitTarget(TxValidator(
+            cid, world.mgr, ApplicationPolicyEvaluator(world.mgr), verifier,
+            ValidationInfoProvider(world.policy),
+            tx_id_exists=led.tx_id_exists, tensor_policy=True), led)
+    streams = {cid: fixtures.make_channel_stream(world.signers, cid, 2, 24)
+               for cid in ("c0", "c1")}
+    base = fixtures.independent_baseline(
+        streams, lambda cid: target(cid, gpu.GpuVerifier(cache_size=0)))
+    router = ChannelShardRouter(n_slices=2, verifier_factory=(
+        lambda i, mesh: gpu.GpuVerifier(cache_size=0)))
+    targets = {}
+    before = dict(p256_core.counts())
+    try:
+        for cid in streams:
+            targets[cid] = target(cid, router.add_channel(cid))
+            router.bind_target(cid, targets[cid])
+        for n in range(2):
+            for cid, raws in streams.items():
+                router.submit_block(cid, m.Block.decode(raws[n]))
+        items, expect = fixtures.make_verify_items(8, invalid_every=3)
+        assert router.service.verify_many_for("c1", items) == expect
+        assert router.flush(timeout_s=300)
+    finally:
+        router.close()
+    kinds = set()
+    for cid, t in targets.items():
+        flags = [list(protoutil.block_txflags(t.ledger.get_block_by_number(n)))
+                 for n in range(2)]
+        assert (flags, t.ledger.state_fingerprint()) == base[cid][:2]
+        kinds |= {f for blk in flags for f in blk}
+    assert kinds == {m.TxValidationCode.VALID,
+                     m.TxValidationCode.ENDORSEMENT_POLICY_FAILURE}
+    after = p256_core.counts()
+    assert all(after[k] > before[k] for k in after)
+
+
+@pytest.mark.cuda
+def test_mesh_verifier_over_two_cards_equals_one_card(cuda_device):
+    """GpuVerifier(mesh=data_mesh()) over every card, and each verifier of
+    slice_meshes(2), give a one-card GpuVerifier's verdicts on 2048 lanes
+    with planted adversarial and raw-message lanes; the fused lane's
+    tensor lies on the mesh's first card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.parallel import data_mesh, slice_meshes
+    items, expect = fixtures.make_block(2, n_tx=683, raw_endorsers=True)
+    items, expect = items[:2048], expect[:2048]
+    want = gpu.GpuVerifier(cache_size=0).verify_many(items)
+    assert want.tolist() == expect.tolist()
+    n = torch.cuda.device_count()
+    meshes = [data_mesh()] + (slice_meshes(2) if n % 2 == 0 else [])
+    for mesh in meshes:
+        v = gpu.GpuVerifier(mesh=mesh, cache_size=0)
+        assert v.verify_many(items).tolist() == want.tolist()
+        fused = v.verify_many_fused_async(items)()
+        assert fused.device == mesh[0]
+        assert fused.cpu().tolist() == want.tolist()

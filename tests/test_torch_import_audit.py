@@ -10,8 +10,9 @@ submitter threads and one through a Network of three Raft orderers (a
 follower forwarding to the leader), pushes one ordered block through
 three gossip peers that joined by signed alive messages, relays it down
 a three-peer dissemination tree and serves one filtered frame of it
-through a deliver FanoutEngine with a session ACL check, then inspects
-sys.modules."""
+through a deliver FanoutEngine with a session ACL check, commits one
+block on each of two channels through a 2-slice ChannelShardRouter
+(GpuVerifier slices on the CPU), then inspects sys.modules."""
 import json
 import os
 import pathlib
@@ -200,6 +201,31 @@ with tempfile.TemporaryDirectory() as root:
     for node, mgr in zip(nodes, mgrs):
         node.stop()
         mgr.close()
+from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+from fabric_mod_tpu_torch.peer.commitpipe import ValidatorCommitTarget
+from fabric_mod_tpu_torch.peer.txvalidator import TxValidator, ValidationInfoProvider
+from fabric_mod_tpu_torch.policy import ApplicationPolicyEvaluator
+from fabric_mod_tpu_torch.sharding import ChannelShardRouter
+router = ChannelShardRouter(n_slices=2, verifier_factory=lambda i, mesh:
+                            gpu.GpuVerifier(device="cpu", cache_size=0))
+targets = {}
+try:
+    for cid in ("sh0", "sh1"):
+        led = KvLedger(cid)
+        targets[cid] = ValidatorCommitTarget(TxValidator(
+            cid, world.mgr, ApplicationPolicyEvaluator(world.mgr),
+            router.add_channel(cid), ValidationInfoProvider(world.policy),
+            tx_id_exists=led.tx_id_exists), led)
+        router.bind_target(cid, targets[cid])
+        raw = fixtures.make_channel_stream(world.signers, cid, 1, 4)[0]
+        router.submit_block(cid, messages.Block.decode(raw))
+    assert router.flush(120)
+finally:
+    router.close()
+for cid, t in targets.items():
+    assert router.slice_of(cid) == int(cid[-1])
+    assert list(protoutil.block_txflags(t.ledger.get_block_by_number(0))) == [
+        0, 0, 0, messages.TxValidationCode.ENDORSEMENT_POLICY_FAILURE]
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")
