@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's device paths once on one CUDA card: the
 block commit, the end-to-end network around it (the main path) on a solo
 and on a three-node Raft ordering service, gossip around it, the
-dissemination tree and the deliver fan-out, channel sharding, and the
-idemix presentation verify.
+dissemination tree and the deliver fan-out, channel sharding, the
+durable ledger and private data, and the idemix presentation verify.
 
     python3 chip_smoke.py
 
@@ -66,7 +66,7 @@ Phases (any failure exits non-zero; none is caught):
 5. block commit — the system's main path: 4 encoded blocks of 1000
    transactions (utils/fixtures.make_commit_blocks: every planted invalid
    kind, a VALIDATION_PARAMETER pin) through the port's Committer
-   (TxValidator, MVCC, in-memory ledger) into a fresh ledger per arm:
+   (TxValidator, MVCC, durable ledger) into a fresh ledger per arm:
    (a) the projective ladder with the tensor-policy evaluator, which must
    receive a CUDA mask on every block; (b) the same with the policy
    closures; (c) the mixed ladder with the evaluator; (d) the host
@@ -262,17 +262,53 @@ Phases (any failure exits non-zero; none is caught):
    verifier equal a one-card GpuVerifier on 2048 planted lanes; on one
    card it says so and runs nothing.
 
+13. the durable ledger and private data (run after 12; every block
+   validated by a GpuVerifier on the card, which must launch the verify
+   core's three kernels in each part) — (a) bench.py:745's state-scale
+   stream (8 blocks of 1000 txs, raised from bench.py's 32: 28 reads a
+   tx, 0.5% stale, 2 absent probes, 3 writes with 10% deletes, 10%
+   phantom and 15% empty ranges, a VALIDATION_PARAMETER pin at block 2,
+   8% under-endorsed) committed by the port's Committer (tensor policy)
+   into a durable and a durable=False ledger prefilled at 10,000, 100,000
+   and 1,000,000 keys (bench.py:3365); before any rate, as
+   bench.py:945-1001: equal flags across arms and sizes with more kinds
+   than VALID, equal fingerprints across arms, incremental == full scan,
+   no body-decode fallback row, and the durable ledger reopened replays
+   0 blocks to the same fingerprint.  Prints per arm and size committed
+   tx/s, ms a block of stage and of MVCC + commit, prefill s, the
+   fingerprint's seed-scan, incremental and full-scan s, and for the
+   durable arm its writes and frames a block, log bytes and reopen s.
+   (b) phase 5's first 4 blocks into two durable ledgers, the last block
+   of one added with its final flags to the block store only before it
+   closes (the reference's crash seam, kvledger.py:452-457): the reopen
+   must replay exactly one block and equal the other ledger in flags,
+   fingerprint and sampled key histories; its state log then cut inside
+   its last record, a reopen crops it and reaches the same fingerprint.
+   (c) three peers (Org1, Org2, Org3), each a durable ledger, Channel
+   and GossipNode on one in-process network, joined by signed alive
+   messages: a definition of col1 (members Org1 and Org2, BTL 2), 4
+   blocks of 1000 txs whose every 10th tx is private, 3 padding blocks;
+   Org1's transient store holds all plaintext, Org2's forged plaintext
+   for 5 txs, Org3's none.  No plaintext in any block; Org1 commits every
+   private write, Org2 hashes only (digests missing, the forged
+   plaintext rejected); after reconcile_tick rounds Org2's private state
+   and fingerprint equal Org1's; distribute_pvt never reaches Org3 and
+   Org3's requests get nothing; after the padding blocks the BTL purge
+   has emptied mycc$$pcol1 and the three fingerprints are equal.  Prints
+   the missing counts, the rounds and _commit_pvt's ms a block.
+
    python3 chip_smoke.py --phase 11
    python3 chip_smoke.py --phase 12
+   python3 chip_smoke.py --phase 13
 
 run phase 11 (its (b) on a stream endorsed there, without phase 10 (b)
-beside it) or phase 12 alone after the header, and print no kernels
-line.
+beside it), phase 12 or phase 13 (its (b) on blocks signed there) alone
+after the header, and print no kernels line.
 
 It prints one JSON line describing each of the five kernels
 (`launches` counts the block-commit phase, the four e2e arms, phase
-10's two parts, phase 11's three and phase 12 (a)'s sweep), and as its
-last line
+10's two parts, phase 11's three, phase 12 (a)'s sweep and phase 13's
+three parts), and as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -487,6 +523,23 @@ MC_PROFILED = (4, 4, 4)
 MC_TAMPER_EVERY = 10
 # phase 12 (c): lanes of the mesh differential (two or more cards only)
 MESH_LANES = 2048
+
+# 13. the durable ledger and private data: (a) bench.py:745's state-scale
+# stream at bench.py:3365's sizes (its 32-tx blocks raised to 1000), (b)
+# the crash seam on BASELINE.md #2's blocks, (c) a collection of Org1 and
+# Org2 with block-to-live 2 across three peers
+SCALE_SIZES = (10_000, 100_000, 1_000_000)
+SCALE_BLOCKS = 8
+SCALE_BLOCK_TXS = 1000
+CRASH_BLOCKS = 4
+HISTORY_SAMPLE = 64
+PVT_BLOCKS = 4
+PVT_EVERY = 10
+PVT_BTL = 2
+PVT_PAD_BLOCKS = 3
+PVT_FORGED = 5
+PVT_ROUNDS = 20
+CORE_KERNELS = ("ladder_projective", "verify_prologue", "verify_epilogue")
 
 
 def log(msg: str) -> None:
@@ -1356,7 +1409,7 @@ def log_profile(label, wall_ms, n_kernels, busy_ms, top) -> None:
 
 def phase_block_commit(torch, np, world, raw_world, blocks, expected):
     """The block commit through the port's Committer, arm by arm, each
-    into a fresh in-memory ledger.  Returns the kernel launch counts of
+    into a fresh durable ledger.  Returns the kernel launch counts of
     the GPU arms."""
     from fabric_mod_tpu_torch.bccsp import gpu, sw
     from fabric_mod_tpu_torch.ledger import kvledger
@@ -3242,7 +3295,7 @@ def counted_verifier(**kwargs):
 
 def mc_target(world, cid, verifier):
     """A fresh channel commit target: the port's TxValidator (tensor
-    policy) over `verifier` and an in-memory ledger."""
+    policy) over `verifier` and a fresh durable ledger."""
     from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
     from fabric_mod_tpu_torch.peer.commitpipe import ValidatorCommitTarget
     from fabric_mod_tpu_torch.peer.txvalidator import (TxValidator,
@@ -3843,6 +3896,494 @@ def profile_pairing_check(torch, ik, a_pts, b_pts, check_wall_ms):
             f"unprofiled check's {check_wall_ms:.1f} ms wall (profiled "
             f"pieces sum to {wall:.1f} ms)")
 
+def require_core_launched(before: dict, where: str) -> dict:
+    """The kernel launches since `before`; raise unless each of the verify
+    core's three kernels was launched."""
+    launched = {k: v - before[k] for k, v in kernel_counts().items()}
+    require_launched({k: launched[k] for k in CORE_KERNELS}, where)
+    return launched
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def statescale_arm(torch, world, verifier, blocks, path, n_keys, durable):
+    """One arm of phase 13 (a): a ledger at `path` prefilled with `n_keys`
+    keys, the stream committed by a Committer on `verifier`; a durable
+    ledger is then closed and reopened."""
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    led = KvLedger(world.channel_id, path, durable=durable)
+    t0 = time.perf_counter()
+    fixtures.prefill_statescale(led, n_keys)
+    out = {"prefill_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    led.state_fingerprint()                 # seed the incremental fold
+    out["seed_s"] = time.perf_counter() - t0
+    committer = world.committer(verifier, tensor_policy=True, ledger=led)
+    if durable:
+        writes0, frames0 = led.state.batch_writes, led.state.batch_frames
+    flags, timings, wall = [], [], 0.0
+    for raw in blocks:
+        block = m.Block.decode(raw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flags.append(committer.store_block(block))
+        wall += time.perf_counter() - t0
+        timings.append(committer.last_timings)
+    out.update(flags=flags, wall_s=wall,
+               stage_ms=[t["stage"] * 1e3 for t in timings],
+               commit_ms=[t["commit"] * 1e3 for t in timings],
+               fallbacks=sum(t["body_fallbacks"] or 0 for t in timings))
+    t0 = time.perf_counter()
+    out["fp"] = led.state_fingerprint()
+    out["incr_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["fp_full"] = led.state_fingerprint_full()
+    out["full_s"] = time.perf_counter() - t0
+    if not durable:
+        led.close()
+        return out
+    out["writes"] = (led.state.batch_writes - writes0) / len(blocks)
+    out["frames"] = (led.state.batch_frames - frames0) / len(blocks)
+    led.close()
+    out["log_bytes"] = dir_bytes(os.path.join(path, "state")) + \
+        dir_bytes(os.path.join(path, "history"))
+    t0 = time.perf_counter()
+    again = KvLedger(world.channel_id, path)
+    out["reopen_s"] = time.perf_counter() - t0
+    out["replayed"] = again.replayed_blocks
+    out["fp_reopen"] = again.state_fingerprint()
+    again.close()
+    return out
+
+
+def phase_statescale(torch, dev) -> dict:
+    """Phase 13 (a): bench.py:745's state-scale stream (SCALE_BLOCKS blocks
+    of SCALE_BLOCK_TXS txs: 28 reads a tx, 0.5% stale, 2 absent probes, 3
+    writes with 10% deletes, 10% phantom and 15% empty ranges, the
+    VALIDATION_PARAMETER pin at block 2, 8% under-endorsed) committed by
+    the port's Committer on the card's GpuVerifier (tensor policy) into a
+    durable and a durable=False ledger, each prefilled at each of
+    SCALE_SIZES keys.  Gated before any rate, as bench.py:945-1001: the
+    flags are equal across arms and sizes and hold more than VALID, the
+    fingerprints are equal across arms, the incremental fingerprint equals
+    the full scan, no body-decode fallback row; the durable ledger reopens
+    replaying 0 blocks to the same fingerprint.  Returns the launches."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    world = fixtures.make_commit_world()
+    t0 = time.perf_counter()
+    blocks = fixtures.make_statescale_blocks(world, SCALE_BLOCKS,
+                                             SCALE_BLOCK_TXS, min(SCALE_SIZES))
+    log(f"phase 13 (a): {SCALE_BLOCKS} blocks x {SCALE_BLOCK_TXS} txs signed "
+        f"in {time.perf_counter() - t0:.1f} s")
+    verifier = gpu.GpuVerifier(device=dev, cache_size=0)
+    before = kernel_counts()
+    points, flags0 = [], None
+    with tempfile.TemporaryDirectory() as root:
+        for n_keys in SCALE_SIZES:
+            arms = {durable: statescale_arm(
+                torch, world, verifier, blocks,
+                os.path.join(root, f"{'durable' if durable else 'memory'}"
+                                   f"{n_keys}"), n_keys, durable)
+                for durable in (True, False)}
+            d, mem = arms[True], arms[False]
+            if d["flags"] != mem["flags"]:
+                raise AssertionError(f"phase 13 (a) @{n_keys}: the durable "
+                                     f"arm's txflags differ from the "
+                                     f"durable=False arm's")
+            if d["fp"] != mem["fp"]:
+                raise AssertionError(f"phase 13 (a) @{n_keys}: the state "
+                                     f"fingerprints differ across arms")
+            for name, arm in (("durable", d), ("durable=False", mem)):
+                if arm["fp"] != arm["fp_full"]:
+                    raise AssertionError(f"phase 13 (a) @{n_keys} {name}: "
+                                         f"incremental fingerprint != full "
+                                         f"scan")
+                if arm["fallbacks"]:
+                    raise AssertionError(f"phase 13 (a) @{n_keys} {name}: "
+                                         f"{arm['fallbacks']} body-decode "
+                                         f"fallback rows")
+            if d["replayed"] != 0 or d["fp_reopen"] != d["fp"]:
+                raise AssertionError(f"phase 13 (a) @{n_keys}: the durable "
+                                     f"reopen replayed {d['replayed']} "
+                                     f"blocks, fingerprint equal: "
+                                     f"{d['fp_reopen'] == d['fp']}")
+            if flags0 is None:
+                flags0 = d["flags"]
+                kinds = sorted({f for per in flags0 for f in per})
+                if kinds == [m.TxValidationCode.VALID]:
+                    raise AssertionError("phase 13 (a): the stream gave "
+                                         "only VALID flags")
+            elif d["flags"] != flags0:
+                raise AssertionError(f"phase 13 (a) @{n_keys}: txflags "
+                                     f"changed with the state size")
+            points.append((n_keys, d, mem))
+    launched = require_core_launched(before, "phase 13 (a)")
+    n_tx = SCALE_BLOCKS * SCALE_BLOCK_TXS
+    log(f"phase 13 (a): gates hold at {list(SCALE_SIZES)} keys — flags equal "
+        f"across arms and sizes (kinds {kinds}), fingerprints equal across "
+        f"arms, incremental == full scan, 0 body-decode fallback rows, the "
+        f"durable reopen replays 0 blocks to the same fingerprint")
+    for n_keys, d, mem in points:
+        for name, arm in (("durable", d), ("durable=False", mem)):
+            line = (f"phase 13 (a) @{n_keys} keys {name}: "
+                    f"{n_tx / arm['wall_s']:.1f} committed tx/s; ms a block "
+                    f"stage {[round(x, 1) for x in arm['stage_ms']]}, "
+                    f"mvcc+commit {[round(x, 1) for x in arm['commit_ms']]}; "
+                    f"prefill {arm['prefill_s']:.2f} s; fingerprint seed "
+                    f"scan {arm['seed_s']:.3f} s, incremental "
+                    f"{arm['incr_s']:.6f} s, full scan {arm['full_s']:.3f} s")
+            if name == "durable":
+                line += (f"; {arm['writes']:.2f} state writes and "
+                         f"{arm['frames']:.1f} frames a block, state + "
+                         f"history logs {arm['log_bytes']} bytes, reopen "
+                         f"{arm['reopen_s']:.3f} s ({arm['replayed']} blocks "
+                         f"replayed)")
+            log(line)
+    log(f"phase 13 (a) kernel launches {launched}")
+    return launched
+
+
+def phase_crash(torch, dev, blocks=None, expected=None) -> dict:
+    """Phase 13 (b): CRASH_BLOCKS blocks of BASELINE.md #2
+    (fixtures.make_commit_blocks) committed on the card into two durable
+    ledgers; in the second, the last block goes, with its final flags, to
+    the block store only before the ledger closes (the reference's crash
+    seam, kvledger.py:452-457, emulated by hand).  Reopened, it must
+    replay exactly one block and equal the uncrashed ledger in flags,
+    fingerprint (incremental == full) and sampled key histories; with
+    its state log then cut inside its last record, a second reopen must
+    crop the tail and reach the same fingerprint.  Returns the
+    launches."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.utils import fixtures
+    world = fixtures.make_commit_world()
+    if blocks is None:
+        t0 = time.perf_counter()
+        blocks, expected = fixtures.make_commit_blocks(
+            world, CRASH_BLOCKS, TX_PER_BLOCK, plant_every=PLANT_EVERY)
+        log(f"phase 13 (b): {CRASH_BLOCKS} blocks x {TX_PER_BLOCK} txs signed "
+            f"in {time.perf_counter() - t0:.1f} s")
+    blocks, expected = blocks[:CRASH_BLOCKS], expected[:CRASH_BLOCKS]
+    verifier = gpu.GpuVerifier(device=dev, cache_size=0)
+    before = kernel_counts()
+    with tempfile.TemporaryDirectory() as root:
+        clean_dir = os.path.join(root, "clean")
+        crash_dir = os.path.join(root, "crash")
+        clean = world.committer(verifier, tensor_policy=True,
+                                ledger=KvLedger(world.channel_id, clean_dir))
+        crashed = world.committer(verifier, tensor_policy=True,
+                                  ledger=KvLedger(world.channel_id, crash_dir))
+        for i, raw in enumerate(blocks):
+            flags = clean.store_block(m.Block.decode(raw))
+            if flags != expected[i]:
+                raise AssertionError(f"phase 13 (b): block {i}'s txflags "
+                                     f"differ from the expected flags")
+            if i < len(blocks) - 1:
+                if crashed.store_block(m.Block.decode(raw)) != flags:
+                    raise AssertionError(f"phase 13 (b): block {i}'s flags "
+                                         f"differ between the ledgers")
+        last = m.Block.decode(blocks[-1])
+        protoutil.set_block_txflags(last, bytes(expected[-1]))
+        crashed.ledger.blockstore.add_block(last)
+        crashed.ledger.close()
+        want_fp = clean.ledger.state_fingerprint()
+        keys = sorted(k for ns, k, _v, _ver in clean.ledger.state.iter_state())
+        sample = keys[::max(1, len(keys) // HISTORY_SAMPLE)] + ["counter",
+                                                                "pinned"]
+        want_hist = {k: clean.ledger.history.get_history_for_key(
+            fixtures.NAMESPACE, k) for k in sample}
+        t0 = time.perf_counter()
+        again = KvLedger(world.channel_id, crash_dir)
+        reopen_s = time.perf_counter() - t0
+        got_flags = [list(protoutil.block_txflags(b))
+                     for b in again.blockstore.iter_blocks()]
+        hist = {k: again.history.get_history_for_key(fixtures.NAMESPACE, k)
+                for k in sample}
+        fp, full = again.state_fingerprint(), again.state_fingerprint_full()
+        if again.replayed_blocks != 1:
+            raise AssertionError(f"phase 13 (b): the reopen replayed "
+                                 f"{again.replayed_blocks} blocks, not 1")
+        if got_flags != expected or fp != want_fp or full != fp or \
+                hist != want_hist:
+            raise AssertionError(f"phase 13 (b): the reopened ledger differs "
+                                 f"from the uncrashed one (flags "
+                                 f"{got_flags == expected}, fingerprint "
+                                 f"{fp == want_fp}, full scan {full == fp}, "
+                                 f"histories {hist == want_hist})")
+        again.close()
+        state_dir = Path(crash_dir) / "state"
+        log_path = max(state_dir.glob("state-log-*.dat"))
+        size = log_path.stat().st_size
+        with open(log_path, "r+b") as f:
+            f.truncate(size - 5)            # inside the last record
+        t0 = time.perf_counter()
+        torn = KvLedger(world.channel_id, crash_dir)
+        torn_s = time.perf_counter() - t0
+        torn_fp = torn.state_fingerprint()
+        torn_replayed = torn.replayed_blocks
+        rewritten = log_path.stat().st_size
+        # the cropped tail took the last block's savepoint with it, so
+        # the reopen re-applies exactly that block
+        if torn_replayed != 1 or torn_fp != want_fp or \
+                torn.state_fingerprint_full() != torn_fp:
+            raise AssertionError(f"phase 13 (b): torn tail: "
+                                 f"{torn_replayed} blocks replayed, "
+                                 f"fingerprint equal {torn_fp == want_fp}")
+        torn.close()
+        clean.ledger.close()
+    launched = require_core_launched(before, "phase 13 (b)")
+    log(f"phase 13 (b): crash after the block store append — the reopen "
+        f"replayed 1 block in {reopen_s:.3f} s; flags, fingerprint "
+        f"{fp[:16]} (== full scan) and {len(sample)} key histories equal the "
+        f"uncrashed ledger's; state log cut from {size} to {size - 5} bytes "
+        f"inside its last record: the reopen ({torn_s:.3f} s) cropped it, "
+        f"replayed {torn_replayed} block and wrote the log back to "
+        f"{rewritten} bytes, same fingerprint; kernel launches "
+        f"{launched}")
+    return launched
+
+
+class _PvtPeer:
+    """A phase 13 (c) peer: a durable ledger, a Channel (tensor policy) on
+    the card's verifier, and a GossipNode on the shared network; its
+    `_commit_pvt` is timed."""
+
+    def __init__(self, root, i, material, pems, network, verifier):
+        from fabric_mod_tpu_torch.bccsp import sw
+        from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+        from fabric_mod_tpu_torch.gossip import GossipNode
+        from fabric_mod_tpu_torch.ledger.kvledger import LedgerManager
+        from fabric_mod_tpu_torch.msp.identities import (SigningIdentity,
+                                                         deserialize_cert)
+        from fabric_mod_tpu_torch.peer.channel import Channel
+        from fabric_mod_tpu_torch.protos import messages as m
+        import random
+        csp = sw.SwCSP()
+        genesis = m.Block.decode(material.genesis)
+        cid, config = config_from_block(genesis)
+        self.mgr = LedgerManager(os.path.join(root, f"pvt{i}"))
+        self.ledger = self.mgr.create_or_open(cid)
+        self.channel = Channel(cid, self.ledger, verifier,
+                               Bundle(cid, config, csp), csp,
+                               tensor_policy=True)
+        self.channel.init_from_genesis(genesis)
+        mspid, cert_pem, key_pem = pems
+        self.mspid = mspid
+        self.node = GossipNode(f"pvt{i}:7051", SigningIdentity(
+            mspid, deserialize_cert(cert_pem), key_pem, csp), self.channel,
+            network, rng=random.Random(SEED + i))
+        self.pvt_ms = []
+        inner = self.ledger._commit_pvt
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            inner(*args)
+            self.pvt_ms.append((time.perf_counter() - t0) * 1e3)
+        self.ledger._commit_pvt = timed
+
+    def private_rows(self):
+        from fabric_mod_tpu_torch.ledger.pvtdata import pvt_namespace
+        from fabric_mod_tpu_torch.utils import fixtures
+        return {k: v for k, v, _ver in self.ledger.state.get_state_range(
+            pvt_namespace(fixtures.NAMESPACE, fixtures.PVT_COLLECTION), "", "")}
+
+    def close(self):
+        self.node.stop()
+        self.channel.close()
+        self.mgr.close()
+
+
+def phase_private(torch, dev) -> dict:
+    """Phase 13 (c): three peers (Org1, Org2, Org3), each a durable ledger
+    and Channel on one card GpuVerifier and a GossipNode on one
+    in-process network, joined by a round of signed alive messages.  A
+    definition block gives mycc the collection col1 (members Org1 and
+    Org2, BTL PVT_BTL), then PVT_BLOCKS blocks of TX_PER_BLOCK txs in which
+    every PVT_EVERY-th tx writes a private key, then PVT_PAD_BLOCKS
+    one-tx blocks.  Org1's transient store holds every plaintext, Org2's
+    only forged plaintext for PVT_FORGED txs, Org3's none.  Gates: no
+    plaintext in any block; every peer's flags VALID and equal; Org1
+    commits every private write; Org2 commits hashes only, reports the
+    digests missing and rejects the forged plaintext; after
+    `reconcile_tick` rounds Org2's private state and fingerprint equal
+    Org1's; `distribute_pvt` never reaches Org3 and Org3's requests get
+    no plaintext; after the padding blocks the BTL purge has emptied
+    mycc$$pcol1 on Org1 and Org2 and all fingerprints are equal.
+    Returns the launches."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.gossip import InProcNetwork
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.utils import fixtures
+    material = fixtures.make_network_material(SEED, gossip_peers=3)
+    world = fixtures.network_world(material)
+    genesis = m.Block.decode(material.genesis)
+    t0 = time.perf_counter()
+    blocks, plain, keys = fixtures.make_pvt_blocks(
+        world, PVT_BLOCKS, TX_PER_BLOCK, pad_blocks=PVT_PAD_BLOCKS,
+        pvt_every=PVT_EVERY, first_block=1,
+        prev_hash=protoutil.block_header_hash(genesis.header), btl=PVT_BTL)
+    log(f"phase 13 (c): {len(blocks)} blocks ({PVT_BLOCKS} x {TX_PER_BLOCK} "
+        f"txs, {len(plain)} private) signed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for raw in blocks:
+        for _key, value in keys.values():
+            if value in raw:
+                raise AssertionError("phase 13 (c): a block carries private "
+                                     "plaintext")
+    card = gpu.GpuVerifier(device=dev)
+    network = InProcNetwork()
+    before = kernel_counts()
+    with tempfile.TemporaryDirectory() as root:
+        peers = [_PvtPeer(root, i, material, pems, network, card)
+                 for i, pems in enumerate(material.gossip_peers)]
+        try:
+            org1, org2, org3 = peers
+            if [p.mspid for p in peers] != ["Org1", "Org2", "Org3"]:
+                raise AssertionError("phase 13 (c): one peer an org expected")
+            for p in peers:
+                p.node.join([q.node.endpoint for q in peers])
+            for txid, pvt in plain.items():
+                org1.channel.transient_store.persist(txid, 0, pvt)
+            forged = sorted(plain)[:PVT_FORGED]
+            for txid in forged:
+                key, _value = keys[txid]
+                org2.channel.transient_store.persist(
+                    txid, 0, forged_pvt(key))
+            missing_after = []
+            for i, raw in enumerate(blocks):
+                num = m.Block.decode(raw).header.number
+                flags = [p.channel.store_block(m.Block.decode(raw))
+                         for p in peers]
+                if any(f != flags[0] for f in flags) or \
+                        set(flags[0]) != {m.TxValidationCode.VALID}:
+                    raise AssertionError(f"phase 13 (c): block {num} flags "
+                                         f"not all VALID on every peer")
+                mine = {keys[t][0]: keys[t][1] for t in plain
+                        if keys[t][0].startswith(f"p{num}t")}
+                rows1, rows2 = org1.private_rows(), org2.private_rows()
+                if any(rows1.get(k) != v for k, v in mine.items()):
+                    raise AssertionError(f"phase 13 (c): Org1 lacks block "
+                                         f"{num}'s private writes")
+                if any(k in rows2 for k in mine):
+                    raise AssertionError(f"phase 13 (c): Org2 committed "
+                                         f"plaintext of block {num}")
+                missing_after.append(org2.ledger.missing_pvt_count())
+                if i == PVT_BLOCKS:
+                    break
+            if org1.ledger.missing_pvt_count() != 0:
+                raise AssertionError("phase 13 (c): Org1 reports missing "
+                                     "digests")
+            if missing_after[-1] != PVT_BLOCKS * len(
+                    range(0, TX_PER_BLOCK, PVT_EVERY)):
+                raise AssertionError(f"phase 13 (c): Org2 reports "
+                                     f"{missing_after} digests missing")
+            # the transient plaintext of the last private block, pushed to
+            # the collection's members only
+            policy = org1.channel.collection_policy(fixtures.NAMESPACE,
+                                                    fixtures.PVT_COLLECTION)
+            eligible = org1.node.eligibility_by_policy(policy)
+            last = [t for t in plain
+                    if keys[t][0].startswith(f"p{PVT_BLOCKS + 1}t")]
+            reached = {org1.node.distribute_pvt(t, plain[t], eligible)
+                       for t in last}
+            org2_held = sum(
+                [g.encode() for g in
+                 org2.channel.transient_store.get_by_txid(t)] ==
+                [plain[t].encode()] for t in last)
+            if reached != {1} or org2_held != len(last) or any(
+                    org3.channel.transient_store.get_by_txid(t)
+                    for t in plain):
+                raise AssertionError(f"phase 13 (c): distribute_pvt reached "
+                                     f"{reached} peers, Org2 holds "
+                                     f"{org2_held} of {len(last)} pushed "
+                                     f"write sets, or Org3 holds some")
+            before_rec = org2.ledger.missing_pvt_count()
+            org3_missing = org3.ledger.missing_pvt_count()
+            rounds = 0
+            t0 = time.perf_counter()
+            while org2.ledger.missing_pvt_count() and rounds < PVT_ROUNDS:
+                org2.node.reconcile_tick()
+                rounds += 1
+            rec_s = time.perf_counter() - t0
+            after_rec = org2.ledger.missing_pvt_count()
+            org3.node.reconcile_tick()
+            if after_rec or org2.private_rows() != org1.private_rows() or \
+                    org2.ledger.state_fingerprint() != \
+                    org1.ledger.state_fingerprint():
+                raise AssertionError(f"phase 13 (c): after {rounds} rounds "
+                                     f"Org2 has {after_rec} missing, private "
+                                     f"state equal "
+                                     f"{org2.private_rows() == org1.private_rows()}")
+            if org3.private_rows():
+                raise AssertionError("phase 13 (c): Org3 holds plaintext")
+            for raw in blocks[PVT_BLOCKS + 1:]:
+                for p in peers:
+                    p.channel.store_block(m.Block.decode(raw))
+            fps = {p.ledger.state_fingerprint() for p in peers}
+            fulls = {p.ledger.state_fingerprint_full() for p in peers}
+            if org1.private_rows() or org2.private_rows() or \
+                    len(fps) != 1 or fps != fulls:
+                raise AssertionError(f"phase 13 (c): after the BTL purge "
+                                     f"Org1 / Org2 hold "
+                                     f"{len(org1.private_rows())} / "
+                                     f"{len(org2.private_rows())} private "
+                                     f"rows, {len(fps)} fingerprints")
+            pvt_ms = [round(x, 2) for x in org1.pvt_ms]
+            pvt_ms2 = [round(x, 2) for x in org2.pvt_ms]
+            heights = [p.ledger.height for p in peers]
+        finally:
+            for p in peers:
+                p.close()
+    launched = require_core_launched(before, "phase 13 (c)")
+    log(f"phase 13 (c): {len(plain)} private txs, no plaintext in any block; "
+        f"Org1 committed every private write; Org2 missing after each "
+        f"private block {missing_after} ({PVT_FORGED} forged plaintexts "
+        f"rejected); distribute_pvt reached 1 peer (Org2) each time, whose "
+        f"transient store then held all {org2_held} pushed write sets, never "
+        f"Org3; reconciliation {before_rec} -> {after_rec} missing in {rounds}"
+        f" rounds ({rec_s:.3f} s; the BTL had dropped the first block's); "
+        f"Org3 kept {org3_missing} missing and got no plaintext; after "
+        f"{PVT_PAD_BLOCKS} more blocks mycc$$pcol1 is empty on Org1 and Org2 "
+        f"and the 3 fingerprints are equal (heights {heights}); _commit_pvt "
+        f"ms a block Org1 {pvt_ms}, Org2 {pvt_ms2}; kernel launches "
+        f"{launched}")
+    return launched
+
+
+def forged_pvt(key: str):
+    """A private write set of `key` with a value no block hashed."""
+    from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder
+    from fabric_mod_tpu_torch.utils import fixtures
+    rw = RWSetBuilder()
+    rw.add_pvt_write(fixtures.NAMESPACE, fixtures.PVT_COLLECTION, key,
+                     b"forged")
+    return rw.build_pvt()
+
+
+def phase_durable(torch, dev, blocks=None, expected=None) -> dict:
+    """Phase 13: (a) state scale, (b) crash and recovery, (c) private data
+    across three peers.  Returns the launches of all three."""
+    t0 = time.perf_counter()
+    total = {}
+    for launched in (phase_statescale(torch, dev),
+                     phase_crash(torch, dev, blocks, expected),
+                     phase_private(torch, dev)):
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+    log(f"durable ledger phase: {time.perf_counter() - t0:.1f} s wall; "
+        f"kernel launches {total}")
+    return total
+
 
 def main_phase11(torch, dev) -> int:
     """`--phase 11`: phase 11 alone, its (b) on a stream made here (phase 8
@@ -3892,12 +4433,31 @@ def main_phase12(torch, dev) -> int:
     return 0
 
 
+def main_phase13(torch, dev) -> int:
+    """`--phase 13`: phase 13 alone; no kernels line."""
+    from fabric_mod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    phase_durable(torch, dev)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=["11", "12"], default=None,
+    parser.add_argument("--phase", choices=["11", "12", "13"], default=None,
                         help="run one phase alone (after the header)")
     only = parser.parse_args().phase
+    import resource
+    # hundreds of durable peers each hold a handful of store files open
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = 1 << 16 if hard == resource.RLIM_INFINITY else min(hard, 1 << 16)
+    if soft != resource.RLIM_INFINITY and soft < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (want, hard))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -3922,6 +4482,8 @@ def main() -> int:
         return main_phase11(torch, dev)
     if only == "12":
         return main_phase12(torch, dev)
+    if only == "13":
+        return main_phase13(torch, dev)
 
     # 2. build
     t0 = time.perf_counter()
@@ -4020,6 +4582,11 @@ def main() -> int:
     # blocks, (b) per-slice and per-channel isolation, (c) the mesh over
     # two or more cards
     arms["multichannel"] = phase_sharding(torch, dev)
+
+    # 13. the durable ledger and private data: (a) state scale at 10k,
+    # 100k and 1M keys, (b) crash and recovery on phase 5's blocks, (c)
+    # private data across three peers
+    arms["durable"] = phase_durable(torch, dev, commit_blocks, expected)
     for k in kernels.values():
         k["launches"] = counts[k["name"]] + sum(
             c[k["name"]] for c in arms.values())

@@ -12,7 +12,7 @@ redesigned both kernels.  Slice 3 ports the block-commit path around
 it: an encoded block -> TxValidator (host unpack, MSP, one batch
 collector) -> GpuVerifier (the CUDA ladders) -> the tensor-policy
 evaluator on the device-resident verify mask -> txflags -> MVCC -> the
-in-memory ledger -> state fingerprint.  Slice 4 ports the idemix
+ledger -> state fingerprint.  Slice 4 ports the idemix
 presentation verify: `batch_verify` (idemix/credential.py) sends every
 presentation's pairing equation to the batched FP256BN pairing
 (ops/fp256bn_dev.py) on the card as one check and keeps the Schnorr
@@ -26,6 +26,9 @@ and staged broadcast ingress with the Writers check batched on the
 card (BatchingVerifyService, orderer/stagedbroadcast.py).  Slice 7
 redesigns that prologue for the card: s^-1 mod n by divsteps (safegcd)
 on a lane of two threads, one inverting while the other checks the key.
+Slice 14 makes the ledger durable (log-structured state and history,
+O(delta) recovery, the incremental fingerprint) and ports private data
+(transient and pvt stores, BTL purges, gossip's private-data paths).
 
 Counterparts (reference module -> port module):
 
@@ -61,11 +64,12 @@ cauthdsl.py, application.py,    the reference's CSP lookup: host
 manager.py                      verifies go through bccsp/sw.py)
 policy/tensorpolicy.py          policy/tensorpolicy.py (the evaluator as
                                 torch ops on the mask's device)
-ledger/rwsetutil.py,            ledger/ (copies, without private data)
-statedb.py, mvcc.py
+ledger/rwsetutil.py,            ledger/ (copies; the config history
+statedb.py, mvcc.py, durable.py without its listeners)
+confighistory.py, pvtdata.py
 ledger/blkstorage.py            ledger/blkstorage.py (copy)
-ledger/kvledger.py              ledger/kvledger.py (block store + state
-                                in memory; same state fingerprint)
+ledger/kvledger.py              ledger/kvledger.py (durable by default;
+                                same files and state fingerprint)
 channelconfig/bundle.py,        channelconfig/ (copies over bccsp/x509.py)
 configtx.py, genesis.py
 orderer/blockcutter.py,         orderer/ (solo only; no admission gate,

@@ -23,7 +23,11 @@ signers' certificates and keys, and the genesis block, all as bytes —
 from `utils/fixtures.make_network_material(seed)`, or carried across
 from the JAX package's Network by `convert.network_material_from_reference`.
 The chaincode registry holds `mycc` as the KvContract; the lifecycle
-ceremony (`deploy_chaincode`) is not ported.
+ceremony (`deploy_chaincode`) is not ported.  `Network.invoke` (:123)
+endorses and broadcasts one proposal, its `transient` map carrying
+private plaintext that never reaches the ordered tx.  The peer's ledger
+is a durable KvLedger opened through its LedgerManager, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import os
 import tempfile
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from fabric_mod_tpu_torch.bccsp.sw import SwCSP
 from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
@@ -44,7 +48,7 @@ from fabric_mod_tpu_torch.orderer import (Broadcast, DeliverService,
 from fabric_mod_tpu_torch.peer.chaincode import ChaincodeRegistry, KvContract
 from fabric_mod_tpu_torch.peer.channel import Channel
 from fabric_mod_tpu_torch.peer.deliverclient import DeliverClient
-from fabric_mod_tpu_torch.peer.endorser import Endorser
+from fabric_mod_tpu_torch.peer.endorser import Endorser, endorse_and_submit
 from fabric_mod_tpu_torch.protos import messages as m
 
 # (mspid, certificate PEM, PKCS#8 private-key PEM)
@@ -185,6 +189,15 @@ class Network:
         self.endorsers: Dict[str, Endorser] = {
             org: Endorser(self.channel, self.chaincodes, signer)
             for org, signer in self.peer_signers.items()}
+
+    def invoke(self, args: Sequence[bytes], transient=None) -> str:
+        """Endorse `args` to `mycc` on the first two orgs' endorsers as
+        the client, with the `transient` map, and broadcast the tx;
+        returns its tx id."""
+        return endorse_and_submit(
+            self.channel_id, "mycc", args, self.client,
+            list(self.endorsers.values())[:2], self.broadcast,
+            transient=transient)
 
     def _raft_factory(self, root_dir, oid, ids, election_timeout,
                       heartbeat_s, clock):

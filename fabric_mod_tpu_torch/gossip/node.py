@@ -14,11 +14,22 @@ is checked by the identity mapper through the same verifier.
 A message that does not decode, an envelope whose signature fails, an
 identity the MSP rejects and a block the MCS rejects are dropped, as
 in the reference; what else a check raises (the verifier's own errors)
-propagates to the sender's thread (gossip/comm.py).  The private-data
-messages (`private_data`, `pvt_req`, `pvt_resp`) are ignored: their
-paths are not ported.  `on_relay` is the dissemination layer's receive
-hook: `RelayService.start` sets it to its `BlockRelay.on_relay`; without
-a relay, relay messages are dropped.
+propagates to the sender's thread (gossip/comm.py).  `on_relay` is the
+dissemination layer's receive hook: `RelayService.start` sets it to its
+`BlockRelay.on_relay`; without a relay, relay messages are dropped.
+
+Private data (reference :192-355; gossip/privdata's distributor.go:458,
+reconcile.go:339, pull.go:727): `distribute_pvt` sends a private write
+set only to alive peers its mandatory `eligible` filter admits (the
+collection's member-orgs policy, `eligibility_by_policy`: fail-closed);
+a received one goes to the channel's transient store, where the commit
+checks it against the block's hashes.  `reconcile_tick` asks a few
+peers for the digests the ledger committed without plaintext; a
+responder serves only a requester whose identity satisfies the
+collection's policy, and the ledger re-checks every returned write set
+against the committed hashes, so a forged response is rejected there.
+The reference's backlog gauge is left out: `ledger.missing_pvt_count()`
+reads the backlog.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from fabric_mod_tpu_torch.gossip.msgstore import TTLMessageStore
 from fabric_mod_tpu_torch.gossip.protoext import sign_message, verify_envelope
 from fabric_mod_tpu_torch.gossip.state import GossipStateProvider
 from fabric_mod_tpu_torch.peer.mcs import BlockVerificationError
+from fabric_mod_tpu_torch.policy.manager import compile_policy_bytes
 from fabric_mod_tpu_torch.protos import messages as m
 
 
@@ -134,6 +146,12 @@ class GossipNode:
             self._handle_request(src_pki_id, msg)
         elif msg.data_update is not None:
             self._handle_update(msg)
+        elif msg.private_data is not None:
+            self._handle_private(msg)
+        elif msg.pvt_req is not None:
+            self._handle_pvt_request(src_pki_id, msg)
+        elif msg.pvt_resp is not None:
+            self._handle_pvt_response(msg)
         elif msg.relay_msg is not None:
             handler = self.on_relay
             if handler is not None:
@@ -195,6 +213,139 @@ class GossipNode:
         if self.state.add_block(block):
             # forward fresh blocks (push epidemic)
             self.comm.broadcast(self._pick_peers(), msg)
+
+    # -- private data distribution (reference: gossip/privdata/
+    # -- distributor.go:458 — plaintext to ELIGIBLE peers only) ----------
+    def distribute_pvt(self, txid: str, pvt_rwset,
+                       eligible: Callable[[bytes], bool]) -> int:
+        """Send a private write set to the alive peers whose identity
+        `eligible` admits; the filter is mandatory (fail-closed).
+        Returns the peers reached."""
+        msg = m.GossipMessage(
+            nonce=self._rng.getrandbits(63),
+            channel=self._channel.channel_id.encode(),
+            private_data=m.PvtDataElement(
+                txid=txid, payload=pvt_rwset.encode()))
+        sent = 0
+        for member in self.discovery.alive_members():
+            if member.endpoint == self.endpoint:
+                continue
+            ident = self.mapper.get(member.pki_id)
+            if ident is None or not eligible(ident):
+                continue
+            if self.comm.send(member.endpoint, msg):
+                sent += 1
+        return sent
+
+    def _handle_private(self, msg: m.GossipMessage) -> None:
+        """A received write set goes to the transient store, channel
+        checked; the commit checks it against the block's hashes, and
+        the store bounds its growth."""
+        pd = msg.private_data
+        if not pd.txid or not pd.payload:
+            return
+        if msg.channel != self._channel.channel_id.encode():
+            return                          # cross-channel leak guard
+        try:
+            pvt = m.TxPvtReadWriteSet.decode(pd.payload)
+        except ValueError:
+            return
+        self._channel.transient_store.persist(
+            pd.txid, self._channel.ledger.height, pvt)
+
+    def eligibility_by_policy(self, member_orgs_policy):
+        """eligible(identity_bytes) for a collection's
+        member_orgs_policy (a SignaturePolicyEnvelope): the identity
+        must deserialize, validate in full (a revoked peer stops
+        receiving plaintext) and satisfy the policy's principals."""
+        bundle = self._channel.bundle()
+        msp_mgr = bundle.msp_manager
+        pol = compile_policy_bytes(member_orgs_policy.encode(), msp_mgr,
+                                   bundle.sequence)
+
+        def eligible(identity_bytes: bytes) -> bool:
+            try:
+                ident = msp_mgr.deserialize_identity(identity_bytes)
+                msp_mgr.validate(ident)
+            except IDENTITY_REJECTED:
+                return False
+            return pol.satisfied_by_principals([ident])
+        return eligible
+
+    # -- private data reconciliation (reference: gossip/privdata/
+    # -- reconcile.go:339 + pull.go:727) ---------------------------------
+    def reconcile_tick(self) -> int:
+        """Ask up to 3 random alive peers for the private write sets
+        this peer committed hashes of without the plaintext.  Returns
+        the number of digests requested."""
+        missing = self._channel.ledger.missing_pvt()
+        if not missing:
+            return 0
+        digests = [m.PvtDataDigest(block_num=bn, tx_num=tn,
+                                   namespace=ns, collection=coll)
+                   for bn, tn, ns, coll in missing]
+        req = m.GossipMessage(
+            nonce=self._rng.getrandbits(63),
+            channel=self._channel.channel_id.encode(),
+            pvt_req=m.PvtDataRequest(nonce=self._rng.getrandbits(63),
+                                     digests=digests))
+        peers = self._pick_peers(3)
+        if not peers:
+            return 0
+        self.comm.broadcast(peers, req)
+        return len(digests)
+
+    def _handle_pvt_request(self, src: bytes, msg: m.GossipMessage) -> None:
+        """Serve a missing-data request ONLY to a requester whose
+        identity satisfies the collection's member_orgs_policy: an
+        ineligible peer learns nothing, not even whether the data
+        exists."""
+        if msg.channel != self._channel.channel_id.encode():
+            return
+        src_ep = self._members_by_pki.get(src)
+        ident = self.mapper.get(src)
+        if src_ep is None or ident is None:
+            return
+        ledger = self._channel.ledger
+        eligible_cache: Dict = {}
+        elements = []
+        for dig in msg.pvt_req.digests:
+            key = (dig.namespace, dig.collection)
+            if key not in eligible_cache:
+                pol = self._channel.collection_policy(*key)
+                eligible_cache[key] = (
+                    (lambda _b: False) if pol is None
+                    else self.eligibility_by_policy(pol))
+            if not eligible_cache[key](ident):
+                continue
+            for ns, coll, kv in ledger.get_pvt(dig.block_num, dig.tx_num):
+                if ns == dig.namespace and coll == dig.collection:
+                    elements.append(m.PvtDataResponseElement(
+                        digest=dig, rwset=kv.encode()))
+        if not elements:
+            return
+        self.comm.send(src_ep, m.GossipMessage(
+            nonce=self._rng.getrandbits(63),
+            channel=self._channel.channel_id.encode(),
+            pvt_resp=m.PvtDataResponse(nonce=msg.pvt_req.nonce,
+                                       elements=elements)))
+
+    def _handle_pvt_response(self, msg: m.GossipMessage) -> None:
+        """Backfill the returned write sets; the ledger re-checks each
+        against the committed block's hashes."""
+        if msg.channel != self._channel.channel_id.encode():
+            return
+        ledger = self._channel.ledger
+        for el in msg.pvt_resp.elements:
+            if el.digest is None or not el.rwset:
+                continue
+            try:
+                kv = m.KVRWSet.decode(el.rwset)
+            except ValueError:
+                continue
+            ledger.reconcile_pvt(el.digest.block_num, el.digest.tx_num,
+                                 el.digest.namespace,
+                                 el.digest.collection, kv)
 
     # -- pull engine (reference: algo/pull.go) ----------------------------
     def pull_tick(self) -> None:

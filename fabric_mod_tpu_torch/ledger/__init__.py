@@ -1,4 +1,4 @@
 """The ledger half of the block commit — the port's copies of
-fabric_mod_tpu/ledger/ rwsetutil.py, statedb.py and the generic MVCC
-pass, and a lean in-memory KvLedger whose state fingerprint equals the
-reference ledger's."""
+fabric_mod_tpu/ledger/ rwsetutil.py, statedb.py, mvcc.py, durable.py,
+confighistory.py and pvtdata.py, and the KvLedger (durable by default)
+whose files and state fingerprint are the reference ledger's."""

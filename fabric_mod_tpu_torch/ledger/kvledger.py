@@ -1,43 +1,58 @@
-"""The kv ledger: blocks + versioned state, simulation, MVCC commit and
-the state fingerprint.
+"""The kv ledger: block store + versioned state + history + private data,
+with simulation, MVCC commit, crash recovery and the state fingerprint.
 
 The port of fabric_mod_tpu/ledger/kvledger.py (reference:
-core/ledger/kvledger/kv_ledger.go:457 CommitLegacy; the tx simulator of
-txmgmt/txmgr/lockbased_txmgr.go and query_executor.go; ledgermgmt's
-ledger manager): `QueryExecutor` and `TxSimulator` (:61, :100),
-`KvLedger.commit_block` (:369) — MVCC validate -> append the block
-(flags in its metadata) -> apply the state batch — and `LedgerManager`
-(:841).  `commit_block` takes the validator's stage-time columnar decode
-(protos/batchdecode.BlockRWSets), reuses its tx ids and header types,
-and sends the decoded rows through the vectorized MVCC over its planes
-(the reference's FABRIC_MOD_TPU_VECTOR_MVCC pass), with the same flags
-and state as the generic pass.
-Blocks live in a file-backed `BlockStore` (ledger/blkstorage.py), in a
-temporary directory when the ledger is given none.  State is in
-memory: on open, the block store's blocks are replayed into it from
-their stored txflags.  Left out: the durable state DB, history, private data
-(so commit has no transient-store branch for pvt-bearing txs), config
-history and snapshots.
+core/ledger/kvledger/kv_ledger.go — CommitLegacy :457-541, recoverDBs
+:228-341; the tx simulator of txmgmt/txmgr/lockbased_txmgr.go and
+query_executor.go; history in kvledger/history/db.go; ledgermgmt's
+ledger manager): `QueryExecutor` and `TxSimulator` with private data,
+`HistoryDB`, `KvLedger` and `LedgerManager`.
 
-`state_fingerprint` uses the reference's exact row, metadata and height
-encoding (`_fp_row`, `_fp_meta`, `_fp_scan_acc`, `state_fingerprint`,
-:688-785), so a port ledger and a JAX-package ledger that committed the
-same blocks with the same flags give the same hex digest.  It scans the
-whole state on every call (the reference folds each commit into a
-cached accumulator; the digest is the same).
+The commit order is the reference's: MVCC validate -> append the block
+(flags in its metadata) -> apply the state batch -> history -> private
+data -> config history.  `commit_block` takes the validator's
+stage-time columnar decode (protos/batchdecode.BlockRWSets), reuses its
+tx ids and header types, and sends the decoded rows through the
+vectorized MVCC over its planes; a tx that carries collection hashes
+keeps its materialized rwset while a transient store is attached,
+because `_commit_pvt` walks those hashes.
+
+A ledger is durable by default, as in the reference: the state is a
+log-structured DurableStateDB and the history a DurableHistoryDB
+(ledger/durable.py), each with one fsync per block, beside the
+collection-config history (ledger/confighistory.py).  On open, blocks
+past the lowest of the three savepoints are replayed from the block
+store with their stored flags — O(delta), not O(chain); a state ahead
+of a cropped block store is rebuilt from genesis.  `durable=False`
+keeps state and history in memory, the state snapshotted to
+`state.snap` every SNAPSHOT_EVERY blocks and on close.
+
+`state_fingerprint` is height ‖ an XOR of per-entry hashes in the
+reference's encoding, so both packages give the same hex digest for
+the same blocks and flags.  The first call scans the state to seed the
+accumulator; every later state change — commit, private plaintext, BTL
+purge, reconciliation backfill, replay — goes through
+`_apply_state_updates`, which folds its delta in first.
+`state_fingerprint_full` rescans from scratch (the oracle).
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import tempfile
 import threading
 from typing import Dict, List, Optional, Tuple
 
 from fabric_mod_tpu_torch.ledger.blkstorage import BlockStore
+from fabric_mod_tpu_torch.ledger.confighistory import ConfigHistoryManager
+from fabric_mod_tpu_torch.ledger.durable import (DurableHistoryDB,
+                                                 DurableStateDB)
 from fabric_mod_tpu_torch.ledger.mvcc import (
     COLUMNAR, validate_and_prepare_batch,
     validate_and_prepare_batch_vectorized)
+from fabric_mod_tpu_torch.ledger.pvtdata import (
+    PvtDataMismatchError, pvt_namespace, verify_pvt_against_hashes)
 from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder, parse_tx_rwset
 from fabric_mod_tpu_torch.ledger.statedb import UpdateBatch, VersionedDB
 from fabric_mod_tpu_torch.protos import messages as m
@@ -53,7 +68,7 @@ class LedgerError(Exception):
 class QueryExecutor:
     """Read-only state access (reference: query_executor.go)."""
 
-    def __init__(self, db: VersionedDB):
+    def __init__(self, db):
         self._db = db
 
     def get_state(self, ns: str, key: str) -> Optional[bytes]:
@@ -64,13 +79,18 @@ class QueryExecutor:
         for key, value, _ in self._db.get_state_range(ns, start, end):
             yield key, value
 
+    def get_private_data(self, ns: str, collection: str,
+                         key: str) -> Optional[bytes]:
+        got = self._db.get_state(pvt_namespace(ns, collection), key)
+        return got[0] if got else None
+
 
 class TxSimulator(QueryExecutor):
     """Records reads and writes into an RWSetBuilder (reference:
-    lockbased_txmgr.go NewTxSimulator + rwset_builder).  Private data
-    and rich queries are not ported."""
+    lockbased_txmgr.go NewTxSimulator + rwset_builder).  Rich queries
+    are not ported."""
 
-    def __init__(self, db: VersionedDB, txid: str):
+    def __init__(self, db, txid: str):
         super().__init__(db)
         self.txid = txid
         self._rw = RWSetBuilder()
@@ -117,8 +137,51 @@ class TxSimulator(QueryExecutor):
         override that key-level validation reads."""
         self._rw.add_metadata_write(ns, key, name, value)
 
+    # -- private data (reference: the shim's PutPrivateData path) -----
+    def set_private_data(self, ns: str, collection: str, key: str,
+                         value: bytes) -> None:
+        self._writes[(pvt_namespace(ns, collection), key)] = value
+        self._rw.add_pvt_write(ns, collection, key, value)
+
+    def delete_private_data(self, ns: str, collection: str,
+                            key: str) -> None:
+        self._writes[(pvt_namespace(ns, collection), key)] = None
+        self._rw.add_pvt_write(ns, collection, key, None)
+
+    def get_private_data(self, ns: str, collection: str,
+                         key: str) -> Optional[bytes]:
+        pns = pvt_namespace(ns, collection)
+        if (pns, key) in self._writes:      # read-your-writes
+            return self._writes[(pns, key)]
+        # private reads are not recorded in the public read set (the
+        # reference's write-only private MVCC)
+        got = self._db.get_state(pns, key)
+        return got[0] if got else None
+
     def done(self) -> m.TxReadWriteSet:
         return self._rw.build()
+
+    def done_pvt(self) -> Optional[m.TxPvtReadWriteSet]:
+        """The plaintext private write sets, for transient staging."""
+        return self._rw.build_pvt()
+
+
+class HistoryDB:
+    """(ns, key) -> [(block, tx), ...] in memory, rebuilt from the
+    blocks on every open (reference: kvledger/history/db.go)."""
+
+    savepoint = -1
+
+    def __init__(self):
+        self._hist: Dict[Tuple[str, str], List[Version]] = {}
+
+    def commit(self, block_num: int,
+               tx_writes: List[Tuple[int, str, str]]) -> None:
+        for tx_num, ns, key in tx_writes:
+            self._hist.setdefault((ns, key), []).append((block_num, tx_num))
+
+    def get_history_for_key(self, ns: str, key: str) -> List[Version]:
+        return list(self._hist.get((ns, key), []))
 
 
 def tx_rwset_from_envelope(env: m.Envelope) -> Optional[m.TxReadWriteSet]:
@@ -157,40 +220,131 @@ def _fp_meta(ns: str, key: str, entries: Dict[str, bytes]) -> int:
     return _fp_entry(b"M", ns, key, b"".join(parts))
 
 
+def _find_matching_pvt(candidates, ns: str, coll: str, hset):
+    """The first candidate write set for (ns, coll) whose plaintext
+    matches the block's hashes, or None."""
+    for cand in candidates:
+        for ns_pvt in cand.ns_pvt_rwset:
+            if ns_pvt.namespace != ns:
+                continue
+            for cp in ns_pvt.collection_pvt_rwset:
+                if cp.collection_name != coll:
+                    continue
+                kv = m.KVRWSet.decode(cp.rwset)
+                try:
+                    verify_pvt_against_hashes(hset, kv)
+                    return kv
+                except PvtDataMismatchError:
+                    continue               # forged or stale candidate
+    return None
+
+
 class KvLedger:
     """One channel's ledger (reference: kv_ledger.go kvLedger).
 
-    The blocks go to a BlockStore under `<ledger_dir>/chains`, and
-    reopening the directory replays them into the state.  `ledger_dir`
-    None gives the ledger a temporary directory of its own, removed on
-    `close()`.  Blocks committed with their stage-time `rwsets` take
-    the vectorized MVCC pass.  `height_changed` is notified after each
-    commit, once the block is readable and outside the commit lock
-    (reference kvledger.py:245, :472): the deliver fan-out's commit
-    notifier parks on it."""
+    The blocks go to a BlockStore under `<ledger_dir>/chains`; durable
+    state, history, config history and (through a Channel) the private
+    data stores live beside it.  `ledger_dir` None gives the ledger a
+    temporary directory of its own, removed on `close()`.
+    `height_changed` is notified after each commit, once the block is
+    readable and outside the commit lock: the deliver fan-out's commit
+    notifier parks on it.  The commit lock is the outermost lock; the
+    attached transient and pvt stores' locks nest inside it."""
+
+    SNAPSHOT_EVERY = 64
+    TRANSIENT_RETENTION_BLOCKS = 100
 
     def __init__(self, ledger_id: str = "ch",
-                 ledger_dir: Optional[str] = None):
+                 ledger_dir: Optional[str] = None, durable: bool = True):
         self.ledger_id = ledger_id
         self._tmp = None
         if ledger_dir is None:
             self._tmp = tempfile.TemporaryDirectory(prefix="kvledger-")
             ledger_dir = self._tmp.name
         self.dir = ledger_dir
-        self.state = VersionedDB()
+        self._durable = durable
+        os.makedirs(ledger_dir, exist_ok=True)
         self._lock = threading.Lock()
         self.height_changed = threading.Condition()
-        os.makedirs(ledger_dir, exist_ok=True)
         self.blockstore = BlockStore(os.path.join(ledger_dir, "chains"))
-        for block in self.blockstore.iter_blocks():
-            self._replay(block)
+        self._state_path = os.path.join(ledger_dir, "state.snap")
+        if durable:
+            self.state = DurableStateDB(os.path.join(ledger_dir, "state"))
+            self.history = DurableHistoryDB(
+                os.path.join(ledger_dir, "history"))
+        else:
+            self.state = VersionedDB.load(self._state_path)
+            self.history = HistoryDB()
+        # attach_pvt wires the live stores; without them, hashed
+        # collections commit without plaintext
+        self._transient = None
+        self._pvtstore = None
+        self._btl_fn = None
+        # the fingerprint accumulator: None until the first fingerprint
+        # seeds it with a full scan
+        self._fp_acc: Optional[int] = None
+        self.confighistory = ConfigHistoryManager(
+            os.path.join(ledger_dir, "confighistory.jsonl"))
+        # the blocks whose state the last open re-applied
+        self.replayed_blocks = 0
+        self._recover()
 
-    def _replay(self, block: m.Block) -> None:
-        """Re-derive a committed block's state updates from its stored
-        txflags (no re-validation; reference: kv_ledger.go recovery)."""
+    @property
+    def durable(self) -> bool:
+        return self._durable
+
+    def attach_pvt(self, transient_store, pvtdata_store,
+                   btl_fn=None) -> None:
+        """Wire the transient and pvt stores (reference: the coordinator
+        binding of gossip/privdata/coordinator.go:498)."""
+        self._transient = transient_store
+        self._pvtstore = pvtdata_store
+        self._btl_fn = btl_fn or (lambda ns, coll: 0)
+
+    def _reset_state_db(self) -> None:
+        """The state ran ahead of a cropped block store: rebuild it from
+        genesis (reference: the kv_ledger.go recovery edge)."""
+        if self._durable:
+            self.state.close()
+            shutil.rmtree(os.path.join(self.dir, "state"))
+            self.state = DurableStateDB(os.path.join(self.dir, "state"))
+        else:
+            self.state = VersionedDB()
+        self._fp_acc = None
+
+    # -- recovery --------------------------------------------------------
+    def _recover(self) -> None:
+        """Replay the blocks past the savepoints (reference:
+        kv_ledger.go:239 syncStateAndHistoryDBWithBlockstore).  State
+        is re-applied only past its own savepoint; history and config
+        history are idempotent on the overlap."""
+        height = self.blockstore.height
+        if self.state.savepoint >= height:
+            self._reset_state_db()
+        hist_sp = self.history.savepoint
+        if hist_sp >= height and self._durable:
+            self.history.close()
+            shutil.rmtree(os.path.join(self.dir, "history"))
+            self.history = DurableHistoryDB(
+                os.path.join(self.dir, "history"))
+            hist_sp = -1
+        # config history writes after the state commit, so its
+        # savepoint can trail the state's by one block after a crash
+        start = min(self.state.savepoint, hist_sp,
+                    self.confighistory.savepoint) + 1
+        for block in self.blockstore.iter_blocks(max(0, start)):
+            replay_state = block.header.number > self.state.savepoint
+            self._apply_block_effects(block, replay_state=replay_state)
+            self.replayed_blocks += replay_state
+
+    def _apply_block_effects(self, block: m.Block,
+                             replay_state: bool) -> None:
+        """Re-derive a committed block's state, history and config
+        history updates from its stored txflags (no re-validation)."""
         flags = protoutil.block_txflags(block)
         num = block.header.number
         batch = UpdateBatch()
+        hist: List[Tuple[int, str, str]] = []
         for tx_num, env in enumerate(protoutil.get_envelopes(block)):
             if flags[tx_num] != m.TxValidationCode.VALID:
                 continue
@@ -203,11 +357,17 @@ class KvLedger:
                         batch.delete(ns, w.key, (num, tx_num))
                     else:
                         batch.put(ns, w.key, w.value, (num, tx_num))
+                    hist.append((tx_num, ns, w.key))
                 for mw in kv.metadata_writes:
                     batch.put_metadata(ns, mw.key,
                                        {e.name: e.value for e in mw.entries},
                                        (num, tx_num))
-        self.state.apply_updates(batch, num)
+        if replay_state:
+            self._apply_state_updates(batch, num)
+        self.history.commit(num, hist)
+        self.confighistory.handle_block_writes(
+            num, [(ns, key, value)
+                  for (ns, key), (value, _v) in batch.updates.items()])
 
     # -- simulation ------------------------------------------------------
     def new_tx_simulator(self, txid: str) -> TxSimulator:
@@ -227,7 +387,8 @@ class KvLedger:
         columnar decode: its tx ids and header types are reused instead
         of re-decoded, and its decoded rows take the vectorized MVCC
         (the same flags as the generic pass, which takes the rows the
-        decode fell back on and blocks committed without `rwsets`)."""
+        decode fell back on, the pvt-bearing rows while a transient
+        store is attached, and blocks committed without `rwsets`)."""
         with self._lock:
             num = block.header.number
             if num != self.height:
@@ -242,7 +403,6 @@ class KvLedger:
                 raise LedgerError(
                     f"flags length {len(incoming_flags)} != "
                     f"{len(envs)} txs")
-            vec = rwsets is not None
             txs = []
             any_col = False
             for tx_num, (env, flag) in enumerate(zip(envs, incoming_flags)):
@@ -261,24 +421,274 @@ class KvLedger:
                 if ch_type != m.HeaderType.ENDORSER_TRANSACTION:
                     # config/control txs commit with no state effects
                     txs.append((txid, m.TxReadWriteSet(), flag))
-                elif vec and rwsets.bodies[tx_num] is not None:
+                elif rwsets is not None and \
+                        rwsets.bodies[tx_num] is not None and \
+                        (self._transient is None
+                         or not rwsets.bodies[tx_num].has_pvt):
+                    # a pvt-bearing tx keeps its materialized rwset
+                    # while a transient store is wired: _commit_pvt
+                    # walks its collection hashes
                     txs.append((txid, COLUMNAR, flag))
                     any_col = True
                 else:
                     txs.append((txid, tx_rwset_from_envelope(env), flag))
             if any_col:
-                flags, batch, _tx_writes = \
+                flags, batch, tx_writes = \
                     validate_and_prepare_batch_vectorized(
                         txs, self.state, num, rwsets)
             else:
-                flags, batch, _tx_writes = validate_and_prepare_batch(
+                flags, batch, tx_writes = validate_and_prepare_batch(
                     txs, self.state, num)
             protoutil.set_block_txflags(block, bytes(flags))
             self.blockstore.add_block(block)
-            self.state.apply_updates(batch, num)
+            # the recovery contract's crash window: the block is durable
+            # in the block store, none of the effects below are yet
+            self._apply_state_updates(batch, num)
+            # per-tx writes (not the deduped batch), so commit and
+            # replay record the same history
+            self.history.commit(num, tx_writes)
+            self._commit_pvt(num, txs, flags)
+            self.confighistory.handle_block_writes(
+                num, [(ns, key, value)
+                      for (ns, key), (value, _v) in batch.updates.items()])
+            if not self._durable and (num + 1) % self.SNAPSHOT_EVERY == 0:
+                self.state.snapshot(self._state_path)
         with self.height_changed:
             self.height_changed.notify_all()
         return flags
+
+    def _commit_pvt(self, num: int, txs, flags) -> None:
+        """Apply the plaintext private writes of VALID txs whose hashes
+        the block carries, taken from the transient store and checked
+        against those hashes; then purge the transient store and run
+        the BTL purges (reference: coordinator.go:498 StoreBlock +
+        pvtstatepurgemgmt)."""
+        if self._transient is None:
+            return
+        batch = UpdateBatch()
+        for tx_num, (txid, rwset, _flag) in enumerate(txs):
+            if flags[tx_num] != m.TxValidationCode.VALID or rwset is None:
+                continue
+            if rwset is COLUMNAR:
+                # columnar rows are only taken for bodies without
+                # collection hashes
+                continue
+            hashed = {}                    # (ns, coll) -> HashedRWSet
+            for ns_entry in rwset.ns_rwset:
+                for ch in ns_entry.collection_hashed_rwset:
+                    hashed[(ns_entry.namespace, ch.collection_name)] = \
+                        m.HashedRWSet.decode(ch.hashed_rwset)
+            if not hashed:
+                continue
+            candidates = self._transient.get_by_txid(txid)
+            for (ns, coll), hset in hashed.items():
+                kv = _find_matching_pvt(candidates, ns, coll, hset)
+                if kv is None:
+                    # missing: record the digest, so the reconciler can
+                    # pull it from an eligible peer later
+                    self._pvtstore.report_missing(num, tx_num, ns, coll)
+                    continue
+                pns = pvt_namespace(ns, coll)
+                for w in kv.writes:
+                    if w.is_delete:
+                        batch.delete(pns, w.key, (num, tx_num))
+                    else:
+                        batch.put(pns, w.key, w.value, (num, tx_num))
+                self._pvtstore.commit(num, tx_num, ns, coll, kv,
+                                      self._btl_fn(ns, coll))
+        if len(batch):
+            self._apply_state_updates(batch, num)
+        # purge every txid the block carried (valid or not: an
+        # invalidated private tx would otherwise keep its plaintext in
+        # the transient store), and endorsement leftovers older than
+        # the retention window (reference: PurgeBelowHeight)
+        self._transient.purge_by_txids([txid for txid, _r, _f in txs if txid])
+        self._transient.purge_below_height(
+            max(0, num - self.TRANSIENT_RETENTION_BLOCKS))
+        # BTL expiry: delete a key only while its committed version IS
+        # the expiring write; a later rewrite has its own window
+        purge_batch = UpdateBatch()
+        for bn, tn, ns, coll, keys in self._pvtstore.expiring_at(num):
+            pns = pvt_namespace(ns, coll)
+            for key in keys:
+                if self.state.get_version(pns, key) == (bn, tn):
+                    purge_batch.delete(pns, key, (num, 0))
+        if len(purge_batch):
+            self._apply_state_updates(purge_batch, num)
+        self._pvtstore.purge(num)
+        # one durability barrier for the whole block's private data
+        self._pvtstore.sync()
+
+    # -- reconciliation (reference: gossip/privdata/reconcile.go:339) ----
+    def get_pvt(self, block_num: int, tx_num: int):
+        """Committed plaintext private write sets of one tx:
+        [(ns, collection, KVRWSet)] — what reconciliation serves."""
+        if self._pvtstore is None:
+            return []
+        return self._pvtstore.get(block_num, tx_num)
+
+    def missing_pvt_count(self) -> int:
+        """The whole reconciliation backlog."""
+        if self._pvtstore is None:
+            return 0
+        return self._pvtstore.missing_count()
+
+    def missing_pvt(self, limit: int = 50):
+        """Unreconciled (block, tx, ns, collection) digests, dropping
+        any whose BTL already lapsed."""
+        if self._pvtstore is None:
+            return []
+        out = []
+        for bn, tn, ns, coll in self._pvtstore.missing(limit):
+            if self._pvt_expired(bn, ns, coll):
+                self._pvtstore.drop_missing(bn, tn, ns, coll)
+                continue
+            out.append((bn, tn, ns, coll))
+        return out
+
+    def _pvt_expired(self, block_num: int, ns: str, coll: str) -> bool:
+        """The BTL lapse, aligned with the purge schedule: data from
+        `block_num` is purged while block block_num+btl+1 commits, so
+        it is dead once height >= block_num+btl+2."""
+        btl = self._btl_fn(ns, coll)
+        return btl > 0 and block_num + btl + 2 <= self.height
+
+    def reconcile_pvt(self, block_num: int, tx_num: int, ns: str,
+                      coll: str, kv: m.KVRWSet) -> bool:
+        """Backfill a missing private write set obtained from a peer:
+        check it against the hashes the committed block carries, then
+        apply its writes at the state's savepoint, skipping keys a
+        later tx wrote or deleted.  True when the digest was
+        resolved."""
+        with self._lock:
+            if self._pvtstore is None or \
+                    not self._pvtstore.is_missing(block_num, tx_num, ns, coll):
+                return False
+            if self._pvt_expired(block_num, ns, coll):
+                self._pvtstore.drop_missing(block_num, tx_num, ns, coll)
+                return False               # expired while missing
+            block = self.blockstore.get_block_by_number(block_num)
+            if block is None:
+                return False
+            flags = protoutil.block_txflags(block)
+            envs = protoutil.get_envelopes(block)
+            if tx_num >= len(envs) or \
+                    flags[tx_num] != m.TxValidationCode.VALID:
+                self._pvtstore.drop_missing(block_num, tx_num, ns, coll)
+                return False
+            rwset = tx_rwset_from_envelope(envs[tx_num])
+            hset = None
+            if rwset is not None:
+                for ns_entry in rwset.ns_rwset:
+                    if ns_entry.namespace != ns:
+                        continue
+                    for ch in ns_entry.collection_hashed_rwset:
+                        if ch.collection_name == coll:
+                            hset = m.HashedRWSet.decode(ch.hashed_rwset)
+            if hset is None:
+                self._pvtstore.drop_missing(block_num, tx_num, ns, coll)
+                return False               # the block never hashed it
+            try:
+                verify_pvt_against_hashes(hset, kv)
+            except PvtDataMismatchError:
+                return False               # forged response; keep waiting
+            batch = UpdateBatch()
+            pns = pvt_namespace(ns, coll)
+            later_keys = self._pvtstore.later_written_keys(
+                block_num, tx_num, ns, coll)
+            for w in kv.writes:
+                cur = self.state.get_version(pns, w.key)
+                if cur is not None and cur >= (block_num, tx_num):
+                    continue               # a later tx already wrote it
+                if w.key in later_keys:
+                    continue               # a later delete left no version
+                if w.is_delete:
+                    batch.delete(pns, w.key, (block_num, tx_num))
+                else:
+                    batch.put(pns, w.key, w.value, (block_num, tx_num))
+            if len(batch):
+                # the savepoint stays where it is: this backfills an old
+                # block, it does not advance commit progress
+                self._apply_state_updates(batch, self.state.savepoint)
+            self._pvtstore.commit(block_num, tx_num, ns, coll, kv,
+                                  self._btl_fn(ns, coll))
+            return True
+
+    # -- state fingerprint -----------------------------------------------
+    def _fp_scan_acc(self) -> int:
+        acc = 0
+        for ns, key, value, ver in self.state.iter_state():
+            acc ^= _fp_row(ns, key, value, ver)
+        for ns, key, entries in self.state.iter_metadata():
+            acc ^= _fp_meta(ns, key, entries)
+        return acc
+
+    def _fp_fold(self, batch: UpdateBatch) -> None:
+        """Fold one UpdateBatch into the accumulator: the exact delta
+        the state's apply_updates is about to make (a put keeps the
+        row's metadata, a delete drops it, a metadata write bumps the
+        row's version and skips a row absent after the value pass).
+        Called BEFORE the apply, while the old entries are readable."""
+        acc = self._fp_acc
+        state = self.state
+        for (ns, key), (value, version) in batch.updates.items():
+            old = state.get_state(ns, key)
+            if old is not None:
+                acc ^= _fp_row(ns, key, old[0], old[1])
+                if value is None:
+                    oldm = state.get_metadata(ns, key)
+                    if oldm:
+                        acc ^= _fp_meta(ns, key, oldm)
+            if value is not None:
+                acc ^= _fp_row(ns, key, value, version)
+        for (ns, key), (entries, version) in batch.meta_updates.items():
+            upd = batch.updates.get((ns, key))
+            if upd is not None:
+                value, ver = upd
+                if value is None:
+                    continue          # row gone after the value pass
+            else:
+                got = state.get_state(ns, key)
+                if got is None:
+                    continue          # metadata without a key: no-op
+                value, ver = got
+            acc ^= _fp_row(ns, key, value, ver)
+            acc ^= _fp_row(ns, key, value, version)
+            oldm = state.get_metadata(ns, key)
+            if oldm:
+                acc ^= _fp_meta(ns, key, oldm)
+            if entries:
+                acc ^= _fp_meta(ns, key, dict(entries))
+        self._fp_acc = acc
+
+    def _apply_state_updates(self, batch: UpdateBatch, height: int) -> None:
+        """Every state change goes through here, so the fingerprint
+        accumulator cannot drift from the state it summarizes."""
+        if self._fp_acc is not None and len(batch):
+            self._fp_fold(batch)
+        self.state.apply_updates(batch, height)
+
+    def state_fingerprint(self) -> str:
+        """Digest of the entire committed state — every (ns, key,
+        value, version) row, every key-metadata entry, and the chain
+        height — equal to the reference ledger's for the same blocks
+        and flags.  The first call scans to seed the accumulator; later
+        calls are O(1).  Taken under the commit lock: a commit advances
+        the block store before it applies the state."""
+        with self._lock:
+            if self._fp_acc is None:
+                self._fp_acc = self._fp_scan_acc()
+            h = hashlib.sha256(self.height.to_bytes(8, "big"))
+            h.update(self._fp_acc.to_bytes(32, "big"))
+            return h.hexdigest()
+
+    def state_fingerprint_full(self) -> str:
+        """The fingerprint rescanned from scratch, bypassing the
+        accumulator: the incremental path's oracle."""
+        with self._lock:
+            h = hashlib.sha256(self.height.to_bytes(8, "big"))
+            h.update(self._fp_scan_acc().to_bytes(32, "big"))
+            return h.hexdigest()
 
     # -- queries ---------------------------------------------------------
     @property
@@ -294,6 +704,8 @@ class KvLedger:
         if loc is None:
             return None
         block = self.blockstore.get_block_by_number(loc[0])
+        if block is None:
+            return None                    # a known txid, a missing block
         flags = protoutil.block_txflags(block)
         return m.ProcessedTransaction(
             transaction_envelope=protoutil.get_envelopes(block)[loc[1]],
@@ -302,31 +714,28 @@ class KvLedger:
     def tx_id_exists(self, txid: str) -> bool:
         return self.blockstore.get_tx_loc(txid) is not None
 
-    def state_fingerprint(self) -> str:
-        """Digest of the entire committed state — every (ns, key,
-        value, version) row, every key-metadata entry, and the chain
-        height — equal to the reference ledger's for the same blocks
-        and flags.  Taken under the commit lock."""
-        with self._lock:
-            acc = 0
-            for ns, key, value, ver in self.state.iter_state():
-                acc ^= _fp_row(ns, key, value, ver)
-            for ns, key, entries in self.state.iter_metadata():
-                acc ^= _fp_meta(ns, key, entries)
-            h = hashlib.sha256(self.height.to_bytes(8, "big"))
-            h.update(acc.to_bytes(32, "big"))
-            return h.hexdigest()
-
     def close(self) -> None:
+        """Checkpoint and close the stores (the attached private-data
+        stores too), then the block store; a temporary directory is
+        removed."""
         with self._lock:
+            if self._durable:
+                self.state.close()
+                self.history.close()
+            else:
+                self.state.snapshot(self._state_path)
+            self.confighistory.close()
+            for store in (self._transient, self._pvtstore):
+                if store is not None:
+                    store.close()
             self.blockstore.close()
             if self._tmp is not None:
                 self._tmp.cleanup()
 
 
 class LedgerManager:
-    """Open/create ledgers by id under one directory (reference:
-    ledgermgmt/ledger_mgmt.go)."""
+    """Open/create durable ledgers by id under one directory
+    (reference: ledgermgmt/ledger_mgmt.go)."""
 
     def __init__(self, root_dir: str):
         self.root = root_dir
@@ -341,7 +750,8 @@ class LedgerManager:
 
     def ledger_ids(self) -> List[str]:
         existing = set(self._ledgers)
-        existing.update(os.listdir(self.root))
+        if os.path.isdir(self.root):
+            existing.update(os.listdir(self.root))
         return sorted(existing)
 
     def close(self) -> None:

@@ -1,7 +1,9 @@
 """Read-write set building and parsing — the port's copy of
 fabric_mod_tpu/ledger/rwsetutil.py (reference: core/ledger/kvledger/
-txmgmt/rwsetutil/rwset_builder.go and rwset_proto_util.go), without the
-private-data (hashed collection) half.
+txmgmt/rwsetutil/rwset_builder.go and rwset_proto_util.go), with the
+private-data half: a private write's plaintext goes to the
+TxPvtReadWriteSet the endorser stages (`build_pvt`), its sha256 key and
+value hashes into the public rwset's hashed collection section.
 
 Range-query results are fingerprinted with a running SHA-256 over the
 sorted (key, version) pairs; MVCC phantom detection re-executes the
@@ -12,6 +14,7 @@ from __future__ import annotations
 import hashlib
 from typing import Dict, List, Optional, Tuple
 
+from fabric_mod_tpu_torch.ledger.pvtdata import hash_key, hash_value
 from fabric_mod_tpu_torch.protos import messages as m
 
 Version = Tuple[int, int]
@@ -49,6 +52,7 @@ class RWSetBuilder:
         self._writes: Dict[str, Dict[str, Optional[bytes]]] = {}
         self._ranges: Dict[str, List[m.RangeQueryInfo]] = {}
         self._meta: Dict[str, Dict[str, Dict[str, bytes]]] = {}
+        self._pvt: Dict[Tuple[str, str], Dict[str, Optional[bytes]]] = {}
 
     def add_read(self, ns: str, key: str, version: Optional[Version]) -> None:
         self._reads.setdefault(ns, {}).setdefault(key, version)
@@ -62,6 +66,30 @@ class RWSetBuilder:
         metadata like the VALIDATION_PARAMETER endorsement override)"""
         self._meta.setdefault(ns, {}).setdefault(key, {})[name] = value
 
+    def add_pvt_write(self, ns: str, collection: str, key: str,
+                      value: Optional[bytes]) -> None:
+        """A private write (None deletes): plaintext into the pvt
+        rwset, hashes into the public rwset (reference: rwset_builder.go's
+        pvt/hashed bookkeeping)."""
+        self._pvt.setdefault((ns, collection), {})[key] = value
+
+    def build_pvt(self) -> Optional[m.TxPvtReadWriteSet]:
+        """The plaintext private write sets the endorser stages into the
+        transient store; None without private writes."""
+        if not self._pvt:
+            return None
+        by_ns: Dict[str, List[m.CollectionPvtReadWriteSet]] = {}
+        for (ns, coll), writes in sorted(self._pvt.items()):
+            kv = m.KVRWSet(writes=[
+                m.KVWrite(key=k, is_delete=int(v is None), value=v or b"")
+                for k, v in sorted(writes.items())])
+            by_ns.setdefault(ns, []).append(
+                m.CollectionPvtReadWriteSet(collection_name=coll,
+                                            rwset=kv.encode()))
+        return m.TxPvtReadWriteSet(ns_pvt_rwset=[
+            m.NsPvtReadWriteSet(namespace=ns, collection_pvt_rwset=colls)
+            for ns, colls in sorted(by_ns.items())])
+
     def add_range_query(self, ns: str, start: str, end: str,
                         exhausted: bool,
                         results: List[Tuple[str, Version]]) -> None:
@@ -70,9 +98,21 @@ class RWSetBuilder:
             reads_merkle_hash=range_fingerprint(results)))
 
     def build(self) -> m.TxReadWriteSet:
+        hashed_by_ns: Dict[str, List[m.CollectionHashedReadWriteSet]] = {}
+        for (ns, coll), writes in sorted(self._pvt.items()):
+            hset = m.HashedRWSet(hashed_writes=[
+                m.KVWriteHash(key_hash=hash_key(k),
+                              is_delete=int(v is None),
+                              value_hash=b"" if v is None
+                              else hash_value(v))
+                for k, v in sorted(writes.items())])
+            hashed_by_ns.setdefault(ns, []).append(
+                m.CollectionHashedReadWriteSet(
+                    collection_name=coll, hashed_rwset=hset.encode()))
         ns_sets = []
         for ns in sorted(set(self._reads) | set(self._writes)
-                         | set(self._ranges) | set(self._meta)):
+                         | set(self._ranges) | set(self._meta)
+                         | set(hashed_by_ns)):
             kv = m.KVRWSet(
                 reads=[m.KVRead(key=k, version=version_proto(v))
                        for k, v in sorted(
@@ -89,7 +129,9 @@ class RWSetBuilder:
                         for n, v in sorted(entries.items())])
                     for k, entries in sorted(
                         self._meta.get(ns, {}).items())])
-            ns_sets.append(m.NsReadWriteSet(namespace=ns, rwset=kv.encode()))
+            ns_sets.append(m.NsReadWriteSet(
+                namespace=ns, rwset=kv.encode(),
+                collection_hashed_rwset=hashed_by_ns.get(ns, [])))
         return m.TxReadWriteSet(data_model=0, ns_rwset=ns_sets)
 
 

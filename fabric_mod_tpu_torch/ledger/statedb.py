@@ -1,12 +1,18 @@
 """Versioned key-value state — the port's copy of
 fabric_mod_tpu/ledger/statedb.py's in-memory store (reference:
 core/ledger/kvledger/txmgmt/statedb/statedb.go `VersionedDB`,
-`UpdateBatch`), without its snapshot file: the port's ledger holds
-state in memory only.
+`UpdateBatch`) with its whole-DB snapshot file (`snapshot` :159,
+`load` :190): the state of a `KvLedger(durable=False)`, written
+atomically every SNAPSHOT_EVERY blocks and on close, in the reference's
+format.  A durable ledger keeps its state in ledger/durable.py instead.
 """
 from __future__ import annotations
 
 import bisect
+import hashlib
+import io
+import os
+import struct
 from typing import Dict, List, Optional, Tuple
 
 Version = Tuple[int, int]               # (block_num, tx_num)
@@ -131,3 +137,90 @@ class VersionedDB:
             else:
                 self._metadata.pop((ns, key), None)
         self._savepoint = block_num
+
+    # -- durability ------------------------------------------------------
+    MAGIC = b"FMTSDB2\n"
+
+    def snapshot(self, path: str) -> None:
+        """Atomic whole-DB snapshot (write-temp + rename)."""
+        buf = io.BytesIO()
+        buf.write(self.MAGIC)
+        buf.write(struct.pack("<q", self._savepoint))
+        buf.write(struct.pack("<I", len(self._data)))
+        for (ns, key), (value, (bn, tn)) in sorted(self._data.items()):
+            for part in (ns.encode(), key.encode(), value):
+                buf.write(struct.pack("<I", len(part)))
+                buf.write(part)
+            buf.write(struct.pack("<QQ", bn, tn))
+        buf.write(struct.pack("<I", len(self._metadata)))
+        for (ns, key), entries in sorted(self._metadata.items()):
+            for part in (ns.encode(), key.encode()):
+                buf.write(struct.pack("<I", len(part)))
+                buf.write(part)
+            buf.write(struct.pack("<I", len(entries)))
+            for name, val in sorted(entries.items()):
+                for part in (name.encode(), val):
+                    buf.write(struct.pack("<I", len(part)))
+                    buf.write(part)
+        payload = buf.getvalue()
+        payload += hashlib.sha256(payload).digest()
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> "VersionedDB":
+        db = cls()
+        if not os.path.exists(path):
+            return db
+        raw = open(path, "rb").read()
+        if len(raw) < 32 + len(cls.MAGIC):
+            return db                       # torn snapshot: start empty
+        body, digest = raw[:-32], raw[-32:]
+        if hashlib.sha256(body).digest() != digest or \
+                not body.startswith(cls.MAGIC):
+            return db                       # corrupt: rebuild from blocks
+        pos = len(cls.MAGIC)
+        (db._savepoint,) = struct.unpack_from("<q", body, pos)
+        pos += 8
+        (count,) = struct.unpack_from("<I", body, pos)
+        pos += 4
+        for _ in range(count):
+            parts = []
+            for _ in range(3):
+                (ln,) = struct.unpack_from("<I", body, pos)
+                pos += 4
+                parts.append(body[pos:pos + ln])
+                pos += ln
+            bn, tn = struct.unpack_from("<QQ", body, pos)
+            pos += 16
+            ns, key = parts[0].decode(), parts[1].decode()
+            db._data[(ns, key)] = (parts[2], (bn, tn))
+            db._keys.setdefault(ns, []).append(key)
+        for keys in db._keys.values():     # bulk-sort, not insort^2
+            keys.sort()
+        (mcount,) = struct.unpack_from("<I", body, pos)
+        pos += 4
+        for _ in range(mcount):
+            parts = []
+            for _ in range(2):
+                (ln,) = struct.unpack_from("<I", body, pos)
+                pos += 4
+                parts.append(body[pos:pos + ln])
+                pos += ln
+            (n_entries,) = struct.unpack_from("<I", body, pos)
+            pos += 4
+            entries = {}
+            for _ in range(n_entries):
+                pair = []
+                for _ in range(2):
+                    (ln,) = struct.unpack_from("<I", body, pos)
+                    pos += 4
+                    pair.append(body[pos:pos + ln])
+                    pos += ln
+                entries[pair[0].decode()] = pair[1]
+            db._metadata[(parts[0].decode(), parts[1].decode())] = entries
+        return db

@@ -5,8 +5,9 @@ The port's copy of fabric_mod_tpu/peer/chaincode.py `ChaincodeStub`,
 core/chaincode/chaincode_support.go:193 `Execute` and the shim handler,
 handler.go:180-202 HandleGetState/HandlePutState): a contract is a
 Python object invoked against a stub bound to a TxSimulator, which
-records the read-write set.  Rich queries, private data and chaincode
-events are not ported; the contract raises on their ops.
+records the read-write set.  The stub carries the proposal's transient
+map and the private-data calls (:25-36, :82-91).  Rich queries and
+chaincode events are not ported; the contract raises on their ops.
 """
 from __future__ import annotations
 
@@ -22,12 +23,17 @@ class ChaincodeStub:
     GetState/PutState/DelState/GetStateByRange over the simulator)."""
 
     def __init__(self, namespace: str, simulator, args: List[bytes],
-                 txid: str, channel_id: str, creator: bytes = b""):
+                 txid: str, channel_id: str,
+                 transient: Optional[Dict[str, bytes]] = None,
+                 creator: bytes = b""):
         self.namespace = namespace
         self._sim = simulator
         self.args = args
         self.txid = txid
         self.channel_id = channel_id
+        # side-channel inputs, never part of the ordered tx (reference:
+        # the shim's GetTransient)
+        self.transient = dict(transient or {})
         # serialized creator identity (reference: shim GetCreator)
         self.creator = creator
 
@@ -47,6 +53,17 @@ class ChaincodeStub:
         """(reference: shim PutStateMetadata — e.g. key-level
         endorsement via the VALIDATION_PARAMETER entry)"""
         self._sim.set_state_metadata(self.namespace, key, name, value)
+
+    # -- private data (reference: shim PutPrivateData/GetPrivateData) --
+    def put_private_data(self, collection: str, key: str,
+                         value: bytes) -> None:
+        self._sim.set_private_data(self.namespace, collection, key, value)
+
+    def get_private_data(self, collection: str, key: str):
+        return self._sim.get_private_data(self.namespace, collection, key)
+
+    def del_private_data(self, collection: str, key: str) -> None:
+        self._sim.delete_private_data(self.namespace, collection, key)
 
 
 class Contract(Protocol):
@@ -73,8 +90,10 @@ class ChaincodeRegistry:
 
 
 class KvContract:
-    """The example contract: args [op, key, value?] with put, get, del
-    and setvp (a key-level endorsement override)."""
+    """The example contract: args [op, key, value?] with put, get, del,
+    setvp (a key-level endorsement override), and putpvt / getpvt
+    (args [op, collection, key]; putpvt's value comes in the transient
+    map under "value", so it never lands in the ordered tx)."""
 
     def invoke(self, stub: ChaincodeStub) -> bytes:
         if not stub.args:
@@ -94,6 +113,17 @@ class KvContract:
             stub.set_state_metadata(stub.args[1].decode(),
                                     "VALIDATION_PARAMETER", stub.args[2])
             return b"ok"
-        # the reference's putev, query, putpvt and getpvt need chaincode
-        # events, rich queries and private data, none of them ported
+        if op == "putpvt":
+            value = stub.transient.get("value")
+            if value is None:
+                raise ChaincodeError("putpvt needs transient 'value'")
+            stub.put_private_data(stub.args[1].decode(),
+                                  stub.args[2].decode(), value)
+            return b"ok"
+        if op == "getpvt":
+            val = stub.get_private_data(stub.args[1].decode(),
+                                        stub.args[2].decode())
+            return val if val is not None else b""
+        # the reference's putev and query need chaincode events and rich
+        # queries, neither ported
         raise ChaincodeError(f"unknown op {op!r}")

@@ -10,18 +10,27 @@ the per-bundle objects (policy evaluator, validator) atomically when a
 CONFIG tx commits; everything downstream reads through `bundle()` and
 `validator()`, so a block validates under exactly one config snapshot.
 `use_shard_router` binds the channel to a sharding.ChannelShardRouter,
-whose slice-pinned pipe then commits its blocks.  Left out: private
-data.
+whose slice-pinned pipe then commits its blocks.
+
+Private data (:77-130): the channel owns a TransientStore and a
+PvtDataStore — under `<ledger dir>/transient` and `/pvtdata` when the
+ledger is durable, in memory otherwise — and attaches them to its
+ledger with the BTL of each collection.  A collection's config (its
+member-orgs policy and block-to-live) is read from the committed
+chaincode definition in `_lifecycle`.
 """
 from __future__ import annotations
 
+import os
 import threading
 from typing import List, Optional
 
 from fabric_mod_tpu_torch.channelconfig import (
     Bundle, ConfigTxError, extract_config_update, propose_config_update)
 from fabric_mod_tpu_torch.peer.commitpipe import PipelinedCommitter
-from fabric_mod_tpu_torch.peer.lifecycle import LifecycleValidationInfo
+from fabric_mod_tpu_torch.ledger.pvtdata import PvtDataStore, TransientStore
+from fabric_mod_tpu_torch.peer.lifecycle import (
+    LIFECYCLE_NS, LifecycleValidationInfo, definition_key)
 from fabric_mod_tpu_torch.peer.mcs import MessageCryptoService
 from fabric_mod_tpu_torch.peer.txvalidator import (
     VALIDATION_PARAMETER, TxValidator, ValidationInfoProvider)
@@ -73,7 +82,49 @@ class Channel:
                 ).encode())
         self._vinfo = vinfo
         self.mcs = MessageCryptoService(self.bundle, verifier)
+        # private data: on a durable ledger both stores are durable too,
+        # so committed plaintext and the missing-digest index survive a
+        # restart
+        pvt_root = ledger.dir if ledger.durable else None
+        self.transient_store = TransientStore(
+            dir_path=os.path.join(pvt_root, "transient") if pvt_root
+            else None)
+        self.pvtdata_store = PvtDataStore(
+            dir_path=os.path.join(pvt_root, "pvtdata") if pvt_root
+            else None)
+        self.ledger.attach_pvt(self.transient_store, self.pvtdata_store,
+                               self._collection_btl)
         self._install_bundle(bundle)
+
+    def _static_collection_config(self, ns: str, collection: str):
+        """The committed StaticCollectionConfig of (chaincode,
+        collection), or None (reference: privdata's collection-config
+        retrieval from the lifecycle definition)."""
+        got = self.ledger.state.get_state(LIFECYCLE_NS, definition_key(ns))
+        if got is None:
+            return None
+        try:
+            d = m.ChaincodeDefinition.decode(got[0])
+            pkg = m.CollectionConfigPackage.decode(d.collections)
+        except ValueError:
+            return None                    # malformed: no collection
+        for cc in pkg.config:
+            sc = cc.static_collection_config
+            if sc is not None and sc.name == collection:
+                return sc
+        return None
+
+    def collection_policy(self, ns: str, collection: str):
+        """The member_orgs_policy (SignaturePolicyEnvelope) of a
+        committed collection config, or None."""
+        sc = self._static_collection_config(ns, collection)
+        return sc.member_orgs_policy if sc is not None else None
+
+    def _collection_btl(self, ns: str, collection: str) -> int:
+        """The block-to-live of a committed collection config; 0 (never
+        purged) without one."""
+        sc = self._static_collection_config(ns, collection)
+        return sc.block_to_live if sc is not None else 0
 
     # -- bundle lifecycle -------------------------------------------------
     def _install_bundle(self, bundle: Bundle) -> None:

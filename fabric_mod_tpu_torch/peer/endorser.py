@@ -4,7 +4,9 @@ The port's copy of fabric_mod_tpu/peer/endorser.py `Endorser` (:29) and
 `endorse_and_submit` (:159) (reference: core/endorser/endorser.go —
 ProcessProposal :306, preProcess's signature and ACL checks :258,
 SimulateProposal :182 — without the container launch, which the
-in-process chaincode registry replaces).
+in-process chaincode registry replaces).  The proposal's transient map
+reaches the chaincode stub, and a simulation's plaintext private writes
+are staged in the channel's transient store under the tx id (:108-130).
 
 The proposal's creator signature and its Writers ACL check verify on
 the host: one proposal is one signature, and a device call per proposal
@@ -87,6 +89,7 @@ class Endorser:
             spec = cis.chaincode_spec
             ns = spec.chaincode_id.name
             args = list(spec.input.args) if spec.input else []
+            transient = {e.key: e.value for e in ccpp.transient_map}
         except Exception as e:
             raise ProposalRejectedError(f"bad chaincode payload: {e}") from e
 
@@ -94,13 +97,19 @@ class Endorser:
         # SimulateProposal over a tx simulator with read-your-writes)
         sim = self._channel.ledger.new_tx_simulator(ch.tx_id)
         stub = ChaincodeStub(ns, sim, args, ch.tx_id,
-                             self._channel.channel_id, creator=sh.creator)
+                             self._channel.channel_id, transient=transient,
+                             creator=sh.creator)
         try:
             result = self._registry.execute(ns, stub)
             rwset = sim.done()
+            pvt = sim.done_pvt()
         except Exception as e:
             return m.ProposalResponse(
                 response=m.Response(status=500, message=str(e)))
+        if pvt is not None:
+            # stage the plaintext private writes for the commit path
+            self._channel.transient_store.persist(
+                ch.tx_id, self._channel.ledger.height, pvt)
 
         cca = m.ChaincodeAction(
             results=rwset.encode(),
@@ -125,11 +134,12 @@ class Endorser:
 
 def endorse_and_submit(channel_id: str, chaincode_ns: str,
                        args: Sequence[bytes], client_signer,
-                       endorsers: Sequence[Endorser], broadcast) -> str:
-    """Client convenience: proposal -> N endorsements -> tx envelope ->
-    broadcast; returns the tx id."""
+                       endorsers: Sequence[Endorser], broadcast,
+                       transient=None) -> str:
+    """Client convenience: proposal (with its `transient` map) -> N
+    endorsements -> tx envelope -> broadcast; returns the tx id."""
     sp, prop, tx_id = protoutil.create_chaincode_proposal(
-        channel_id, chaincode_ns, args, client_signer)
+        channel_id, chaincode_ns, args, client_signer, transient=transient)
     responses = [e.process_proposal(sp) for e in endorsers]
     env = protoutil.create_tx_from_responses(prop, responses, client_signer)
     broadcast.submit(env)

@@ -5,8 +5,11 @@ The port's copy of fabric_mod_tpu/utils/fixtures.py's verify fixtures
 (`make_verify_items`, `signature_arrays`), plus `make_block`: the
 signature traffic of one committed block — 1000 transactions under a
 2-of-3 endorsement policy (the txvalidator configuration of BASELINE.md
-#2), so 1000 creator + 2000 endorser signatures; and the sharding
-differentials' `make_channel_stream` and `independent_baseline`.
+#2), so 1000 creator + 2000 endorser signatures; the sharding
+differentials' `make_channel_stream` and `independent_baseline`; and
+the durable ledger's streams: bench.py's state-scale stream
+(`make_statescale_blocks`, `prefill_statescale`) and a collection
+definition followed by private writes (`make_pvt_blocks`).
 Everything is made by the pure-python signer (bccsp/sw.py) from a seed:
 no `cryptography` wheel, and no randomness outside the seed but the tx
 nonces of protoutil.create_signed_tx.
@@ -202,15 +205,16 @@ class CommitWorld:
     policy: bytes
     channel_id: str = CHANNEL
 
-    def committer(self, verifier, tensor_policy: bool = False):
-        """A Committer over a fresh in-memory ledger, wired for key-level
-        policies and duplicate-txid checks against it."""
+    def committer(self, verifier, tensor_policy: bool = False, ledger=None):
+        """A Committer over `ledger` (a fresh durable ledger in a
+        temporary directory by default), wired for key-level policies
+        and duplicate-txid checks against it."""
         from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
         from fabric_mod_tpu_torch.peer.txvalidator import (
             VALIDATION_PARAMETER, Committer, TxValidator,
             ValidationInfoProvider)
         from fabric_mod_tpu_torch.policy import ApplicationPolicyEvaluator
-        led = KvLedger(self.channel_id)
+        led = ledger if ledger is not None else KvLedger(self.channel_id)
 
         def state_vp(ns, key):
             meta = led.state.get_metadata(ns, key)
@@ -283,7 +287,8 @@ def _flip(sig: bytes) -> bytes:
 
 def _signed_tx(world: CommitWorld, rwset: bytes, endorsers, nonce: bytes,
                timestamp: int, bad_creator: bool = False,
-               bad_endorser: Optional[int] = None):
+               bad_endorser: Optional[int] = None,
+               chaincode: str = NAMESPACE):
     """protoutil.create_signed_tx with the nonce and timestamp given,
     and the optional tampering of the creator's or one endorser's
     signature."""
@@ -294,7 +299,7 @@ def _signed_tx(world: CommitWorld, rwset: bytes, endorsers, nonce: bytes,
     tx_id = protoutil.compute_tx_id(nonce, creator_bytes)
     cca = m.ChaincodeAction(
         results=rwset, events=b"", response=m.Response(status=200),
-        chaincode_id=m.ChaincodeID(name=NAMESPACE))
+        chaincode_id=m.ChaincodeID(name=chaincode))
     prp_bytes = m.ProposalResponsePayload(
         proposal_hash=hashlib.sha256(tx_id.encode()).digest(),
         extension=cca.encode()).encode()
@@ -691,6 +696,180 @@ def independent_baseline(streams, make_target) -> dict:
         out[cid] = (flags, t.ledger.state_fingerprint(),
                     time.perf_counter() - t0)
     return out
+
+
+# --- the durable ledger: bench.py's state-scale stream ----------------------
+
+def statescale_key(i: int) -> str:
+    """The i-th prefilled key of the state-scale stream (bench.py:741)."""
+    return "sk%07d" % i
+
+
+def prefill_statescale(ledger, n_keys: int, chunk: int = 200_000) -> None:
+    """Write keys 0..n_keys-1 of the state-scale stream at version
+    (0, 0) straight into the ledger's state, in batches of `chunk`
+    (bench.py:867's prefill; before the first fingerprint, so nothing
+    is folded)."""
+    from fabric_mod_tpu_torch.ledger.statedb import UpdateBatch
+    for lo in range(0, n_keys, chunk):
+        batch = UpdateBatch()
+        for i in range(lo, min(lo + chunk, n_keys)):
+            batch.put(NAMESPACE, statescale_key(i), b"seed-%07d" % i, (0, 0))
+        ledger.state.apply_updates(batch, 0)
+
+
+def make_statescale_blocks(world: CommitWorld, n_blocks: int,
+                           txs_per_block: int, touch_space: int,
+                           seed: bytes = b"statescale") -> List[bytes]:
+    """bench.py:745's state-scale stream, signed by the world's client
+    and peers: chained encoded blocks whose every key lies in the first
+    `touch_space` prefilled keys, so one stream gives the same flags at
+    every state size.  Each tx reads 28 keys of the upper half of that
+    space (0.5% of them at a stale version), probes 2 absent keys,
+    writes 3 keys of the lower half (10% deletes), adds a phantom range
+    over prefilled rows (10%) or an empty range (15%), and is
+    under-endorsed (Org2 alone against the 2-of-3 policy) 8% of the
+    time; block 2's tx 0 pins key 1's VALIDATION_PARAMETER to Org3, so
+    every later block's tx 1, writing key 1 under Org1 + Org2, fails.
+    The draws are bench.py's (random.Random(1807)); nonces and
+    timestamps come from `seed`."""
+    from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder
+    from fabric_mod_tpu_torch.peer.txvalidator import VALIDATION_PARAMETER
+    from fabric_mod_tpu_torch.policy import from_string
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    rng = random.Random(1807)
+    write_pool = touch_space // 2
+    pin_key = statescale_key(1)
+    sk = statescale_key
+    blocks, prev = [], b""
+    for n in range(n_blocks):
+        envs = []
+        for j in range(txs_per_block):
+            b = RWSetBuilder()
+            endorsers = ("Org1", "Org2")
+            if n == 2 and j == 0:
+                b.add_metadata_write(NAMESPACE, pin_key, VALIDATION_PARAMETER,
+                                     m.ApplicationPolicy(
+                                         signature_policy=from_string(
+                                             "'Org3.peer'")).encode())
+            elif n >= 3 and j == 1:
+                b.add_write(NAMESPACE, pin_key, b"pinned%d" % n)
+            else:
+                for _ in range(28):
+                    k = sk(write_pool + rng.randrange(touch_space - write_pool))
+                    if rng.random() < 0.005:
+                        b.add_read(NAMESPACE, k, (9999, 0))      # stale
+                    else:
+                        b.add_read(NAMESPACE, k, (0, 0))         # fresh
+                for _ in range(2):
+                    b.add_read(NAMESPACE, "zz%05d" % rng.randrange(1000), None)
+                for _ in range(3):
+                    k = sk(rng.randrange(write_pool))
+                    if rng.random() < 0.10:
+                        b.add_write(NAMESPACE, k, None)          # delete
+                    else:
+                        b.add_write(NAMESPACE, k, b"v%d.%d" % (n, j))
+                r = rng.random()
+                if r < 0.10:
+                    # prefilled rows in range, none recorded: phantom
+                    b.add_range_query(NAMESPACE, sk(write_pool + 50),
+                                      sk(write_pool + 52), True, [])
+                elif r < 0.25:
+                    b.add_range_query(NAMESPACE, "zz~0", "zz~9", True, [])
+                if rng.random() < 0.08:
+                    endorsers = ("Org2",)    # under-endorsed
+            nonce = hashlib.sha256(seed + b"|%d|%d" % (n, j)).digest()[:24]
+            ts = 1_735_689_600_000_000_000 + (n * txs_per_block + j) * 1000
+            envs.append(_signed_tx(world, b.build().encode(), endorsers,
+                                   nonce, ts))
+        blk = protoutil.new_block(n, prev, envs)
+        prev = protoutil.block_header_hash(blk.header)
+        blocks.append(blk.encode())
+    return blocks
+
+
+# --- private data: a collection definition and a private stream -------------
+
+PVT_COLLECTION = "col1"
+
+
+def network_world(material) -> CommitWorld:
+    """A CommitWorld over an e2e.NetworkMaterial's orgs: its peers as
+    "Org1".."Org3" and its client, on the genesis block's channel (no
+    endorsement policy: a Channel reads its own)."""
+    from fabric_mod_tpu_torch.channelconfig import config_from_block
+    from fabric_mod_tpu_torch.protos import messages as m
+    cid, _config = config_from_block(m.Block.decode(material.genesis))
+    return world_from_pems(material.ca_pems,
+                           dict(material.peers, client=material.client),
+                           b"", channel_id=cid)
+
+
+def make_pvt_blocks(world: CommitWorld, n_blocks: int, n_tx: int,
+                    pad_blocks: int = 0, pvt_every: int = 10,
+                    first_block: int = 0, prev_hash: bytes = b"",
+                    members=("Org1", "Org2"), btl: int = 2,
+                    seed: bytes = b"pvt"):
+    """A private-data stream, chained from block `first_block` after
+    `prev_hash`: a definition block (one tx writing `_lifecycle`
+    `namespaces/mycc`: a ChaincodeDefinition whose collection
+    PVT_COLLECTION has any member of each of `members` as its member-orgs
+    policy and `btl` as its block-to-live), then `n_blocks` blocks of
+    `n_tx` txs in which every `pvt_every`-th tx (j % pvt_every == 0)
+    writes one private key of the collection (only its hashes enter the
+    block) and the others a public key, then `pad_blocks` one-tx public
+    blocks.  Every tx is endorsed by Org1 and Org2 and VALID under a
+    2-of-3 or majority policy.
+
+    Returns (blocks, plaintext, private_keys): the encoded blocks, each
+    private tx's TxPvtReadWriteSet by tx id, and {tx id: (key,
+    value)}."""
+    from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder
+    from fabric_mod_tpu_torch.peer.lifecycle import LIFECYCLE_NS, definition_key
+    from fabric_mod_tpu_torch.policy import from_string
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    package = m.CollectionConfigPackage(config=[m.CollectionConfig(
+        static_collection_config=m.StaticCollectionConfig(
+            name=PVT_COLLECTION, block_to_live=btl,
+            member_orgs_policy=from_string("OR(%s)" % ", ".join(
+                f"'{o}.member'" for o in members))))])
+    definition = m.ChaincodeDefinition(
+        version="1.0", sequence=1, collections=package.encode()).encode()
+    creator = world.signers["client"].serialize()
+    plaintext, private_keys = {}, {}
+    blocks, prev = [], prev_hash
+    sizes = [1] + [n_tx] * n_blocks + [1] * pad_blocks
+    for i, size in enumerate(sizes):
+        num = first_block + i
+        envs = []
+        for j in range(size):
+            nonce = hashlib.sha256(seed + b"|%d|%d" % (num, j)).digest()[:24]
+            ts = 1_735_689_600_000_000_000 + (num * 100_000 + j) * 1000
+            rw = RWSetBuilder()
+            chaincode = NAMESPACE
+            if i == 0:
+                chaincode = LIFECYCLE_NS
+                rw.add_write(LIFECYCLE_NS, definition_key(NAMESPACE),
+                             definition)
+            elif i <= n_blocks and j % pvt_every == 0:
+                key = f"p{num}t{j}"
+                value = hashlib.sha256(seed + key.encode()).hexdigest()[:32]
+                rw.add_pvt_write(NAMESPACE, PVT_COLLECTION, key,
+                                 value.encode())
+                txid = protoutil.compute_tx_id(nonce, creator)
+                plaintext[txid] = rw.build_pvt()
+                private_keys[txid] = (key, value.encode())
+            else:
+                rw.add_write(NAMESPACE, f"b{num}t{j}", b"v")
+            envs.append(_signed_tx(world, rw.build().encode(),
+                                   ("Org1", "Org2"), nonce, ts,
+                                   chaincode=chaincode))
+        blk = protoutil.new_block(num, prev, envs)
+        prev = protoutil.block_header_hash(blk.header)
+        blocks.append(blk.encode())
+    return blocks, plaintext, private_keys
 
 
 # --- idemix: BASELINE.md config #4, an idemix MSP channel -------------------

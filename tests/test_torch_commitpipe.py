@@ -105,7 +105,7 @@ def network():
 
 
 def _channel(network, pipeline_depth):
-    """A fresh channel (SwVerifier, in-memory ledger) on the genesis,
+    """A fresh channel (SwVerifier, a fresh ledger) on the genesis,
     and fresh copies of the blocks."""
     mat, blocks = network
     csp = sw.SwCSP()

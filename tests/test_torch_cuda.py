@@ -622,6 +622,48 @@ def test_block_commits_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_private_block_commits_into_durable_ledger_on_card(cuda_device,
+                                                           tmp_path):
+    """A collection definition and a 20-tx block with private writes
+    commit through the port's Committer on the card (tensor policy) into
+    a durable ledger with durable transient and pvt stores: every flag
+    VALID, the plaintext applied, incremental fingerprint == full scan,
+    a reopen replays nothing to the same fingerprint, and the verify
+    core launched."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    from fabric_mod_tpu_torch.ledger.pvtdata import (PvtDataStore,
+                                                     TransientStore)
+    from fabric_mod_tpu_torch.protos import messages as m
+    world = fixtures.make_commit_world()
+    blocks, plain, keys = fixtures.make_pvt_blocks(world, 1, 20)
+    d = str(tmp_path / "ledger")
+    led = KvLedger(world.channel_id, d)
+    transient = TransientStore(dir_path=str(tmp_path / "transient"))
+    led.attach_pvt(transient, PvtDataStore(dir_path=str(tmp_path / "pvt")),
+                   lambda ns, coll: 2)
+    for txid, pvt in plain.items():
+        transient.persist(txid, 0, pvt)
+    committer = world.committer(gpu.GpuVerifier(cache_size=0),
+                                tensor_policy=True, ledger=led)
+    before = p256_core.counts()["verify_prologue"]
+    for raw in blocks:
+        flags = committer.store_block(m.Block.decode(raw))
+        assert set(flags) == {m.TxValidationCode.VALID}
+    qe = led.new_query_executor()
+    for key, value in keys.values():
+        assert qe.get_private_data(fixtures.NAMESPACE,
+                                   fixtures.PVT_COLLECTION, key) == value
+    fp = led.state_fingerprint()
+    assert fp == led.state_fingerprint_full()
+    led.close()
+    again = KvLedger(world.channel_id, d)
+    assert again.replayed_blocks == 0 and again.state_fingerprint() == fp
+    again.close()
+    assert p256_core.counts()["verify_prologue"] > before
+
+
+@pytest.mark.cuda
 def test_pairing_check_on_card_equals_cpu(cuda_device):
     """The batched FP256BN pairing check on the card gives the CPU plain
     run's verdicts on 8 lanes (two of them tampered), as a CUDA tensor."""

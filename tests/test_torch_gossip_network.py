@@ -25,21 +25,14 @@ import os
 
 import pytest
 import torch
-from fabric_mod_tpu.bccsp.tpu import FakeBatchVerifier
-from fabric_mod_tpu.channelconfig import Bundle as JBundle
-from fabric_mod_tpu.channelconfig.configtx import config_from_block
 from fabric_mod_tpu.e2e import Network as JNetwork
-from fabric_mod_tpu.gossip import GossipNode as JGossipNode
 from fabric_mod_tpu.gossip import InProcNetwork as JInProcNetwork
-from fabric_mod_tpu.ledger.kvledger import LedgerManager as JLedgerManager
 from fabric_mod_tpu.msp import ca as jcalib
-from fabric_mod_tpu.msp.identities import SigningIdentity as JSigningIdentity
 from fabric_mod_tpu.orderer import BroadcastError as JBroadcastError
-from fabric_mod_tpu.peer.channel import Channel as JChannel
 from fabric_mod_tpu.protos import messages as jm
 from fabric_mod_tpu.protos import protoutil as jprotoutil
 
-from tests._torch_gossip_world import PortPeer, seed_membership
+from tests._torch_gossip_world import PortPeer, RefPeer, seed_membership
 from fabric_mod_tpu_torch import convert, e2e
 from fabric_mod_tpu_torch.bccsp import gpu, sw
 from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block \
@@ -61,31 +54,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
-
-
-class RefPeer:
-    """A reference peer as tests/test_gossip.py composes one."""
-
-    def __init__(self, root, index, ref, signer, network):
-        _, config = config_from_block(ref.genesis_block)
-        self.mgr = JLedgerManager(os.path.join(root, f"ref{index}"))
-        ledger = self.mgr.create_or_open(ref.channel_id)
-        self.channel = JChannel(ref.channel_id, ledger,
-                                FakeBatchVerifier(ref.csp),
-                                JBundle(ref.channel_id, config, ref.csp),
-                                ref.csp)
-        if ledger.height == 0:
-            self.channel.init_from_genesis(ref.genesis_block)
-        self.node = JGossipNode(f"gossip{index}:7051", signer, self.channel,
-                                network)
-
-    @property
-    def ledger(self):
-        return self.channel.ledger
-
-    def close(self):
-        self.node.stop()
-        self.mgr.close()
 
 
 def _ordered_blocks(ref, root):
@@ -171,9 +139,10 @@ def test_port_and_reference_meshes_converge(tmp_path, monkeypatch):
                   for i in range(3)]
         jfabric, fabric = JInProcNetwork(), InProcNetwork()
         for i, (cert, key) in enumerate(issued):
-            signer = JSigningIdentity(ORGS[i], cert, jcalib.key_pem(key),
-                                      ref.csp)
-            ref_peers.append(RefPeer(root, i, ref, signer, jfabric))
+            ref_peers.append(RefPeer(
+                root, i, ref.genesis_block.encode(),
+                (ORGS[i], jcalib.cert_pem(cert), jcalib.key_pem(key)),
+                jfabric))
         verifier = gpu.GpuVerifier(device="cpu", buckets=(32,))
         for i, (cert, key) in enumerate(issued):
             port_peers.append(PortPeer(

@@ -12,7 +12,9 @@ three gossip peers that joined by signed alive messages, relays it down
 a three-peer dissemination tree and serves one filtered frame of it
 through a deliver FanoutEngine with a session ACL check, commits one
 block on each of two channels through a 2-slice ChannelShardRouter
-(GpuVerifier slices on the CPU), then inspects sys.modules."""
+(GpuVerifier slices on the CPU), reopens three durable gossip peers'
+ledgers, commits a private block whose plaintext one of them holds and
+runs one reconcile_tick on another, then inspects sys.modules."""
 import json
 import os
 import pathlib
@@ -22,7 +24,7 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, json, os, pkgutil, sys
 import torch
 torch.set_num_threads(1)
 import fabric_mod_tpu_torch as pkg
@@ -226,6 +228,51 @@ for cid, t in targets.items():
     assert router.slice_of(cid) == int(cid[-1])
     assert list(protoutil.block_txflags(t.ledger.get_block_by_number(0))) == [
         0, 0, 0, messages.TxValidationCode.ENDORSEMENT_POLICY_FAILURE]
+from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+from fabric_mod_tpu_torch.gossip import GossipNode, InProcNetwork
+from fabric_mod_tpu_torch.ledger.kvledger import LedgerManager
+from fabric_mod_tpu_torch.peer.channel import Channel
+pmat = fixtures.make_network_material(3, gossip_peers=3)
+pgen = messages.Block.decode(pmat.genesis)
+pblocks, plain, pkeys = fixtures.make_pvt_blocks(
+    fixtures.network_world(pmat), 1, 10, first_block=1,
+    prev_hash=protoutil.block_header_hash(pgen.header))
+pcid, pconfig = config_from_block(pgen)
+
+def pvt_peers(root, fabric):
+    out = []
+    for i, (mspid, cert_pem, key_pem) in enumerate(pmat.gossip_peers):
+        csp = sw.SwCSP()
+        mgr = LedgerManager(os.path.join(root, f"pvt{i}"))
+        ch = Channel(pcid, mgr.create_or_open(pcid), sw.SwVerifier(),
+                     Bundle(pcid, pconfig, csp), csp)
+        if ch.ledger.height == 0:
+            ch.init_from_genesis(pgen)
+        out.append((mgr, ch, GossipNode(f"pvt{i}:7051", e2e._signer(
+            csp, (mspid, cert_pem, key_pem)), ch, fabric)))
+    for _mgr, _ch, node in out:
+        node.join([n.endpoint for _m, _c, n in out])
+    return out
+
+with tempfile.TemporaryDirectory() as root:
+    peers = pvt_peers(root, InProcNetwork())
+    for mgr, ch, node in peers:
+        ch.store_block(messages.Block.decode(pblocks[0]))
+        node.stop()
+        mgr.close()
+    peers = pvt_peers(root, InProcNetwork())
+    assert [ch.ledger.replayed_blocks for _m, ch, _n in peers] == [0, 0, 0]
+    for txid, pvt in plain.items():
+        peers[0][1].transient_store.persist(txid, 0, pvt)
+    for _mgr, ch, _node in peers:
+        assert set(ch.store_block(messages.Block.decode(pblocks[1]))) == {0}
+    assert peers[1][2].reconcile_tick() == len(plain) == 1
+    qe = peers[1][1].ledger.new_query_executor()
+    for key, value in pkeys.values():
+        assert qe.get_private_data("mycc", "col1", key) == value
+    for mgr, _ch, node in peers:
+        node.stop()
+        mgr.close()
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")

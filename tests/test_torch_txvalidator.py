@@ -2,7 +2,7 @@
 blocks go through the JAX package's TxValidator (with
 FakeBatchVerifier(SwCSP()), the FABRIC_MOD_TPU_TENSOR_POLICY knob off
 and on) and KvLedger, and through the port's TxValidator (GpuVerifier on
-the CPU, `tensor_policy` off and on) and in-memory ledger.  Per-block
+the CPU, `tensor_policy` off and on) and KvLedger.  Per-block
 txflags must equal the fixture's expected flags in every arm, and after
 the three blocks every ledger gives the same state fingerprint.
 
