@@ -86,8 +86,11 @@ Phases (any failure exits non-zero; none is caught):
    (fabric_mod_tpu_torch/e2e.py `Network`): one channel of 3 orgs from
    utils/fixtures.make_network_material, a solo orderer cutting 1000-tx
    blocks on count (batch timeout 10 s), one committing peer with the
-   projective-ladder GpuVerifier and the tensor-policy evaluator, 4,000
-   put txs endorsed up front (2 of 3 orgs, MAJORITY) by
+   projective-ladder GpuVerifier and the tensor-policy evaluator, 2,000
+   put txs (2 blocks: Raft orders two entries and the deliver client's
+   double buffer holds two blocks; cut from 4,000 to keep the script
+   inside its time limit beside phase 14) endorsed up front (2 of 3
+   orgs, MAJORITY) by
    fixtures.make_e2e_stream.  Two arms in turns, each on a fresh
    network from the same seed's material:
    (a) unstaged, the Writers check on the host, one submitting thread,
@@ -106,7 +109,7 @@ Phases (any failure exits non-zero; none is caught):
    on average, and no submitter may see a device error.
    Timed (e2e.commit_until, as e2e.run_pipeline): the deliver client
    starts, the submitters broadcast every envelope, and the span ends
-   when the 4,000 txs are committed.  In both arms every block must hold
+   when the 2,000 txs are committed.  In both arms every block must hold
    1000 txs, the rejections must be exactly the tampered envelopes, the
    state fingerprint must equal that of a fresh ledger fed the ordered
    blocks with the expected flags, the MCS (one verify per block) and
@@ -199,7 +202,7 @@ Phases (any failure exits non-zero; none is caught):
 
 11. deliver fan-out and dissemination trees (run after 10) — (a)
    bench.py:2383's top point: a solo network (50 ms batch timeout)
-   orders 6 one-put blocks; 128 all-pull peers, each its own
+   orders 4 one-put blocks (cut from 6); 128 all-pull peers, each its own
    DeliverClient and orderer stream, then 128 relay-mode peers
    (dissemination.RelayService, degree 4, per-child queue 64; membership
    and each tree parent's identity seeded as bench.py:2229 does, the
@@ -297,18 +300,63 @@ Phases (any failure exits non-zero; none is caught):
    has emptied mycc$$pcol1 and the three fingerprints are equal.  Prints
    the missing counts, the rounds and _commit_pvt's ms a block.
 
+14. lifecycle, system chaincodes, config updates, rich queries and
+   snapshots (run after 13) — a solo e2e Network at BASELINE.md #2's
+   width (3 orgs, MAJORITY default, 1000-tx blocks, 2 s batch timeout)
+   with the tensor policy, the default GpuVerifier on the card (its
+   verdict cache on) and staged ingress from 32 threads; beside it a
+   host oracle (a Channel and durable ledger of its own over the
+   software verifier, run in a pool of 6 processes) commits every block
+   the peer commits, to equal txflags a block and equal fingerprints
+   after each part, and the verify core must launch at least once a
+   block.  (a) an approval by
+   Org1's admin endorsed by Org2's peer alone fails Org1's Endorsement
+   policy; Org3's org-local approval is VALID; a commit with one
+   approval recorded is refused at endorsement; deploy_chaincode("cc2",
+   "1.0", 1, AND(Org1, Org3)) commits Org1's and Org2's approvals each
+   in its own block, then the definition, every ceremony tx VALID;
+   checkcommitreadiness and queryapproved read through an endorser.
+   (b) 4 x 1000 blind puts over mycc and cc2, every 10th endorsed by a
+   set its namespace refuses (Org1 alone; Org1 + Org2 for cc2), from 32
+   threads: the construction's flags by txid; committed tx/s, stage and
+   commit ms a block, verify-core launches a block, one tensor-policy
+   pass a block on the card, and torch.profiler over the evaluator's
+   pass on the last block, staged again after the counted parts.
+   (c) cc2 sequence 2 (OutOf(2, Org1, Org2, Org3)) commits in a block
+   whose cc2 invokes are still judged by sequence 1 (Org1 + Org2
+   refused, Org1 + Org3 VALID); the next block by sequence 2.  (e)
+   1,000 JSON documents, then one 1000-tx block: 100 query txs
+   (selector, sort, limit 3) VALID, 100 more each behind a rewrite of
+   its first result MVCC_READ_CONFLICT, fill puts.  (d) a config update
+   by the port's compute_update, signed by the orderer org's admin and
+   two org admins, takes BatchSize from 1000 to 500: the next 1000 txs
+   come in 2 blocks, CSCC GetConfigBlock returns the config block, QSCC
+   GetChainInfo the height and tip hash.  (f) phase 13's state-scale
+   stream at 100,000 keys into a durable ledger on the card (4 blocks),
+   snapshot_to, verify_snapshot, bootstrap_from_snapshot into a second
+   ledger: equal fingerprints (== full scans); both commit the stream's
+   next 2 blocks and a replay of a block-0 tx (DUPLICATE_TXID on both:
+   the joined peer knows it only as a pruned-range tx id) through their
+   own TxValidators on the card, with equal flags and fingerprints; both
+   reopen replaying 0 blocks; rebuild_dbs refuses the bootstrapped
+   ledger; on a closed copy of the network peer's ledger rebuild_dbs
+   reopens to the same fingerprint, and rollback by 2 blocks and their
+   recommit through a Channel on the card reach it again.  Prints the
+   export, verify and bootstrap seconds and the snapshot's bytes.
+
    python3 chip_smoke.py --phase 11
    python3 chip_smoke.py --phase 12
    python3 chip_smoke.py --phase 13
+   python3 chip_smoke.py --phase 14
 
 run phase 11 (its (b) on a stream endorsed there, without phase 10 (b)
-beside it), phase 12 or phase 13 (its (b) on blocks signed there) alone
-after the header, and print no kernels line.
+beside it), phase 12, phase 13 (its (b) on blocks signed there) or
+phase 14 alone after the header, and print no kernels line.
 
 It prints one JSON line describing each of the five kernels
 (`launches` counts the block-commit phase, the four e2e arms, phase
-10's two parts, phase 11's three, phase 12 (a)'s sweep and phase 13's
-three parts), and as its last line
+10's two parts, phase 11's three, phase 12 (a)'s sweep, phase 13's
+three parts and phase 14), and as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -326,6 +374,10 @@ from pathlib import Path
 
 LANES = 2048
 N_BLOCKS = 4
+# phases 8 and 9: the e2e arms' 1000-tx blocks (cut from 4 for the time
+# limit; 2 keep Raft's consecutive entries and two blocks in the deliver
+# client's double buffer)
+E2E_BLOCKS = 2
 TX_PER_BLOCK = 1000
 SAMPLE = 256
 SEED = 20261016
@@ -486,12 +538,12 @@ GOSSIP_BLOCKS = 2
 GOSSIP_TIMEOUT_S = 900.0
 
 # phase 11 (a): bench.py:2383 `measure_dissemination`'s top point: 128
-# peers, 6 one-put blocks (a 50 ms batch timeout, 12-tx cap), the relay
+# peers, one-put blocks (a 50 ms batch timeout, 12-tx cap), the relay
 # at the reference's defaults (degree 4, per-child queue 64) and
 # bench.py:2229's long anti-entropy cadence (the relay's repair prod
 # stays live)
 RELAY_PEERS = 128
-RELAY_BLOCKS = 6
+RELAY_BLOCKS = 4          # cut from 6 for the time limit
 RELAY_BATCH_TXS = 12
 RELAY_BATCH_TIMEOUT = "50ms"
 RELAY_DEGREE = 4
@@ -529,7 +581,7 @@ MESH_LANES = 2048
 # the crash seam on BASELINE.md #2's blocks, (c) a collection of Org1 and
 # Org2 with block-to-live 2 across three peers
 SCALE_SIZES = (10_000, 100_000, 1_000_000)
-SCALE_BLOCKS = 8
+SCALE_BLOCKS = 6          # cut from 8; phase 14 (f) commits all 6
 SCALE_BLOCK_TXS = 1000
 CRASH_BLOCKS = 4
 HISTORY_SAMPLE = 64
@@ -540,6 +592,21 @@ PVT_PAD_BLOCKS = 3
 PVT_FORGED = 5
 PVT_ROUNDS = 20
 CORE_KERNELS = ("ladder_projective", "verify_prologue", "verify_epilogue")
+# phase 14: the lifecycle slice on a solo network with 1000-tx blocks
+LC_SEED = 1415
+LC_BATCH_TIMEOUT = "2s"
+LC_BLOCKS = 4
+LC_UNDER_EVERY = 10
+LC_UPGRADE_INVOKES = 10
+LC_NEW_BATCH = 500
+LC_DOCS = 1000
+LC_QUERIES = 100
+LC_QUERY_LIMIT = 3
+LC_SNAPSHOT_KEYS = 100_000
+LC_SOURCE_BLOCKS = 4
+LC_ORACLE_WORKERS = 6
+# where (b)'s tensor-policy passes must find the verify mask
+LC_MASK_DEVICE = "cuda"
 
 
 def log(msg: str) -> None:
@@ -3960,7 +4027,20 @@ def statescale_arm(torch, world, verifier, blocks, path, n_keys, durable):
     return out
 
 
-def phase_statescale(torch, dev) -> dict:
+def make_scale_blocks() -> list:
+    """Phase 13 (a)'s state-scale stream (phase 14 (f) commits its first
+    blocks too), on make_commit_world's seeded orgs."""
+    from fabric_mod_tpu_torch.utils import fixtures
+    t0 = time.perf_counter()
+    blocks = fixtures.make_statescale_blocks(
+        fixtures.make_commit_world(), SCALE_BLOCKS, SCALE_BLOCK_TXS,
+        min(SCALE_SIZES))
+    log(f"state-scale stream: {SCALE_BLOCKS} blocks x {SCALE_BLOCK_TXS} txs "
+        f"signed in {time.perf_counter() - t0:.1f} s")
+    return blocks
+
+
+def phase_statescale(torch, dev, blocks=None) -> dict:
     """Phase 13 (a): bench.py:745's state-scale stream (SCALE_BLOCKS blocks
     of SCALE_BLOCK_TXS txs: 28 reads a tx, 0.5% stale, 2 absent probes, 3
     writes with 10% deletes, 10% phantom and 15% empty ranges, the
@@ -3971,16 +4051,14 @@ def phase_statescale(torch, dev) -> dict:
     flags are equal across arms and sizes and hold more than VALID, the
     fingerprints are equal across arms, the incremental fingerprint equals
     the full scan, no body-decode fallback row; the durable ledger reopens
-    replaying 0 blocks to the same fingerprint.  Returns the launches."""
+    replaying 0 blocks to the same fingerprint.  `blocks`: the stream
+    (make_scale_blocks() when None).  Returns the launches."""
     from fabric_mod_tpu_torch.bccsp import gpu
     from fabric_mod_tpu_torch.protos import messages as m
     from fabric_mod_tpu_torch.utils import fixtures
     world = fixtures.make_commit_world()
-    t0 = time.perf_counter()
-    blocks = fixtures.make_statescale_blocks(world, SCALE_BLOCKS,
-                                             SCALE_BLOCK_TXS, min(SCALE_SIZES))
-    log(f"phase 13 (a): {SCALE_BLOCKS} blocks x {SCALE_BLOCK_TXS} txs signed "
-        f"in {time.perf_counter() - t0:.1f} s")
+    if blocks is None:
+        blocks = make_scale_blocks()
     verifier = gpu.GpuVerifier(device=dev, cache_size=0)
     before = kernel_counts()
     points, flags0 = [], None
@@ -4370,12 +4448,14 @@ def forged_pvt(key: str):
     return rw.build_pvt()
 
 
-def phase_durable(torch, dev, blocks=None, expected=None) -> dict:
-    """Phase 13: (a) state scale, (b) crash and recovery, (c) private data
-    across three peers.  Returns the launches of all three."""
+def phase_durable(torch, dev, blocks=None, expected=None,
+                  scale_blocks=None) -> dict:
+    """Phase 13: (a) state scale (on `scale_blocks` when given), (b) crash
+    and recovery, (c) private data across three peers.  Returns the
+    launches of all three."""
     t0 = time.perf_counter()
     total = {}
-    for launched in (phase_statescale(torch, dev),
+    for launched in (phase_statescale(torch, dev, scale_blocks),
                      phase_crash(torch, dev, blocks, expected),
                      phase_private(torch, dev)):
         for k, v in launched.items():
@@ -4383,6 +4463,668 @@ def phase_durable(torch, dev, blocks=None, expected=None) -> dict:
     log(f"durable ledger phase: {time.perf_counter() - t0:.1f} s wall; "
         f"kernel launches {total}")
     return total
+
+
+class PoolSwVerifier:
+    """The host oracle's verifier: SwVerifier's `verify_item` over a pool
+    of `workers` spawned processes (the pure-python verify is ~3 ms a
+    signature; phase 14's oracle checks ~20,000).  `close()` stops the
+    workers."""
+
+    def __init__(self, workers: int):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        self._workers = workers
+        self._pool = ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn"))
+
+    def verify_many(self, items):
+        import numpy as np
+        from fabric_mod_tpu_torch.bccsp import sw
+        items = list(items)
+        if len(items) < 4 * self._workers:
+            return np.array([sw.verify_item(it) for it in items], bool)
+        chunk = max(1, len(items) // (4 * self._workers))
+        return np.fromiter(self._pool.map(sw.verify_item, items,
+                                          chunksize=chunk), bool, len(items))
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+class LifecycleWorld:
+    """Phase 14's network, its host oracle and the bookkeeping they
+    share: `net` a solo e2e.Network (tensor policy, the default
+    GpuVerifier on the card, staged ingress), `oracle` a Channel and
+    durable ledger of its own over PoolSwVerifier that commits every
+    block the network's peer committed, `world` the material's signers
+    for hand-signed txs."""
+
+    def __init__(self, torch, dev, root: str, pool):
+        from fabric_mod_tpu_torch import e2e
+        from fabric_mod_tpu_torch.bccsp import sw
+        from fabric_mod_tpu_torch.channelconfig import (Bundle,
+                                                        config_from_block)
+        from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+        from fabric_mod_tpu_torch.peer.channel import Channel
+        from fabric_mod_tpu_torch.peer.chaincode import KvContract
+        from fabric_mod_tpu_torch.protos import messages as m
+        from fabric_mod_tpu_torch.utils import fixtures
+        self.material = fixtures.make_network_material(
+            LC_SEED, max_message_count=TX_PER_BLOCK,
+            batch_timeout=LC_BATCH_TIMEOUT,
+            preferred_max_bytes=E2E_PREFERRED_MAX_BYTES)
+        # verifier=None: the GpuVerifier Network builds, whose verdict
+        # cache holds ingress's creator-signature verdicts; the fused
+        # seam still hands the validator a mask on the card
+        self.net = e2e.Network(os.path.join(root, "net"),
+                               material=self.material, device=dev,
+                               tensor_policy=True, ingress_batching=True,
+                               staged_batch=E2E_STAGED_BATCH)
+        # cc2 and the document namespace run the example contract: a
+        # peer launches an installed chaincode on first use
+        self.net.chaincodes.set_resolver(
+            lambda name: KvContract() if name in ("cc2", "qcc") else None)
+        self.world = fixtures.network_world(self.material)
+        self.torch = torch
+        genesis = m.Block.decode(self.material.genesis)
+        cid, config = config_from_block(genesis)
+        self.oracle_ledger = KvLedger(cid, os.path.join(root, "oracle"))
+        self.oracle = Channel(cid, self.oracle_ledger, pool,
+                              Bundle(cid, config, sw.SwCSP()), sw.SwCSP())
+        self.oracle.init_from_genesis(m.Block.decode(self.material.genesis))
+        self.oracle_secs = 0.0
+
+    def pump(self, want_more: int, label: str, blocks=None) -> dict:
+        """Deliver and commit until `want_more` more txs are in; the card
+        must launch the verify core at least once a block.  `blocks`, if
+        given, is the count of blocks they must come in.  Returns the
+        client's figures and the launches."""
+        from fabric_mod_tpu_torch import e2e
+        net = self.net
+        h0, before = net.ledger.height, kernel_counts()
+        want = net.committed_txs() + want_more
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        client, got, _span = e2e.commit_until(net, want, 120.0,
+                                              idle_timeout_s=10.0)
+        self.torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_blocks = net.ledger.height - h0
+        if got < want:
+            raise AssertionError(f"phase 14 {label}: {got - want + want_more}"
+                                 f" of {want_more} txs committed")
+        if blocks is not None and n_blocks != blocks:
+            sizes = [len(net.ledger.get_block_by_number(n).data.data)
+                     for n in range(h0, net.ledger.height)]
+            raise AssertionError(f"phase 14 {label}: the txs came in blocks "
+                                 f"of {sizes}, not {blocks} blocks")
+        launched = {k: v - before[k] for k, v in kernel_counts().items()}
+        if launched["ladder_projective"] < n_blocks or \
+                launched["verify_epilogue"] < n_blocks:
+            raise AssertionError(f"phase 14 {label}: {launched} verify-core "
+                                 f"launches for {n_blocks} blocks")
+        return {"wall": wall, "blocks": n_blocks, "first": h0,
+                "stage": client.stage_secs, "commit": client.commit_secs,
+                "launched": launched}
+
+    def check_oracle(self, label: str) -> None:
+        """The oracle commits every block the peer has and it has not:
+        equal txflags per block, then equal fingerprints."""
+        from fabric_mod_tpu_torch.protos import messages as m
+        from fabric_mod_tpu_torch.protos import protoutil
+        led, oled = self.net.ledger, self.oracle_ledger
+        t0 = time.perf_counter()
+        for n in range(oled.height, led.height):
+            block = led.get_block_by_number(n)
+            want = list(protoutil.block_txflags(block))
+            got = self.oracle.store_block(m.Block.decode(block.encode()))
+            if list(got) != want:
+                bad = [i for i, (g, w) in enumerate(zip(got, want))
+                       if g != w][:8]
+                raise AssertionError(f"phase 14 {label}: block {n}'s txflags "
+                                     f"differ from the host oracle's at {bad}")
+        self.oracle_secs += time.perf_counter() - t0
+        fp = led.state_fingerprint()
+        if fp != self.oracle_ledger.state_fingerprint() or \
+                fp != led.state_fingerprint_full():
+            raise AssertionError(f"phase 14 {label}: the peer's fingerprint "
+                                 f"differs from the oracle's or its full scan")
+
+    def flags_by_txid(self, txids) -> list:
+        """The peer's committed flag of each tx id, each block read once."""
+        from fabric_mod_tpu_torch.protos import protoutil
+        led = self.net.ledger
+        locs = [led.blockstore.get_tx_loc(t) for t in txids]
+        flags = {num: protoutil.block_txflags(led.get_block_by_number(num))
+                 for num in {num for num, _pos in locs}}
+        return [flags[num][pos] for num, pos in locs]
+
+    def ask(self, cc: str, args, signer=None, org: str = "Org1"):
+        """A proposal answered by `org`'s endorser: (status, payload)."""
+        from fabric_mod_tpu_torch.protos import protoutil
+        sp, _prop, _t = protoutil.create_chaincode_proposal(
+            self.net.channel_id, cc, args, signer or self.net.client)
+        resp = self.net.endorsers[org].process_proposal(sp)
+        return resp.response.status, resp.response.payload
+
+    def endorsed(self, cc: str, args, orgs=("Org1", "Org2")):
+        """(envelope, the first endorser's response payload)."""
+        from fabric_mod_tpu_torch.protos import protoutil
+        net = self.net
+        sp, prop, _t = protoutil.create_chaincode_proposal(
+            net.channel_id, cc, args, net.client)
+        responses = [net.endorsers[o].process_proposal(sp) for o in orgs]
+        if any(r.response.status != 200 for r in responses):
+            raise AssertionError(f"phase 14: {cc} {args[0]!r} endorsement "
+                                 f"failed: {responses[0].response.message}")
+        return (protoutil.create_tx_from_responses(prop, responses,
+                                                   net.client),
+                responses[0].response.payload)
+
+    def close(self) -> None:
+        self.net.close()
+        self.oracle.close()
+        self.oracle_ledger.close()
+
+
+def _txid(env) -> str:
+    from fabric_mod_tpu_torch.protos import protoutil
+    return protoutil.envelope_channel_header(env).tx_id
+
+
+def _policy(spec: str) -> bytes:
+    from fabric_mod_tpu_torch.policy import from_string
+    from fabric_mod_tpu_torch.protos import messages as m
+    return m.ApplicationPolicy(signature_policy=from_string(spec)).encode()
+
+
+def lc_ceremony(lw) -> list:
+    """Phase 14 (a): deploy cc2 (policy AND(Org1, Org3)) by the lifecycle
+    ceremony, with its two negatives.  Returns the ceremony's blocks."""
+    from fabric_mod_tpu_torch.peer.lifecycle import LIFECYCLE_NS
+    from fabric_mod_tpu_torch.protos import messages as m
+    V = m.TxValidationCode
+    from fabric_mod_tpu_torch.policy import tensorpolicy
+    net, first = lw.net, lw.net.ledger.height
+    tensorpolicy.reset_counts()
+    pol = _policy("AND('Org1.peer', 'Org3.peer')")
+    args = [b"cc2", b"1.0", b"1", pol]
+    # an approval by Org1's admin endorsed by Org2's peer alone fails
+    # Org1's Endorsement policy; Org3's own approval is VALID
+    wrong = net.invoke([b"approve"] + args, endorsing_orgs=["Org2"],
+                       chaincode=LIFECYCLE_NS, signer=net.admins["Org1"])
+    lw.pump(1, "(a) wrong-org approval", blocks=1)
+    org3 = net.invoke([b"approve"] + args, endorsing_orgs=["Org3"],
+                      chaincode=LIFECYCLE_NS, signer=net.admins["Org3"])
+    lw.pump(1, "(a) Org3's approval", blocks=1)
+    if lw.flags_by_txid([wrong, org3]) != [V.ENDORSEMENT_POLICY_FAILURE,
+                                           V.VALID]:
+        raise AssertionError(f"phase 14 (a): the wrong-org and Org3 "
+                             f"approvals got {lw.flags_by_txid([wrong, org3])}")
+    status, _ = lw.ask(LIFECYCLE_NS, [b"commit"] + args)
+    if status == 200:
+        raise AssertionError("phase 14 (a): a commit with one approval "
+                             "recorded was endorsed")
+    t0 = time.perf_counter()
+    net.deploy_chaincode("cc2", "1.0", 1, policy=pol)
+    ceremony_s = time.perf_counter() - t0
+    ready = json.loads(lw.ask(LIFECYCLE_NS,
+                              [b"checkcommitreadiness"] + args)[1])
+    digest = lw.ask(LIFECYCLE_NS, [b"queryapproved", b"cc2", b"1"],
+                    signer=net.admins["Org1"])[1]
+    if ready != {"Org1": True, "Org2": True, "Org3": True} or \
+            len(digest) != 64:
+        raise AssertionError(f"phase 14 (a): readiness {ready}, Org1's "
+                             f"approval digest {digest!r}")
+    passes = tensorpolicy.counts()
+    if passes != {LC_MASK_DEVICE: net.ledger.height - first}:
+        raise AssertionError(f"phase 14 (a): tensor-policy passes {passes} "
+                             f"for {net.ledger.height - first} blocks")
+    lw.check_oracle("(a)")
+    sizes = [len(net.ledger.get_block_by_number(n).data.data)
+             for n in range(first, net.ledger.height)]
+    log(f"phase 14 (a): cc2 deployed (AND(Org1, Org3)) by the ceremony in "
+        f"{ceremony_s:.2f} s — blocks of {sizes} txs: the wrong-org approval "
+        f"ENDORSEMENT_POLICY_FAILURE, Org3's org-local approval VALID, a "
+        f"commit with one approval recorded refused at endorsement, Org1's "
+        f"and Org2's approvals each in its own block, then the commit, every "
+        f"ceremony tx VALID; checkcommitreadiness {ready}; queryapproved "
+        f"{digest[:16].decode()}...; tensor-policy passes {passes} (the "
+        f"org-local approvals' /Channel/Application/<org>/Endorsement "
+        f"evaluated on the mask); flags == host oracle")
+    return sizes
+
+
+def lc_stream(lw) -> dict:
+    """Phase 14 (b): LC_BLOCKS blocks of TX_PER_BLOCK blind puts mixing
+    mycc and cc2, every LC_UNDER_EVERY-th under-endorsed for its
+    namespace.  Returns its figures for the log."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.policy import tensorpolicy
+    from fabric_mod_tpu_torch.utils import fixtures
+    net = lw.net
+    t0 = time.perf_counter()
+    stream = fixtures.make_lifecycle_stream(
+        lw.world, LC_BLOCKS * TX_PER_BLOCK, LC_UNDER_EVERY, LC_SEED)
+    sign_s = time.perf_counter() - t0
+    envs = [env for env, _f in stream]
+    t0 = time.perf_counter()
+    e2e.submit_all(net, envs, E2E_SUBMITTERS)
+    ingress_s = time.perf_counter() - t0
+    tensorpolicy.reset_counts()
+    timed = lw.pump(len(envs), "(b)", blocks=LC_BLOCKS)
+    passes = tensorpolicy.counts()
+    if passes != {LC_MASK_DEVICE: LC_BLOCKS}:
+        raise AssertionError(f"phase 14 (b): tensor-policy passes {passes}, "
+                             f"expected one on the card a block")
+    got = lw.flags_by_txid([_txid(env) for env in envs])
+    want = [f for _e, f in stream]
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w][:8]
+        raise AssertionError(f"phase 14 (b): flags differ from the "
+                             f"construction at {bad}")
+    lw.check_oracle("(b)")
+    n = timed["blocks"]
+    return {"sign": sign_s, "ingress": ingress_s, "passes": passes,
+            "tx_s": len(envs) / timed["wall"], "blocks": n,
+            "stage_ms": timed["stage"] / n * 1e3,
+            "commit_ms": timed["commit"] / n * 1e3,
+            "core_a_block": timed["launched"]["ladder_projective"] / n,
+            "block": net.ledger.height - 1}
+
+
+def lc_profile_evaluator(torch, lw, figures: dict) -> None:
+    """Phase 14 (b)'s log line, with the evaluator's pass over its last
+    block's policies alone under torch.profiler: the block staged again
+    (its verify launches are no run of the main path, so this runs
+    outside the counted parts)."""
+    staged = lw.net.channel.validator().stage(
+        lw.net.ledger.get_block_by_number(figures["block"]))
+    raw = staged.mask_fn()
+    torch.cuda.synchronize()
+
+    def evaluator():
+        staged.session.attach_mask(raw)
+        staged.session.verdicts()
+    wall_ms, n_kernels, busy_ms, _top = device_profile(torch, evaluator)
+    f = figures
+    log(f"phase 14 (b): {LC_BLOCKS} x {TX_PER_BLOCK} txs (mycc and cc2, every "
+        f"{LC_UNDER_EVERY}th under-endorsed for its namespace) signed in "
+        f"{f['sign']:.1f} s, broadcast from {E2E_SUBMITTERS} threads in "
+        f"{f['ingress']:.2f} s; flags == construction and host oracle, "
+        f"fingerprint == oracle == full scan; {f['tx_s']:.1f} committed tx/s "
+        f"over {f['blocks']} blocks; ms a block stage {f['stage_ms']:.1f}, "
+        f"commit {f['commit_ms']:.1f}; verify-core launches a block "
+        f"{f['core_a_block']:.2f}; tensor-policy passes {f['passes']}, a "
+        f"block's pass ({len(staged.session)} evaluations, {raw.device} "
+        f"mask) {n_kernels} device launches, busy {busy_ms} ms, wall "
+        f"{wall_ms:.2f} ms (torch.profiler)")
+
+
+def lc_upgrade(lw) -> None:
+    """Phase 14 (c): cc2 sequence 2 moves to OutOf(2, Org1, Org2, Org3).
+    The block that commits it carries cc2 invokes judged by sequence 1
+    (Org1 + Org2: refused; Org1 + Org3: VALID); the next block is judged
+    by sequence 2 (Org1 + Org2: VALID; Org2 alone: refused)."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.peer.lifecycle import LIFECYCLE_NS
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    V = m.TxValidationCode
+    net = lw.net
+    pol = _policy("OutOf(2, 'Org1.peer', 'Org2.peer', 'Org3.peer')")
+    args = [b"cc2", b"2.0", b"2", pol]
+    for org in ("Org1", "Org2"):
+        net.invoke([b"approve"] + args, endorsing_orgs=[org],
+                   chaincode=LIFECYCLE_NS, signer=net.admins[org])
+        lw.pump(1, f"(c) {org}'s approval", blocks=1)
+    k = LC_UPGRADE_INVOKES
+    # beside cc2's invokes the block carries mycc puts (the channel
+    # default) and Org3's approval of another chaincode (its org-local
+    # policy): four policies in one tensor-policy pass
+    same = fixtures.make_put_txs(lw.world, [
+        ("cc2", f"up{i}", b"s1", ("Org1", "Org2") if i < k
+         else ("Org1", "Org3")) for i in range(2 * k)] + [
+        ("mycc", f"up{i}", b"s1", ("Org1", "Org2")) for i in range(k)],
+        b"upgrade-same")
+    commit = net.invoke([b"commit"] + args, chaincode=LIFECYCLE_NS)
+    approve = net.invoke([b"approve", b"cc3", b"1.0", b"1", b""],
+                         endorsing_orgs=["Org3"], chaincode=LIFECYCLE_NS,
+                         signer=net.admins["Org3"])
+    e2e.submit_all(net, same)
+    lw.pump(2 + 3 * k, "(c) upgrade block", blocks=1)
+    nxt = fixtures.make_put_txs(lw.world, [
+        ("cc2", f"up{i}", b"s2", ("Org1", "Org2") if i < k else ("Org2",))
+        for i in range(2 * k)], b"upgrade-next")
+    e2e.submit_all(net, nxt)
+    lw.pump(2 * k, "(c) next block", blocks=1)
+    got_same = lw.flags_by_txid([commit, approve] + [_txid(e) for e in same])
+    got_next = lw.flags_by_txid([_txid(e) for e in nxt])
+    want_same = ([V.VALID] * 2 + [V.ENDORSEMENT_POLICY_FAILURE] * k
+                 + [V.VALID] * 2 * k)
+    want_next = [V.VALID] * k + [V.ENDORSEMENT_POLICY_FAILURE] * k
+    if got_same != want_same or got_next != want_next:
+        raise AssertionError(f"phase 14 (c): the upgrade block's flags "
+                             f"{got_same}, the next block's {got_next}")
+    lw.check_oracle("(c)")
+    d = m.ChaincodeDefinition.decode(lw.ask(LIFECYCLE_NS,
+                                            [b"query", b"cc2"])[1])
+    log(f"phase 14 (c): cc2 sequence {d.sequence} ({d.version}) committed in "
+        f"a block whose {2 * k} cc2 invokes were judged by sequence 1 (Org1 + "
+        f"Org2 refused, Org1 + Org3 VALID), beside {k} mycc puts and Org3's "
+        f"approval of cc3 (VALID); the next block by sequence 2 (Org1 + Org2 "
+        f"VALID, Org2 alone refused); flags == host oracle")
+
+
+def lc_rich_query(lw) -> None:
+    """Phase 14 (e): LC_DOCS JSON documents in `qcc`, then one block of
+    LC_QUERIES query txs over red and blue documents (VALID), LC_QUERIES
+    over green and yellow ones each preceded in the block by a rewrite
+    of its first result (MVCC_READ_CONFLICT), the rewrites and puts to
+    fill TX_PER_BLOCK."""
+    import numpy as np
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    V = m.TxValidationCode
+    net = lw.net
+    docs = fixtures.make_rich_documents(LC_DOCS, seed=LC_SEED)
+    doc_envs = fixtures.make_put_txs(
+        lw.world, [("qcc", k, v, ("Org1", "Org2")) for k, v in docs],
+        b"docs")
+    e2e.submit_all(net, doc_envs, E2E_SUBMITTERS)
+    lw.pump(LC_DOCS, "(e) documents", blocks=LC_DOCS // TX_PER_BLOCK)
+    rng = np.random.RandomState(LC_SEED)
+    t0 = time.perf_counter()
+    queries, conflicted, rewrites, returned = [], [], [], 0
+    for i in range(2 * LC_QUERIES):
+        colors = ("red", "blue") if i < LC_QUERIES else ("green", "yellow")
+        q = json.dumps({"selector": {"color": colors[int(rng.randint(2))],
+                                     "size": {"$gte": int(rng.randint(80))}},
+                        "sort": [{"size": "asc"}],
+                        "limit": LC_QUERY_LIMIT}).encode()
+        env, payload = lw.endorsed("qcc", [b"query", q])
+        results = json.loads(payload)["results"]
+        returned += len(results)
+        if not results:
+            raise AssertionError(f"phase 14 (e): query {q!r} matched nothing")
+        (queries if i < LC_QUERIES else conflicted).append(env)
+        if i >= LC_QUERIES:
+            rewrites.append(("qcc", results[0]["key"], b'{"rewritten": 1}',
+                             ("Org1", "Org2")))
+    endorse_s = time.perf_counter() - t0
+    rewrite_envs = fixtures.make_put_txs(lw.world, rewrites, b"rewrites")
+    n_fill = TX_PER_BLOCK - 3 * LC_QUERIES
+    fill = fixtures.make_put_txs(lw.world, [
+        ("qcc", f"fill{i}", b"f", ("Org1", "Org2")) for i in range(n_fill)],
+        b"fill")
+    # the rewrites are ordered first: every conflicted query follows its
+    # rewrite in the block
+    e2e.submit_all(net, rewrite_envs, E2E_SUBMITTERS)
+    e2e.submit_all(net, queries + conflicted + fill, E2E_SUBMITTERS)
+    lw.pump(TX_PER_BLOCK, "(e) query block", blocks=1)
+    got = lw.flags_by_txid([_txid(e) for e in
+                            rewrite_envs + queries + conflicted + fill])
+    want = ([V.VALID] * (2 * LC_QUERIES) + [V.MVCC_READ_CONFLICT] * LC_QUERIES
+            + [V.VALID] * n_fill)
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w][:8]
+        raise AssertionError(f"phase 14 (e): flags differ from the "
+                             f"construction at {bad}")
+    lw.check_oracle("(e)")
+    log(f"phase 14 (e): {LC_DOCS} documents; {2 * LC_QUERIES} query txs "
+        f"(selector, sort, limit {LC_QUERY_LIMIT}; {returned} results) "
+        f"endorsed in {endorse_s:.2f} s; in one {TX_PER_BLOCK}-tx block "
+        f"{LC_QUERIES} VALID and {LC_QUERIES} MVCC_READ_CONFLICT behind "
+        f"the rewrite of a result; flags == construction and host oracle")
+
+
+def lc_config_update(lw) -> None:
+    """Phase 14 (d): BatchSize max_message_count TX_PER_BLOCK ->
+    LC_NEW_BATCH by the port's compute_update, signed by the orderer
+    org's and two application orgs' admins; the next TX_PER_BLOCK txs
+    come in 2 blocks; CSCC returns the config block and QSCC the chain
+    info."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.utils import fixtures
+    net = lw.net
+    desired = fixtures.config_with_batch_size(net.channel.bundle().config,
+                                              LC_NEW_BATCH)
+    net.update_config(desired, [net.orderer_admin, net.admins["Org1"],
+                                net.admins["Org2"]])
+    lw.pump(1, "(d) config block", blocks=1)
+    config_num = net.ledger.height - 1
+    batch = net.channel.bundle().orderer.batch_size.max_message_count
+    if batch != LC_NEW_BATCH:
+        raise AssertionError(f"phase 14 (d): the peer's bundle has batch "
+                             f"size {batch}")
+    # cc2 runs sequence 2 by now: 2 of 3 orgs
+    stream = fixtures.make_lifecycle_stream(
+        lw.world, TX_PER_BLOCK, LC_UNDER_EVERY, LC_SEED + 1, "cu",
+        dict(fixtures.LIFECYCLE_ENDORSERS,
+             cc2=(("Org2", "Org3"), ("Org3",))))
+    envs = [env for env, _f in stream]
+    e2e.submit_all(net, envs, E2E_SUBMITTERS)
+    lw.pump(TX_PER_BLOCK, "(d) re-cut", blocks=TX_PER_BLOCK // LC_NEW_BATCH)
+    if lw.flags_by_txid([_txid(e) for e in envs]) != [f for _e, f in stream]:
+        raise AssertionError("phase 14 (d): flags differ from the "
+                             "construction")
+    status, raw = lw.ask("cscc", [b"GetConfigBlock"])
+    if status != 200 or raw != net.ledger.get_block_by_number(
+            config_num).encode():
+        raise AssertionError("phase 14 (d): CSCC GetConfigBlock is not the "
+                             "config block")
+    info = json.loads(lw.ask("qscc", [b"GetChainInfo"])[1])
+    tip = net.ledger.get_block_by_number(net.ledger.height - 1)
+    if info["height"] != net.ledger.height or info["currentBlockHash"] != \
+            protoutil.block_header_hash(tip.header).hex():
+        raise AssertionError(f"phase 14 (d): QSCC GetChainInfo {info}")
+    lw.check_oracle("(d)")
+    sizes = [len(net.ledger.get_block_by_number(n).data.data)
+             for n in range(config_num + 1, net.ledger.height)]
+    log(f"phase 14 (d): the config update (BatchSize {TX_PER_BLOCK} -> "
+        f"{LC_NEW_BATCH}) committed as block {config_num}; the next "
+        f"{TX_PER_BLOCK} txs came in blocks of {sizes}; CSCC GetConfigBlock "
+        f"== block {config_num}; QSCC GetChainInfo height {info['height']}, "
+        f"tip {info['currentBlockHash'][:16]}; flags == host oracle")
+
+
+def lc_snapshot(torch, dev, scale_blocks, peer_copy: str, peer_cid: str,
+                peer_fp: str, peer_config, root: str) -> None:
+    """Phase 14 (f): the state-scale stream at LC_SNAPSHOT_KEYS keys into
+    a durable ledger on the card, its snapshot, a second peer
+    bootstrapped from it, both committing the next 2 blocks and a
+    replayed pruned-range tx; then the admin commands on `peer_copy`, a
+    closed copy of the network peer's ledger on channel `peer_cid`
+    (`peer_fp` its fingerprint, `peer_config` its last config)."""
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.channelconfig import Bundle
+    from fabric_mod_tpu_torch.ledger import admin
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    from fabric_mod_tpu_torch.ledger.snapshot import (
+        bootstrap_from_snapshot, verify_snapshot)
+    from fabric_mod_tpu_torch.peer.channel import Channel
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.utils import fixtures
+    V = m.TxValidationCode
+    world = fixtures.make_commit_world()
+    cid = world.channel_id
+    src = KvLedger(cid, os.path.join(root, "source"))
+    fixtures.prefill_statescale(src, LC_SNAPSHOT_KEYS)
+    src_c = world.committer(gpu.GpuVerifier(device=dev, cache_size=0),
+                            tensor_policy=True, ledger=src)
+    for raw in scale_blocks[:LC_SOURCE_BLOCKS]:
+        src_c.store_block(m.Block.decode(raw))
+    snap = os.path.join(root, "snapshot")
+    t0 = time.perf_counter()
+    meta = src.snapshot_to(snap)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verify_snapshot(snap)
+    verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    joined_dir = os.path.join(root, "joined")
+    joined = bootstrap_from_snapshot(snap, joined_dir)
+    bootstrap_s = time.perf_counter() - t0
+    if joined.state_fingerprint() != src.state_fingerprint() or \
+            joined.state_fingerprint_full() != src.state_fingerprint():
+        raise AssertionError("phase 14 (f): the bootstrapped ledger's "
+                             "fingerprint differs from the source's")
+    joined_c = world.committer(gpu.GpuVerifier(device=dev, cache_size=0),
+                               tensor_policy=True, ledger=joined)
+    # a replay of a tx of block 0, which the joined peer holds only as a
+    # pruned-range tx id
+    replay = protoutil.get_envelopes(m.Block.decode(scale_blocks[0]))[5]
+    later = [m.Block.decode(raw) for raw in
+             scale_blocks[LC_SOURCE_BLOCKS:LC_SOURCE_BLOCKS + 2]]
+    prev = protoutil.block_header_hash(later[-1].header)
+    later.append(protoutil.new_block(later[-1].header.number + 1, prev,
+                                     [replay]))
+    flags = {}
+    for name, c in (("source", src_c), ("joined", joined_c)):
+        flags[name] = [list(c.store_block(m.Block.decode(b.encode())))
+                       for b in later]
+    if flags["source"] != flags["joined"] or \
+            flags["joined"][-1] != [V.DUPLICATE_TXID]:
+        raise AssertionError(f"phase 14 (f): source flags "
+                             f"{[f[-1:] for f in flags['source']]} vs joined "
+                             f"{[f[-1:] for f in flags['joined']]}")
+    fps = {name: (led.state_fingerprint(), led.state_fingerprint_full())
+           for name, led in (("source", src), ("joined", joined))}
+    if len({fp for pair in fps.values() for fp in pair}) != 1:
+        raise AssertionError(f"phase 14 (f): fingerprints {fps}")
+    src.close()
+    joined.close()
+    replayed = {}
+    for name, path in (("source", os.path.join(root, "source")),
+                       ("joined", joined_dir)):
+        t0 = time.perf_counter()
+        again = KvLedger(cid, path)
+        replayed[name] = (again.replayed_blocks, time.perf_counter() - t0)
+        if again.replayed_blocks or \
+                again.state_fingerprint() != fps["source"][0]:
+            raise AssertionError(f"phase 14 (f): the {name} ledger reopened "
+                                 f"replaying {again.replayed_blocks} blocks")
+        again.close()
+    try:
+        admin.rebuild_dbs(joined_dir)
+        raise AssertionError("phase 14 (f): rebuild_dbs accepted a "
+                             "bootstrapped ledger")
+    except admin.AdminError:
+        pass
+    # the admin commands on the network peer's ledger
+    t0 = time.perf_counter()
+    admin.rebuild_dbs(peer_copy)
+    led = KvLedger(peer_cid, peer_copy)
+    rebuilt = (led.replayed_blocks, time.perf_counter() - t0)
+    height = led.height
+    tail = [led.get_block_by_number(n) for n in (height - 2, height - 1)]
+    if led.state_fingerprint() != peer_fp:
+        raise AssertionError("phase 14 (f): rebuild_dbs changed the peer "
+                             "ledger's fingerprint")
+    led.close()
+    t0 = time.perf_counter()
+    admin.rollback(peer_copy, height - 3)
+    led = KvLedger(peer_cid, peer_copy)
+    channel = Channel(led.ledger_id, led, gpu.GpuVerifier(device=dev),
+                      Bundle(led.ledger_id, peer_config, sw.SwCSP()),
+                      sw.SwCSP(), tensor_policy=True)
+    for block in tail:
+        got = channel.store_block(m.Block.decode(block.encode()))
+        if list(got) != list(protoutil.block_txflags(block)):
+            raise AssertionError("phase 14 (f): a recommitted block's flags "
+                                 "differ")
+    rolled_s = time.perf_counter() - t0
+    if led.height != height or led.state_fingerprint() != peer_fp or \
+            led.state_fingerprint_full() != peer_fp:
+        raise AssertionError("phase 14 (f): rollback and recommit changed "
+                             "the fingerprint")
+    channel.close()
+    led.close()
+    log(f"phase 14 (f): {LC_SOURCE_BLOCKS} state-scale blocks at "
+        f"{LC_SNAPSHOT_KEYS} keys; snapshot of {meta['state_entries']} "
+        f"entries at height {meta['height']}, {dir_bytes(snap)} bytes: "
+        f"export {export_s:.3f} s, verify {verify_s:.3f} s, bootstrap "
+        f"{bootstrap_s:.3f} s; both peers committed 2 more blocks and a "
+        f"replayed pruned-range tx (DUPLICATE_TXID on both) with equal flags "
+        f"and fingerprints (== full scans); reopen replayed "
+        f"{replayed['source'][0]} / {replayed['joined'][0]} blocks in "
+        f"{replayed['source'][1]:.3f} / {replayed['joined'][1]:.3f} s; "
+        f"rebuild_dbs refused on the bootstrapped ledger; the network peer's "
+        f"ledger rebuilt ({rebuilt[0]} blocks replayed, {rebuilt[1]:.2f} s), "
+        f"rolled back to {height - 2} and its 2 blocks recommitted on the "
+        f"card ({rolled_s:.2f} s) to the same fingerprint")
+
+
+def phase_lifecycle(torch, dev, scale_blocks=None) -> dict:
+    """Phase 14: (a) the lifecycle ceremony, (b) full-width blocks over two
+    namespaces, (c) an upgrade with the same-block rule, (e) rich
+    queries, (d) a config update, then (f) snapshot, bootstrap and the
+    admin commands.  The counts are set to 0 just before each part and
+    read just after it; (b)'s profiled evaluator pass runs between two
+    parts.  Returns the parts' launches."""
+    import shutil
+    from fabric_mod_tpu_torch.channelconfig import config_from_block
+    t_phase = time.perf_counter()
+    launched = dict.fromkeys(kernel_counts(), 0)
+
+    def counted(part):
+        reset_kernel_counts()
+        out = part()
+        for k, v in kernel_counts().items():
+            launched[k] += v
+        return out
+    if scale_blocks is None:
+        scale_blocks = make_scale_blocks()
+    pool = PoolSwVerifier(LC_ORACLE_WORKERS)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            lw = counted(lambda: LifecycleWorld(torch, dev, root, pool))
+            parts = {"setup": time.perf_counter() - t0}
+            try:
+                for name, part in (("a", lambda: lc_ceremony(lw)),
+                                   ("b", lambda: lc_stream(lw)),
+                                   ("c", lambda: lc_upgrade(lw)),
+                                   ("e", lambda: lc_rich_query(lw)),
+                                   ("d", lambda: lc_config_update(lw))):
+                    t1 = time.perf_counter()
+                    out = counted(part)
+                    parts[name] = time.perf_counter() - t1
+                    if name == "b":
+                        lc_profile_evaluator(torch, lw, out)
+                network_s = time.perf_counter() - t0
+                peer_fp = lw.net.ledger.state_fingerprint()
+                tip = lw.net.ledger.get_block_by_number(
+                    lw.net.ledger.height - 1)
+                from fabric_mod_tpu_torch.protos import protoutil
+                config_block = lw.net.ledger.get_block_by_number(
+                    protoutil.block_last_config_index(tip))
+                peer_cid, peer_config = config_from_block(config_block)
+                oracle_s = lw.oracle_secs
+                peer_dir = lw.net.ledger.dir
+            finally:
+                lw.close()
+            peer_copy = os.path.join(root, "peer-copy")
+            shutil.copytree(peer_dir, peer_copy)
+            t0 = time.perf_counter()
+            counted(lambda: lc_snapshot(torch, dev, scale_blocks, peer_copy,
+                                        peer_cid, peer_fp, peer_config,
+                                        os.path.join(root, "snap")))
+            snapshot_s = time.perf_counter() - t0
+    finally:
+        pool.close()
+    require_launched({k: launched[k] for k in CORE_KERNELS}, "phase 14")
+    log(f"lifecycle phase: {time.perf_counter() - t_phase:.1f} s wall "
+        f"(network parts {network_s:.1f} s — "
+        f"{ {k: round(v, 1) for k, v in parts.items()} } s — of which the "
+        f"host oracle {oracle_s:.1f} s; snapshot and admin "
+        f"{snapshot_s:.1f} s); kernel launches {launched}")
+    return launched
 
 
 def main_phase11(torch, dev) -> int:
@@ -4446,10 +5188,25 @@ def main_phase13(torch, dev) -> int:
     return 0
 
 
+def main_phase14(torch, dev) -> int:
+    """`--phase 14`: phase 14 alone, its (f) on a state-scale stream made
+    here; no kernels line."""
+    from fabric_mod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    phase_lifecycle(torch, dev)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=["11", "12", "13"], default=None,
+    parser.add_argument("--phase", choices=["11", "12", "13", "14"],
+                        default=None,
                         help="run one phase alone (after the header)")
     only = parser.parse_args().phase
     import resource
@@ -4484,6 +5241,8 @@ def main() -> int:
         return main_phase12(torch, dev)
     if only == "13":
         return main_phase13(torch, dev)
+    if only == "14":
+        return main_phase14(torch, dev)
 
     # 2. build
     t0 = time.perf_counter()
@@ -4536,19 +5295,23 @@ def main() -> int:
     # unstaged, (b) staged
     t0 = time.perf_counter()
     arms = {}
-    arms["a"], e2e_block, full, solo_fp = phase_e2e(torch, dev, arm="a")
-    arms["b"], _, order_free, _ = phase_e2e(torch, dev, arm="b")
+    arms["a"], e2e_block, full, solo_fp = phase_e2e(torch, dev, arm="a",
+                                                    n_blocks=E2E_BLOCKS)
+    arms["b"], _, order_free, _ = phase_e2e(torch, dev, arm="b",
+                                            n_blocks=E2E_BLOCKS)
     profile_e2e_block(torch, *e2e_block)
     log(f"e2e phase: {time.perf_counter() - t0:.1f} s wall")
 
     # 9. the same streams through three Raft orderers: (c) unstaged via a
     # follower, (d) staged over every orderer
     t0 = time.perf_counter()
-    arms["c"], _, _, raft_fp = phase_e2e(torch, dev, arm="c", stream=full)
+    arms["c"], _, _, raft_fp = phase_e2e(torch, dev, arm="c",
+                                         n_blocks=E2E_BLOCKS, stream=full)
     if raft_fp != solo_fp:
         raise AssertionError("arm (c)'s state fingerprint differs from arm "
                              "(a)'s on the same stream in the same order")
-    arms["d"], _, _, _ = phase_e2e(torch, dev, arm="d", stream=order_free)
+    arms["d"], _, _, _ = phase_e2e(torch, dev, arm="d", n_blocks=E2E_BLOCKS,
+                                   stream=order_free)
     log(f"Raft e2e phase: {time.perf_counter() - t0:.1f} s wall; arm (c)'s "
         f"fingerprint == arm (a)'s ({raft_fp[:16]})")
 
@@ -4586,7 +5349,14 @@ def main() -> int:
     # 13. the durable ledger and private data: (a) state scale at 10k,
     # 100k and 1M keys, (b) crash and recovery on phase 5's blocks, (c)
     # private data across three peers
-    arms["durable"] = phase_durable(torch, dev, commit_blocks, expected)
+    scale_blocks = make_scale_blocks()
+    arms["durable"] = phase_durable(torch, dev, commit_blocks, expected,
+                                    scale_blocks)
+
+    # 14. lifecycle, system chaincodes, config updates, rich queries and
+    # snapshots: (a)-(e) on a solo network beside a host oracle, (f) the
+    # snapshot, a bootstrapped peer and the admin commands
+    arms["lifecycle"] = phase_lifecycle(torch, dev, scale_blocks)
     for k in kernels.values():
         k["launches"] = counts[k["name"]] + sum(
             c[k["name"]] for c in arms.values())

@@ -29,6 +29,9 @@ on a lane of two threads, one inverting while the other checks the key.
 Slice 14 makes the ledger durable (log-structured state and history,
 O(delta) recovery, the incremental fingerprint) and ports private data
 (transient and pvt stores, BTL purges, gossip's private-data paths).
+Slice 15 ports the chaincode lifecycle (the ceremony and the write-aware
+validation of org-local approvals), the system chaincodes, config
+updates, rich queries, ledger snapshots and the admin commands.
 
 Counterparts (reference module -> port module):
 
@@ -66,12 +69,15 @@ policy/tensorpolicy.py          policy/tensorpolicy.py (the evaluator as
                                 torch ops on the mask's device)
 ledger/rwsetutil.py,            ledger/ (copies; the config history
 statedb.py, mvcc.py, durable.py without its listeners)
-confighistory.py, pvtdata.py
+confighistory.py, pvtdata.py,
+richquery.py, snapshot.py,
+admin.py
 ledger/blkstorage.py            ledger/blkstorage.py (copy)
 ledger/kvledger.py              ledger/kvledger.py (durable by default;
                                 same files and state fingerprint)
 channelconfig/bundle.py,        channelconfig/ (copies over bccsp/x509.py)
-configtx.py, genesis.py
+configtx.py, genesis.py,
+update.py, capabilities.py
 orderer/blockcutter.py,         orderer/ (solo only; no admission gate,
 blockwriter.py, msgprocessor.py no follower; staged lanes a Broadcast
 consensus.py, registrar.py,     constructor argument)
@@ -80,9 +86,9 @@ stagedbroadcast.py
 peer/plugins.py, txvalidator.py peer/ (generic per-tx decode path;
                                 tensor_policy a constructor argument)
 peer/mcs.py, commitpipe.py,     peer/ (plain threading objects;
-channel.py, deliverclient.py,   pipeline_depth a constructor argument;
-chaincode.py, endorser.py,      lifecycle: its names only)
-lifecycle.py
+channel.py, deliverclient.py,   pipeline_depth a constructor argument)
+chaincode.py, endorser.py,
+lifecycle.py, scc.py
 e2e.py                          e2e.py (Network from NetworkMaterial)
 idemix/fp256bn.py               idemix/fp256bn.py (host reference copy)
 ops/fp256bn_dev.py              ops/fp256bn_dev.py (the batched pairing

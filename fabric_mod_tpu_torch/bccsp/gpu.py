@@ -230,16 +230,17 @@ class GpuVerifier:
 
     def verify_many_fused_async(self, items: Sequence[VerifyItem]):
         """The policy-fusion seam (reference: bccsp/tpu.py:361).  Same
-        pipeline as `verify_many_async`, but when every unique lane
-        misses the memo-cache the resolver returns the (n,) bool
-        verdict TENSOR on the verifier's device — assembled there
-        across the buckets and the dedup map, not waited for — so the
-        tensor-policy evaluator consumes it without a round trip
-        through the host.  The cache write-back, which needs the host
-        copy, is then deferred to the resolver's `.writeback()`, which
-        the consumer calls at its own sync point
-        (StagedBlock.resolve_mask).  With any cache hit the resolver
-        returns the numpy mask.  The values are identical either way."""
+        pipeline as `verify_many_async`, but the resolver returns the
+        (n,) bool verdict TENSOR on the verifier's device — assembled
+        there across the buckets, the memo-cache's hits and the dedup
+        map, not waited for — so the tensor-policy evaluator consumes it
+        without a round trip through the host.  The cache write-back,
+        which needs the host copy, is deferred to the resolver's
+        `.writeback()`, which the consumer calls at its own sync point
+        (StagedBlock.resolve_mask).  The reference returns the numpy
+        mask once any lane hits the cache, which sends a block whose
+        creator signatures ingress already checked to the host
+        evaluator; the values are identical either way."""
         return self._verify_async(items, keep_device=True)
 
     def _verify_async(self, items: Sequence[VerifyItem], keep_device: bool):
@@ -265,27 +266,36 @@ class GpuVerifier:
                   else [None] * len(uniq_keys))
         miss_lanes = [j for j, c in enumerate(cached) if c is None]
         vals = np.array([bool(c) for c in cached], bool)
-        if not miss_lanes:
+        if not miss_lanes and not keep_device:
             out = vals[lanes]
             return lambda: out
-        with self._enqueue:
-            verdicts = self._dispatch([uniq_items[j] for j in miss_lanes])
+        miss_idx = np.asarray(miss_lanes, np.int64)
+        if miss_lanes:
+            with self._enqueue:
+                verdicts = self._dispatch([uniq_items[j] for j in miss_lanes])
 
-        if keep_device and len(miss_lanes) == len(uniq_keys):
-            # every lane missed: the device tensor goes through as is,
-            # the dedup expansion a gather on the device
-            raw = verdicts if len(uniq_items) == n else \
-                verdicts[_device.upload(lanes, self.device)]
+        if keep_device:
+            # the device tensor goes through as is when every lane
+            # missed; else the hits are uploaded and the device verdicts
+            # scattered into them; the dedup expansion a gather there
+            if len(miss_lanes) == len(uniq_keys):
+                uniq = verdicts
+            else:
+                uniq = _device.upload(vals, self.device)
+                if miss_lanes:
+                    uniq[_device.upload(miss_idx, self.device)] = verdicts
+            raw = uniq if len(uniq_items) == n else \
+                uniq[_device.upload(lanes, self.device)]
 
             def finish_fused():
                 return raw
 
             def writeback() -> None:
-                if cache is not None:
-                    cache.put_many(uniq_keys, verdicts.cpu().numpy())
+                if cache is not None and miss_lanes:
+                    cache.put_many([uniq_keys[j] for j in miss_lanes],
+                                   verdicts.cpu().numpy())
             finish_fused.writeback = writeback
             return finish_fused
-        miss_idx = np.asarray(miss_lanes)
 
         def finish() -> np.ndarray:
             mask = verdicts.cpu().numpy()

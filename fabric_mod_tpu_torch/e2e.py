@@ -22,12 +22,16 @@ A Network is built from `NetworkMaterial`: the CA certificates, the
 signers' certificates and keys, and the genesis block, all as bytes —
 from `utils/fixtures.make_network_material(seed)`, or carried across
 from the JAX package's Network by `convert.network_material_from_reference`.
-The chaincode registry holds `mycc` as the KvContract; the lifecycle
-ceremony (`deploy_chaincode`) is not ported.  `Network.invoke` (:123)
-endorses and broadcasts one proposal, its `transient` map carrying
-private plaintext that never reaches the ordered tx.  The peer's ledger
-is a durable KvLedger opened through its LedgerManager, as in the
-reference.
+The chaincode registry is peer/scc.py's `build_default_registry`:
+`mycc` as the KvContract, the `_lifecycle` contract over the channel's
+application orgs, QSCC and CSCC.  `Network.invoke` (:123) endorses and
+broadcasts one proposal, its `transient` map carrying private plaintext
+that never reaches the ordered tx; `deploy_chaincode` (:154) runs the
+lifecycle ceremony (an org-local approval by each approving org's
+admin, then the commit) and `update_config` signs and broadcasts a
+config update computed by channelconfig's `compute_update`.  The peer's
+ledger is a durable KvLedger opened through its LedgerManager, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -39,16 +43,19 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from fabric_mod_tpu_torch.bccsp.sw import SwCSP
-from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+from fabric_mod_tpu_torch.channelconfig import (Bundle, compute_update,
+                                                config_from_block,
+                                                signed_update_envelope)
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerManager
 from fabric_mod_tpu_torch.msp.identities import SigningIdentity, deserialize_cert
 from fabric_mod_tpu_torch.orderer import (Broadcast, DeliverService,
                                           RaftChain, RaftTransport,
                                           Registrar)
-from fabric_mod_tpu_torch.peer.chaincode import ChaincodeRegistry, KvContract
 from fabric_mod_tpu_torch.peer.channel import Channel
 from fabric_mod_tpu_torch.peer.deliverclient import DeliverClient
 from fabric_mod_tpu_torch.peer.endorser import Endorser, endorse_and_submit
+from fabric_mod_tpu_torch.peer.lifecycle import LIFECYCLE_NS
+from fabric_mod_tpu_torch.peer.scc import build_default_registry
 from fabric_mod_tpu_torch.protos import messages as m
 
 # (mspid, certificate PEM, PKCS#8 private-key PEM)
@@ -68,7 +75,9 @@ class NetworkMaterial:
     its consenter ids, and `consenters` maps each to its orderer
     signer (`orderer` is then the first's).  `gossip_peers` are peer
     signers for the gossip peers a caller composes around the network
-    (each a ledger, a Channel and a gossip.GossipNode of its own)."""
+    (each a ledger, a Channel and a gossip.GossipNode of its own).
+    `orderer_admin`, an admin of the orderer org, signs config updates
+    of the orderer group (its mod_policy is the orderer org's Admins)."""
     ca_pems: Dict[str, bytes]
     orderer_ca_pem: bytes
     client: SignerPems
@@ -79,6 +88,7 @@ class NetworkMaterial:
     consenters: Dict[str, SignerPems] = dataclasses.field(
         default_factory=dict)
     gossip_peers: List[SignerPems] = dataclasses.field(default_factory=list)
+    orderer_admin: Optional[SignerPems] = None
 
 
 def _signer(csp, pems: SignerPems) -> SigningIdentity:
@@ -137,6 +147,8 @@ class Network:
         self.admins = {org: _signer(self.csp, p)
                        for org, p in material.admins.items()}
         self.client = _signer(self.csp, material.client)
+        self.orderer_admin = (_signer(self.csp, material.orderer_admin)
+                              if material.orderer_admin else None)
         self.genesis_block = m.Block.decode(material.genesis)
         channel_id, config = config_from_block(self.genesis_block)
         self.channel_id = channel_id
@@ -183,21 +195,84 @@ class Network:
         if self.ledger.height == 0:
             self.channel.init_from_genesis(self.genesis_block)
 
-        # chaincode + endorsers
-        self.chaincodes = ChaincodeRegistry()
-        self.chaincodes.register("mycc", KvContract())
+        # the user contract, the system chaincodes and the endorsers
+        self.chaincodes = build_default_registry(self.channel, self.ledger)
         self.endorsers: Dict[str, Endorser] = {
             org: Endorser(self.channel, self.chaincodes, signer)
             for org, signer in self.peer_signers.items()}
 
-    def invoke(self, args: Sequence[bytes], transient=None) -> str:
-        """Endorse `args` to `mycc` on the first two orgs' endorsers as
-        the client, with the `transient` map, and broadcast the tx;
+    def invoke(self, args: Sequence[bytes],
+               endorsing_orgs: Optional[Sequence[str]] = None,
+               chaincode: str = "mycc", transient=None,
+               signer=None) -> str:
+        """Endorse `args` to `chaincode` on `endorsing_orgs`' endorsers
+        (the first two orgs by default) as `signer` (the client by
+        default), with the `transient` map, and broadcast the tx;
         returns its tx id."""
+        orgs = list(endorsing_orgs or list(self.endorsers)[:2])
         return endorse_and_submit(
-            self.channel_id, "mycc", args, self.client,
-            list(self.endorsers.values())[:2], self.broadcast,
+            self.channel_id, chaincode, args, signer or self.client,
+            [self.endorsers[o] for o in orgs], self.broadcast,
             transient=transient)
+
+    def committed_txs(self) -> int:
+        """The txs in the peer's blocks after genesis."""
+        return sum(len(self.ledger.get_block_by_number(i).data.data)
+                   for i in range(1, self.ledger.height))
+
+    def pump_committed(self, want_txs: int, timeout: float = 30.0) -> int:
+        """Run a deliver client until `want_txs` txs after genesis are
+        committed (or `timeout` passes); returns the count."""
+        return commit_until(self, want_txs, timeout, idle_timeout_s=5.0)[1]
+
+    def deploy_chaincode(self, name: str, version: str, sequence: int,
+                         policy: bytes = b"", collections: bytes = b"",
+                         approving_orgs: Optional[Sequence[str]] = None
+                         ) -> int:
+        """The lifecycle ceremony (reference e2e.py:154): each approving
+        org's admin submits an approval endorsed by its own peer (an
+        org-local act) and it commits, in its own block, then the commit
+        op (endorsed by the first two orgs) commits.  Every ceremony tx
+        must be VALID, checked by tx id.  Returns the count of txs
+        committed after genesis."""
+        orgs = list(approving_orgs
+                    or list(self.endorsers)[:len(self.endorsers) // 2 + 1])
+        base = self.committed_txs()
+        args = [name.encode(), version.encode(), str(sequence).encode(),
+                policy, collections]
+        txids = []
+        for i, org in enumerate(orgs):
+            txids.append(self.invoke([b"approve"] + args,
+                                     endorsing_orgs=[org],
+                                     chaincode=LIFECYCLE_NS,
+                                     signer=self.admins[org]))
+            got = self.pump_committed(base + i + 1)
+            if got < base + i + 1:
+                raise RuntimeError(
+                    f"approvals did not commit ({got}/{base + i + 1})")
+        txids.append(self.invoke([b"commit"] + args, chaincode=LIFECYCLE_NS))
+        got = self.pump_committed(base + len(orgs) + 1)
+        if got < base + len(orgs) + 1:
+            raise RuntimeError("definition commit did not commit")
+        # by tx id, not by position: other txs may share these blocks
+        for txid in txids:
+            pt = self.ledger.get_transaction_by_id(txid)
+            if pt is None or pt.validation_code != m.TxValidationCode.VALID:
+                raise RuntimeError(
+                    f"lifecycle tx {txid} invalid "
+                    f"({None if pt is None else pt.validation_code})")
+        return got
+
+    def update_config(self, desired_config: m.Config, signers) -> m.Envelope:
+        """Compute the config update from the channel's current config to
+        `desired_config`, sign it by `signers` (SigningIdentities, the
+        first also signing the envelope) and broadcast it; returns the
+        CONFIG_UPDATE envelope."""
+        update = compute_update(self.channel_id, self.channel.bundle().config,
+                                desired_config.channel_group)
+        env = signed_update_envelope(self.channel_id, update, signers)
+        self.broadcast.submit(env)
+        return env
 
     def _raft_factory(self, root_dir, oid, ids, election_timeout,
                       heartbeat_s, clock):

@@ -4,8 +4,11 @@ The port's copy of fabric_mod_tpu/ledger/blkstorage.py `BlockStore`
 (:43; reference: common/ledger/blkstorage/blockfile_mgr.go — rolling
 block files with length-prefixed records, an index by number and txid,
 and reconstruction by scanning on open; blockfile_helper.go crops torn
-writes), without the snapshot-bootstrap base marker and the pruned-txid
-import.
+writes), with the snapshot bootstrap's base marker and pruned-txid
+import (:46-105): a store bootstrapped from a snapshot at height H holds
+no block below H, chains its first block onto the snapshot's last block
+hash, and still knows every tx id of the pruned range, so duplicate
+detection covers it.
 
 Record format per block:  u32 payload_len ‖ payload ‖ sha256(payload)
 — the trailing digest makes a torn tail write detectable; recovery
@@ -41,7 +44,12 @@ def _tx_ids(block: m.Block) -> List[str]:
 
 
 class BlockStore:
-    """One channel's block files under `dir_path`."""
+    """One channel's block files under `dir_path`.  `base` is the height
+    a snapshot-bootstrapped store starts at (0 for a full chain)."""
+
+    BASE_MARKER = "_base"
+    PRUNED_TXIDS = "_pruned_txids"
+    _PRUNED_LOC = (-1, -1)                 # the txid exists; its block pruned
 
     def __init__(self, dir_path: str):
         self.dir = dir_path
@@ -51,8 +59,55 @@ class BlockStore:
         self._height = 0
         self._last_hash = b""
         self._cur_file = 0
+        base = os.path.join(dir_path, self.BASE_MARKER)
+        if os.path.exists(base):
+            with open(base, "rb") as f:
+                raw = f.read()
+            if len(raw) >= 8 + 32:
+                self._height = struct.unpack_from("<q", raw, 0)[0]
+                self._last_hash = raw[8:40]
+        self.base = self._height
+        self._load_pruned_txids()
         self._recover()
         self._fh = open(self._file_path(self._cur_file), "ab")
+
+    @classmethod
+    def write_base_marker(cls, dir_path: str, height: int,
+                          last_hash: bytes) -> None:
+        """Start the store at `height`, chained onto `last_hash`."""
+        os.makedirs(dir_path, exist_ok=True)
+        with open(os.path.join(dir_path, cls.BASE_MARKER), "wb") as f:
+            f.write(struct.pack("<q", height))
+            f.write(last_hash[:32].ljust(32, b"\x00"))
+
+    @classmethod
+    def write_pruned_txids(cls, dir_path: str, txids) -> None:
+        """Seed the txid index of a bootstrapped store with the pruned
+        range's tx ids (reference: the snapshot's txids file import)."""
+        os.makedirs(dir_path, exist_ok=True)
+        with open(os.path.join(dir_path, cls.PRUNED_TXIDS), "wb") as f:
+            for t in txids:
+                b = t.encode()
+                f.write(struct.pack("<I", len(b)))
+                f.write(b)
+
+    def _load_pruned_txids(self) -> None:
+        path = os.path.join(self.dir, self.PRUNED_TXIDS)
+        if not os.path.exists(path):
+            return
+        with open(path, "rb") as f:
+            raw = f.read()
+        pos = 0
+        while pos + 4 <= len(raw):
+            (ln,) = struct.unpack_from("<I", raw, pos)
+            pos += 4
+            self._by_txid.setdefault(raw[pos:pos + ln].decode(),
+                                     self._PRUNED_LOC)
+            pos += ln
+
+    def all_txids(self) -> List[str]:
+        """Every tx id the store knows, the pruned range's included."""
+        return list(self._by_txid)
 
     # -- file layout -----------------------------------------------------
     def _file_path(self, n: int) -> str:
@@ -150,11 +205,19 @@ class BlockStore:
             (ln,) = struct.unpack("<I", f.read(4))
             return m.Block.decode(f.read(ln))
 
+    def get_block_by_txid(self, txid: str) -> Optional[m.Block]:
+        loc = self._by_txid.get(txid)
+        if loc is None or loc == self._PRUNED_LOC:
+            return None                    # pruned: a known txid, no block
+        return self.get_block_by_number(loc[0])
+
     def get_tx_loc(self, txid: str) -> Optional[Tuple[int, int]]:
         return self._by_txid.get(txid)
 
     def iter_blocks(self, start: int = 0) -> Iterator[m.Block]:
-        for num in range(start, self._height):
+        """The blocks from `start` on; a bootstrapped store has none
+        below its base, so the scan starts there at the earliest."""
+        for num in range(max(start, self.base), self._height):
             yield self.get_block_by_number(num)
 
     def close(self) -> None:

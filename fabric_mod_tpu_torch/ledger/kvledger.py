@@ -44,6 +44,7 @@ import tempfile
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from fabric_mod_tpu_torch.ledger import richquery
 from fabric_mod_tpu_torch.ledger.blkstorage import BlockStore
 from fabric_mod_tpu_torch.ledger.confighistory import ConfigHistoryManager
 from fabric_mod_tpu_torch.ledger.durable import (DurableHistoryDB,
@@ -54,6 +55,7 @@ from fabric_mod_tpu_torch.ledger.mvcc import (
 from fabric_mod_tpu_torch.ledger.pvtdata import (
     PvtDataMismatchError, pvt_namespace, verify_pvt_against_hashes)
 from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder, parse_tx_rwset
+from fabric_mod_tpu_torch.ledger.snapshot import generate_snapshot
 from fabric_mod_tpu_torch.ledger.statedb import UpdateBatch, VersionedDB
 from fabric_mod_tpu_torch.protos import messages as m
 from fabric_mod_tpu_torch.protos import protoutil
@@ -84,11 +86,24 @@ class QueryExecutor:
         got = self._db.get_state(pvt_namespace(ns, collection), key)
         return got[0] if got else None
 
+    def _execute_query_versioned(self, ns: str, query):
+        """The rich-query core: ([(key, doc, version)], bookmark).  A
+        bookmark bounds the scan's start (`richquery.execute` skips the
+        boundary key itself), so a page costs what remains."""
+        q = richquery.RichQuery.parse(query)
+        start = q.bookmark if (q.bookmark and not q.sort) else ""
+        return richquery.execute(self._db.get_state_range(ns, start, ""), q)
+
+    def execute_query(self, ns: str, query):
+        """Rich JSON-selector query over a namespace (reference:
+        statecouchdb.go:1230 ExecuteQuery): ([(key, doc)], bookmark)."""
+        matches, bookmark = self._execute_query_versioned(ns, query)
+        return [(k, doc) for k, doc, _ver in matches], bookmark
+
 
 class TxSimulator(QueryExecutor):
     """Records reads and writes into an RWSetBuilder (reference:
-    lockbased_txmgr.go NewTxSimulator + rwset_builder).  Rich queries
-    are not ported."""
+    lockbased_txmgr.go NewTxSimulator + rwset_builder)."""
 
     def __init__(self, db, txid: str):
         super().__init__(db)
@@ -122,6 +137,17 @@ class TxSimulator(QueryExecutor):
             else:
                 merged[key] = value
         return iter(sorted(merged.items()))
+
+    def execute_query(self, ns: str, query):
+        """A rich query during simulation: each returned key joins the
+        read set, but the query is not re-executed at validation (no
+        phantom protection for rich queries, as in the reference)."""
+        matches, bookmark = self._execute_query_versioned(ns, query)
+        out = []
+        for key, doc, ver in matches:
+            self._rw.add_read(ns, key, ver)
+            out.append((key, doc))
+        return out, bookmark
 
     def set_state(self, ns: str, key: str, value: bytes) -> None:
         self._writes[(ns, key)] = value
@@ -713,6 +739,13 @@ class KvLedger:
 
     def tx_id_exists(self, txid: str) -> bool:
         return self.blockstore.get_tx_loc(txid) is not None
+
+    def snapshot_to(self, out_dir: str) -> dict:
+        """Export a snapshot (ledger/snapshot.py `generate_snapshot`)
+        under the commit lock, so no block lands while the state it
+        seals is being read."""
+        with self._lock:
+            return generate_snapshot(self, out_dir)
 
     def close(self) -> None:
         """Checkpoint and close the stores (the attached private-data

@@ -1,17 +1,20 @@
 """In-process chaincode runtime: contracts, stub, registry.
 
 The port's copy of fabric_mod_tpu/peer/chaincode.py `ChaincodeStub`,
-`ChaincodeRegistry` and `KvContract` (:142) (reference:
+`ChaincodeRegistry`, `FuncContract` and `KvContract` (reference:
 core/chaincode/chaincode_support.go:193 `Execute` and the shim handler,
 handler.go:180-202 HandleGetState/HandlePutState): a contract is a
 Python object invoked against a stub bound to a TxSimulator, which
 records the read-write set.  The stub carries the proposal's transient
-map and the private-data calls (:25-36, :82-91).  Rich queries and
-chaincode events are not ported; the contract raises on their ops.
+map, the creator, the private-data calls, one chaincode event a tx
+(shim SetEvent) and rich JSON-selector queries (shim GetQueryResult).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Protocol
+import json
+from typing import Callable, Dict, List, Optional, Protocol
+
+from fabric_mod_tpu_torch.protos import messages as m
 
 
 class ChaincodeError(Exception):
@@ -36,6 +39,28 @@ class ChaincodeStub:
         self.transient = dict(transient or {})
         # serialized creator identity (reference: shim GetCreator)
         self.creator = creator
+        # at most one event a tx; a repeat call overwrites (reference:
+        # shim SetEvent)
+        self.event = None               # (name, payload) | None
+
+    def set_event(self, name: str, payload: bytes = b"") -> None:
+        """Attach a chaincode event to this tx's action; listeners get
+        it on commit (without the payload on the filtered stream)."""
+        if not name:
+            raise ValueError("event name must be non-empty")
+        self.event = (name, payload)
+
+    def creator_mspid(self) -> str:
+        """The proposal creator's MSP id ('' when it does not decode)."""
+        try:
+            return m.SerializedIdentity.decode(self.creator).mspid
+        except Exception:
+            return ""
+
+    def get_query_result(self, query):
+        """Rich JSON-selector query (reference: shim GetQueryResult,
+        handler.go HandleGetQueryResult): ([(key, doc)], bookmark)."""
+        return self._sim.execute_query(self.namespace, query)
 
     def get_state(self, key: str) -> Optional[bytes]:
         return self._sim.get_state(self.namespace, key)
@@ -75,12 +100,24 @@ class ChaincodeRegistry:
 
     def __init__(self):
         self._contracts: Dict[str, Contract] = {}
+        self._resolver: Optional[Callable[[str], Optional[Contract]]] = None
 
     def register(self, name: str, contract: Contract) -> None:
         self._contracts[name] = contract
 
+    def set_resolver(self, resolver) -> None:
+        """Miss handler (reference: launch on first use,
+        chaincode_support.go:93).  A contract it returns is cached; None
+        is not, so a chaincode installed later still resolves."""
+        self._resolver = resolver
+
     def get(self, name: str) -> Optional[Contract]:
-        return self._contracts.get(name)
+        cc = self._contracts.get(name)
+        if cc is None and self._resolver is not None:
+            cc = self._resolver(name)
+            if cc is not None:
+                self._contracts[name] = cc
+        return cc
 
     def execute(self, name: str, stub: ChaincodeStub) -> bytes:
         cc = self.get(name)
@@ -89,11 +126,23 @@ class ChaincodeRegistry:
         return cc.invoke(stub)
 
 
+class FuncContract:
+    """A plain function(stub) -> bytes as a contract."""
+
+    def __init__(self, fn: Callable[[ChaincodeStub], bytes]):
+        self._fn = fn
+
+    def invoke(self, stub: ChaincodeStub) -> bytes:
+        return self._fn(stub)
+
+
 class KvContract:
     """The example contract: args [op, key, value?] with put, get, del,
-    setvp (a key-level endorsement override), and putpvt / getpvt
-    (args [op, collection, key]; putpvt's value comes in the transient
-    map under "value", so it never lands in the ordered tx)."""
+    putev (a put with a "kv-put" event), setvp (a key-level endorsement
+    override), query (args [op, Mango query JSON] -> JSON {"results":
+    [{key, doc}], "bookmark"}), and putpvt / getpvt (args [op,
+    collection, key]; putpvt's value comes in the transient map under
+    "value", so it never lands in the ordered tx)."""
 
     def invoke(self, stub: ChaincodeStub) -> bytes:
         if not stub.args:
@@ -108,11 +157,20 @@ class KvContract:
         if op == "del":
             stub.del_state(stub.args[1].decode())
             return b"ok"
+        if op == "putev":
+            stub.put_state(stub.args[1].decode(), stub.args[2])
+            stub.set_event("kv-put", stub.args[1])
+            return b"ok"
         if op == "setvp":
             # state-based endorsement (reference: integration/sbe)
             stub.set_state_metadata(stub.args[1].decode(),
                                     "VALIDATION_PARAMETER", stub.args[2])
             return b"ok"
+        if op == "query":
+            results, bookmark = stub.get_query_result(stub.args[1])
+            return json.dumps(
+                {"results": [{"key": k, "doc": d} for k, d in results],
+                 "bookmark": bookmark}).encode()
         if op == "putpvt":
             value = stub.transient.get("value")
             if value is None:
@@ -124,6 +182,4 @@ class KvContract:
             val = stub.get_private_data(stub.args[1].decode(),
                                         stub.args[2].decode())
             return val if val is not None else b""
-        # the reference's putev and query need chaincode events and rich
-        # queries, neither ported
         raise ChaincodeError(f"unknown op {op!r}")

@@ -6,7 +6,9 @@ ProcessProposal :306, preProcess's signature and ACL checks :258,
 SimulateProposal :182 — without the container launch, which the
 in-process chaincode registry replaces).  The proposal's transient map
 reaches the chaincode stub, and a simulation's plaintext private writes
-are staged in the channel's transient store under the tx id (:108-130).
+are staged in the channel's transient store under the tx id (:108-130),
+and a contract's chaincode event rides in the ChaincodeAction's
+`events` (:132-140).
 
 The proposal's creator signature and its Writers ACL check verify on
 the host: one proposal is one signature, and a device call per proposal
@@ -111,9 +113,16 @@ class Endorser:
             self._channel.transient_store.persist(
                 ch.tx_id, self._channel.ledger.height, pvt)
 
+        events = b""
+        if stub.event is not None:
+            # the contract's one chaincode event (shim SetEvent); a tx
+            # without one keeps the empty field, byte for byte
+            events = m.ChaincodeEvent(
+                chaincode_id=ns, tx_id=ch.tx_id, event_name=stub.event[0],
+                payload=stub.event[1]).encode()
         cca = m.ChaincodeAction(
             results=rwset.encode(),
-            events=b"",
+            events=events,
             response=m.Response(status=200, payload=result),
             chaincode_id=m.ChaincodeID(name=ns))
         prp = m.ProposalResponsePayload(

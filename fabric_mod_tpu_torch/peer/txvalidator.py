@@ -302,9 +302,10 @@ class TxValidator:
                 if not body.endorsements:
                     work.flag = V.ENDORSEMENT_POLICY_FAILURE
                     return
-                self._stage_action(body.ns, body.prp, body.endorsements,
-                                   lambda: body.groups, work, collector,
-                                   inblock_vp, session)
+                self._stage_action(
+                    body.ns, body.prp, body.endorsements,
+                    lambda: body.groups, work, collector, inblock_vp,
+                    session, body.lifecycle_write_keys)
                 return
             tx = protoutil.extract_endorser_tx(payload)
             if not tx.actions:
@@ -330,14 +331,17 @@ class TxValidator:
 
     def _stage_action(self, ns: str, prp: bytes, endorsements, written,
                       work: _TxWork, collector: BatchCollector, inblock_vp,
-                      session) -> bool:
+                      session, write_keys=None) -> bool:
         """Stage one action's chaincode-wide policy, then its key-level
         policies over `written()`, its written view per namespace
         occurrence (called after the chaincode-wide policy is staged: the
         generic decode of a malformed inner rwset raises there, as in the
-        reference's order).  False (work.flag set) when the namespace's
-        definition names a plugin this peer does not have: fail closed."""
-        plugin_name, policy_bytes = self._vinfo.validation_info(ns)
+        reference's order).  `write_keys(ns)`, the columnar body's write
+        keys, spares `_resolve_vinfo` that decode.  False (work.flag
+        set) when the namespace's definition names a plugin this peer
+        does not have: fail closed."""
+        plugin_name, policy_bytes = self._resolve_vinfo(ns, written,
+                                                        write_keys)
         evaluator = self._plugins.resolve(plugin_name, self._policy_eval)
         if evaluator is None:
             work.flag = V.INVALID_OTHER_REASON
@@ -357,6 +361,29 @@ class TxValidator:
                                              inblock_vp, work, session)
         work.actions.append(_ActionEval(cc_pending, key_evals))
         return True
+
+    def _resolve_vinfo(self, ns: str, written, write_keys=None):
+        """The validation info of one action (reference:
+        txvalidator.py:427 `_resolve_vinfo`).  A `_lifecycle` action is
+        resolved by its write keys where the provider can (an org-local
+        approval validates against that org's Endorsement policy:
+        peer/lifecycle.py); a rwset that does not decode falls back to
+        the namespace's info, and validation surfaces the decode
+        error."""
+        write_aware = getattr(self._vinfo, "validation_info_for_writes",
+                              None)
+        if write_aware is not None and ns == LIFECYCLE_NS:
+            try:
+                if write_keys is not None:
+                    keys = write_keys(ns)
+                else:
+                    keys = [k for g_ns, wkeys, _metas in written()
+                            if g_ns == ns for k in wkeys]
+            except Exception:
+                keys = None
+            if keys is not None:
+                return write_aware(ns, keys)
+        return self._vinfo.validation_info(ns)
 
     def _stage_key_policies(self, groups, sds, collector, inblock_vp,
                             work, session=None):

@@ -623,6 +623,13 @@ class TxBody:
         # parse_tx_rwset: [(ns, [(wkey,...)], [(mkey, entries)])]
         self.groups = groups
 
+    def lifecycle_write_keys(self, ns: str):
+        """The write keys (not metadata keys) under `ns`, in document
+        order across repeated ns occurrences: what the generic decode
+        gives write-aware validation-info resolution."""
+        return [k for g_ns, wkeys, _metas in self.groups
+                if g_ns == ns for k in wkeys]
+
 
 class BlockRWSets:
     """Columnar per-block rwset planes + per-tx staged bodies.

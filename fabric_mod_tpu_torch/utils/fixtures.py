@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import hashlib
+import json
 import random
 from typing import Dict, List, Optional, Tuple
 
@@ -452,7 +453,9 @@ def make_network_material(seed: int = 0, channel_id: str = "testchannel",
     batch_timeout, preferred_max_bytes, ...).  `gossip_peers` more peer
     signers, round-robin over the orgs ("gossip<i>.<org>"), go to the
     material's `gossip_peers`: one identity for each gossip peer of a
-    composed network.  Certificates and keys are the same for the same
+    composed network; an admin of the orderer org (after every other
+    certificate, so theirs do not change) its `orderer_admin`.
+    Certificates and keys are the same for the same
     seed; the genesis envelope carries a fresh nonce."""
     from fabric_mod_tpu_torch.channelconfig import genesis
     from fabric_mod_tpu_torch.e2e import NetworkMaterial
@@ -488,6 +491,7 @@ def make_network_material(seed: int = 0, channel_id: str = "testchannel",
         org = NETWORK_ORGS[i % len(NETWORK_ORGS)]
         gossip.append(signer(cas[org], f"gossip{i}.{org.lower()}", org,
                              "peer"))
+    orderer_admin = signer(orderer_ca, "admin@orderer", "OrdererOrg", "admin")
     return NetworkMaterial(
         ca_pems={org: ca.cert_pem() for org, ca in cas.items()},
         orderer_ca_pem=orderer_ca.cert_pem(),
@@ -495,7 +499,7 @@ def make_network_material(seed: int = 0, channel_id: str = "testchannel",
         orderer=consenters[ids[0]],
         genesis=block.encode(),
         consenters=consenters if consensus_type != "solo" else {},
-        gossip_peers=gossip)
+        gossip_peers=gossip, orderer_admin=orderer_admin)
 
 
 def tamper_block_signature(raw_block: bytes) -> bytes:
@@ -787,6 +791,110 @@ def make_statescale_blocks(world: CommitWorld, n_blocks: int,
         prev = protoutil.block_header_hash(blk.header)
         blocks.append(blk.encode())
     return blocks
+
+
+# --- the lifecycle slice: signed puts over deployed chaincodes ---------------
+
+def make_put_txs(world: CommitWorld, puts, seed: bytes = b"puts"):
+    """One signed put envelope for each (namespace, key, value,
+    endorsers) of `puts`, as the world's client, endorsed by the named
+    peers; nonces and timestamps from `seed` and the position."""
+    from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder
+    envs = []
+    for i, (ns, key, value, endorsers) in enumerate(puts):
+        b = RWSetBuilder()
+        b.add_write(ns, key, value)
+        nonce = hashlib.sha256(seed + b"|%d" % i).digest()[:24]
+        envs.append(_signed_tx(world, b.build().encode(), endorsers, nonce,
+                               1_735_689_600_000_000_000 + i * 1000,
+                               chaincode=ns))
+    return envs
+
+
+# the endorsers of a put that meets, and of one that misses, each
+# namespace's policy in the lifecycle stream: mycc under the channel's
+# MAJORITY default, cc2 under its own AND(Org1, Org3)
+LIFECYCLE_ENDORSERS = {"mycc": (("Org1", "Org2"), ("Org1",)),
+                       "cc2": (("Org1", "Org3"), ("Org1", "Org2"))}
+
+
+def make_lifecycle_stream(world: CommitWorld, n_tx: int,
+                          under_every: int = 10, seed: int = 0,
+                          prefix: str = "lc", endorsers=None):
+    """`n_tx` blind puts that mix `mycc` and the deployed `cc2` (the
+    namespace of each drawn from `seed` with numpy), every
+    `under_every`-th endorsed by a set its namespace's policy refuses:
+    `endorsers` maps a namespace to its (meeting, refused) sets
+    (LIFECYCLE_ENDORSERS by default: cc2's refused set is a MAJORITY of
+    orgs).  Returns [(envelope, expected flag)]."""
+    from fabric_mod_tpu_torch.protos import messages as m
+    V = m.TxValidationCode
+    endorsers = endorsers or LIFECYCLE_ENDORSERS
+    rng = np.random.RandomState(seed)
+    spaces = sorted(endorsers)
+    puts, flags = [], []
+    for i, pick in enumerate(rng.randint(len(spaces), size=n_tx)):
+        ns = spaces[int(pick)]
+        under = i % under_every == under_every - 1
+        puts.append((ns, f"{prefix}{i}", b"v%d" % i,
+                     endorsers[ns][int(under)]))
+        flags.append(V.ENDORSEMENT_POLICY_FAILURE if under else V.VALID)
+    envs = make_put_txs(world, puts, b"%s|%d" % (prefix.encode(), seed))
+    return list(zip(envs, flags))
+
+
+# --- config updates ----------------------------------------------------------
+
+def config_with_batch_size(config, max_message_count: int):
+    """A copy of channel `config` whose orderer BatchSize carries
+    `max_message_count`: the desired config of a batch-size update."""
+    from fabric_mod_tpu_torch.channelconfig.bundle import (
+        BATCH_SIZE, ORDERER, groups_of, set_group, set_value, values_of)
+    from fabric_mod_tpu_torch.protos import messages as m
+    desired = m.Config.decode(config.encode())
+    orderer = groups_of(desired.channel_group)[ORDERER]
+    value = values_of(orderer)[BATCH_SIZE]
+    batch = m.BatchSize.decode(value.value)
+    batch.max_message_count = max_message_count
+    value.value = batch.encode()
+    set_value(orderer, BATCH_SIZE, value)
+    set_group(desired.channel_group, ORDERER, orderer)
+    return desired
+
+
+# --- rich queries: a JSON-document stream ----------------------------------
+
+RICH_OWNERS = ("alice", "bob", "carol", "dave", "erin")
+RICH_COLORS = ("red", "blue", "green", "yellow")
+
+
+def make_rich_documents(n: int, seed: int = 0, prefix: str = "doc"
+                        ) -> List[Tuple[str, bytes]]:
+    """`n` (key, JSON document bytes) pairs made from `seed` with numpy:
+    keys `<prefix>00000`.., each document {"owner", "size" (0-99),
+    "color", "meta": {"score" (a float), "flag" (true / false, or 1 / 0:
+    booleans against numbers), "tag" ("t0".."t9", absent in ~30%)}},
+    the shapes the selector operators (implicit equality, $gt..$lte,
+    $in, $nin, $exists, $not, $and, $or, $nor, dotted paths), sort,
+    fields, limit and bookmark are exercised on."""
+    rng = np.random.RandomState(seed)
+    owners = rng.randint(len(RICH_OWNERS), size=n)
+    sizes = rng.randint(100, size=n)
+    colors = rng.randint(len(RICH_COLORS), size=n)
+    scores = rng.randint(1000, size=n)
+    flags = rng.randint(4, size=n)
+    tags = rng.randint(14, size=n)
+    out = []
+    for i in range(n):
+        meta = {"score": int(scores[i]) / 1000.0,
+                "flag": (True, False, 1, 0)[int(flags[i])]}
+        if tags[i] < 10:
+            meta["tag"] = "t%d" % int(tags[i])
+        doc = {"owner": RICH_OWNERS[int(owners[i])], "size": int(sizes[i]),
+               "color": RICH_COLORS[int(colors[i])], "meta": meta}
+        out.append(("%s%05d" % (prefix, i),
+                    json.dumps(doc, sort_keys=True).encode()))
+    return out
 
 
 # --- private data: a collection definition and a private stream -------------

@@ -258,3 +258,117 @@ def test_policy_from_proto_equals_reference(world):
     with pytest.raises(JPolicyError):
         j_from_proto(policies_of(japp)["Endorsement"].policy,
                      jbundle.msp_manager)
+
+
+# --- the port's compute_update, signed_update_envelope and capabilities ------
+
+def _desired_configs(cfg, seed):
+    """Seeded desired configs (the port's messages) for `cfg`: a batch
+    size, an Endorsement rule, a new application value, a changed org
+    mod_policy, and a new org group copied from Org3."""
+    from fabric_mod_tpu_torch.channelconfig.bundle import (
+        APPLICATION as P_APP, groups_of as p_groups, policies_of as p_pols,
+        set_group as p_set_group, set_policy as p_set_policy,
+        set_value as p_set_value)
+    rng = np.random.RandomState(seed)
+    kind = seed % 5
+    if kind == 0:
+        return fixtures.config_with_batch_size(
+            cfg, int(rng.randint(2, 5000)))
+    desired = m.Config.decode(cfg.encode())
+    app = p_groups(desired.channel_group)[P_APP]
+    if kind == 1:
+        pol = p_pols(app)["Endorsement"]
+        pol.policy = m.Policy(
+            type=m.PolicyType.IMPLICIT_META,
+            value=m.ImplicitMetaPolicy(
+                sub_policy="Endorsement",
+                rule=int(rng.choice([m.ImplicitMetaRule.ANY,
+                                     m.ImplicitMetaRule.ALL]))).encode())
+        p_set_policy(app, "Endorsement", pol)
+    elif kind == 2:
+        p_set_value(app, "Note%d" % rng.randint(100),
+                    m.ConfigValue(value=bytes(rng.bytes(8)),
+                                  mod_policy="Admins"))
+    elif kind == 3:
+        org = p_groups(app)["Org%d" % (1 + rng.randint(3))]
+        org.mod_policy = "Writers"
+        p_set_group(app, "Org%d" % (1 + seed % 3), org)
+    else:
+        p_set_group(app, "Org4", m.ConfigGroup.decode(
+            p_groups(app)["Org3"].encode()))
+    p_set_group(desired.channel_group, P_APP, app)
+    return desired
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_compute_update_and_envelope_equal_reference(world, seed,
+                                                     monkeypatch):
+    """For seeded desired configs, the port's compute_update is byte-equal
+    to the reference's, and so is its signed CONFIG_UPDATE envelope
+    (the same signers, nonce and timestamp; RFC 6979 signatures)."""
+    from fabric_mod_tpu.protos import protoutil as jpu
+    from fabric_mod_tpu_torch.channelconfig import (
+        compute_update as p_compute, signed_update_envelope as p_signed)
+    from fabric_mod_tpu_torch.protos import protoutil as ppu
+    mat, signers = world
+    cid, cfg = config_from_block(m.Block.decode(mat.genesis))
+    _jcid, jcfg = j_cfb(jm.Block.decode(mat.genesis))
+    desired = _desired_configs(cfg, seed)
+    update = p_compute(cid, cfg, desired.channel_group)
+    want = compute_update(cid, jcfg, jm.ConfigGroup.decode(
+        desired.channel_group.encode()))
+    assert update.encode() == want.encode()
+    nonces = iter(bytes([i]) * 24 for i in range(1, 100))
+    jnonces = iter(bytes([i]) * 24 for i in range(1, 100))
+    monkeypatch.setattr(ppu, "new_nonce", lambda: next(nonces))
+    monkeypatch.setattr(jpu, "new_nonce", lambda: next(jnonces))
+    monkeypatch.setattr(ppu, "now_ns", lambda: 1_700_000_000_000_000_000)
+    monkeypatch.setattr(jpu, "now_ns", lambda: 1_700_000_000_000_000_000)
+    admins = [signers["admin.Org1"], signers["admin.Org2"],
+              signers["admin.Org3"], _signer(sw.SwCSP(), mat.orderer_admin)]
+    env = p_signed(cid, update, admins)
+    jenv = signed_update_envelope(cid, want, admins)
+    assert env.encode() == jenv.encode()
+    # both bundles take (or refuse) what the port signed alike
+    bundle, jbundle = _bundles(mat)
+    try:
+        got = propose_config_update(bundle, extract_config_update(env))
+        got = got.encode()
+    except ConfigTxError:
+        got = "refused"
+    try:
+        want = j_propose(jbundle, j_extract(jm.Envelope.decode(env.encode())))
+        want = want.encode()
+    except JConfigTxError:
+        want = "refused"
+    assert got == want
+    assert (got == "refused") == (seed % 5 == 4)    # a new org's Admins
+
+
+def test_compute_update_refuses_no_change(world):
+    from fabric_mod_tpu.channelconfig.update import (
+        UpdateComputeError as JUpdateComputeError)
+    from fabric_mod_tpu_torch.channelconfig import compute_update as p_compute
+    from fabric_mod_tpu_torch.channelconfig.update import UpdateComputeError
+    mat, _ = world
+    cid, cfg = config_from_block(m.Block.decode(mat.genesis))
+    _jcid, jcfg = j_cfb(jm.Block.decode(mat.genesis))
+    with pytest.raises(UpdateComputeError):
+        p_compute(cid, cfg, cfg.channel_group)
+    with pytest.raises(JUpdateComputeError):
+        compute_update(cid, jcfg, jcfg.channel_group)
+
+
+@pytest.mark.parametrize("names", [
+    [], ["V2_0"], ["V2_5"], ["V2_0", "V2_5"], ["V9_9"], ["V1_4", "V2_0"]])
+def test_capabilities_equal_reference(names):
+    from fabric_mod_tpu.channelconfig import capabilities as jcap
+    from fabric_mod_tpu_torch.channelconfig import capabilities as cap
+    app, japp = (cap.ApplicationCapabilities(names),
+                 jcap.ApplicationCapabilities(names))
+    for meth in ("key_level_endorsement", "lifecycle_v20",
+                 "storage_pvtdata", "supported"):
+        assert getattr(app, meth)() == getattr(japp, meth)()
+    assert cap.ChannelCapabilities(names).supported() == \
+        jcap.ChannelCapabilities(names).supported()

@@ -733,6 +733,63 @@ def test_e2e_network_on_card(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
+def test_deployed_chaincode_block_commits_on_card(cuda_device, tmp_path):
+    """cc2 deployed by the lifecycle ceremony (AND(Org1, Org3)) on a
+    Network over the card's default GpuVerifier (its verdict cache on,
+    the Writers check batched through it, so the validator's creator
+    lanes hit the cache), then one block of cc2 invokes (every 4th
+    endorsed by a MAJORITY that cc2's policy refuses): the flags equal a
+    host-verifier Channel's on the same blocks, the evaluator ran on the
+    CUDA mask and the ladder launched."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import sw
+    from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    from fabric_mod_tpu_torch.peer.channel import Channel
+    from fabric_mod_tpu_torch.policy import from_string
+    from fabric_mod_tpu_torch.policy import tensorpolicy as tp
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    material = fixtures.make_network_material(
+        14, max_message_count=16, batch_timeout="300ms")
+    net = e2e.Network(str(tmp_path / "net"), material=material,
+                      tensor_policy=True, ingress_batching=True)
+    cid, config = config_from_block(m.Block.decode(material.genesis))
+    led = KvLedger(cid, str(tmp_path / "host"))
+    host = Channel(cid, led, sw.SwVerifier(), Bundle(cid, config, sw.SwCSP()),
+                   sw.SwCSP())
+    try:
+        host.init_from_genesis(m.Block.decode(material.genesis))
+        pol = m.ApplicationPolicy(signature_policy=from_string(
+            "AND('Org1.peer', 'Org3.peer')")).encode()
+        assert net.deploy_chaincode("cc2", "1.0", 1, policy=pol) == 3
+        world = fixtures.network_world(material)
+        envs = fixtures.make_put_txs(world, [
+            ("cc2", f"k{i}", b"v", ("Org1", "Org2") if i % 4 == 3
+             else ("Org1", "Org3")) for i in range(16)], b"cuda-cc2")
+        tp.reset_counts()
+        before = p256_cuda.counts()["ladder_projective"]
+        e2e.submit_all(net, envs)
+        assert net.pump_committed(19, timeout=120) == 19
+        assert tp.counts() == {"cuda": 1}
+        assert p256_cuda.counts()["ladder_projective"] >= before + 2
+        assert net.verifier.cache.hits > 0
+        for n in range(1, net.ledger.height):
+            block = net.ledger.get_block_by_number(n)
+            assert host.store_block(m.Block.decode(block.encode())) == \
+                list(protoutil.block_txflags(block))
+        tip = net.ledger.get_block_by_number(net.ledger.height - 1)
+        assert list(protoutil.block_txflags(tip)) == [
+            m.TxValidationCode.ENDORSEMENT_POLICY_FAILURE if i % 4 == 3
+            else m.TxValidationCode.VALID for i in range(16)]
+        assert net.ledger.state_fingerprint() == led.state_fingerprint()
+    finally:
+        net.close()
+        host.close()
+        led.close()
+
+
+@pytest.mark.cuda
 def test_raft_e2e_network_on_card(cuda_device, tmp_path):
     """Two 8-tx blocks through three Raft orderers on the card, submitted
     through a follower with the Writers check batched on the card (each

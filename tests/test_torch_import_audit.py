@@ -14,7 +14,9 @@ through a deliver FanoutEngine with a session ACL check, commits one
 block on each of two channels through a 2-slice ChannelShardRouter
 (GpuVerifier slices on the CPU), reopens three durable gossip peers'
 ledgers, commits a private block whose plaintext one of them holds and
-runs one reconcile_tick on another, then inspects sys.modules."""
+runs one reconcile_tick on another, deploys a chaincode by the lifecycle
+ceremony, answers one rich query, snapshots the ledger and bootstraps a
+second one from the snapshot, then inspects sys.modules."""
 import json
 import os
 import pathlib
@@ -273,6 +275,30 @@ with tempfile.TemporaryDirectory() as root:
     for mgr, _ch, node in peers:
         node.stop()
         mgr.close()
+from fabric_mod_tpu_torch.ledger.snapshot import (bootstrap_from_snapshot,
+                                                  verify_snapshot)
+lmat = fixtures.make_network_material(4, max_message_count=8,
+                                      batch_timeout="100ms")
+with tempfile.TemporaryDirectory() as root:
+    net = e2e.Network(os.path.join(root, "lc"), material=lmat,
+                      verifier=sw.SwVerifier())
+    try:
+        assert net.deploy_chaincode("cc2", "1.0", 1) == 3
+        net.invoke([b"put", b"d1", b'{"owner": "alice"}'])
+        assert net.pump_committed(4) == 4
+        sp, _prop, _t = protoutil.create_chaincode_proposal(
+            net.channel_id, "mycc",
+            [b"query", b'{"selector": {"owner": "alice"}}'], net.client)
+        resp = net.endorsers["Org1"].process_proposal(sp)
+        assert json.loads(resp.response.payload)["results"][0]["key"] == "d1"
+        meta = net.ledger.snapshot_to(os.path.join(root, "snap"))
+        assert verify_snapshot(os.path.join(root, "snap")) == meta
+        joined = bootstrap_from_snapshot(os.path.join(root, "snap"),
+                                         os.path.join(root, "joined"))
+        assert joined.state_fingerprint() == net.ledger.state_fingerprint()
+        joined.close()
+    finally:
+        net.close()
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")

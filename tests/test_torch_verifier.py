@@ -69,9 +69,9 @@ def test_dedup_and_cache_hits(mixed_items):
 
 def test_async_and_fused_seams_resolve_to_numpy(mixed_items):
     """verify_many_async resolves to numpy; the fused seam resolves to a
-    bool tensor on the verifier's device when every lane misses the
-    cache (dedup expanded on the device, cache write-back deferred to
-    .writeback()), and to numpy once a lane hits."""
+    bool tensor on the verifier's device whether every lane misses the
+    cache, some hit or all do (hits scattered in and the dedup expanded
+    on the device, cache write-back deferred to .writeback())."""
     items, expect = mixed_items
     v = gpu.GpuVerifier(device="cpu")
     pair = [items[0], items[1], items[0]]
@@ -83,9 +83,19 @@ def test_async_and_fused_seams_resolve_to_numpy(mixed_items):
     assert len(v.cache) == 0
     fused.writeback()
     assert len(v.cache) == 2
-    again = v.verify_many_fused_async(pair)()
-    assert isinstance(again, np.ndarray) and again.dtype == bool
-    assert again.tolist() == got.tolist()
+    again = v.verify_many_fused_async(pair)
+    assert isinstance(again(), torch.Tensor) and again().device == v.device
+    assert again().tolist() == got.tolist()
+    again.writeback()
+    assert len(v.cache) == 2
+    # two lanes hit, two miss: the misses' verdicts land among the hits
+    mixed = [items[2], items[0], items[3], items[1], items[2]]
+    part = v.verify_many_fused_async(mixed)
+    assert isinstance(part(), torch.Tensor) and part().device == v.device
+    assert part().tolist() == [expect[i] for i in (2, 0, 3, 1, 2)]
+    assert len(v.cache) == 2
+    part.writeback()
+    assert len(v.cache) == 4
     plain = gpu.GpuVerifier(device="cpu", cache_size=0).verify_many_async(
         items[:2])()
     assert isinstance(plain, np.ndarray) and plain.tolist() == \
