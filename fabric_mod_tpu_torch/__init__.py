@@ -32,6 +32,9 @@ O(delta) recovery, the incremental fingerprint) and ports private data
 Slice 15 ports the chaincode lifecycle (the ceremony and the write-aware
 validation of org-local approvals), the system chaincodes, config
 updates, rich queries, ledger snapshots and the admin commands.
+Slice 16 puts the idemix pairing check on two hand-written CUDA kernels
+(csrc/fp256bn_pairing.cu: the Miller loops, then the final
+exponentiation with the verdict), two launches a check.
 
 Counterparts (reference module -> port module):
 
@@ -91,8 +94,10 @@ chaincode.py, endorser.py,
 lifecycle.py, scc.py
 e2e.py                          e2e.py (Network from NetworkMaterial)
 idemix/fp256bn.py               idemix/fp256bn.py (host reference copy)
-ops/fp256bn_dev.py              ops/fp256bn_dev.py (the batched pairing
-                                as torch ops; stacked tower products)
+ops/fp256bn_dev.py              ops/fp256bn_dev.py (the batched pairing;
+                                on the card ops/fp256bn_cuda.py's two
+                                kernels, csrc/fp256bn_pairing.cu; the
+                                stacked torch-ops tower its plain twin)
 idemix/credential.py,           idemix/ (copies; seeded `rng=`, the RA
 revocation.py                   over bccsp/sw.py)
 msp/idemixmsp.py                msp/idemixmsp.py (copy)

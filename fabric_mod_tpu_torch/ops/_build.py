@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-SOURCES = ("p256_ladder", "p256_core", "sha256")
+SOURCES = ("p256_ladder", "p256_core", "sha256", "fp256bn_pairing")
 
 # C signatures: every pointer and the stream are c_void_p (without
 # argtypes ctypes would pass them as 32-bit ints and cut them)
@@ -41,6 +41,14 @@ SIGNATURES = {
                                       [_P, _P, _P, _P, _P, ctypes.c_int, _P]),
         "p256_core_epilogue_launch": (ctypes.c_int,
                                       [_P, _P, _P, _P, _P, ctypes.c_int, _P]),
+    },
+    "fp256bn_pairing": {
+        "fp256bn_miller_launch": (ctypes.c_int,
+                                  [_P, _P, _P, ctypes.c_int, _P, ctypes.c_int,
+                                   ctypes.c_int, _P]),
+        "fp256bn_final_exp_launch": (ctypes.c_int,
+                                     [_P, ctypes.c_int, _P, _P, ctypes.c_int,
+                                      _P]),
     },
     "sha256": {
         "sha256_e_launch": (ctypes.c_int,

@@ -43,6 +43,12 @@ and drops it with `where` (the squaring on a Miller add-step, the
 multiply on a zero bit of |u|) it is skipped — the selected value is
 the unmodified operand, so the output is the same.  The two Miller
 loops of a pairing check share one control flow and run stacked.
+
+On the card `pairing_check_batch` and `pairing_batch` run the
+hand-written kernels of csrc/fp256bn_pairing.cu through
+ops/fp256bn_cuda.py: one Miller launch and one final-exponentiation
+launch a call.  The torch-ops bodies above are their plain versions
+(`pairing_check_plain`, `pairing_batch_plain`), which run on the CPU.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ import torch
 
 from fabric_mod_tpu_torch import device as _device
 from fabric_mod_tpu_torch.idemix import fp256bn as host
+from fabric_mod_tpu_torch.ops import fp256bn_cuda as cuda
 from fabric_mod_tpu_torch.ops import limbs9 as limbs
 
 SPEC = limbs.FieldSpec.make("fp256bn.p", host.P)
@@ -352,7 +359,8 @@ class LineSchedule:
       is_add: (N,) bool — add-step (no squaring before the multiply)
       A, B:   (N, 2, K) — the Fp2 line constants per step
       corr_A, corr_B: (2, 2, K) — the two Frobenius correction lines
-    `tensors(device)` uploads them once per device."""
+    `tensors(device)` uploads them once per device; `line_words()` gives
+    the kernels' form of the same constants."""
 
     def __init__(self, is_add, A, B, corr_A, corr_B):
         self.is_add = is_add
@@ -374,6 +382,21 @@ class LineSchedule:
                     dtype=torch.float32, device=device)
                 for main, corr in ((self.A, self.corr_A),
                                    (self.B, self.corr_B)))
+        return hit
+
+    def line_words(self) -> np.ndarray:
+        """(N + 2, 4, 8) int32 canonical words of A.a, A.b, B.a, B.b a
+        step, the correction lines last — the kernels' own form (they
+        take no value of the limb layer's R = 2^270 domain)."""
+        hit = self._on.get("words")
+        if hit is None:
+            r_inv = pow(_R, -1, host.P)
+            mont = np.stack([np.concatenate([self.A, self.corr_A]),
+                             np.concatenate([self.B, self.corr_B])], 1)
+            vals = [limbs.limbs_to_int(v) * r_inv % host.P
+                    for v in mont.reshape(-1, K)]
+            hit = self._on["words"] = np.ascontiguousarray(
+                cuda.int_words(vals).T.reshape(len(mont), 4, 8))
         return hit
 
 
@@ -537,22 +560,49 @@ def _g1_batch_to_mont(points, dev: torch.device
     return limbs.to_device(xs, dev), limbs.to_device(ys, dev)
 
 
-def pairing_check_batch(a_points, q1: "host.G2", b_points, q2: "host.G2",
-                        device=None, lazy: bool = False):
-    """(batch,) bool: e(A_i, Q1) * e(B_i, Q2) == 1 for each i.
-
-    For idemix Ver's `e(A', W) == e(Abar, g2)` pass B_i = −Abar_i
-    (negation is host-side).  Q1/Q2 schedules are built once per point
-    and uploaded once per device; both Miller loops run stacked.  Runs
-    on the card unless `device` says otherwise; returns numpy, or with
-    `lazy=True` the verdict tensor on the device."""
-    dev = _device.resolve(device)
-    _device.require_exact_fp32()
+def _check_args(a_points, q1, b_points, q2):
     if len(a_points) != len(b_points):
         raise ValueError("a_points and b_points differ in length")
     s1, s2 = line_schedule(q1), line_schedule(q2)
     if not np.array_equal(s1.is_add, s2.is_add):
         raise ValueError("schedules differ in control flow")
+    return s1, s2
+
+
+def pairing_check_batch(a_points, q1: "host.G2", b_points, q2: "host.G2",
+                        device=None, lazy: bool = False):
+    """(batch,) bool: e(A_i, Q1) * e(B_i, Q2) == 1 for each i.
+
+    For idemix Ver's `e(A', W) == e(Abar, g2)` pass B_i = −Abar_i
+    (negation is host-side).  Q1/Q2 schedules are built once per point.
+    Runs on the card unless `device` says otherwise: there as two
+    kernel launches (the Miller loops of both schedules, then the pair
+    product, final exponentiation and verdict), on the CPU as the plain
+    version.  Returns numpy, or with `lazy=True` the verdict tensor on
+    the device."""
+    dev = _device.resolve(device)
+    if dev.type != "cuda":
+        return pairing_check_plain(a_points, q1, b_points, q2, dev, lazy)
+    s1, s2 = _check_args(a_points, q1, b_points, q2)
+    PASSES[dev.type] += 1
+    if not a_points:
+        ok = torch.zeros(0, dtype=torch.bool, device=dev)
+        return ok if lazy else ok.cpu().numpy()
+    pts = np.stack([cuda.point_words(a_points), cuda.point_words(b_points)])
+    lines = np.stack([s1.line_words(), s2.line_words()])
+    f = cuda.miller(_device.upload(pts, dev), _device.upload(lines, dev),
+                    _device.upload(s1.is_add.astype(np.int32), dev))
+    ok = cuda.final_exp(f, check=True)
+    return ok if lazy else ok.cpu().numpy()
+
+
+def pairing_check_plain(a_points, q1: "host.G2", b_points, q2: "host.G2",
+                        device=None, lazy: bool = False):
+    """`pairing_check_batch` as plain torch ops on any device: both
+    Miller loops stacked, uploaded schedules, the limb layer."""
+    dev = _device.resolve(device)
+    _device.require_exact_fp32()
+    s1, s2 = _check_args(a_points, q1, b_points, q2)
     PASSES[dev.type] += 1
     if not a_points:
         ok = torch.zeros(0, dtype=torch.bool, device=dev)
@@ -569,7 +619,23 @@ def pairing_check_batch(a_points, q1: "host.G2", b_points, q2: "host.G2",
 
 def pairing_batch(p_points, q: "host.G2", device=None):
     """Batched full pairings e(P_i, Q) as a device Fp12 (K, 2, 3, 2,
-    batch) tensor — the differential surface against the host."""
+    batch) tensor — the differential surface against the host.  On the
+    card two kernel launches, their canonical words then converted to
+    the limb layout; on the CPU the plain version."""
+    dev = _device.resolve(device)
+    if dev.type != "cuda":
+        return pairing_batch_plain(p_points, q, dev)
+    _device.require_exact_fp32()          # the conversion's limb products
+    PASSES[dev.type] += 1
+    sched = line_schedule(q)
+    f = cuda.miller(_device.upload(cuda.point_words(p_points)[None], dev),
+                    _device.upload(sched.line_words()[None], dev),
+                    _device.upload(sched.is_add.astype(np.int32), dev))
+    return cuda.f12_from_words(cuda.final_exp(f, check=False))
+
+
+def pairing_batch_plain(p_points, q: "host.G2", device=None):
+    """`pairing_batch` as plain torch ops on any device."""
     dev = _device.resolve(device)
     _device.require_exact_fp32()
     PASSES[dev.type] += 1

@@ -2,7 +2,9 @@
 verify core's prologue and epilogue kernels (csrc/p256_core.cu; their
 host-compiled lanes are tests/test_torch_cuda_core.py), the raw lanes'
 SHA-256 kernel (csrc/sha256.cu; host-compiled in
-tests/test_torch_sha256_kernel.py) and the other
+tests/test_torch_sha256_kernel.py), the idemix pairing check's two
+kernels (csrc/fp256bn_pairing.cu; host-compiled in
+tests/test_torch_fp256bn_kernel.py) and the other
 device paths of the port on the card (the policy evaluator, a
 block commit, the batched FP256BN pairing, the e2e network).
 
@@ -690,6 +692,61 @@ def test_pairing_on_card_equals_host(cuda_device):
     assert got.device.type == "cuda"
     for i, p in enumerate(pts):
         assert dev.f12_to_host(got, i) == host.pairing(p, q)
+
+
+@pytest.mark.cuda
+def test_pairing_kernels_equal_plain_on_card(cuda_device):
+    """The check's two kernels (csrc/fp256bn_pairing.cu) against the plain
+    version on the card over 8 lanes, two tampered: the same CUDA mask;
+    each kernel against its own plain version on the same inputs."""
+    from fabric_mod_tpu_torch.ops import fp256bn_cuda as cuda
+    from fabric_mod_tpu_torch.ops import fp256bn_dev as dev
+    world = fixtures.make_idemix_world(seed=4, n_users=1)
+    a, abar, expect = fixtures.make_pairing_lanes(world, 8, tamper_every=4)
+    ik = world.issuer.key
+    neg = [p.neg() for p in abar]
+    got = dev.pairing_check_batch(a, ik.W, neg, ik.g2, lazy=True)
+    want = dev.pairing_check_plain(a, ik.W, neg, ik.g2, lazy=True)
+    assert got.device.type == want.device.type == "cuda"
+    assert torch.equal(got, want)
+    assert got.cpu().numpy().tolist() == expect.tolist()
+    s1, s2 = dev.line_schedule(ik.W), dev.line_schedule(ik.g2)
+    pts = torch.as_tensor(np.stack([cuda.point_words(a),
+                                    cuda.point_words(neg)]), device="cuda")
+    lines = torch.as_tensor(np.stack([s1.line_words(), s2.line_words()]),
+                            device="cuda")
+    is_add = torch.as_tensor(s1.is_add.astype(np.int32), device="cuda")
+    f = cuda.miller(pts, lines, is_add)
+    assert torch.equal(f, cuda.miller_plain(pts, lines, is_add))
+    assert torch.equal(cuda.final_exp(f, check=True),
+                       cuda.final_exp_plain(f, check=True))
+    pair = cuda.final_exp(f[:1].contiguous(), check=False)
+    assert torch.equal(pair, cuda.final_exp_plain(f[:1], check=False))
+
+
+@pytest.mark.cuda
+def test_pairing_kernels_launch_counts(cuda_device):
+    """A check and a pairing_batch are one Miller and one final
+    exponentiation launch each; an empty batch launches nothing; a
+    pairing through the kernels equals the host's."""
+    from fabric_mod_tpu_torch.idemix import fp256bn as host
+    from fabric_mod_tpu_torch.ops import fp256bn_cuda as cuda
+    from fabric_mod_tpu_torch.ops import fp256bn_dev as dev
+    g2 = host.g2_generator()
+    q = host.g2_mul(0xBEEF, g2)
+    pts = [host.g1_mul(k, host.G1.generator()) for k in (5, 0xFACADE)]
+    cuda.reset_counts()
+    ok = dev.pairing_check_batch(pts, q, [p.neg() for p in pts], q)
+    assert ok.tolist() == [True, True]
+    assert cuda.counts() == {"fp256bn_miller": 1, "fp256bn_final_exp": 1}
+    got = dev.pairing_batch(pts, q)
+    assert cuda.counts() == {"fp256bn_miller": 2, "fp256bn_final_exp": 2}
+    for i, p in enumerate(pts):
+        assert dev.f12_to_host(got, i) == host.pairing(p, q)
+    cuda.reset_counts()
+    empty = dev.pairing_check_batch([], q, [], g2, lazy=True)
+    assert empty.device.type == "cuda" and empty.numel() == 0
+    assert cuda.counts() == {"fp256bn_miller": 0, "fp256bn_final_exp": 0}
 
 
 @pytest.mark.cuda
