@@ -136,10 +136,14 @@ Phases (any failure exits non-zero; none is caught):
    equality; ms per check (CUDA events and wall, warm, and the first
    call's), the plain check's ms; then each kernel on the check's inputs
    against its plain version on the card (the Miller words bit-equal,
-   the verdicts equal), its device ms (CUDA events around launches
-   queued behind a sleep), the plain version's ms and the bound (Fp
-   products a lane, counted from the kernel's code, as 32-bit
-   multiply-adds over the card's rate, or bytes); (b) 4 full pairings
+   the verdicts equal, and the final exponentiation's pairing-mode words
+   on all 1024 lanes bit-equal), both kernels again at the ragged widths
+   1, 33 and 63, their device ms (CUDA events around launches queued
+   behind a sleep), the plain version's ms and the bound (the
+   reference's Fp products a lane as 32-bit multiply-adds over the
+   card's rate, or bytes), beside the kernels' own products and rounds a
+   lane and their geometry (threads a lane, lanes a block, blocks, warps
+   an SM); (b) 4 full pairings
    through the kernels, each equal to the host `pairing` exactly; (c)
    batch_verify of 64 presentations (3 planted kinds): verdicts equal
    the expected ones and, on the first 16, the host path's;
@@ -409,6 +413,9 @@ IDEMIX_PLANT_EVERY = 16
 IDEMIX_HOST_CHECKED = 16
 # checks (and kernel launches) a device-time reading of phase 7 averages
 IDEMIX_REPS = 5
+# the ragged widths both pairing kernels are held at against their plain
+# versions (a lone lane, one past a warp's 32, the 63 of batch_verify)
+IDEMIX_RAGGED = (1, 33, 63)
 
 # e2e phase: the solo orderer cuts on count, well inside this timeout;
 # a 1000-tx block of these ~2.8 KB envelopes is ~2.8 MB, over the
@@ -3829,19 +3836,29 @@ def timed(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def pairing_kernel_entry(torch, name, is_add, lanes, launch, plain_ms, err):
+def pairing_kernel_entry(torch, name, is_add, lanes, launch, plain_ms, err,
+                         geom):
     """One idemix kernel's JSON entry at a check's width: its device ms
     (`launch()` queued behind a sleep), the bound, and the plain
-    version's ms and the compare error `err` as measured."""
+    version's ms and the compare error `err` as measured; the log line
+    adds the kernels' own work a lane and their geometry `geom`.  The
+    bound counts the least multiply-adds of the reference's formulas and
+    the kernels' own; `bound_ms_reference` is the bound on the
+    reference's count alone (the figure earlier runs printed)."""
     from fabric_mod_tpu_torch.ops import fp256bn_cuda as cuda
+    from fabric_mod_tpu_torch.ops import fp256bn_programs
     miller = name == "fp256bn_miller"
     ms = device_ms(torch, launch, reps=IDEMIX_REPS)
     per_lane = cuda.products_per_lane(is_add, name, check=True)
+    madds = cuda.multiply_adds_per_lane(is_add, name, check=True)
     threads = 2 * lanes if miller else lanes
-    madds = per_lane * cuda.MULTIPLY_ADDS * threads
     clock = sm_clock_hz()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    bound_ops = madds / (INT_MADD_PER_SM_CLOCK * n_sm * clock) * 1e3
+
+    def ops_ms(per_thread):
+        return (per_thread * threads
+                / (INT_MADD_PER_SM_CLOCK * n_sm * clock) * 1e3)
+    bound_ops = ops_ms(madds["least"])
     miller_bytes = 4 * 32 + 2 * 384       # the lane's points in, values out
     nbytes = (lanes * (miller_bytes if miller else 2 * 384 + 1)
               + (2 * (len(is_add) + 2) * 128 + 4 * len(is_add)
@@ -3856,18 +3873,59 @@ def pairing_kernel_entry(torch, name, is_add, lanes, launch, plain_ms, err):
         "bound_ms": max(bound_ops, bound_bytes),
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
         "library_ms": None,
+        "bound_ms_reference": max(ops_ms(madds["reference"]), bound_bytes),
     }
+    own = fp256bn_programs.design_counts(is_add, name, check=True)
+    lanes_block = geom["lanes_per_block"]
+    blocks = (2 if miller else 1) * -(-lanes // lanes_block)
+    per_sm = geom[name]["blocks_per_sm"]
     log(f"kernel {name}: equal to its plain version on the card at "
         f"{lanes} lanes (max abs err {err}); {ms:.3f} ms per launch (CUDA "
         f"events, {IDEMIX_REPS} launches behind a sleep), plain "
         f"{plain_ms:.1f} ms; bound {entry['bound_ms']:.4f} ms by "
-        f"{entry['bound_by']} ({per_lane} Fp products a "
-        f"{'(lane, schedule)' if miller else 'lane'} x {threads} threads x "
-        f"{cuda.MULTIPLY_ADDS} 32-bit multiply-adds at "
-        f"{INT_MADD_PER_SM_CLOCK}/SM/clock x {n_sm} SMs x "
-        f"{clock / 1e6:.0f} MHz; bytes {bound_bytes:.5f} ms); "
+        f"{entry['bound_by']} ({madds['least']} 32-bit multiply-adds a "
+        f"{'(lane, schedule)' if miller else 'lane'}, the least of the "
+        f"kernels' own {madds['design']} ({own['products']} Fp products "
+        f"of which {own['squares']} squares at {cuda.MULTIPLY_ADDS} / "
+        f"{cuda.SQUARE_MULTIPLY_ADDS}, {own['inverses']} divsteps inverse "
+        f"counted by its last product, in {own['rounds']} product rounds) "
+        f"and the reference's {madds['reference']} ({per_lane} Fp products "
+        f"x {cuda.MULTIPLY_ADDS}), x {threads} at {INT_MADD_PER_SM_CLOCK}"
+        f"/SM/clock x {n_sm} SMs x {clock / 1e6:.0f} MHz; bytes "
+        f"{bound_bytes:.5f} ms); on the reference's count alone "
+        f"{entry['bound_ms_reference']:.4f} ms; geometry: "
+        f"{geom['group']} threads a lane, {lanes_block} lanes a block of "
+        f"{geom['group'] * lanes_block} threads, {blocks} blocks on "
+        f"{min(blocks, n_sm)} of {n_sm} SMs, "
+        f"{blocks * geom['group'] * lanes_block / 32 / n_sm:.2f} warps an "
+        f"SM on average ({per_sm} blocks an SM at most, "
+        f"{geom[name]['smem']} bytes of shared memory a block); "
         "library_ms null (no PyTorch call computes a pairing)")
     return entry
+
+
+def pairing_ragged(torch, cuda, pts, lines, is_add):
+    """Both pairing kernels at IDEMIX_RAGGED's widths against their plain
+    versions on the card: the Miller words, the check's verdicts and the
+    pairing-mode words.  These launches are outside the counted path."""
+    for n in IDEMIX_RAGGED:
+        p = pts[..., :n].contiguous()
+        f_k = cuda.miller(p, lines, is_add)
+        if not torch.equal(f_k, cuda.miller_plain(p, lines, is_add)):
+            raise AssertionError(f"fp256bn_miller differs from its plain "
+                                 f"version at {n} lanes")
+        if not torch.equal(cuda.final_exp(f_k, True),
+                           cuda.final_exp_plain(f_k, True)):
+            raise AssertionError(f"fp256bn_final_exp's verdicts differ from "
+                                 f"its plain version at {n} lanes")
+        one = f_k[:1].contiguous()
+        if not torch.equal(cuda.final_exp(one, False),
+                           cuda.final_exp_plain(one, False)):
+            raise AssertionError(f"fp256bn_final_exp's pairing words differ "
+                                 f"from its plain version at {n} lanes")
+    log(f"idemix (a) both kernels equal to their plain versions at the "
+        f"ragged widths {IDEMIX_RAGGED}: Miller words, verdicts and "
+        "pairing-mode words")
 
 
 def phase_idemix(torch, np):
@@ -3962,17 +4020,34 @@ def phase_idemix(torch, np):
     if e_err or not torch.equal(ok_k, mask_t):
         raise AssertionError("fp256bn_final_exp differs from its plain "
                              "version or from the check")
+    # pairing mode, word for word, on every lane (schedule 0's values)
+    one = f_k[:1].contiguous()
+    g_k = cuda.final_exp(one, check=False)
+    g_p = cuda.final_exp_plain(one, False)
+    g_err = int((g_k.to(torch.int64) - g_p.to(torch.int64)).abs().max())
+    if g_err:
+        bad = (g_k != g_p).any(0).any(0).nonzero().flatten()[:8].tolist()
+        raise AssertionError(f"fp256bn_final_exp's pairing words differ from "
+                             f"its plain version at lanes {bad}")
+    log(f"idemix (a) fp256bn_final_exp in pairing mode == its plain version "
+        f"word for word on all {IDEMIX_LANES} lanes")
+    pairing_ragged(torch, cuda, pts, lines, is_add)
+    geom = cuda.geometry(len(s1.is_add))
     entries = {
         "fp256bn_miller": pairing_kernel_entry(
             torch, "fp256bn_miller", s1.is_add, IDEMIX_LANES,
-            lambda: cuda.miller(pts, lines, is_add), m_plain_ms, m_err),
+            lambda: cuda.miller(pts, lines, is_add), m_plain_ms, m_err,
+            geom),
         "fp256bn_final_exp": pairing_kernel_entry(
             torch, "fp256bn_final_exp", s1.is_add, IDEMIX_LANES,
-            lambda: cuda.final_exp(f_k, True), e_plain_ms, e_err),
+            lambda: cuda.final_exp(f_k, True), e_plain_ms, max(e_err, g_err),
+            geom),
     }
     log(f"idemix (a) a check's bound: "
         f"{sum(e['bound_ms'] for e in entries.values()):.4f} ms (the two "
-        f"kernels'), against {event_ms:.3f} ms")
+        f"kernels'; on the reference's count alone "
+        f"{sum(e['bound_ms_reference'] for e in entries.values()):.4f}), "
+        f"against {event_ms:.3f} ms")
 
     # (b) full pairings against the host
     before = kernel_counts()

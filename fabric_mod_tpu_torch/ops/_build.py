@@ -49,6 +49,9 @@ SIGNATURES = {
         "fp256bn_final_exp_launch": (ctypes.c_int,
                                      [_P, ctypes.c_int, _P, _P, ctypes.c_int,
                                       _P]),
+        "fp256bn_pairing_geometry": (ctypes.c_int,
+                                     [ctypes.c_int]
+                                     + [ctypes.POINTER(ctypes.c_int)] * 6),
     },
     "sha256": {
         "sha256_e_launch": (ctypes.c_int,

@@ -20,13 +20,22 @@ c = 6h + 2i + j (w half h, Fp6 coefficient i, Fp2 component j).
 for CUDA tensors and raise on any fault; for CPU tensors they ARE the
 plain versions.  Each kernel has a launch count (`LAUNCHES`), raised by
 one where the wrapper launches it and nowhere else.
+
+`products_per_lane` is the reference's count of Fp products (a lane's);
+`multiply_adds_per_lane` prices it beside the kernels' own count
+(ops/fp256bn_programs.design_counts), the least of the two the bound's
+work; `geometry` gives the kernels' threads a lane, lanes a block and
+blocks an SM holds.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from fabric_mod_tpu_torch.idemix import fp256bn as host
+from fabric_mod_tpu_torch.ops import fp256bn_programs
 from fabric_mod_tpu_torch.ops import limbs9 as limbs
 from fabric_mod_tpu_torch.ops import p256_cuda
 
@@ -201,9 +210,27 @@ def final_exp(f: torch.Tensor, check: bool) -> torch.Tensor:
     return ok if check else out
 
 
-# --- the work a lane needs -------------------------------------------------------
+def geometry(n_main: int, dev=None) -> dict:
+    """The kernels' launch geometry on the card: threads a lane (G),
+    lanes a block, and for each kernel its shared memory a block (the
+    Miller kernel's at n_main main steps) and the blocks an SM holds."""
+    from fabric_mod_tpu_torch.ops import _build
+    lib = _build.load("fp256bn_pairing")
+    v = [ctypes.c_int() for _ in range(6)]
+    with torch.cuda.device(dev or torch.device("cuda")):
+        rc = lib.fp256bn_pairing_geometry(n_main, *(ctypes.byref(x) for x in v))
+    if rc != 0:
+        raise RuntimeError(f"fp256bn_pairing_geometry failed: cudaError {rc}")
+    group, lanes, m_smem, m_blocks, e_smem, e_blocks = (x.value for x in v)
+    return {"group": group, "lanes_per_block": lanes,
+            "fp256bn_miller": {"smem": m_smem, "blocks_per_sm": m_blocks},
+            "fp256bn_final_exp": {"smem": e_smem, "blocks_per_sm": e_blocks}}
 
-# Fp products of the tower operations (csrc/fp256bn_field.cuh)
+
+# --- the work a lane needs, the bound's count ------------------------------------
+
+# Fp products of the reference's tower operations (the generic square, the
+# Fermat inverse)
 F2_MUL, F6_MUL, F12_MUL, F12_SQR, F12_MUL_LINE, F12_FROBENIUS = 3, 18, 54, 36, 42, 15
 # the Fermat inverse: 256 squares, one product a set bit of p - 2
 FP_INV = 256 + bin(host.P - 2).count("1")
@@ -218,17 +245,20 @@ POW_ABS_U = (abs(host.U).bit_length() * F12_SQR
 # 4 squares)
 FINAL_EXP = (F12_INV + 2 * F12_MUL + 2 * F12_FROBENIUS + 3 * POW_ABS_U
              + 8 * F12_FROBENIUS + 13 * F12_MUL + 4 * F12_SQR)
-# 32-bit multiply-adds of one Fp product, CIOS over 8 words: the low and
-# high halves of the 64 word products of a*b and of m*p, one multiply a
+# 32-bit multiply-adds of one Fp product over 8 words: the low and high
+# halves of the 64 word products of a*b and of m*p, one multiply a
 # quotient digit
 MULTIPLY_ADDS = 2 * 64 + 8 + 2 * 64
+# a square's: the 36 word products of a*a (28 cross products, doubled,
+# and 8 on the diagonal), then the quotient digits and m*p as a product's
+SQUARE_MULTIPLY_ADDS = 2 * 36 + 8 + 2 * 64
 
 
 def products_per_lane(is_add, kernel: str, check: bool = True) -> int:
-    """Fp products one lane of `kernel` runs (the Miller kernel: one
-    thread, one schedule of len(is_add) main steps; the final
+    """Fp products one lane of `kernel` needs in the reference's formulas
+    (the Miller kernel: one schedule of len(is_add) main steps; the final
     exponentiation in check or pairing mode), conversions in and out of
-    its Montgomery domain included."""
+    the Montgomery domain included."""
     if kernel == "fp256bn_miller":
         n_add = int(np.sum(is_add))
         n_dbl = len(is_add) - n_add
@@ -239,3 +269,18 @@ def products_per_lane(is_add, kernel: str, check: bool = True) -> int:
             return 2 * F12_COEFFS + F12_MUL + FINAL_EXP
         return F12_COEFFS + FINAL_EXP + F12_COEFFS
     raise ValueError(f"unknown kernel {kernel}")
+
+
+def multiply_adds_per_lane(is_add, kernel: str, check: bool = True) -> dict:
+    """32-bit multiply-adds one lane of `kernel` needs (the Miller
+    kernel: a (lane, schedule)): in the reference's formulas (every one
+    of products_per_lane a generic product), in the kernels' own
+    (fp256bn_programs.design_counts, a square at its own count; the
+    divsteps of the inverse are not counted, only the product that ends
+    it), and the least of the two, which the bound counts."""
+    reference = products_per_lane(is_add, kernel, check) * MULTIPLY_ADDS
+    own = fp256bn_programs.design_counts(is_add, kernel, check)
+    design = ((own["products"] - own["squares"]) * MULTIPLY_ADDS
+              + own["squares"] * SQUARE_MULTIPLY_ADDS)
+    return {"reference": reference, "design": design,
+            "least": min(reference, design)}

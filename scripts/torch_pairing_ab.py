@@ -47,7 +47,8 @@ def build_other(source_dir: Path, tag: str) -> ctypes.CDLL:
                     "-shared", "-Xcompiler", "-fPIC", "-o", str(lib),
                     str(source_dir / "fp256bn_pairing.cu")], check=True)
     other = ctypes.CDLL(str(lib))
-    for fn, (res, args) in _build.SIGNATURES["fp256bn_pairing"].items():
+    for fn in ("fp256bn_miller_launch", "fp256bn_final_exp_launch"):
+        res, args = _build.SIGNATURES["fp256bn_pairing"][fn]
         getattr(other, fn).restype = res
         getattr(other, fn).argtypes = args
     return other

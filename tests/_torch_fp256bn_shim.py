@@ -1,16 +1,16 @@
 """The idemix pairing kernels' per-lane code (fabric_mod_tpu_torch/csrc/
-fp256bn_pairing.cu and its fp256bn_field.cuh) built by the host C++
-compiler, for the CPU tests.
+fp256bn_pairing.cu and its headers) built by the host C++ compiler, for
+the CPU tests.
 
-Outside `__CUDACC__` the sources are plain C++: the field and tower
-operations, `schedule_to_mont`, `miller_lane` and `final_exp_lane`
+Outside `__CUDACC__` the sources are plain C++: the field, the linear
+forms, the program interpreter, `miller_lane` and `final_exp_lane`
 compile with g++, so the kernels' arithmetic is tested on a machine with
-no card.  `fp_ops` runs one Fp operation over n values, `tower_ops` one
-tower operation over n Fp12-sized records, `miller` and `final_exp` the
-kernels' lanes over the kernels' own word planes, one lane after another
-(a lane's thread group runs every rank's part in turn, its exchange
-slots a host array), and `products` reads (and clears) the count of Fp
-products."""
+no card.  `fp_ops` runs one Fp operation over n values, `program_ops`
+one tower program over n Fp12-sized records, `miller` and `final_exp`
+the kernels' lanes over the kernels' own word planes, one lane after
+another (a lane's group runs every rank's part of a stage in turn, its
+shared memory a host array), and `counts` reads (and clears) the Fp
+products (squares among them), inverses and product rounds run."""
 import ctypes
 import shutil
 import subprocess
@@ -18,111 +18,92 @@ import subprocess
 import numpy as np
 
 from fabric_mod_tpu_torch.ops import _build
+from fabric_mod_tpu_torch.ops import fp256bn_programs as programs
 
 SRC = _build.source_path("fp256bn_pairing")
 
-# fp_ops' operations
+# fp_ops' operations (add, sub and neg through the linear-form accumulator)
 FP_MUL, FP_SQR, FP_ADD, FP_SUB, FP_INV, FP_TO_MONT, FP_FROM_MONT, FP_NEG = range(8)
-# tower_ops' operations, over records of 96 words (an Fp12: coefficient
-# c = 6h + 2i + j at words 8c .. 8c + 7; an Fp2 or Fp6 takes the first 16
-# or 48 words).  F12_MUL_LINE takes yp, A, Bxp from y's words 0-7, 8-23
-# and 24-39.
-(F2_MUL, F2_SQR, F2_INV, F6_MUL, F6_MUL_SPARSE12, F6_INV, F12_MUL, F12_SQR,
- F12_MUL_LINE, F12_FROBENIUS, F12_INV) = range(11)
 
 _SHIM = r"""
 #include <vector>
 #include "{src}"
 
-static Fp rec_fp(const uint32_t* w) {{
-  Fp x;
-  for (int k = 0; k < 8; ++k) x.v[k] = w[k];
-  return x;
-}}
-static Fp2 rec_f2(const uint32_t* w) {{ return Fp2{{{{rec_fp(w), rec_fp(w + 8)}}}}; }}
-static Fp6 rec_f6(const uint32_t* w) {{
-  return Fp6{{{{rec_f2(w), rec_f2(w + 16), rec_f2(w + 32)}}}};
-}}
-static Fp12 rec_f12(const uint32_t* w) {{ return Fp12{{{{rec_f6(w), rec_f6(w + 48)}}}}; }}
-static void put_fp(uint32_t* w, const Fp& x) {{
-  for (int k = 0; k < 8; ++k) w[k] = x.v[k];
-}}
-static void put_f2(uint32_t* w, const Fp2& x) {{ put_fp(w, x.c[0]); put_fp(w + 8, x.c[1]); }}
-static void put_f6(uint32_t* w, const Fp6& x) {{
-  for (int i = 0; i < 3; ++i) put_f2(w + 16 * i, x.c[i]);
-}}
-static void put_f12(uint32_t* w, const Fp12& x) {{ put_f6(w, x.c[0]); put_f6(w + 48, x.c[1]); }}
-// a lane's thread group on the host: every rank in turn, slots here
-static uint32_t xch_words[kXchWords];
-static Group host_group() {{ return Group{{0, xch_words, 1, 0}}; }}
-
 extern "C" void fp_ops(int op, const uint32_t* a, const uint32_t* b, uint32_t* out, int n) {{
   for (int i = 0; i < n; ++i) {{
-    const Fp x = rec_fp(a + 8 * i), y = rec_fp(b + 8 * i);
-    Fp r;
+    Fp x, y, r;
+    for (int k = 0; k < 8; ++k) {{ x.v[k] = a[8 * i + k]; y.v[k] = b[8 * i + k]; }}
+    Acc acc = acc_zero();
     switch (op) {{
       case 0: r = fp_mul(x, y); break;
       case 1: r = fp_sqr(x); break;
-      case 2: r = fp_add(x, y); break;
-      case 3: r = fp_sub(x, y); break;
+      case 2: acc_add(acc, x, 0u); acc_add(acc, y, 0u); r = acc_reduce(acc); break;
+      case 3: acc_add(acc, x, 0u); acc_add(acc, y, ~0u); r = acc_reduce(acc); break;
       case 4: r = fp_inv(x); break;
-      case 5: r = fp_to_mont(x); break;
-      case 6: r = fp_from_mont(x); break;
-      default: r = fp_neg(x); break;
+      case 5: r = fp_mul(x, fp_load_const(kBnR2)); break;
+      case 6: {{ Fp one = fp_zero(); one.v[0] = 1u; r = fp_mul(x, one); break; }}
+      default: acc_add(acc, x, ~0u); r = acc_reduce(acc); break;
     }}
-    put_fp(out + 8 * i, r);
+    for (int k = 0; k < 8; ++k) out[8 * i + k] = r.v[k];
   }}
 }}
 
-extern "C" void tower_ops(int op, const uint32_t* a, const uint32_t* b, uint32_t* out, int n) {{
+// One program over n records: its output (at x's slots when inplace),
+// inputs x, y, z, w, each 96 words a record
+extern "C" void program_ops(int prog, int inplace, const uint32_t* x, const uint32_t* y,
+                            const uint32_t* z, const uint32_t* w, uint32_t* out, int n) {{
+  const uint32_t area = kBlockHeadWords, d = area + kArgWords + kBnMaxTemps * 8,
+                 xs = d + 96, ys = xs + 96, zs = ys + 96, ws = zs + 96;
+  std::vector<uint32_t> sm(ws + 96);
+  block_head(sm.data(), 0, 1);
+  const Lane ln = make_lane(sm.data(), 0, area);
   for (int i = 0; i < n; ++i) {{
-    const uint32_t* x = a + 96 * i;
-    const uint32_t* y = b + 96 * i;
-    uint32_t* o = out + 96 * i;
-    Group g = host_group();
-    switch (op) {{
-      case 0: put_f2(o, f2_mul(rec_f2(x), rec_f2(y))); break;
-      case 1: put_f2(o, f2_sqr(rec_f2(x))); break;
-      case 2: put_f2(o, f2_inv(rec_f2(x))); break;
-      case 3: put_f6(o, f6_mul(rec_f6(x), rec_f6(y))); break;
-      case 4: put_f6(o, f6_mul_sparse12(rec_f6(x), rec_f2(y), rec_f2(y + 16))); break;
-      case 5: put_f6(o, f6_inv(rec_f6(x))); break;
-      case 6: put_f12(o, f12_mul(g, rec_f12(x), rec_f12(y))); break;
-      case 7: put_f12(o, f12_sqr(g, rec_f12(x))); break;
-      case 8: put_f12(o, f12_mul_line(g, rec_f12(x), rec_fp(y), rec_f2(y + 8),
-                                      rec_f2(y + 24)));
-              break;
-      case 9: put_f12(o, f12_frobenius(rec_f12(x))); break;
-      default: put_f12(o, f12_inv(rec_f12(x))); break;
+    for (int k = 0; k < 96; ++k) {{
+      sm[xs + k] = x[96 * i + k];
+      sm[ys + k] = y[96 * i + k];
+      sm[zs + k] = z[96 * i + k];
+      sm[ws + k] = w[96 * i + k];
+      sm[d + k] = 0u;
     }}
+    const uint32_t dst = inplace ? xs : d;
+    run(ln, prog, dst, xs, ys, zs, ws);
+    for (int k = 0; k < 96; ++k) out[96 * i + k] = sm[dst + k];
   }}
 }}
 
 extern "C" void miller(const uint32_t* pts, const uint32_t* lines, const int32_t* is_add,
                        int n_main, uint32_t* out, int n, int n_sched) {{
-  std::vector<Fp> lines_m((n_main + 2) * kLineValues);
+  const MillerLayout L(n_main + 2);
+  std::vector<uint32_t> sm(L.bytes(1) / 4);
+  block_head(sm.data(), 0, 1);
   for (int s = 0; s < n_sched; ++s) {{
-    schedule_to_mont(lines + (size_t)s * (n_main + 2) * kStepWords, n_main + 2,
-                     lines_m.data(), 0, 1);
+    const uint32_t* sched = lines + (size_t)s * (n_main + 2) * kStepWords;
+    schedule_a_to_mont(sm.data(), L, sched, n_main + 2, 0, 1);
     for (int lane = 0; lane < n; ++lane) {{
-      Group g = host_group();
-      miller_lane(g, lane, n, pts + (size_t)s * 16 * n, lines_m.data(), is_add, n_main,
+      const Lane ln = make_lane(sm.data(), 0, L.lane(0));
+      miller_lane(ln, L, L.lane(0), lane, n, pts + (size_t)s * 16 * n, sched, is_add, n_main,
                   out + (size_t)s * kF12Words * n);
     }}
   }}
 }}
 
 extern "C" void final_exp(const uint32_t* f, int check, uint8_t* ok, uint32_t* out, int n) {{
+  std::vector<uint32_t> sm(kBlockHeadWords + kFinalLaneWords);
+  block_head(sm.data(), 0, 1);
   for (int lane = 0; lane < n; ++lane) {{
-    Group g = host_group();
-    final_exp_lane(g, lane, n, check != 0, f, ok, out);
+    const Lane ln = make_lane(sm.data(), 0, kBlockHeadWords);
+    final_exp_lane(ln, kBlockHeadWords, lane, n, check != 0, f, ok, out);
   }}
 }}
 
-extern "C" unsigned long long products() {{
-  const unsigned long long c = fp_products;
-  fp_products = 0;
-  return c;
+// Fp products, Fp inverses, product rounds and Fp squares (of the
+// products) since the last call
+extern "C" void counts(unsigned long long* c) {{
+  c[0] = fp_products;
+  c[1] = fp_inverses;
+  c[2] = bn_rounds;
+  c[3] = fp_squares;
+  fp_products = fp_inverses = bn_rounds = fp_squares = 0;
 }}
 """
 
@@ -142,15 +123,25 @@ def build(directory):
     lib = ctypes.CDLL(str(lib_path))
     P = ctypes.c_void_p
     lib.fp_ops.argtypes = [ctypes.c_int, P, P, P, ctypes.c_int]
-    lib.tower_ops.argtypes = [ctypes.c_int, P, P, P, ctypes.c_int]
+    lib.program_ops.argtypes = [ctypes.c_int, ctypes.c_int, P, P, P, P, P,
+                                ctypes.c_int]
     lib.miller.argtypes = [P, P, P, ctypes.c_int, P, ctypes.c_int,
                            ctypes.c_int]
     lib.final_exp.argtypes = [P, ctypes.c_int, P, P, ctypes.c_int]
-    for f in (lib.fp_ops, lib.tower_ops, lib.miller, lib.final_exp):
+    lib.counts.argtypes = [P]
+    for f in (lib.fp_ops, lib.program_ops, lib.miller, lib.final_exp,
+              lib.counts):
         f.restype = None
-    lib.products.argtypes = []
-    lib.products.restype = ctypes.c_ulonglong
     return lib
+
+
+def counts(lib) -> dict:
+    """{products, squares, inverses, rounds} run since the last call (the
+    squares are among the products)."""
+    c = np.zeros(4, np.uint64)
+    lib.counts(c.ctypes.data)
+    return {"products": int(c[0]), "squares": int(c[3]),
+            "inverses": int(c[1]), "rounds": int(c[2])}
 
 
 def words(values) -> np.ndarray:
@@ -174,12 +165,17 @@ def fp_ops(lib, op: int, a, b=None) -> list:
     return ints(out)
 
 
-def tower_ops(lib, op: int, x: np.ndarray, y: np.ndarray = None) -> np.ndarray:
-    """One tower operation over (n, 96) uint32 records: (n, 96) out."""
+def program_ops(lib, name: str, x: np.ndarray, y=None, z=None, w=None,
+                inplace: bool = False) -> np.ndarray:
+    """One tower program over (n, 96) uint32 records, 96 words an
+    argument (an Fp12: coefficient c = 6h + 2i + j at words 8c .. 8c + 7;
+    an Fp or Fp2 argument takes the first 8 or 16 words): (n, 96) out."""
     x = np.ascontiguousarray(x, np.uint32)
-    y = x if y is None else np.ascontiguousarray(y, np.uint32)
+    args = [x] + [x if v is None else np.ascontiguousarray(v, np.uint32)
+                  for v in (y, z, w)]
     out = np.zeros_like(x)
-    lib.tower_ops(op, x.ctypes.data, y.ctypes.data, out.ctypes.data, len(x))
+    lib.program_ops(programs.PROGRAM_ORDER.index(name), int(inplace),
+                    *(a.ctypes.data for a in args), out.ctypes.data, len(x))
     return out
 
 

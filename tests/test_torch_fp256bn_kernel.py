@@ -1,18 +1,23 @@
-"""The idemix pairing kernels (fabric_mod_tpu_torch/csrc/fp256bn_pairing.cu
-and fp256bn_field.cuh) compiled by the host C++ compiler
-(tests/_torch_fp256bn_shim.py), on the CPU.
+"""The idemix pairing kernels (fabric_mod_tpu_torch/csrc/fp256bn_pairing.cu,
+fp256bn_field.cuh and the generated fp256bn_programs.cuh) compiled by the
+host C++ compiler (tests/_torch_fp256bn_shim.py), on the CPU.
 
-Every case is exact: integers, no tolerance.  The field operations are
-held against Python ints (seeded values and the edges 0, 1, p - 1 and
-R mod p); each tower operation against the JAX reference's
-(fabric_mod_tpu/ops/fp256bn_dev.py, run eagerly on the same seeded numpy
-inputs), coefficient by coefficient as canonical ints (the reference
-works in Montgomery form with R = 2^270, the kernels with R = 2^256); the
+Every case is exact: integers, no tolerance.  The field operations (the
+carry-chain product and square, the linear-form sums, the divsteps
+inverse) are held against Python ints (seeded values and the edges 0, 1,
+p - 1 and R mod p); each round-split Fp12 program against the JAX
+reference's operation (fabric_mod_tpu/ops/fp256bn_dev.py, run eagerly on
+the same seeded numpy inputs), coefficient by coefficient as canonical
+ints (the reference works in Montgomery form with R = 2^270, the kernels
+with R = 2^256), and the Fp2 and Fp6 formulas the programs are generated
+from likewise; the Granger-Scott square against the generic one; the
 kernels' Miller lanes and full pairings against the pinned reference
 vectors (tests/_fixtures/fp256bn_pairing_vectors.json, read only); the
-check lanes against the plain `pairing_check_batch(device="cpu")`; and
-the shim's count of Fp products against `fp256bn_cuda.products_per_lane`,
-which the chip run's bound is computed from."""
+check lanes against the plain `pairing_check_batch(device="cpu")`; the
+shim's count of products, squares, inverses and rounds against
+`fp256bn_programs.design_counts` and its pricing for the chip run's
+bound; and `fp256bn_cuda.products_per_lane`, the reference's count,
+against the products the plain version runs on one lane."""
 import json
 import os
 import random
@@ -26,6 +31,7 @@ from fabric_mod_tpu.ops import fp256bn_dev as J
 from fabric_mod_tpu_torch.idemix import fp256bn as host
 from fabric_mod_tpu_torch.ops import fp256bn_cuda as C
 from fabric_mod_tpu_torch.ops import fp256bn_dev as T
+from fabric_mod_tpu_torch.ops import fp256bn_programs as F
 from fabric_mod_tpu_torch.ops import limbs9
 from fabric_mod_tpu_torch.utils import fixtures
 from tests import _torch_fp256bn_shim as shim
@@ -89,23 +95,37 @@ def _planes_fp12(planes: np.ndarray, lane: int) -> "host.Fp12":
 
 # --- (0) the source's constants ---------------------------------------------
 
-def _words_of(name: str) -> int:
-    text = shim.SRC.with_name("fp256bn_field.cuh").read_text()
-    body = re.search(name + r"\[8\] = \{([^}]*)\}", text).group(1)
-    ws = [int(w.rstrip("u"), 16) for w in re.findall(r"0x[0-9A-F]+u", body)]
-    return sum(w << (32 * k) for k, w in enumerate(ws))
+def _words_of(name: str, header: str = "fp256bn_field.cuh") -> int:
+    text = shim.SRC.with_name(header).read_text()
+    body = re.search(name + r"\[\d*\] = \{([^}]*)\}", text).group(1)
+    ws = [int(w.rstrip("u"), 16) for w in re.findall(r"0x[0-9A-F]+u?", body)]
+    bits = 30 if name.endswith("30") else 32
+    return sum(w << (bits * k) for k, w in enumerate(ws))
 
 
 def test_field_constants():
     assert _words_of("kBnP") == P == T.host.P
-    assert _words_of("kBnPm2") == P - 2
+    assert _words_of("kBnP30") == P
     assert _words_of("kBnR2") == R256 * R256 % P
-    assert _words_of("kBnOneM") == R256 % P
+    assert _words_of("kBnOneM") == R256 % P < 1 << 210
+    assert _words_of("kBnR3") == pow(R256, 3, P)
+    assert _words_of("kBnNegK") == 2 * P + 1 - R256
     text = shim.SRC.with_name("fp256bn_field.cuh").read_text()
     assert int(re.search(r"kBnP0Inv = (0x[0-9A-F]+)u", text).group(1),
                16) == (-pow(P, -1, 1 << 32)) % (1 << 32)
+    assert int(re.search(r"kBnPInv30 = (0x[0-9A-F]+)u", text).group(1),
+               16) == pow(P, -1, 1 << 30)
     assert int(re.search(r"kBnAbsU = (0x[0-9A-F]+)ull", text).group(1),
                16) == abs(host.U)
+
+
+def test_programs_header_is_generated():
+    """csrc/fp256bn_programs.cuh is what the generator writes, and its
+    constants are the generator's (Montgomery form but for r2 and one)."""
+    assert F.HEADER_PATH.read_text() == F.header()
+    assert F.const_words()[F.CONST_INDEX["r2"]] == R256 * R256 % P
+    frob = F._frob_consts()
+    assert F.const_words()[F.CONST_INDEX["frob3_1"]] == frob[3].b * R256 % P
 
 
 # --- (1) the field ---------------------------------------------------------------
@@ -153,10 +173,10 @@ def _ref_ints(planes) -> list:
              for b in range(BATCH)] for leaf in planes]
 
 
-def _records(*groups) -> np.ndarray:
-    """Leaves of (n, K, BATCH) planes, concatenated -> (BATCH, 96) shim
-    records of their kernel-domain (R = 2^256) words."""
-    leaves = [v for g in groups for v in _ref_ints(g)]
+def _records(planes) -> np.ndarray:
+    """(n, K, BATCH) reference planes -> (BATCH, 96) shim records of their
+    kernel-domain (R = 2^256) words."""
+    leaves = _ref_ints(planes)
     rec = np.zeros((BATCH, 96), np.uint32)
     for c, vals in enumerate(leaves):
         rec[:, 8 * c:8 * c + 8] = shim.words([v * R256 % P for v in vals])
@@ -169,46 +189,158 @@ def _record_ints(rec: np.ndarray, n_leaves: int) -> list:
             for c in range(n_leaves)]
 
 
+def _cyclotomic_planes(rng, n_lanes: int = BATCH):
+    """(12, K, BATCH) reference planes of seeded Fp12 values taken
+    through the easy part (into the cyclotomic subgroup)."""
+    vals = []
+    for _ in range(n_lanes):
+        f = _host12([rng.randrange(P) for _ in range(12)])
+        f = f.conj() * f.inv()
+        vals.append(_flat12(f.frobenius().frobenius() * f))
+    return np.stack([np.stack([T._mont_np(vals[b][c]) for b in range(n_lanes)],
+                              -1) for c in range(12)])
+
+
+def _host12(v) -> "host.Fp12":
+    return _fp12(list(v))
+
+
+def _flat12(x) -> list:
+    return [c for h in (x.c0, x.c1) for f2 in (h.c0, h.c1, h.c2)
+            for c in (f2.a, f2.b)]
+
+
 def _tower_cases():
     rng = random.Random(161)
     x2, y2 = _planes(rng, 2), _planes(rng, 2)
     x6, y6 = _planes(rng, 6), _planes(rng, 6)
     x12, y12 = _planes(rng, 12), _planes(rng, 12)
     yp, A, B = _planes(rng, 1), _planes(rng, 2), _planes(rng, 2)
+    c12 = _cyclotomic_planes(rng)
+    # (the kernels' program, or None for a formula the programs are
+    # generated from; its arguments; the reference)
     return {
-        "f2_mul": (shim.F2_MUL, (x2,), (y2,), 2,
-                   lambda: J.f2_mul(j2(x2), j2(y2))),
-        "f2_sqr": (shim.F2_SQR, (x2,), None, 2, lambda: J.f2_sqr(j2(x2))),
-        "f2_inv": (shim.F2_INV, (x2,), None, 2, lambda: J.f2_inv(j2(x2))),
-        "f6_mul": (shim.F6_MUL, (x6,), (y6,), 6,
-                   lambda: J.f6_mul(j6(x6), j6(y6))),
-        "f6_mul_sparse12": (shim.F6_MUL_SPARSE12, (x6,), (A, B), 6,
+        "f2_mul": (F.f2_mul, (x2, y2), lambda: J.f2_mul(j2(x2), j2(y2))),
+        "f2_sqr": (F.f2_sqr, (x2,), lambda: J.f2_sqr(j2(x2))),
+        "f2_inv": (F.f2_inv, (x2,), lambda: J.f2_inv(j2(x2))),
+        "f6_mul": (F.f6_mul, (x6, y6), lambda: J.f6_mul(j6(x6), j6(y6))),
+        "f6_mul_sparse12": (F.f6_mul_sparse12, (x6, A, B),
                             lambda: J.f6_mul_sparse12(j6(x6), j2(A), j2(B))),
-        "f12_mul": (shim.F12_MUL, (x12,), (y12,), 12,
+        "f6_inv": (F.f6_inv, (x6,), lambda: J.f6_inv(j6(x6))),
+        "f12_mul": ("f12_mul", (x12, y12),
                     lambda: J.f12_mul(j12(x12), j12(y12))),
-        "f12_sqr": (shim.F12_SQR, (x12,), None, 12,
-                    lambda: J.f12_sqr(j12(x12))),
-        "f12_mul_line": (shim.F12_MUL_LINE, (x12,), (yp, A, B), 12,
+        "f12_sqr": ("f12_sqr", (x12,), lambda: J.f12_sqr(j12(x12))),
+        "f12_cyclotomic_sqr": ("f12_cyclotomic_sqr", (c12,),
+                               lambda: J.f12_sqr(j12(c12))),
+        "f12_mul_line": ("f12_mul_line", (x12, yp, A, B),
                          lambda: J.f12_mul_line(j12(x12), yp[0], j2(A),
                                                 j2(B))),
-        "f12_frobenius": (shim.F12_FROBENIUS, (x12,), None, 12,
+        "f12_frobenius": ("f12_frobenius", (x12,),
                           lambda: J.f12_frobenius(j12(x12))),
-        "f12_inv": (shim.F12_INV, (x12,), None, 12,
-                    lambda: J.f12_inv(j12(x12))),
+        "f12_inv": ("f12_inv", (x12,), lambda: J.f12_inv(j12(x12))),
     }
 
 
 _TOWER = sorted(_tower_cases())
 
 
+def _nested(vals, n):
+    """n canonical Fp values -> the formulas' nesting (Fp2 pairs, Fp6
+    triples of pairs)."""
+    v = [F.Num(x) for x in vals]
+    if n == 1:
+        return v[0]
+    if n == 2:
+        return (v[0], v[1])
+    return tuple((v[2 * i], v[2 * i + 1]) for i in range(3))
+
+
+def _leaf_ints(x) -> list:
+    if isinstance(x, F.Num):
+        return [x.v]
+    return [v for c in x for v in _leaf_ints(c)]
+
+
 @pytest.mark.parametrize("op", _TOWER)
 def test_tower_op_against_reference(lib, op):
-    code, xs, ys, n_out, ref = _tower_cases()[op]
-    got = shim.tower_ops(lib, code, _records(*xs),
-                         None if ys is None else _records(*ys))
+    """A round-split Fp12 program (the g++ build of the kernels'
+    interpreter, output not aliasing x), or an Fp2 / Fp6 formula the
+    programs are made of (on ints), against the reference's operation."""
+    prog, args, ref = _tower_cases()[op]
     want = _ref_ints(jleaves(ref()))
-    assert len(want) == n_out
-    assert _record_ints(got, n_out) == want
+    if isinstance(prog, str):
+        got = shim.program_ops(lib, prog, *(_records(a) for a in args))
+        assert _record_ints(got, 12) == want
+        return
+    per_lane = [[_nested([leaf[b] for leaf in _ref_ints(a)], len(a))
+                 for a in args] for b in range(BATCH)]
+    got = [_leaf_ints(prog(*lane)) for lane in per_lane]
+    assert [[got[b][c] for b in range(BATCH)] for c in range(len(want))] == want
+
+
+@pytest.mark.parametrize("prog", [p for p in F.PROGRAM_ORDER
+                                  if p.startswith("f12_")])
+def test_program_in_place(lib, prog):
+    """Every Fp12 program may write over its x: in place, the same words
+    as into a separate output (f12_conj runs in place only: against the
+    host's conjugate)."""
+    rng = random.Random(7)
+    x = _records(_planes(rng, 12))
+    y, z, w = (_records(_planes(rng, 12)) for _ in range(3))
+    got = shim.program_ops(lib, prog, x, y, z, w, inplace=True)
+    if prog == "f12_conj":
+        for b, vals in enumerate(zip(*_record_ints(x, 12))):
+            assert [v for v in zip(*_record_ints(got, 12))][b] == tuple(
+                _flat12(_host12(vals).conj()))
+        return
+    assert np.array_equal(got, shim.program_ops(lib, prog, x, y, z, w))
+
+
+@pytest.mark.parametrize("prog", [p for p in F.PROGRAM_ORDER
+                                  if p.startswith("f12_")
+                                  and p not in ("f12_to_mont",
+                                                "f12_from_mont")])
+def test_program_tables_on_ints(prog):
+    """The generated tables themselves, evaluated on ints, against the
+    host tower (fabric_mod_tpu_torch/idemix/fp256bn.py)."""
+    rng = random.Random(11)
+    x = [rng.randrange(P) for _ in range(12)]
+    if prog == "f12_cyclotomic_sqr":
+        f = _host12(x)
+        f = f.conj() * f.inv()
+        x = _flat12(f.frobenius().frobenius() * f)
+    y = [rng.randrange(P) for _ in range(12)]
+    fx = _host12(x)
+    z2 = host.Fp2(0)
+    want = {
+        "f12_mul": lambda: fx * _host12(y),
+        "f12_sqr": lambda: fx.sqr(),
+        "f12_cyclotomic_sqr": lambda: fx.sqr(),
+        "f12_frobenius": lambda: fx.frobenius(),
+        "f12_conj": lambda: fx.conj(),
+        "f12_inv": lambda: fx.inv(),
+        "f12_mul_line": lambda: fx * host.Fp12(
+            host.Fp6(host.Fp2(y[0]), z2, z2),
+            host.Fp6(z2, host.Fp2(y[1], y[2]), host.Fp2(y[3], y[4]))),
+    }[prog]()
+    args = {"x": x, "y": y}
+    if prog == "f12_mul_line":
+        args = {"x": x, "y": y[:1], "z": y[1:3], "w": y[3:5]}
+    assert F.PROGRAMS[prog].evaluate(**args) == _flat12(want)
+
+
+def test_cyclotomic_sqr_equals_the_square(lib):
+    """Granger-Scott's square equals the generic Fp12 square on seeded
+    values taken through the easy part, and on 0 (the value of a zero
+    lane), in the kernels' programs."""
+    rng = random.Random(29)
+    c = _records(_cyclotomic_planes(rng))
+    zero = np.zeros((1, 96), np.uint32)
+    for x in (c, zero):
+        assert np.array_equal(
+            shim.program_ops(lib, "f12_cyclotomic_sqr", x),
+            shim.program_ops(lib, "f12_sqr", x))
+    assert not shim.program_ops(lib, "f12_cyclotomic_sqr", zero).any()
 
 
 # --- (3) the kernels' lanes against the pinned vectors -----------------------------
@@ -302,22 +434,69 @@ def test_check_tampered_lanes_equal_plain(lib):
 
 # --- (5) the work a lane needs --------------------------------------------------------
 
-def test_products_per_lane(lib, pinned):
-    """The shim's count of Fp products equals products_per_lane (the
-    Miller lanes plus each schedule's conversion, 4 a step), the count
-    the chip run's bound rests on."""
+def test_products_per_lane(pinned, monkeypatch):
+    """products_per_lane is the reference's count (its formulas, with the
+    generic square, the Fermat inverse and conversions in and out of the
+    Montgomery domain): the Montgomery reductions the plain version runs
+    on one lane, counted as it runs, plus the conversions the kernels
+    make at their boundary (the plain version's points and values are in
+    the Montgomery domain already)."""
+    run = [0]
+    reduce = limbs9._mont_reduce
+
+    def counted(t, spec):
+        out = reduce(t, spec)
+        run[0] += out.numel() // limbs9.K     # one lane: an Fp a product
+        return out
+    monkeypatch.setattr(limbs9, "_mont_reduce", counted)
+    sched = T.line_schedule(pinned["W"])
+    is_add = sched.is_add
+    xs, ys = T._g1_batch_to_mont(pinned["P"][:1], torch.device("cpu"))
+    f = T.miller_batch(xs, ys, sched)
+    miller = run[0]
+    run[0] = 0
+    T.final_exp_batch(f)
+    pairing = run[0]
+    run[0] = 0
+    T.f12_mul(f, f)
+    f12_mul = run[0]
+    # the Miller lane: x, y in; the Fp12 out
+    assert C.products_per_lane(is_add, "fp256bn_miller") == 2 + miller + 12
+    # pairing mode: the Fp12 in and out; check mode: two in, their product
+    assert C.products_per_lane(is_add, "fp256bn_final_exp",
+                               check=False) == 12 + pairing + 12
+    assert C.products_per_lane(is_add, "fp256bn_final_exp",
+                               check=True) == 24 + f12_mul + pairing
+
+
+def test_design_counts(lib, pinned):
+    """The shim's count of Fp products (squares among them), inverses and
+    product rounds run equals fp256bn_programs.design_counts (a lane of
+    each kernel, plus each schedule's A values into the Montgomery
+    domain, 2 a step, once a block): the design's own work, which
+    fp256bn_cuda.multiply_adds_per_lane prices for the bound."""
     pts, lines, is_add = _miller_inputs(pinned["P"], pinned["W"])
     pts2, lines2 = np.concatenate([pts, pts]), np.concatenate([lines, lines])
     n, S, steps = pts.shape[-1], 2, lines.shape[1]
-    lib.products()
+    shim.counts(lib)
     f = shim.miller(lib, pts2.view(np.uint32), lines2.view(np.uint32), is_add)
-    miller = C.products_per_lane(is_add, "fp256bn_miller")
-    assert lib.products() == S * (n * miller + C.LINE_VALUES * steps)
-    shim.final_exp(lib, f, check=True)
-    check = C.products_per_lane(is_add, "fp256bn_final_exp", check=True)
-    assert lib.products() == n * check
-    shim.final_exp(lib, f[:1], check=False)
-    assert lib.products() == n * C.products_per_lane(
+    miller = F.design_counts(is_add, "fp256bn_miller")
+    assert shim.counts(lib) == {
+        "products": S * (n * miller["products"] + 2 * steps),
+        "squares": S * n * miller["squares"],
+        "inverses": 0, "rounds": S * n * miller["rounds"]}
+    for check in (True, False):
+        shim.final_exp(lib, f if check else f[:1], check=check)
+        want = F.design_counts(is_add, "fp256bn_final_exp", check=check)
+        ran = shim.counts(lib)
+        assert ran == {k: n * v for k, v in want.items()}
+        # the bound prices the kernels' own work as the g++ build ran it
+        madds = C.multiply_adds_per_lane(is_add, "fp256bn_final_exp", check)
+        assert madds["design"] * n == (
+            (ran["products"] - ran["squares"]) * C.MULTIPLY_ADDS
+            + ran["squares"] * C.SQUARE_MULTIPLY_ADDS)
+        assert madds["least"] == madds["design"] < madds["reference"]
+    # the design runs fewer products than the reference's count
+    assert miller["products"] < C.products_per_lane(is_add, "fp256bn_miller")
+    assert want["products"] < C.products_per_lane(
         is_add, "fp256bn_final_exp", check=False)
-    # one lane of a check: both Miller loops and the final exponentiation
-    assert 2 * miller + check == 24_606
