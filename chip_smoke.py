@@ -153,14 +153,18 @@ Phases (any failure exits non-zero; none is caught):
    (the line precompute, a Miller doubling step, an add step, a
    cyclotomic square, a multiply, and the rest once), scaled by the
    schedule's static counts: launches per check, device busy ms, idle
-   share;
+   share; run at the very end, after every other profiler window, since
+   a window of ~10^5 device records blinds later ones (PERF.md §7);
 6. profile (run after 9) — torch.profiler over one verify of each
    block kind, over a verify call of one signature, of one 2048-lane
    bucket and of one raw 2048-lane bucket (which must launch the four
    kernels once each), and over one whole block commit:
    wall time, device busy time and idle share, the heaviest device
    kernels; and over the policy evaluator's pass alone: its launches
-   and device time per block.
+   and device time per block.  Every torch.profiler window (phases 6,
+   8, 10, 11, 12, 14 and 15 (a)) prints the hand-written launches it
+   recorded against those made while it was open; where it missed one,
+   busy is printed as a lower bound and the idle share as an upper one.
 
 9. Raft e2e (run after 8) — phase 8's two arms again, each on a fresh
    network of three Raft orderers (utils/fixtures.make_network_material
@@ -360,6 +364,35 @@ Phases (any failure exits non-zero; none is caught):
    recommit through a Channel on the card reach it again.  Prints the
    export, verify and bootstrap seconds and the snapshot's bytes.
 
+15. observability and the orderer's ingress — (b) first, right after
+   phase 3 (the process's first GpuVerifier dispatch, before any
+   profiler window): the device lens, one armed GpuVerifier dispatch of
+   a 1000-tx block's signatures in the 2048-lane bucket (endorser lanes
+   raw) inside a torch.profiler window, whose Chrome trace must hold one
+   kernel event for each launch of the window, per kernel; (a) right
+   after phase 8's arms: arm (a)'s two ordered blocks through a fresh
+   peer's pipelined committer on the card, untraced and then traced and
+   profiled: equal flags and fingerprints (== phase 8 (a)'s), the named
+   substages explaining the pipe's stage, await and commit buckets
+   within 10% (floored at bench.py's 100 ms over 32 blocks, scaled to
+   the blocks committed; bench.py:690's grouping), seconds a block
+   by substage and the device idle share; (c) at the end, bench.py's
+   broadcast storm at its width: 4096 pre-signed envelopes from 8
+   clients, 16-tx blocks, the drain pinned by a write_block sleep to
+   ~1/4 of the calibrated submit rate, gated (queue cap 64 and the
+   overload gate) against ungated, then unthrottled unstaged against
+   staged 64, the Writers checks on the card: every admitted envelope
+   committed exactly once, every shed typed, the gated queue within its
+   cap, the gated arm shedding and the ungated not; p99 admission ms
+   and sheds by reason; (d) phase 9's three Raft orderers order phase
+   8's order-free stream, a config update adds orderer3, which joins
+   from that block (replicating and verifying the chain on the card),
+   orderer4 follows from genesis, the four consenters order phase 8's
+   full stream: the follower's chain and orderer3's replicated blocks
+   byte-equal to the source's, orderer3's own blocks equal but for its
+   signature, a source with one flipped orderer-signature byte refused
+   by a join and by a follower; blocks replicated a second.
+
    python3 chip_smoke.py --phase 11
    python3 chip_smoke.py --phase 12
    python3 chip_smoke.py --phase 13
@@ -367,12 +400,15 @@ Phases (any failure exits non-zero; none is caught):
 
 run phase 11 (its (b) on a stream endorsed there, without phase 10 (b)
 beside it), phase 12, phase 13 (its (b) on blocks signed there) or
-phase 14 alone after the header, and print no kernels line.
+phase 14 alone after the header, and print no kernels line;
+`--phase 15` runs (b), phase 8 (a), then (a), (c) and (d) ((d)
+ordering arm (a)'s stream twice).
 
 It prints one JSON line describing each of the seven kernels
 (`launches` counts the block-commit phase, the four e2e arms, phase
 7's check, pairings and batch_verify, phase 10's two parts, phase 11's
-three, phase 12 (a)'s sweep, phase 13's three parts and phase 14), and
+three, phase 12 (a)'s sweep, phase 13's three parts, phase 14 and phase
+15's four parts), and
 as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -632,6 +668,27 @@ LC_SOURCE_BLOCKS = 4
 LC_ORACLE_WORKERS = 6
 # where (b)'s tensor-policy passes must find the verify mask
 LC_MASK_DEVICE = "cuda"
+
+
+# phase 15: the traced commit (bench.py:597-690's traced arm and
+# grouping), the storm at bench.py:2568's width, participation
+OBS_DEPTH = 2
+ATTRIBUTION = {"stage": ("unpack", "device_dispatch", "policy_gather"),
+               "await": ("verdict_await",),
+               "commit": ("policy_device", "policy_finish", "mvcc",
+                          "ledger_write")}
+ATTRIBUTION_TOL = 0.10
+# the floor for timer noise: 100 ms over bench.py's least commitpipe
+# stream (32 blocks, bench.py:2990), scaled to the blocks committed here
+ATTRIBUTION_FLOOR_S = 0.1
+ATTRIBUTION_FLOOR_BLOCKS = 32
+STORM_CHANNEL = "storm"
+STORM_TXS_15 = 4096
+STORM_CLIENTS = 8
+STORM_MAX_MESSAGES = 16
+STORM_BATCH_TIMEOUT_15 = "100ms"
+STORM_STAGED = 64
+STORM_OVERLOAD = 4.0
 
 
 def log(msg: str) -> None:
@@ -1464,21 +1521,36 @@ def _verify_blocks(torch, np, blocks, verifiers, sw_checked):
             f"({sum(launched.values()) / N_BLOCKS:.1f} per 1000-tx block)")
 
 
+# what the last device_profile window recorded of the hand-written
+# launches made while it was open: {"launched": {kernel: n}, "seen":
+# {kernel: n}} (PERF.md §7: the profiler can miss them)
+LAST_WINDOW: dict = {"launched": {}, "seen": {}}
+
+
 def device_profile(torch, fn):
     """Run fn() under torch.profiler: (wall ms, device kernels, device
     busy ms, [(name, count, ms)] heaviest first), or device figures None
-    when the profiler recorded no device kernel."""
+    when the profiler recorded no device kernel.  LAST_WINDOW holds the
+    hand-written launches of the window against those it recorded."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    before = kernel_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v - before[k] for k, v in kernel_counts().items()
+                if v - before[k]}
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
+    names: dict = {}
+    for e in kernels:
+        names[e.name] = names.get(e.name, 0) + 1
+    LAST_WINDOW["launched"] = launched
+    LAST_WINDOW["seen"] = {k: recorded_launches(names, k) for k in launched}
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     if not kernels or busy_us <= 0:
         return wall_ms, None, None, []
@@ -1491,14 +1563,41 @@ def device_profile(torch, fn):
         [(name, c, t / 1e3) for name, (c, t) in top]
 
 
+def window_complete() -> bool:
+    """Whether the last device_profile window recorded every
+    hand-written launch made in it."""
+    return all(LAST_WINDOW["seen"][k] >= n
+               for k, n in LAST_WINDOW["launched"].items())
+
+
+def window_note() -> str:
+    """The last window's hand-written launches, recorded against made."""
+    launched, seen = LAST_WINDOW["launched"], LAST_WINDOW["seen"]
+    return (f"hand-written launches recorded {sum(seen.values())} of "
+            f"{sum(launched.values())} "
+            f"({'complete' if window_complete() else 'INCOMPLETE'}"
+            f"{'' if not launched else f': {seen} of {launched}'})")
+
+
+def idle_text(busy_ms, wall_ms) -> str:
+    """Busy and idle share of the last window: exact when it recorded
+    every hand-written launch, else bounds (a missed kernel adds to
+    busy)."""
+    idle = 1 - busy_ms / wall_ms
+    if window_complete():
+        return f"device busy {busy_ms:.1f} ms, device idle share {idle:.3f}"
+    return (f"device busy >= {busy_ms:.1f} ms, device idle share <= "
+            f"{idle:.3f} (the profiler missed hand-written launches)")
+
+
 def log_profile(label, wall_ms, n_kernels, busy_ms, top) -> None:
     if n_kernels is None:
         log(f"profile {label}: wall {wall_ms:.1f} ms; device time not "
-            "measured (the profiler recorded no device kernels)")
+            f"measured (the profiler recorded no device kernels); "
+            f"{window_note()}")
         return
     log(f"profile {label}: wall {wall_ms:.1f} ms, device kernels "
-        f"{n_kernels}, device busy {busy_ms:.1f} ms, device idle share "
-        f"{1 - busy_ms / wall_ms:.3f}")
+        f"{n_kernels}, {idle_text(busy_ms, wall_ms)}; {window_note()}")
     for name, c, t in top:
         log(f"  {t:9.2f} ms  x{c:<6d} {name[:90]}")
 
@@ -1990,9 +2089,18 @@ def phase_e2e(torch, dev, arm="a", n_blocks=N_BLOCKS,
             first = net.support.store.get_block_by_number(1)
             first_flags = list(protoutil.block_txflags(
                 net.ledger.get_block_by_number(1)))
+            # phase 15 (a) commits these ordered blocks again, traced
+            ORDERED[arm] = (material, [
+                net.support.store.get_block_by_number(b).encode()
+                for b in range(1, n_blocks + 1)], fp)
         finally:
             net.close()
     return counts, (material, first, first_flags), stream, fp
+
+
+# arm -> (material, the ordered blocks 1..n encoded, the peer's state
+# fingerprint), kept by phase_e2e for phase 15 (a)
+ORDERED: dict = {}
 
 
 def require_same_chain(net, n_blocks: int) -> None:
@@ -4112,12 +4220,14 @@ def phase_idemix(torch, np):
         f"warm, {IDEMIX_REPS} checks), {pair_s / dev_s:.3f} of the device "
         "path")
 
-    # (d) the plain version's bounded profile, scaled to a whole check
-    profile_pairing_check(torch, ik, a_pts, neg, plain_check_ms)
     log(f"idemix phase: {time.perf_counter() - t_phase:.1f} s wall; "
         f"pairing passes {dev.counts()}; main-path kernel launches "
         f"{ {k: v for k, v in launched.items() if v} }")
-    return launched, entries
+    # (d) the plain version's bounded profile, scaled to a whole check,
+    # for the caller to run after every other profiler window: its ~10^5
+    # device records leave later windows of the process blind (PERF.md §7)
+    return launched, entries, lambda: profile_pairing_check(
+        torch, ik, a_pts, neg, plain_check_ms)
 
 
 def profile_pairing_check(torch, ik, a_pts, b_pts, check_wall_ms):
@@ -4175,7 +4285,8 @@ def profile_pairing_check(torch, ik, a_pts, b_pts, check_wall_ms):
             launches = busy = None
             continue
         log(f"idemix (d) {lanes} lanes, {label}: x{n} per check; {n_k} "
-            f"device launches, busy {b_ms:.3f} ms, wall {w_ms:.2f} ms each")
+            f"device launches, busy {b_ms:.3f} ms, wall {w_ms:.2f} ms each "
+            f"({window_note()})")
         if launches is not None:
             launches += n * n_k
             busy += n * b_ms
@@ -4983,7 +5094,7 @@ def lc_profile_evaluator(torch, lw, figures: dict) -> None:
         f"{f['core_a_block']:.2f}; tensor-policy passes {f['passes']}, a "
         f"block's pass ({len(staged.session)} evaluations, {raw.device} "
         f"mask) {n_kernels} device launches, busy {busy_ms} ms, wall "
-        f"{wall_ms:.2f} ms (torch.profiler)")
+        f"{wall_ms:.2f} ms (torch.profiler; {window_note()})")
 
 
 def lc_upgrade(lw) -> None:
@@ -5350,6 +5461,622 @@ def phase_lifecycle(torch, dev, scale_blocks=None) -> dict:
     return launched
 
 
+# --- phase 15: observability, the orderer's ingress, participation ----------
+
+def obs_commit(torch, material, blocks, traced: bool) -> dict:
+    """Phase 8 (a)'s ordered blocks through a fresh peer's pipelined
+    committer on the card (the tensor policy on, the verdict cache off),
+    tracing armed or not; the traced run is also profiled for the
+    device's busy time and for how many of the window's hand-written
+    launches (made on the pipe's stage thread) the profiler recorded.
+    Returns flags, fingerprint, the pipe's three buckets, the span
+    totals and the block timelines."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.observability import tracing
+    from fabric_mod_tpu_torch.peer.commitpipe import PipelinedCommitter
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    with tempfile.TemporaryDirectory() as root:
+        net = e2e.Network(root, material=material,
+                          verifier=gpu.GpuVerifier(cache_size=0),
+                          tensor_policy=True)
+        try:
+            decoded = [m.Block.decode(raw) for raw in blocks]
+            pipe = PipelinedCommitter(net.channel, depth=OBS_DEPTH,
+                                      consumer="deliver")
+            tracing.recorder().reset()
+
+            def run():
+                for block in decoded:
+                    pipe.submit(block)
+                if not pipe.flush(timeout_s=E2E_TIMEOUT_S):
+                    raise AssertionError("phase 15 (a): the pipe did not "
+                                         "commit the blocks in time")
+            n_k = busy_ms = None
+            seen = {}
+            launched = kernel_counts()
+            try:
+                with tracing.active(traced):
+                    if traced:
+                        wall_ms, spans, names = kernel_intervals(torch, run)
+                        n_k = len(spans or ())
+                        busy_ms = sum(hi - lo for lo, hi in spans or ()) \
+                            / 1e3
+                        seen = {k: recorded_launches(names, k)
+                                for k in CORE_KERNELS}
+                    else:
+                        t0 = time.perf_counter()
+                        run()
+                        wall_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                pipe.close()
+            launched = {k: v - launched[k]
+                        for k, v in kernel_counts().items()}
+            totals = {k: v["secs"]
+                      for k, v in tracing.substage_totals().items()}
+            timelines = tracing.recorder().timelines()
+            tracing.recorder().reset()
+            return {"flags": [list(protoutil.block_txflags(b))
+                              for b in decoded],
+                    "fp": net.ledger.state_fingerprint(),
+                    "buckets": {"stage": pipe.stage_secs,
+                                "await": pipe.await_secs,
+                                "commit": pipe.commit_secs},
+                    "totals": totals, "timelines": timelines,
+                    "wall_ms": wall_ms, "kernels": n_k, "busy_ms": busy_ms,
+                    "seen": seen,
+                    "launched": {k: launched[k] for k in CORE_KERNELS}}
+        finally:
+            net.close()
+
+
+def obs_traced_commit(torch) -> dict:
+    """15 (a): traced equals untraced, and the named substages explain
+    the pipe's stage, await and commit buckets (bench.py:690ff's
+    grouping, within 10% floored at ATTRIBUTION_FLOOR_S over
+    ATTRIBUTION_FLOOR_BLOCKS blocks scaled to the blocks committed)."""
+    material, blocks, fp8 = ORDERED["a"]
+    off = obs_commit(torch, material, blocks, traced=False)
+    on = obs_commit(torch, material, blocks, traced=True)
+    if on["flags"] != off["flags"] or on["fp"] != off["fp"]:
+        raise AssertionError("phase 15 (a): the traced commit's flags or "
+                             "fingerprint differ from the untraced one")
+    if off["fp"] != fp8:
+        raise AssertionError("phase 15 (a): the fingerprint differs from "
+                             "phase 8 (a)'s peer on the same blocks")
+    n = len(blocks)
+    if [t["block"] for t in on["timelines"]] != list(range(1, n + 1)):
+        raise AssertionError(f"phase 15 (a): timelines "
+                             f"{[t['block'] for t in on['timelines']]}")
+    covered, held = {}, {}
+    floor = ATTRIBUTION_FLOOR_S * n / ATTRIBUTION_FLOOR_BLOCKS
+    for bucket, parts in ATTRIBUTION.items():
+        have = sum(on["totals"].get(p, 0.0) for p in parts)
+        want = on["buckets"][bucket]
+        tol = max(ATTRIBUTION_TOL * want, floor)
+        covered[bucket] = have / want if want > 0 else 1.0
+        held[bucket] = (f"{tol * 1e3:.1f} ms, "
+                        f"{'10%' if tol > floor else 'the floor'}")
+        if abs(want - have) > tol:
+            raise AssertionError(
+                f"phase 15 (a): the {bucket} bucket {want:.3f} s against "
+                f"its substages {'+'.join(parts)} {have:.3f} s (tolerance "
+                f"{tol:.3f} s)")
+    per_block = {k: round(v / n, 6) for k, v in sorted(on["totals"].items())}
+    idle = (None if not on["busy_ms"] else
+            1.0 - on["busy_ms"] / on["wall_ms"])
+    complete = on["seen"] == on["launched"]
+    mark = ("complete" if complete else
+            "busy a LOWER BOUND, idle share an UPPER BOUND")
+    log(f"phase 15 (a) traced commit: {n} blocks of phase 8 (a) "
+        f"({sum(len(f) for f in on['flags'])} txs) through a pipelined "
+        f"committer (depth {OBS_DEPTH}) on the card, untraced "
+        f"{off['wall_ms']:.1f} ms and traced {on['wall_ms']:.1f} ms: flags "
+        f"and fingerprint identical ({on['fp'][:16]}, == phase 8 (a)); "
+        f"buckets s {{stage {on['buckets']['stage']:.4f}, await "
+        f"{on['buckets']['await']:.4f}, commit {on['buckets']['commit']:.4f}}}"
+        f" explained by their substages "
+        f"{ {k: round(v, 3) for k, v in covered.items()} } (tolerance "
+        f"{held}: the larger of 10% and {floor * 1e3:.2f} ms, 100 ms over "
+        f"{ATTRIBUTION_FLOOR_BLOCKS} blocks scaled to {n})")
+    log(f"phase 15 (a) seconds a block by substage: {per_block}")
+    log(f"phase 15 (a) device: {on['kernels']} kernel events, busy "
+        f"{on['busy_ms']} ms of {on['wall_ms']:.1f} ms wall, idle share "
+        f"{'not measured' if idle is None else f'{idle:.4f}'} (torch.profiler"
+        f" over the traced run; "
+        f"{mark}: hand-written "
+        f"kernels recorded {on['seen']} of launched {on['launched']}, "
+        f"launched on the pipe's stage thread)")
+    return {"per_block_s": per_block, "idle": idle, "complete": complete}
+
+
+def obs_lens(torch, dev) -> None:
+    """15 (b): one armed GpuVerifier dispatch of a 1000-tx block's
+    signatures in the 2048-lane bucket inside the device lens; its
+    trace's kernel events per name must equal the window's launches.
+    Run it before any profiler window of the process (OBS_PARTS)."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.observability import tracing
+    from fabric_mod_tpu_torch.ops import _build
+    from fabric_mod_tpu_torch.utils import fixtures
+    items, expect = fixtures.make_block(N_BLOCKS - 1, n_tx=TX_PER_BLOCK,
+                                        raw_endorsers=True)
+    items, expect = items[:LANES], expect[:LANES]
+    out_dir = os.path.join("chiprun_out", "phase15_lens")
+    verifier = gpu.GpuVerifier(device=dev, cache_size=0,
+                               profile_dir=out_dir)
+    verifier.verify_many(items[:8])                # outside the window
+    tracing.rearm_device_profile()
+    t0 = time.perf_counter()
+    with tracing.active():
+        mask = verifier.verify_many(items)
+    wall = time.perf_counter() - t0
+    lens = tracing.last_lens()
+    if lens is None or lens.path is None or not os.path.exists(lens.path):
+        raise AssertionError("phase 15 (b): the lens wrote no trace")
+    if not (mask == expect).all():
+        raise AssertionError("phase 15 (b): verdicts differ from the "
+                             "construction")
+    table = lens.kernel_table()
+    want = {"sha256_e", "verify_prologue", "ladder_projective",
+            "verify_epilogue"}
+    log(f"phase 15 (b) device lens: one dispatch of {len(items)} lanes "
+        f"(a 1000-tx block's, endorser lanes raw) in {wall:.3f} s inside "
+        f"the window; kernel: (launches, trace events) {table}; trace "
+        f"{lens.path} ({os.path.getsize(lens.path)} bytes); kernel builds "
+        f"and loads so far {tracing.compile_count()} "
+        f"(_build.build_count {_build.build_count()})")
+    if set(table) != want or any(a != b or a < 1 for a, b in table.values()):
+        raise AssertionError(f"phase 15 (b): the lens' trace does not hold "
+                             f"every launch of its window: {table}")
+
+
+def storm_material():
+    """One org's channel, solo, 16-tx blocks every 100 ms, and 8 client
+    identities (the client and 7 more peers of the seeded network: one
+    token bucket each) — bench.py:2568's storm world."""
+    from fabric_mod_tpu_torch.bccsp import sw
+    from fabric_mod_tpu_torch.e2e import _signer
+    from fabric_mod_tpu_torch.utils import fixtures
+    mat = fixtures.make_network_material(
+        SEED, STORM_CHANNEL, max_message_count=STORM_MAX_MESSAGES,
+        batch_timeout=STORM_BATCH_TIMEOUT_15,
+        gossip_peers=STORM_CLIENTS - 1)
+    csp = sw.SwCSP()
+    clients = [_signer(csp, p) for p in [mat.client, *mat.gossip_peers]]
+    return mat, csp, clients
+
+
+def storm_envelopes(clients, per_client: int):
+    """Pre-signed envelopes, one Writers signature each, distinct tx ids
+    (bench.py `_storm_envelopes`): [(client index, tx id, envelope)]."""
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    out = []
+    for ci, signer in enumerate(clients):
+        creator = signer.serialize()
+        for j in range(per_client):
+            tx_id = f"storm-c{ci}-{j}"
+            ch = protoutil.make_channel_header(
+                m.HeaderType.ENDORSER_TRANSACTION, STORM_CHANNEL,
+                tx_id=tx_id)
+            sh = protoutil.make_signature_header(creator,
+                                                 protoutil.new_nonce())
+            payload = protoutil.make_payload(ch, sh,
+                                             b"storm-%d-%d" % (ci, j))
+            out.append((ci, tx_id, protoutil.sign_envelope(payload, signer)))
+    return out
+
+
+def storm_arm(root, by_client, world, gated: bool, drain_delay_s: float,
+              queue_cap: int, verify_many, staged: int = 0) -> dict:
+    """One storm run (bench.py `_storm_arm`): every client thread pushes
+    its envelopes as fast as ingress admits them; a sleep before each
+    block write caps the drain (`drain_delay_s` 0: unthrottled).
+    Returns the figures after the consistency gate: every admitted
+    envelope committed exactly once, every shed typed."""
+    from collections import Counter
+    from fabric_mod_tpu_torch.orderer import Broadcast, Registrar
+    from fabric_mod_tpu_torch.orderer.admission import (
+        AdmissionController, ResourceExhaustedError)
+    from fabric_mod_tpu_torch.e2e import _signer
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    mat, csp, _clients = world
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        registrar = Registrar(tmp, _signer(csp, mat.orderer), csp,
+                              verify_many=verify_many,
+                              submit_queue_cap=queue_cap if gated else 0)
+        support = registrar.create_channel(m.Block.decode(mat.genesis))
+        if drain_delay_s > 0:
+            orig = support.writer.write_block
+
+            def slow_write(block, *a, _orig=orig, **kw):
+                time.sleep(drain_delay_s)
+                return _orig(block, *a, **kw)
+            support.writer.write_block = slow_write
+        bcast = Broadcast(registrar, staged_batch=staged,
+                          admission=(AdmissionController(queue_cap=queue_cap)
+                                     if gated else None))
+        admitted, shed, errors, latencies = [], [], [], []
+        lock, stop, depth = threading.Lock(), threading.Event(), [0]
+
+        def monitor():
+            while not stop.is_set():
+                depth[0] = max(depth[0],
+                               support.chain.submit_queue_depth()[0])
+                time.sleep(0.002)
+
+        def client_main(mine):
+            acc, sh, lat, errs = [], [], [], []
+            for tx_id, env in mine:
+                t0 = time.perf_counter()
+                try:
+                    bcast.submit(env)
+                    lat.append(time.perf_counter() - t0)
+                    acc.append(tx_id)
+                except ResourceExhaustedError as e:
+                    sh.append((tx_id, e.reason))
+                except Exception as e:             # the gate below fails
+                    errs.append((tx_id, repr(e)))
+            with lock:
+                admitted.extend(acc)
+                shed.extend(sh)
+                latencies.extend(lat)
+                errors.extend(errs)
+        threads = [threading.Thread(target=client_main, args=(ce,),
+                                    daemon=True) for ce in by_client]
+        mon = threading.Thread(target=monitor, daemon=True)
+        mon.start()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        burst_s = time.perf_counter() - t0
+        store = support.store
+        deadline = time.time() + max(120.0,
+                                     2 * len(admitted) * drain_delay_s + 30)
+        while time.time() < deadline:
+            if sum(len(store.get_block_by_number(i).data.data)
+                   for i in range(1, store.height)) >= len(admitted):
+                break
+            time.sleep(0.02)
+        drain_s = time.perf_counter() - t0 - burst_s
+        stop.set()
+        mon.join(timeout=2)
+        committed = [protoutil.envelope_channel_header(env).tx_id
+                     for n in range(1, store.height)
+                     for env in protoutil.get_envelopes(
+                         store.get_block_by_number(n))]
+        bcast.close()
+        registrar.close()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"phase 15 (c): {len(errors)} untyped "
+                             f"failures, e.g. {errors[:3]}")
+    dupes = {t: c for t, c in Counter(committed).items() if c > 1}
+    if dupes or set(committed) != set(admitted):
+        raise AssertionError(
+            f"phase 15 (c): committed != admitted exactly once (double "
+            f"{len(dupes)}, lost {len(set(admitted) - set(committed))}, "
+            f"shed but committed {len(set(committed) - set(admitted))})")
+    lat = sorted(latencies)
+    reasons = dict(Counter(r for _t, r in shed))
+    return {"accepted": len(admitted), "shed": len(shed),
+            "shed_reasons": reasons,
+            "p99_admission_ms": (lat[int(0.99 * (len(lat) - 1))] * 1e3
+                                 if lat else 0.0),
+            "accepted_tx_per_s": len(admitted) / burst_s,
+            "sustained_tx_per_s": len(admitted) / (burst_s
+                                                   + max(0.0, drain_s)),
+            "max_queue_depth": depth[0], "burst_s": burst_s,
+            "drain_s": max(0.0, drain_s)}
+
+
+def obs_storm(torch, dev) -> None:
+    """15 (c): bench.py:2568's broadcast storm at its width: 4096
+    pre-signed envelopes from 8 clients, a write_block sleep pinning the
+    drain to ~1/4 of the measured submit capacity, the gated arm
+    (bounded queue and overload gate) against the ungated; then the
+    unthrottled pair, unstaged against staged (64), the Writers checks
+    on the card in every arm."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.bccsp.api import VerifyItem
+    from fabric_mod_tpu_torch.orderer import Broadcast, Registrar
+    from fabric_mod_tpu_torch.e2e import _signer
+    from fabric_mod_tpu_torch.protos import messages as m
+    world = storm_material()
+    mat, csp, clients = world
+    # bench.py's device arms: the verifier's verify_many, cache off (the
+    # same envelopes replay in every arm), its 8- and 64-lane buckets
+    # warmed outside the arms
+    verifier = gpu.GpuVerifier(device=dev, cache_size=0)
+    verify_many = verifier.verify_many
+    for n in (1, STORM_STAGED):
+        # distinct junk items: identical ones would dedup to one lane
+        verify_many([VerifyItem((b"storm-warm-%08d" % i).ljust(32, b"\0"),
+                                bytes(8), bytes(64)) for i in range(n)])
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        per_client = STORM_TXS_15 // STORM_CLIENTS
+        envs = storm_envelopes(clients, per_client)
+        by_client = [[(tx, env) for ci, tx, env in envs if ci == i]
+                     for i in range(STORM_CLIENTS)]
+        cal = storm_envelopes(clients[:1], STORM_MAX_MESSAGES)
+        log(f"phase 15 (c) fixtures: {len(envs)} + {len(cal)} envelopes "
+            f"signed in {time.perf_counter() - t0:.1f} s")
+        registrar = Registrar(os.path.join(root, "cal"),
+                              _signer(csp, mat.orderer), csp,
+                              verify_many=verify_many)
+        registrar.create_channel(m.Block.decode(mat.genesis))
+        bcast = Broadcast(registrar)
+        t0 = time.perf_counter()
+        for _ci, _tx, env in cal:
+            bcast.submit(env)
+        per_submit_s = max(1e-5, (time.perf_counter() - t0) / len(cal))
+        registrar.close()
+        drain_delay_s = STORM_OVERLOAD * per_submit_s * STORM_MAX_MESSAGES
+        queue_cap = max(STORM_MAX_MESSAGES,
+                        min(4 * STORM_MAX_MESSAGES, len(envs) // 4))
+        log(f"phase 15 (c) calibration: {per_submit_s * 1e3:.3f} ms a "
+            f"submit -> offered ~{1 / per_submit_s:,.0f} tx/s, drain "
+            f"capped at ~{STORM_MAX_MESSAGES / drain_delay_s:,.0f} tx/s; "
+            f"queue cap {queue_cap}")
+        arms = {}
+        arms["gated"] = storm_arm(root, by_client, world, True,
+                                  drain_delay_s, queue_cap, verify_many)
+        arms["ungated"] = storm_arm(root, by_client, world, False,
+                                    drain_delay_s, queue_cap,
+                                    verify_many)
+        arms["unstaged"] = storm_arm(root, by_client, world, True, 0.0,
+                                     queue_cap, verify_many)
+        arms["staged"] = storm_arm(root, by_client, world, True, 0.0,
+                                   queue_cap, verify_many,
+                                   staged=STORM_STAGED)
+    gated, ungated = arms["gated"], arms["ungated"]
+    if gated["max_queue_depth"] > queue_cap:
+        raise AssertionError(f"phase 15 (c): gated queue depth "
+                             f"{gated['max_queue_depth']} > cap {queue_cap}")
+    if not gated["shed"]:
+        raise AssertionError("phase 15 (c): the gated arm shed nothing")
+    if ungated["shed"]:
+        raise AssertionError("phase 15 (c): the ungated arm shed")
+    for name, arm in arms.items():
+        log(f"phase 15 (c) storm {name}: accepted {arm['accepted']}, shed "
+            f"{arm['shed']} {arm['shed_reasons']}, p99 admission "
+            f"{arm['p99_admission_ms']:.3f} ms, accepted "
+            f"{arm['accepted_tx_per_s']:.1f} tx/s, sustained "
+            f"{arm['sustained_tx_per_s']:.1f} tx/s (burst "
+            f"{arm['burst_s']:.2f} s, drain {arm['drain_s']:.2f} s), max "
+            f"queue depth {arm['max_queue_depth']}")
+    ratio = arms["staged"]["sustained_tx_per_s"] / max(
+        arms["unstaged"]["sustained_tx_per_s"], 1e-9)
+    log(f"phase 15 (c): every admitted envelope committed exactly once and "
+        f"every shed typed in all four arms; staged / unstaged sustained "
+        f"{ratio:.3f}")
+
+
+def _chain_bytes(store, lo=0, hi=None):
+    hi = store.height if hi is None else hi
+    return [store.get_block_by_number(i).encode() for i in range(lo, hi)]
+
+
+def obs_participation(torch, dev, pre, post) -> None:
+    """15 (d): a three-orderer Raft network (phase 9's) orders `pre`;
+    a config update adds orderer3 to the consenter set; orderer3 joins
+    from that config block, replicating the chain and verifying every
+    block on the card; orderer4, not a member, follows from genesis;
+    the cluster with orderer3 orders `post`.  Gates: the follower's
+    chain and orderer3's replicated blocks byte-equal to the source's,
+    orderer3's own blocks equal but for its verified signature, and a
+    source with one flipped orderer-signature byte refused."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.channelconfig import (compute_update,
+                                                    signed_update_envelope)
+    from fabric_mod_tpu_torch.orderer import Registrar
+    from fabric_mod_tpu_torch.orderer.participation import (
+        ChannelParticipation, FollowerChain, ParticipationError,
+        store_fetcher)
+    from fabric_mod_tpu_torch.peer.mcs import MessageCryptoService
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    material = fixtures.make_network_material(
+        SEED, consensus_type="etcdraft", orderers=RAFT_ORDERERS,
+        spare_orderers=2, max_message_count=TX_PER_BLOCK,
+        batch_timeout=E2E_BATCH_TIMEOUT,
+        preferred_max_bytes=E2E_PREFERRED_MAX_BYTES)
+    member, follower_id = "orderer3", "orderer4"
+    verifier = gpu.GpuVerifier(device=dev, cache_size=0)
+    with tempfile.TemporaryDirectory() as root:
+        net = e2e.Network(root, material=material, verifier=verifier,
+                          election_timeout=RAFT_ELECTION_TIMEOUT,
+                          heartbeat_s=RAFT_HEARTBEAT_S)
+        try:
+            src = net.orderers[0].support
+
+            def txs():
+                return sum(len(src.store.get_block_by_number(i).data.data)
+                           for i in range(1, src.store.height))
+
+            def feed(envs):
+                want = txs() + len(envs)
+                for env in envs:
+                    net.broadcast.submit(env)
+                deadline = time.monotonic() + E2E_TIMEOUT_S
+                while txs() < want and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                if txs() < want:
+                    raise AssertionError("phase 15 (d): the cluster did not "
+                                         "order the stream in time")
+            feed(pre)
+            cur = src.bundle().config
+            ids = list(src.bundle().orderer.consenters())
+            desired = fixtures.config_with_consenters(cur, ids + [member])
+            net.broadcast.submit(signed_update_envelope(
+                net.channel_id, compute_update(net.channel_id, cur,
+                                               desired.channel_group),
+                [net.orderer_admin]))
+            deadline = time.monotonic() + 60
+            while any(o.support.sequence() != 1 for o in net.orderers) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            join_block = src.store.get_block_by_number(src.writer.last_config)
+            h = join_block.header.number + 1
+            if h < 3 or any(o.support.sequence() != 1 for o in net.orderers):
+                raise AssertionError(f"phase 15 (d): the membership update "
+                                     f"did not apply (join height {h})")
+            # a copy of the source with one flipped signature byte
+            tampered_at = 1
+            honest = store_fetcher(src.store)
+
+            def tampered(lo, hi):
+                return [m.Block.decode(fixtures.tamper_block_signature(
+                    b.encode())) if b.header.number == tampered_at else b
+                    for b in honest(lo, hi)]
+            reg = Registrar(os.path.join(root, "tampered"),
+                            e2e._signer(net.csp,
+                                        material.consenters[member]),
+                            net.csp, verifier=verifier,
+                            block_fetcher=tampered)
+            try:
+                try:
+                    ChannelParticipation(reg).join(join_block)
+                except ParticipationError as e:
+                    refused = str(e)
+                else:
+                    raise AssertionError("phase 15 (d): a join from the "
+                                         "tampered source was accepted")
+            finally:
+                reg.close()
+            reg = Registrar(os.path.join(root, "tampered_follower"),
+                            e2e._signer(net.csp,
+                                        material.consenters[follower_id]),
+                            net.csp, verifier=verifier,
+                            block_fetcher=tampered)
+            try:
+                bad = ChannelParticipation(reg).join(
+                    m.Block.decode(material.genesis), as_follower=True)
+                deadline = time.monotonic() + 60
+                while bad.chain.rejected != [tampered_at] \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                time.sleep(1.0)                    # a few more polls
+                if bad.chain.rejected != [tampered_at] \
+                        or bad.store.height != tampered_at \
+                        or bad.chain.errors:
+                    raise AssertionError(
+                        f"phase 15 (d): the follower of the tampered source "
+                        f"holds {bad.store.height} blocks, refused "
+                        f"{bad.chain.rejected}, errors {bad.chain.errors}")
+            finally:
+                reg.close()
+            t0 = time.perf_counter()
+            joined = net.join_orderer(member, join_block)
+            join_s = time.perf_counter() - t0
+            follower = net.join_orderer(follower_id,
+                                        m.Block.decode(material.genesis),
+                                        as_follower=True)
+            if not isinstance(follower.support.chain, FollowerChain):
+                raise AssertionError("phase 15 (d): orderer4 is not a "
+                                     "follower")
+            feed(post)
+            deadline = time.monotonic() + 120
+            while len({o.support.store.height for o in net.orderers}) != 1 \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            top = src.store.height
+            if {o.support.store.height for o in net.orderers} != {top} \
+                    or top < h + 2:
+                raise AssertionError(
+                    f"phase 15 (d): heights "
+                    f"{[(o.id, o.support.store.height) for o in net.orderers]}"
+                    f", join height {h}")
+            if _chain_bytes(follower.support.store) != _chain_bytes(src.store):
+                raise AssertionError("phase 15 (d): the follower's block "
+                                     "file differs from the source's")
+            mine = joined.support.store
+            if _chain_bytes(mine, 0, h) != _chain_bytes(src.store, 0, h):
+                raise AssertionError("phase 15 (d): the joiner's replicated "
+                                     "blocks differ from the source's")
+            mcs = MessageCryptoService(joined.support.bundle, verifier)
+            me = e2e._signer(net.csp, material.consenters[member]).serialize()
+            for i in range(h, top):
+                got, want = mine.get_block_by_number(i), \
+                    src.store.get_block_by_number(i)
+                if got.header.encode() != want.header.encode() \
+                        or got.data.encode() != want.data.encode():
+                    raise AssertionError(f"phase 15 (d): block {i} differs "
+                                         f"on the joiner")
+                mcs.verify_block(net.channel_id, got)
+                meta = m.Metadata.decode(got.metadata.metadata[
+                    m.BlockMetadataIndex.SIGNATURES])
+                if m.SignatureHeader.decode(
+                        meta.signatures[0].signature_header).creator != me:
+                    raise AssertionError(f"phase 15 (d): block {i} of the "
+                                         f"joiner is not its own")
+            chain = follower.support.chain
+            if chain.rejected or chain.errors:
+                raise AssertionError("phase 15 (d): the follower refused an "
+                                     "honest block")
+            log(f"phase 15 (d) participation: {RAFT_ORDERERS} Raft orderers "
+                f"ordered {len(pre)} txs; a config update added {member} "
+                f"(block {h - 1}); {member} joined from it, replicating and "
+                f"verifying on the card {h} blocks in {join_s:.3f} s "
+                f"({h / join_s:.1f} blocks replicated/s), then the "
+                f"{len(net.orderers) - 1} consenters ordered {len(post)} more "
+                f"txs into {top - h} blocks; the follower {follower_id} "
+                f"holds all {top} blocks byte-equal to the source; {member}'s "
+                f"blocks 0..{h - 1} byte-equal, {h}..{top - 1} equal but for "
+                f"its own signature, verified on the card; the tampered "
+                f"source (block {tampered_at}'s signature) refused on the "
+                f"join ({refused[:60]}...) and by a follower (stopped at "
+                f"{tampered_at})")
+        finally:
+            net.close()
+
+
+# phase 15 part -> (kernel launches, seconds).  (b), the device lens,
+# runs right after phase 3, before any other dispatch of the process and
+# before any profiler window: after a window of ~10^5 device activity
+# records torch.profiler records (almost) no device activity in later
+# windows of the process (scripts/torch_lens_stress.py, PERF.md §7).
+# (a) runs right after phase 8's arms for the same reason; (c) and (d)
+# at the end.
+OBS_PARTS: dict = {}
+
+
+def obs_part(name: str, fn, *args) -> None:
+    """One part of phase 15, the kernel counts set to 0 just before it
+    and read just after."""
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    fn(*args)
+    OBS_PARTS[name] = (kernel_counts(), time.perf_counter() - t0)
+
+
+def phase_observability(torch, dev, pre, post) -> dict:
+    """Phase 15: (a) the traced commit, (b) the device lens, (c) the
+    storm, (d) participation; runs the parts not yet run and returns
+    the four parts' kernel launches summed."""
+    if "b" not in OBS_PARTS:
+        obs_part("b", obs_lens, torch, dev)
+    if "a" not in OBS_PARTS:
+        obs_part("a", obs_traced_commit, torch)
+    obs_part("c", obs_storm, torch, dev)
+    obs_part("d", obs_participation, torch, dev, pre, post)
+    launched: dict = {}
+    for counts, _secs in OBS_PARTS.values():
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+    require_launched({k: launched[k] for k in CORE_KERNELS}, "phase 15")
+    log(f"observability phase: parts "
+        f"{ {k: round(v[1], 1) for k, v in sorted(OBS_PARTS.items())} } s "
+        f"wall; kernel launches {launched}")
+    return launched
+
+
 def main_phase11(torch, dev) -> int:
     """`--phase 11`: phase 11 alone, its (b) on a stream made here (phase 8
     arm (a)'s first GOSSIP_BLOCKS blocks' worth, endorsed as phase 8 does);
@@ -5425,10 +6152,30 @@ def main_phase14(torch, dev) -> int:
     return 0
 
 
+def main_phase15(torch, dev) -> int:
+    """`--phase 15`: phase 15 alone after phase 8 (a), which gives it the
+    ordered blocks and the stream ((d) orders that stream twice); no
+    kernels line."""
+    from fabric_mod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    obs_part("b", obs_lens, torch, dev)
+    _counts, _block, stream, _fp = phase_e2e(torch, dev, arm="a",
+                                             n_blocks=E2E_BLOCKS)
+    obs_part("a", obs_traced_commit, torch)
+    accepted = [env for env, ok in stream[0] if ok]
+    phase_observability(torch, dev, accepted, accepted)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=["11", "12", "13", "14"],
+    parser.add_argument("--phase", choices=["11", "12", "13", "14", "15"],
                         default=None,
                         help="run one phase alone (after the header)")
     only = parser.parse_args().phase
@@ -5466,6 +6213,8 @@ def main() -> int:
         return main_phase13(torch, dev)
     if only == "14":
         return main_phase14(torch, dev)
+    if only == "15":
+        return main_phase15(torch, dev)
 
     # 2. build
     t0 = time.perf_counter()
@@ -5488,6 +6237,9 @@ def main() -> int:
     # 3. kernels against their plain versions; the SHA-256 kernel on the
     # block-commit fixture's real messages (made here, committed in 5)
     kernels = phase_kernels(torch, np, dev)
+    # 15 (b), the device lens: the process's first GpuVerifier dispatch,
+    # before any profiler window (see OBS_PARTS)
+    obs_part("b", obs_lens, torch, dev)
     t0 = time.perf_counter()
     world = fixtures.make_commit_world()
     raw_world = fixtures.make_commit_world(raw_messages=True)
@@ -5522,6 +6274,9 @@ def main() -> int:
                                                     n_blocks=E2E_BLOCKS)
     arms["b"], _, order_free, _ = phase_e2e(torch, dev, arm="b",
                                             n_blocks=E2E_BLOCKS)
+    # 15 (a), the traced commit of arm (a)'s blocks, before the profiled
+    # block below and phases 6-14's windows (see OBS_PARTS)
+    obs_part("a", obs_traced_commit, torch)
     profile_e2e_block(torch, *e2e_block)
     log(f"e2e phase: {time.perf_counter() - t0:.1f} s wall")
 
@@ -5542,7 +6297,7 @@ def main() -> int:
     phase_profile(torch, blocks, world, commit_blocks)
 
     # 7. the idemix presentation verify
-    arms["idemix"], idemix_kernels = phase_idemix(torch, np)
+    arms["idemix"], idemix_kernels, pairing_profile = phase_idemix(torch, np)
     kernels.update(idemix_kernels)
 
     # 10. gossip: (a) the 50-peer MCS storm, (b) 50 gossip peers over
@@ -5581,6 +6336,16 @@ def main() -> int:
     # snapshots: (a)-(e) on a solo network beside a host oracle, (f) the
     # snapshot, a bootstrapped peer and the admin commands
     arms["lifecycle"] = phase_lifecycle(torch, dev, scale_blocks)
+
+    # 15. observability and the orderer's ingress: (a) phase 8 (a)'s
+    # blocks committed traced and untraced, (b) the device lens, (c) the
+    # broadcast storm, (d) a Raft join and a follower over phase 8's two
+    # streams
+    arms["observability"] = phase_observability(
+        torch, dev, [env for env, ok in order_free[0] if ok],
+        [env for env, ok in full[0] if ok])
+    # 7 (d), the plain pairing's profile: after the last profiler window
+    pairing_profile()
     for k in kernels.values():
         k["launches"] = counts.get(k["name"], 0) + sum(
             c.get(k["name"], 0) for c in arms.values())

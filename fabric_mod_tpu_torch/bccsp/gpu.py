@@ -17,8 +17,17 @@ orderer/stagedbroadcast.py), with the routing tag its `submit` and
 `verify_many` carry for a subclass's `_route_batch` to group by
 (sharding/verifyservice.py); and the mesh: `GpuVerifier(mesh=...)`
 splits each bucket over the mesh's devices, one contiguous lane range
-each (parallel/mesh.py).  Left out: metrics, tracing, fault points, and
-the circuit breaker with its software failover — a CUDA error here
+each (parallel/mesh.py).
+
+Tracing (observability/tracing.py, armed only): a dispatch's marshal is
+the "der_marshal" span; the coalescing service's flush and resolve are
+"verify.flush" and "verify.resolve", linked under the first traced
+submitter (reference :491, :848, :927).  `GpuVerifier(profile_dir=)`
+is the device lens: with the tracer armed, the process's first dispatch
+runs its marshal, launches and resolve inside one torch.profiler window
+and writes the Chrome trace there (reference :495-514, whose window an
+environment knob arms).  Left out: metrics, fault points,
+and the circuit breaker with its software failover — a CUDA error here
 raises; no path answers a device batch in software.
 """
 from __future__ import annotations
@@ -38,6 +47,7 @@ import torch
 from fabric_mod_tpu_torch import device as _device
 from fabric_mod_tpu_torch.bccsp import der as _der
 from fabric_mod_tpu_torch.bccsp.api import VerifyItem
+from fabric_mod_tpu_torch.observability import tracing
 
 BUCKETS = (8, 64, 512, 2048)
 LADDERS = ("projective", "mixed")
@@ -178,12 +188,16 @@ class GpuVerifier:
     `VerdictCache` to share one.  Identical items in one call always
     dedup to a single device lane.  `buckets` are the batch sizes a
     call is padded to (ascending; the largest is also the chunk size
-    of a larger call)."""
+    of a larger call).  `profile_dir` arms the device lens: with the
+    tracer armed, the first dispatch of the process (one-shot) runs
+    inside a torch.profiler window whose Chrome trace is written there
+    (`tracing.last_lens()` then holds the window's kernel launches and
+    the trace's kernel events)."""
 
     def __init__(self, device=None, ladder: str = "projective",
                  cache: Optional[VerdictCache] = None,
                  cache_size: int = 8192, buckets: Sequence[int] = BUCKETS,
-                 mesh=None):
+                 mesh=None, profile_dir: Optional[str] = None):
         if ladder not in LADDERS:
             raise ValueError(f"ladder must be one of {LADDERS}, got {ladder!r}")
         if not buckets or list(buckets) != sorted(set(buckets)) \
@@ -205,6 +219,7 @@ class GpuVerifier:
             _device.require_exact_fp32()
         self.ladder = ladder
         self.buckets = tuple(buckets)
+        self.profile_dir = profile_dir
         # one enqueue at a time: the peer's MCS and its commit pipe's
         # stage call from two threads, and two threads that each enqueue
         # thousands of small torch ops trade the GIL at every op (on the
@@ -272,7 +287,17 @@ class GpuVerifier:
         miss_idx = np.asarray(miss_lanes, np.int64)
         if miss_lanes:
             with self._enqueue:
-                verdicts = self._dispatch([uniq_items[j] for j in miss_lanes])
+                misses = [uniq_items[j] for j in miss_lanes]
+                lens = tracing.device_profile_capture(
+                    self.profile_dir, self.device, kernel_counts)
+                if lens is None:
+                    verdicts = self._dispatch(misses)
+                else:
+                    # the one-shot window: marshal, launches and the
+                    # resolve inside it (this batch forgoes its overlap)
+                    with lens:
+                        verdicts = self._dispatch(misses)
+                        verdicts.cpu()
 
         if keep_device:
             # the device tensor goes through as is when every lane
@@ -317,7 +342,8 @@ class GpuVerifier:
         from fabric_mod_tpu_torch.parallel import lane_ranges
         devs = self.mesh or (self.device,)
         size = _bucket(n, len(devs), self.buckets)
-        *planes, msg = marshal_items(items, size)
+        with tracing.span("der_marshal", items=n, bucket=size):
+            *planes, msg = marshal_items(items, size)
         parts = [self._verify_lanes(
             dev, *(p[lo:hi] for p in planes),
             None if msg is None else tuple(x[lo:hi] for x in msg))
@@ -338,6 +364,14 @@ class GpuVerifier:
                 device=dev, mixed=mixed, lazy=True, pre_ok=pre_ok)
         return p256.batch_verify(d, r, s, qx, qy, device=dev, mixed=mixed,
                                  lazy=True, pre_ok=pre_ok)
+
+
+def kernel_counts() -> dict:
+    """{kernel name: launches so far} of the verify path's hand-written
+    kernels (the ladders, the verify core, SHA-256): what the device
+    lens holds its trace to."""
+    from fabric_mod_tpu_torch.ops import p256_core, p256_cuda, sha256
+    return {**p256_cuda.counts(), **p256_core.counts(), **sha256.counts()}
 
 
 def _gather(parts: Sequence[torch.Tensor], dst: torch.device) -> torch.Tensor:
@@ -430,6 +464,12 @@ class BatchingVerifyService:
         which the flusher never splits below `max_batch`; one future
         per item."""
         group = [(item, Future(), tag) for item in items]
+        if tracing.armed():
+            # the caller's trace context rides the futures through the
+            # flusher, so its flush and resolve spans link under it
+            ctx = tracing.current_ctx()
+            for _, fut, _ in group:
+                fut.trace_ctx = ctx
         with self._lifecycle:
             if self._stop.is_set():
                 for _, fut, _ in group:
@@ -491,22 +531,32 @@ class BatchingVerifyService:
     def _flush(self, batch) -> None:
         """Dispatch one batch and hand it to the resolver.  A dispatch
         that raises fails its group's futures here; a device fault
-        surfaces on the resolver."""
+        surfaces on the resolver.  The "verify.flush" span covers the
+        routing, marshal and enqueue, not the wait for an in-flight slot
+        below (that is the resolver's backlog)."""
+        parent = None
+        if tracing.armed():
+            parent = next((getattr(fut, "trace_ctx", None)
+                           for _, fut, _ in batch
+                           if getattr(fut, "trace_ctx", None) is not None),
+                          None)
         dispatched = []
-        for verifier, group in self._route_batch(batch):
-            items = [it for it, _, _ in group]
-            try:
-                async_fn = getattr(verifier, "verify_many_async", None)
-                if async_fn is not None:
-                    resolve = async_fn(items)
-                else:
-                    mask = verifier.verify_many(items)
-                    resolve = lambda m=mask: m           # noqa: E731
-            except Exception as e:                   # the group's verdict
-                for _, fut, _ in group:
-                    _complete(fut, exc=e)
-                continue
-            dispatched.append((group, resolve))
+        with tracing.span("verify.flush", parent=parent,
+                          items=len(batch)) as flush_span:
+            for verifier, group in self._route_batch(batch):
+                items = [it for it, _, _ in group]
+                try:
+                    async_fn = getattr(verifier, "verify_many_async", None)
+                    if async_fn is not None:
+                        resolve = async_fn(items)
+                    else:
+                        mask = verifier.verify_many(items)
+                        resolve = lambda m=mask: m       # noqa: E731
+                except Exception as e:               # the group's verdict
+                    for _, fut, _ in group:
+                        _complete(fut, exc=e)
+                    continue
+                dispatched.append((group, resolve, flush_span.ctx))
         for entry in dispatched:
             self._inflight.put(entry)                # blocks when full
 
@@ -549,9 +599,13 @@ class BatchingVerifyService:
             got = self._inflight.get()
             if got is None:
                 return
-            group, resolve = got
+            group, resolve, flush_ctx = got
             try:
-                mask = resolve()
+                # continues the flush span's trace: submit -> flusher ->
+                # device -> resolver is one linked chain
+                with tracing.span("verify.resolve", parent=flush_ctx,
+                                  items=len(group)):
+                    mask = resolve()
                 for (_, fut, _), ok in zip(group, mask):
                     _complete(fut, bool(ok))
             except Exception as e:                   # the group's verdict

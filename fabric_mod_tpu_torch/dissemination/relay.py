@@ -35,9 +35,10 @@ MCS check (reference relay.py:226), which would turn a device error of
 the verifier into a silently dropped frame.  Here `on_relay` drops only
 what `GossipNode._verified_block` drops — a decode `ValueError` and the
 MCS's `BlockVerificationError` — and anything else propagates to the
-sender loop, which keeps it in `errors` and stops.  Metrics, tracing
-spans and the reference's `dissemination.push` / `dissemination.repair`
-fault points are left out.
+sender loop, which keeps it in `errors` and stops.  A push and a repair
+prod are the "relay.push" and "relay.repair" spans (tracer armed);
+metrics and the reference's `dissemination.push` /
+`dissemination.repair` fault points are left out.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ import collections
 import threading
 from typing import Callable, Dict, List, Optional
 
+from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.peer.mcs import BlockVerificationError
 from fabric_mod_tpu_torch.protos import messages as m
 
@@ -163,8 +165,9 @@ class BlockRelay:
 
     def _send_one(self, child: str, num: int, frame: bytes,
                   is_config: bool) -> bool:
-        env = self._envelope(num, frame, is_config)
-        ok = self._node.comm.send_signed(child, env)
+        with tracing.span("relay.push", block=num):
+            env = self._envelope(num, frame, is_config)
+            ok = self._node.comm.send_signed(child, env)
         with self._lock:
             self.stats["pushed" if ok else "send_failures"] += 1
         return ok
@@ -243,4 +246,5 @@ class BlockRelay:
                 return
             self._last_gap_start = gap.start
             self.stats["repair_prods"] += 1
-        self._node.state.request_gap()
+        with tracing.span("relay.repair", start=gap.start, stop=gap.stop):
+            self._node.state.request_gap()

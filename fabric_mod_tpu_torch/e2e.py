@@ -48,9 +48,11 @@ from fabric_mod_tpu_torch.channelconfig import (Bundle, compute_update,
                                                 signed_update_envelope)
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerManager
 from fabric_mod_tpu_torch.msp.identities import SigningIdentity, deserialize_cert
+from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.orderer import (Broadcast, DeliverService,
                                           RaftChain, RaftTransport,
                                           Registrar)
+from fabric_mod_tpu_torch.orderer.admission import AdmissionController
 from fabric_mod_tpu_torch.peer.channel import Channel
 from fabric_mod_tpu_torch.peer.deliverclient import DeliverClient
 from fabric_mod_tpu_torch.peer.endorser import Endorser, endorse_and_submit
@@ -130,18 +132,28 @@ class Network:
     and known to every node: with a manual clock, the caller advances it
     meanwhile.  The peer delivers from the first orderer;
     `orderers` lists them all, and `registrar`, `support`, `broadcast`
-    and `ingress_service` are the first's."""
+    and `ingress_service` are the first's.
+
+    `admission`: the keyword arguments of
+    orderer/admission.AdmissionController (queue_cap, rate, burst,
+    shed_high, shed_low, shed_lat_s, clock); each orderer builds its own
+    controller from them for its Broadcast, and `queue_cap` bounds its
+    chains' submit queues.  None (the default) is every mechanism off:
+    the blocking 10,000-entry queues, no limiter, no gate."""
 
     def __init__(self, root_dir: str, material: NetworkMaterial,
                  verifier=None, device=None, tensor_policy: bool = False,
                  ingress_batching: bool = False, staged_batch: int = 0,
                  election_timeout: Tuple[float, float] = (0.15, 0.3),
-                 heartbeat_s: float = 0.05, clock=None):
+                 heartbeat_s: float = 0.05, clock=None,
+                 admission: Optional[dict] = None):
         if verifier is None:
             from fabric_mod_tpu_torch.bccsp.gpu import GpuVerifier
             verifier = GpuVerifier(device=device)
         self.csp = SwCSP()
         self.verifier = verifier
+        self.admission = dict(admission or {})
+        self._queue_cap = int(self.admission.get("queue_cap", 0))
         self.peer_signers = {org: _signer(self.csp, p)
                              for org, p in material.peers.items()}
         self.admins = {org: _signer(self.csp, p)
@@ -149,6 +161,10 @@ class Network:
         self.client = _signer(self.csp, material.client)
         self.orderer_admin = (_signer(self.csp, material.orderer_admin)
                               if material.orderer_admin else None)
+        self.root_dir = root_dir
+        self.material = material
+        self._raft_timing = (election_timeout, heartbeat_s, clock)
+        self._ingress = (ingress_batching, staged_batch)
         self.genesis_block = m.Block.decode(material.genesis)
         channel_id, config = config_from_block(self.genesis_block)
         self.channel_id = channel_id
@@ -275,21 +291,25 @@ class Network:
         return env
 
     def _raft_factory(self, root_dir, oid, ids, election_timeout,
-                      heartbeat_s, clock):
+                      heartbeat_s, clock, block_fetcher=None):
         def factory(support):
             return RaftChain(
                 oid, list(ids), self.transport,
                 os.path.join(root_dir, "orderer", oid,
                              f"{support.channel_id}.wal"),
                 support, election_timeout=election_timeout,
-                heartbeat_s=heartbeat_s, clock=clock)
+                heartbeat_s=heartbeat_s, clock=clock,
+                block_fetcher=block_fetcher,
+                submit_queue_cap=support.submit_queue_cap)
         return factory
 
     def _boot_orderer(self, root_dir, oid, pems, ingress_batching,
-                      staged_batch, raft_factory) -> OrdererNode:
+                      staged_batch, raft_factory, join=None) -> OrdererNode:
         """One ordering node: the Writers check verifies on the host, or
         with ingress batching through its own coalescing service; the
-        registrar picks the chain by the genesis' consensus type."""
+        registrar picks the chain by the genesis' consensus type.
+        `join` (join block, as_follower, fetcher): the node joins the
+        channel by participation instead of creating it."""
         service = ingress_verify = None
         if ingress_batching:
             from fabric_mod_tpu_torch.bccsp.gpu import BatchingVerifyService
@@ -303,25 +323,72 @@ class Network:
                 _signer(self.csp, pems), self.csp,
                 verify_many=ingress_verify,
                 consenters={"etcdraft": raft_factory} if raft_factory
-                else None)
+                else None, submit_queue_cap=self._queue_cap,
+                block_fetcher=join[2] if join else None,
+                verifier=self.verifier)
         except BaseException:
             if service is not None:
                 service.close()
             raise
-        support = registrar.get_chain(self.channel_id) or \
-            registrar.create_channel(self.genesis_block)
+        try:
+            support = registrar.get_chain(self.channel_id)
+            if support is None and join is not None:
+                from fabric_mod_tpu_torch.orderer.participation import \
+                    ChannelParticipation
+                support = ChannelParticipation(registrar).join(
+                    join[0], as_follower=join[1])
+            elif support is None:
+                support = registrar.create_channel(self.genesis_block)
+        except BaseException:
+            registrar.close()
+            if service is not None:
+                service.close()
+            raise
+        adm = (AdmissionController(**self.admission) if self.admission
+               else None)
         return OrdererNode(oid, registrar, support,
-                           Broadcast(registrar, staged_batch=staged_batch),
+                           Broadcast(registrar, staged_batch=staged_batch,
+                                     admission=adm),
                            service)
 
+    def join_orderer(self, oid: str, join_block: m.Block,
+                     as_follower: bool = False) -> OrdererNode:
+        """Boot one more ordering node, `oid` (its signer from the
+        material's `consenters`), that joins the channel from
+        `join_block` by channel participation (orderer/participation.py):
+        from a genesis block, or from a later config block by
+        replicating the first orderer's chain and checking every block
+        through the MCS with the network's verifier.  A member of the
+        Raft consenter set then runs a RaftChain over the network's
+        transport (the cluster replicates to it); `as_follower` stores
+        and follows the first orderer's blocks without ordering.  The
+        node joins `orderers` and closes with the network."""
+        from fabric_mod_tpu_torch.orderer.participation import (
+            ChannelParticipation, store_fetcher)
+        fetch = store_fetcher(self.orderers[0].support.store)
+        election_timeout, heartbeat_s, clock = self._raft_timing
+        raft_factory = None
+        if self.transport is not None:
+            raft_factory = self._raft_factory(
+                self.root_dir, oid, [oid], election_timeout, heartbeat_s,
+                clock, block_fetcher=fetch)
+        node = self._boot_orderer(
+            self.root_dir, oid, self.material.consenters[oid],
+            *self._ingress, raft_factory, join=(join_block, as_follower,
+                                                fetch))
+        self.orderers.append(node)
+        return node
+
     def raft_leader(self) -> Optional[str]:
-        """The id of the one Raft leader every node knows, or None (an
-        election in flight, or a solo network)."""
+        """The id of the one Raft leader every consenter knows, or None
+        (an election in flight, or a solo network); followers of the
+        channel are not asked."""
         if self.transport is None:
             return None
-        chains = [o.support.chain for o in self.orderers]
-        leaders = [o.id for o, c in zip(self.orderers, chains)
-                   if c.is_leader]
+        members = [o for o in self.orderers
+                   if hasattr(o.support.chain, "is_leader")]
+        chains = [o.support.chain for o in members]
+        leaders = [o.id for o, c in zip(members, chains) if c.is_leader]
         if len(leaders) != 1 or any(c.leader_id != leaders[0]
                                     for c in chains):
             return None
@@ -451,9 +518,14 @@ def run_pipeline(n_txs: int, verifier=None, stats: Optional[dict] = None,
     stage_secs (host unpack + device dispatch), await_secs (the
     verdict wait) and commit_secs (await + resolve + MVCC + ledger
     commit), mcs_secs (the block-signature checks) and wall_secs (the
-    measured span)."""
+    measured span); with the tracer armed also `stage_attribution`,
+    the seconds each named span took over the run (recv, unpack,
+    der_marshal, device_dispatch, verdict_await, policy_*, mvcc,
+    ledger_write, ...), as the reference's (:275-284)."""
     from fabric_mod_tpu_torch.protos import protoutil
     from fabric_mod_tpu_torch.utils import fixtures
+    trace_t0 = ({k: v["secs"] for k, v in tracing.substage_totals().items()}
+                if tracing.armed() else None)
     with tempfile.TemporaryDirectory() as root:
         net = Network(root, fixtures.make_network_material(0),
                       verifier=verifier, device=device,
@@ -482,6 +554,10 @@ def run_pipeline(n_txs: int, verifier=None, stats: Optional[dict] = None,
                              await_secs=client.await_secs,
                              commit_secs=client.commit_secs,
                              mcs_secs=client.mcs_secs, wall_secs=dt)
+                if trace_t0 is not None:
+                    stats["stage_attribution"] = {
+                        k: round(v["secs"] - trace_t0.get(k, 0.0), 6)
+                        for k, v in tracing.substage_totals().items()}
             return n_txs / dt
         finally:
             net.close()

@@ -30,6 +30,7 @@ import time
 from typing import Callable, List, Optional
 
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerError
+from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.protos import messages as m
 
 
@@ -165,31 +166,33 @@ class GossipStateProvider:
         ledger = self._channel.ledger
         with self._drain_lock:
             pipe = self._refresh_pipe()
-            while n < max_blocks:
-                block = self.buffer.pop_in_order()
-                if block is None:
-                    break
-                if block.header.number < ledger.height:
-                    self.stale += 1
-                    continue
-                try:
-                    if pipe is not None:
-                        pipe.submit(block)
-                    else:
-                        self._channel.store_block(block)
-                except LedgerError:
+            with tracing.span("gossip.drain") as drain_span:
+                while n < max_blocks:
+                    block = self.buffer.pop_in_order()
+                    if block is None:
+                        break
                     if block.header.number < ledger.height:
-                        # the deliver client committed it meanwhile
                         self.stale += 1
                         continue
-                    self.buffer.resync(ledger.height)
-                    raise
-                except Exception:
-                    # the popped block never committed: rewind so it
-                    # stays requestable
-                    self.buffer.resync(ledger.height)
-                    raise
-                n += 1
+                    try:
+                        if pipe is not None:
+                            pipe.submit(block)
+                        else:
+                            self._channel.store_block(block)
+                    except LedgerError:
+                        if block.header.number < ledger.height:
+                            # the deliver client committed it meanwhile
+                            self.stale += 1
+                            continue
+                        self.buffer.resync(ledger.height)
+                        raise
+                    except Exception:
+                        # the popped block never committed: rewind so it
+                        # stays requestable
+                        self.buffer.resync(ledger.height)
+                        raise
+                    n += 1
+                drain_span.set(blocks=n)
         return n
 
     def flush(self, timeout_s: Optional[float] = None) -> bool:

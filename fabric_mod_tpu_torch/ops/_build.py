@@ -2,11 +2,17 @@
 
 Each source under fabric_mod_tpu_torch/csrc/ is compiled on first CUDA
 use into `<repo>/build/kernels/<name>-<source hash>.so` (a directory
-.gitignore lists; the hash covers the headers under csrc/ too), with a
-plain C interface loaded through ctypes — no PyTorch headers, so a
-build takes seconds, not minutes.  The hash key
-means an edited source rebuilds and a stale library is never loaded.  A
-failed build raises with nvcc's output.  Nothing here runs at import.
+.gitignore lists; the hash covers the headers under csrc/ too, and the
+whole nvcc command line), with a plain C interface loaded through
+ctypes — no PyTorch headers, so a build takes seconds, not minutes.
+The hash key means an edited source or flag rebuilds and a stale
+library is never loaded.  A failed build raises with nvcc's output.
+Nothing here runs at import.
+
+`build_count()` counts the nvcc builds and library loads of this
+process, also exported as the ``fabric_gpu_kernel_builds_total``
+counter (the port's counterpart of the reference's XLA compile count,
+observability/tracing.compile_count).
 """
 from __future__ import annotations
 
@@ -19,6 +25,9 @@ import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Sequence
+
+from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
+                                                        default_provider)
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -77,21 +86,47 @@ def source_path(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
+def _flags() -> list:
+    """nvcc's arguments, between the compiler and the output path."""
+    return [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
 def library_path(name: str) -> Path:
     """The library's path, keyed by the source, every header under
-    csrc/ (the sources include them) and the target flags."""
+    csrc/ (the sources include them) and every flag of the build
+    command."""
     h = hashlib.sha256(source_path(name).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(ARCH_FLAGS).encode())
+    h.update("\0".join(_flags()).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def _command(name: str, out: Path) -> list:
-    return [nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(out), str(source_path(name))]
+    return [nvcc(), *_flags(), "-o", str(out), str(source_path(name))]
+
+
+_BUILDS_OPTS = MetricOpts(
+    "fabric", "gpu", "kernel_builds_total",
+    help="nvcc builds and library loads of the port's CUDA sources in "
+         "this process (a value climbing in a steady state means "
+         "libraries are being rebuilt or reloaded).")
+_builds = 0
+_builds_lock = threading.Lock()
+
+
+def _count_build() -> None:
+    global _builds
+    with _builds_lock:
+        _builds += 1
+    default_provider().counter(_BUILDS_OPTS).add(1)
+
+
+def build_count() -> int:
+    """nvcc builds plus library loads made by this process so far."""
+    return _builds
 
 
 def build_many(names: Sequence[str] = SOURCES) -> Dict[str, str]:
@@ -113,6 +148,7 @@ def build_many(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     for name, (proc, tmp, target) in running.items():
         out, _ = proc.communicate()
         logs[name] = out
+        _count_build()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
@@ -136,6 +172,7 @@ class _Libraries:
             if lib is None:
                 build_many([name])
                 lib = ctypes.CDLL(str(library_path(name)))
+                _count_build()
                 for fn, (res, args) in SIGNATURES[name].items():
                     f = getattr(lib, fn)
                     f.restype = res

@@ -82,6 +82,21 @@ class BlockWriter:
         with self.height_changed:
             self.height_changed.notify_all()
 
+    def append_signed(self, block: m.Block, is_config: bool = False) -> None:
+        """Append a block another orderer already signed, unchanged (a
+        follower's pull); a config block moves the last-config
+        pointer."""
+        with self._lock:
+            if is_config:
+                self._last_config = block.header.number
+            self._store.add_block(block)
+        with self.height_changed:
+            self.height_changed.notify_all()
+
+    @property
+    def last_config(self) -> int:
+        return self._last_config
+
     @property
     def height(self) -> int:
         return self._store.height

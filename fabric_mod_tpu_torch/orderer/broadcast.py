@@ -16,14 +16,25 @@ updates always take the blocking path.
 A Raft consenter with no leader to forward to raises the typed
 NotLeaderError; `submit` retries it with a backoff (0.05 s doubling to
 0.5 s) for up to NOT_LEADER_RETRY_S, the reference's default budget,
-then re-raises it (reference :84-89, :140-153).  Not ported: the
-admission gate.
+then re-raises it (reference :84-89, :140-153).
+
+Overload (orderer/admission.py): with an `AdmissionController` that has
+a mechanism on, `submit` classifies the envelope (one header parse) and
+consults the controller BEFORE the processor's signature work: the
+per-client token buckets and the occupancy/latency gate shed normal txs
+with the typed, retryable ResourceExhaustedError, while config and
+lifecycle traffic always passes; the latency of an ACCEPTED submission
+(route, admit, processor, enqueue) feeds the controller (reference
+:75-162).  Without one, the path is one None check.  A submission is
+the "broadcast.submit" span (tracer armed).
 """
 from __future__ import annotations
 
 import time
 
 from fabric_mod_tpu_torch.channelconfig import ConfigTxError
+from fabric_mod_tpu_torch.observability import tracing
+from fabric_mod_tpu_torch.orderer import admission as admission_mod
 from fabric_mod_tpu_torch.orderer.consensus import NotLeaderError
 from fabric_mod_tpu_torch.orderer.msgprocessor import MsgRejectedError
 from fabric_mod_tpu_torch.orderer.registrar import Registrar
@@ -42,13 +53,23 @@ class BroadcastError(Exception):
 
 class Broadcast:
     """`staged_batch`: the most envelopes one lane drain judges together;
-    0 runs each submitter's check on its own thread."""
+    0 runs each submitter's check on its own thread.  `admission`: an
+    admission_mod.AdmissionController (None, or one with every
+    mechanism off, admits everything as the default ingress does)."""
 
-    def __init__(self, registrar: Registrar, staged_batch: int = 0):
+    def __init__(self, registrar: Registrar, staged_batch: int = 0,
+                 admission=None):
         if staged_batch < 0:
             raise ValueError("staged_batch must be >= 0")
         self._registrar = registrar
         self._staged = StagedIngress(staged_batch) if staged_batch else None
+        self._admission = (admission if admission is not None
+                           and admission.enabled else None)
+
+    @property
+    def admission(self):
+        """The controller consulted on each submission, or None."""
+        return self._admission
 
     @staticmethod
     def _retry_not_leader(fn, *args) -> None:
@@ -72,12 +93,27 @@ class Broadcast:
     def submit(self, env: m.Envelope) -> None:
         """Accept one envelope for ordering; raises BroadcastError on a
         client-caused rejection, NotLeaderError when the consenter found
-        no leader within the retry budget."""
+        no leader within the retry budget, and
+        admission_mod.ResourceExhaustedError when admission sheds it."""
+        with tracing.span("broadcast.submit"):
+            self._submit(env)
+
+    def _submit(self, env: m.Envelope) -> None:
+        adm = self._admission
+        t0 = time.perf_counter() if adm is not None else 0.0
         try:
             support, is_config_update = \
                 self._registrar.broadcast_channel_support(env)
         except Exception as e:
             raise BroadcastError(f"routing: {e}") from e
+        if adm is not None:
+            # before the processor: a shed costs one header parse, not
+            # a signature check; the gate is per channel
+            client, priority = admission_mod.classify(
+                env, is_config_update, need_client=adm.has_limiter)
+            adm.admit(client, priority,
+                      admission_mod.chain_occupancy(support.chain),
+                      channel=support.channel_id)
         if is_config_update:
             try:
                 wrapped, seq = \
@@ -87,6 +123,7 @@ class Broadcast:
                 self._retry_not_leader(support.chain.configure, wrapped, seq)
             except _CLIENT_FAULTS as e:
                 raise BroadcastError(f"config update rejected: {e}") from e
+            self._note_latency(support, t0)
             return
         try:
             if self._staged is not None:
@@ -97,3 +134,12 @@ class Broadcast:
         except _CLIENT_FAULTS as e:
             raise BroadcastError(f"rejected: {e}") from e
         self._retry_not_leader(support.chain.order, env, seq)
+        self._note_latency(support, t0)
+
+    def _note_latency(self, support, t0: float) -> None:
+        """Accepted-path latency only: a shed raised before this, and
+        shed latencies in the EWMA would let fast rejections close the
+        gate they caused."""
+        if self._admission is not None:
+            self._admission.note_latency(time.perf_counter() - t0,
+                                         channel=support.channel_id)

@@ -7,9 +7,13 @@ goroutine select loop over normal/config messages and the batch timer).
 One worker thread drains a submit queue, feeds the block cutter, owns
 the batch timer and drives the block writer.  Config envelopes cut the
 pending batch and ride alone in their own block, after which the chain
-support swaps the channel bundle.  The queue is bounded at the
-reference's default cap with blocking puts (its admission gate, which
-sheds on a full queue, is not ported).
+support swaps the channel bundle.  By default the submit queue holds
+the reference's 10,000 entries with blocking puts; `queue_cap` > 0 (the
+admission setting, orderer/admission.py) bounds it with NON-blocking
+puts: a full queue sheds a normal tx with the typed, retryable
+ResourceExhaustedError (reason "queue_full"), while config and other
+priority envelopes keep a blocking put in halt-aware slices (reference
+:66-145).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import threading
 import time
 from typing import Optional
 
+from fabric_mod_tpu_torch.orderer import admission
 from fabric_mod_tpu_torch.protos import messages as m
 
 SUBMIT_QUEUE_CAP = 10_000
@@ -53,12 +58,14 @@ class SoloChain:
 
     `support` provides: cutter (BlockCutter), writer (BlockWriter),
     batch_timeout_s(), sequence(), process_config(env, block), and the
-    reprocess hooks for messages validated under a stale config."""
+    reprocess hooks for messages validated under a stale config.
+    `queue_cap` > 0 bounds the submit queue with non-blocking puts."""
 
-    def __init__(self, support):
+    def __init__(self, support, queue_cap: int = 0):
         self._support = support
+        self._bounded = queue_cap > 0
         self._q: "queue.Queue[Optional[_Msg]]" = queue.Queue(
-            maxsize=SUBMIT_QUEUE_CAP)
+            maxsize=queue_cap if self._bounded else SUBMIT_QUEUE_CAP)
         self._halted = threading.Event()
         self._thread = threading.Thread(target=self._run, name="solo-chain",
                                         daemon=True)
@@ -86,11 +93,48 @@ class SoloChain:
 
     def order(self, env: m.Envelope, config_seq: int) -> None:
         self.wait_ready()
-        self._q.put(_Msg(env, False, config_seq))
+        self._enqueue(_Msg(env, False, config_seq), is_config=False)
 
     def configure(self, env: m.Envelope, config_seq: int) -> None:
         self.wait_ready()
-        self._q.put(_Msg(env, True, config_seq))
+        self._enqueue(_Msg(env, True, config_seq), is_config=True)
+
+    def submit_queue_depth(self):
+        """(qsize, maxsize): the occupancy the overload gate watches."""
+        return self._q.qsize(), self._q.maxsize
+
+    def _enqueue(self, msg: _Msg, is_config: bool) -> None:
+        """Bounded: a full queue sheds a normal tx typed instead of
+        blocking the submitter; config and priority envelopes (the
+        classify parse runs only on the full path) wait for room."""
+        if not self._bounded:
+            self._q.put(msg)
+            return
+        if is_config:
+            self._put_priority(msg)
+            return
+        try:
+            self._q.put_nowait(msg)
+        except queue.Full:
+            if admission.is_priority(msg.env):
+                self._put_priority(msg)
+                return
+            raise admission.shed(
+                "queue_full", f"submit queue full ({self._q.maxsize})",
+                retry_after_s=min(5.0, self._support.batch_timeout_s()),
+            ) from None
+
+    def _put_priority(self, msg: _Msg) -> None:
+        """A blocking put in slices that re-check the halt: priority
+        waits for room, but a halted chain answers typed."""
+        while True:
+            if self._halted.is_set():
+                raise ChainHaltedError("chain is halted")
+            try:
+                self._q.put(msg, timeout=0.25)
+                return
+            except queue.Full:
+                continue
 
     def _cut_and_write(self, batch) -> None:
         support = self._support

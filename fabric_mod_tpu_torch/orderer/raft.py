@@ -27,9 +27,11 @@ The reference's knobs are constructor arguments with their defaults:
 `pipeline` (FABRIC_MOD_TPU_RAFT_PIPELINE, 0), `queue_cap`
 (FABRIC_MOD_TPU_RAFT_QUEUE, 8192) and `group_commit`
 (FABRIC_MOD_TPU_WAL_GROUP_COMMIT, off: an fsync on every append).  Its
-fault points, tracing spans, race-check wrappers and drop metrics are
-left out; a node counts its dropped messages, its elections and the
-leader changes it saw in plain attributes.
+fault points and race-check wrappers are left out; a node counts its
+dropped messages (also in the admission module's chain drop counter,
+reference :450-510), its elections and the leader changes it saw in
+plain attributes.  A WAL barrier is the "wal.sync" span and a pipelined
+append window "raft.replicate" (tracer armed).
 """
 from __future__ import annotations
 
@@ -41,6 +43,9 @@ import threading
 import time
 import zlib
 from typing import Callable, Dict, List, Optional, Tuple
+
+from fabric_mod_tpu_torch.observability import tracing
+from fabric_mod_tpu_torch.orderer.admission import chain_drop_counter
 
 # --- messages (wire-shaped; a cluster Step stream would carry these) -------
 
@@ -247,10 +252,11 @@ class RaftWAL:
         pending."""
         if not self._dirty:
             return
-        self._f.flush()
-        os.fsync(self._f.fileno())
-        self.sync_count += 1
-        self._dirty = False
+        with tracing.span("wal.sync"):
+            self._f.flush()
+            os.fsync(self._f.fileno())
+            self.sync_count += 1
+            self._dirty = False
 
     def save_hardstate(self, term: int, voted_for: Optional[str]) -> None:
         self.term = term
@@ -423,6 +429,7 @@ class RaftNode:
         except queue.Full:
             # heartbeats resend entries, votes re-request on timeout
             self.dropped += 1
+            chain_drop_counter().with_labels("raft_msg").add(1)
 
     def _put_advisory(self, item) -> None:
         """Wakeup-only items: dropping one on a full queue is safe."""
@@ -457,6 +464,7 @@ class RaftNode:
         try:
             self._q.put_nowait(("propose", data))
         except queue.Full:
+            chain_drop_counter().with_labels("raft_msg").add(1)
             return False
         return True
 
@@ -471,6 +479,7 @@ class RaftNode:
         try:
             self._q.put_nowait(("propose_many", list(datas)))
         except queue.Full:
+            chain_drop_counter().with_labels("raft_msg").add(1)
             return False
         return True
 
@@ -674,10 +683,11 @@ class RaftNode:
                 opt, min(self.MAX_ENTRIES_PER_APPEND, limit - opt + 1))
             if not entries:
                 break
-            self._transport.send(self.id, peer, AppendEntries(
-                self._wal.term, self.id, opt - 1,
-                self._wal.term_at(opt - 1), list(entries),
-                self.commit_index))
+            with tracing.span("raft.replicate"):
+                self._transport.send(self.id, peer, AppendEntries(
+                    self._wal.term, self.id, opt - 1,
+                    self._wal.term_at(opt - 1), list(entries),
+                    self.commit_index))
             opt += len(entries)
             self._opt_next[peer] = opt
             sent_any = True

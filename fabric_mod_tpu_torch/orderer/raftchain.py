@@ -19,10 +19,14 @@ consenter.
 A follower forwards each submit to the leader over the transport
 (`<id>:chain` endpoints); a submit that finds no route (an election in
 flight) or a full queue after it was accepted is parked, never dropped
-below the parked bound.  Left out, as in the rest of the port: the
-admission gate and its bounded submit queue (the chain keeps the
-blocking 10,000-entry queue of the reference's default), fault points
-and drop metrics (counted in plain attributes here).
+below the parked bound.  `submit_queue_cap` > 0 (the admission
+setting, orderer/admission.py) bounds the submit queue with NON-blocking
+puts: a full queue sheds a normal tx with the typed
+ResourceExhaustedError, while config and priority envelopes wait for
+room (reference :109-227); 0 keeps the blocking 10,000-entry queue.
+Dropped submits are counted in `dropped` and in the admission module's
+chain drop counter (reference :312-385).  Left out, as in the rest of
+the port: fault points.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import time
 from collections import deque
 from typing import List, Optional, Tuple
 
+from fabric_mod_tpu_torch.orderer import admission
 from fabric_mod_tpu_torch.orderer.consensus import (SUBMIT_QUEUE_CAP,
                                                     ChainHaltedError,
                                                     NotLeaderError)
@@ -78,7 +83,9 @@ class RaftChain:
     (reference: the cluster block puller, cluster/deliver.go:571); it
     runs on the FSM thread, so it must bound its own time.  The batch
     timer runs on wall time even under a manual clock (cutting a partial
-    batch late is benign; a spurious election is not)."""
+    batch late is benign; a spurious election is not).
+    `submit_queue_cap` > 0 bounds the submit queue with non-blocking
+    puts (admission)."""
 
     RAFT_INDEX_MD_SLOT = 3                 # block metadata slot
     _PARKED_CAP = SUBMIT_QUEUE_CAP         # mirrors the ingress queue
@@ -89,7 +96,7 @@ class RaftChain:
                  snapshot_interval: Optional[int] = None,
                  block_fetcher=None, clock=None, rng=None,
                  pipeline: int = 0, queue_cap: int = 8192,
-                 group_commit: bool = False):
+                 group_commit: bool = False, submit_queue_cap: int = 0):
         self.node_id = node_id
         self._support = support
         self._transport = transport
@@ -113,8 +120,9 @@ class RaftChain:
             # configured out (or not yet in): observe, never campaign
             self._raft.member = False
         transport.register(f"{node_id}:chain", self._on_chain_msg)
+        self._bounded = submit_queue_cap > 0
         self._q: "queue.Queue[Optional[_Submit]]" = queue.Queue(
-            SUBMIT_QUEUE_CAP)
+            submit_queue_cap if self._bounded else SUBMIT_QUEUE_CAP)
         # accepted submits caught by a leaderless window or a full
         # queue are parked, not dropped (their clients got success).
         # _parked is the run loop's own; _overflow takes forwarded
@@ -171,12 +179,54 @@ class RaftChain:
 
     def order(self, env: m.Envelope, config_seq: int) -> None:
         self._admission_check()
-        self._q.put(_Submit(env.encode(), False, config_seq))
+        self._enqueue_submit(_Submit(env.encode(), False, config_seq),
+                             is_config=False)
 
     def configure(self, env: m.Envelope, config_seq: int) -> None:
         self._admission_check()
         self._check_membership_change(env)
-        self._q.put(_Submit(env.encode(), True, config_seq))
+        self._enqueue_submit(_Submit(env.encode(), True, config_seq),
+                             is_config=True)
+
+    def submit_queue_depth(self):
+        """(qsize, maxsize): the occupancy the overload gate watches."""
+        return self._q.qsize(), self._q.maxsize
+
+    def _enqueue_submit(self, sub: _Submit, is_config: bool) -> None:
+        """Bounded: a full queue sheds a normal tx typed instead of
+        blocking the submitter; config and priority envelopes (decoded
+        and classified only on the full path) wait for room."""
+        if not self._bounded:
+            self._q.put(sub)
+            return
+        if is_config:
+            self._put_priority(sub)
+            return
+        try:
+            self._q.put_nowait(sub)
+        except queue.Full:
+            try:
+                env = m.Envelope.decode(sub.env_bytes)
+            except Exception:
+                env = None
+            if env is not None and admission.is_priority(env):
+                self._put_priority(sub)
+                return
+            raise admission.shed(
+                "queue_full", f"submit queue full ({self._q.maxsize})",
+                retry_after_s=min(5.0, self._support.batch_timeout_s()),
+            ) from None
+
+    def _put_priority(self, sub: _Submit) -> None:
+        """A blocking put in slices that re-check the halt."""
+        while True:
+            if self._halted.is_set():
+                raise ChainHaltedError("chain is halted")
+            try:
+                self._q.put(sub, timeout=0.25)
+                return
+            except queue.Full:
+                continue
 
     def _admission_check(self) -> None:
         """Refuse, typed and retryable, a submission this node can
@@ -236,6 +286,8 @@ class RaftChain:
                         self._overflow.append(msg)
                         return
                 self.dropped += 1
+                admission.chain_drop_counter().with_labels(
+                    "forward").add(1)
 
     # -- the leader loop (reference: chain.go:533 run) --------------------
     def _propose_batch(self, envs: List[m.Envelope], kind: int,
@@ -283,7 +335,11 @@ class RaftChain:
                 rest = subs[i:]
                 space = max(0, self._PARKED_CAP - len(self._parked))
                 self._parked.extend(rest[:space])
-                self.dropped += max(0, len(rest) - space)
+                lost = max(0, len(rest) - space)
+                if lost:
+                    self.dropped += lost
+                    admission.chain_drop_counter().with_labels(
+                        "requeue").add(lost)
                 break
 
     def _run(self) -> None:

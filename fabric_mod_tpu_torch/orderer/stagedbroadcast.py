@@ -19,14 +19,17 @@ If the cohort's call raises, the lane judges each envelope alone
 same `verify_many` seam: a fault costs amortisation, never a lost
 submission, and a device error surfaces as its envelope's exception.
 `close()` leaves no submitter blocked: a deposit that races the close
-is refused with a typed error.  The reference's fault point and trace
-span are left out.
+is refused with a typed error.  A cohort's call is the
+"broadcast.stage" span (tracer armed); the reference's fault point is
+left out.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from typing import Dict, List
+
+from fabric_mod_tpu_torch.observability import tracing
 
 
 class IngressClosedError(RuntimeError):
@@ -121,8 +124,9 @@ class _Lane:
     @staticmethod
     def _flush(batch: List[_Pending]) -> None:
         try:
-            verdicts = batch[0].processor.process_normal_msgs(
-                [p.env for p in batch])
+            with tracing.span("broadcast.stage", items=len(batch)):
+                verdicts = batch[0].processor.process_normal_msgs(
+                    [p.env for p in batch])
         except Exception:                # the cohort's call failed: judge
             for p in batch:              # each envelope alone, same seam
                 try:

@@ -264,7 +264,8 @@ class Channel:
                 old, self._commit_pipe = self._commit_pipe, None
             if old is not None:
                 old.close()
-            pipe = PipelinedCommitter(self, depth=self._pipeline_depth)
+            pipe = PipelinedCommitter(self, depth=self._pipeline_depth,
+                                      consumer="channel")
             with self._lock:
                 self._commit_pipe = pipe
             return pipe

@@ -30,8 +30,13 @@ on the device's default stream, which orders them.
 
 A failure is sticky: the first error is kept, later submits and waits
 raise it, and both loops drain; the owner discards such a pipe and
-builds a new one from the committed height (peer/channel.py).  The
-reference's metrics, health registration, tracing spans and fault
+builds a new one from the committed height (peer/channel.py).
+
+With the tracer armed (observability/tracing.py) each block gets one
+timeline, labelled by `consumer`: the stage loop starts it around the
+staging, the StagedBlock carries it, and the commit loop resumes it
+around the verdict wait and the commit, then finishes it (reference
+:420-473).  The reference's metrics, health registration and fault
 points are not ported; the cumulative `stage_secs`, `await_secs` and
 `commit_secs` are.
 """
@@ -44,6 +49,7 @@ import time
 from typing import Callable, List, Optional
 
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerError
+from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.protos import protoutil
 
 log = logging.getLogger(__name__)
@@ -76,14 +82,18 @@ class PipelinedCommitter:
 
     def __init__(self, channel, depth: int = 2, in_queue: int = 8,
                  on_commit: Optional[Callable] = None,
-                 on_error: Optional[Callable] = None):
+                 on_error: Optional[Callable] = None,
+                 consumer: str = "adhoc"):
         """`channel`: stage_block/commit_staged/.ledger (peer.Channel
         or ValidatorCommitTarget).  `depth`: max staged-but-uncommitted
         blocks (floor 1).  `on_commit(block, flags)` fires on the commit
         loop after each commit, in block order; what it raises fails
         the pipe like a failed commit (the reference logs it).
-        `on_error(exc)` fires once on the first failure."""
+        `on_error(exc)` fires once on the first failure.  `consumer`
+        labels the blocks' tracing timelines ("deliver", "channel",
+        "shard<i>")."""
         self._channel = channel
+        self._consumer = consumer
         self.depth = max(1, depth)
         self._in_q: "queue.Queue" = queue.Queue(max(1, in_queue))
         self._staged_q: "queue.Queue" = queue.Queue()
@@ -238,7 +248,15 @@ class PipelinedCommitter:
                         continue           # drain mode
                     self._inflight += 1
                 t0 = time.perf_counter()
-                staged = self._channel.stage_block(block)
+                # one timeline a block; the stage side's sub-spans land
+                # here, and the staged block carries it to the commit
+                # loop (None disarmed: no object, no write)
+                tl = tracing.start_timeline(self._consumer,
+                                            block.header.number)
+                with tracing.timeline_scope(tl):
+                    staged = self._channel.stage_block(block)
+                if tl is not None:
+                    staged.trace_timeline = tl
                 self.stage_secs += time.perf_counter() - t0
                 if staged.needs_barrier:
                     with self._cv:
@@ -258,15 +276,19 @@ class PipelinedCommitter:
             staged = self._staged_q.get()
             if staged is None:
                 return
+            tl = getattr(staged, "trace_timeline", None)
             try:
-                t0 = time.perf_counter()
-                staged.resolve_mask()      # the device-verdict wait
-                t1 = time.perf_counter()
-                flags = self._channel.commit_staged(staged)
-                t2 = time.perf_counter()
+                with tracing.timeline_scope(tl):
+                    t0 = time.perf_counter()
+                    staged.resolve_mask()  # the device-verdict wait
+                    t1 = time.perf_counter()
+                    flags = self._channel.commit_staged(staged)
+                    t2 = time.perf_counter()
             except Exception as e:
                 self._drain_failed(e)
                 return
+            finally:
+                tracing.finish_timeline(tl)
             self.await_secs += t1 - t0
             self.commit_secs += t2 - t1
             with self._cv:

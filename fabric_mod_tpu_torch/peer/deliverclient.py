@@ -30,6 +30,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.peer.channel import Channel
 from fabric_mod_tpu_torch.peer.commitpipe import PipelinedCommitter
 from fabric_mod_tpu_torch.peer.mcs import BlockVerificationError
@@ -75,7 +76,7 @@ class DeliverClient:
         return PipelinedCommitter(
             self._channel, depth=PIPELINE_DEPTH, in_queue=IN_QUEUE,
             on_commit=self._handle_commit if self._on_commit else None,
-            on_error=lambda _e: self._stop.set())
+            on_error=lambda _e: self._stop.set(), consumer="deliver")
 
     def _handle_commit(self, block: m.Block, _flags) -> None:
         self._on_commit(block)
@@ -117,34 +118,40 @@ class DeliverClient:
             source_iter = iter(self._source.blocks(
                 start, stop_event=self._stop, timeout_s=idle_timeout_s))
             while True:
-                try:
-                    block = next(source_iter)
-                except StopIteration:
-                    break                  # clean end / idle timeout
-                except Exception as e:
-                    dropped = e            # raised after the drain below
-                    break
-                if self._stop.is_set():
-                    break
-                t0 = time.perf_counter()
-                try:
-                    self._channel.mcs.verify_block(
-                        self._channel.channel_id, block,
-                        expected_prev_hash=prev_hash)
-                except BlockVerificationError:
-                    # a tampered or mis-signed block is never committed;
-                    # a single-endpoint source fails closed by stopping
-                    self.rejected.append(block.header.number)
-                    break
-                finally:
-                    self.mcs_secs += time.perf_counter() - t0
-                prev_hash = protoutil.block_header_hash(block.header)
-                try:
-                    self._pipe.submit(block)
-                except Exception:
-                    if self._pipe.error is None:
-                        raise              # not a pipeline failure
-                    break                  # re-raised after close below
+                # "recv" attributes stage 1: the pull wait, the MCS
+                # hash and signature check and the hand-off, a block
+                # (reference :187)
+                with tracing.span("recv") as recv_span:
+                    try:
+                        block = next(source_iter)
+                    except StopIteration:
+                        break              # clean end / idle timeout
+                    except Exception as e:
+                        dropped = e        # raised after the drain below
+                        break
+                    if self._stop.is_set():
+                        break
+                    recv_span.set(block=block.header.number)
+                    t0 = time.perf_counter()
+                    try:
+                        self._channel.mcs.verify_block(
+                            self._channel.channel_id, block,
+                            expected_prev_hash=prev_hash)
+                    except BlockVerificationError:
+                        # a tampered or mis-signed block is never
+                        # committed; a single-endpoint source fails
+                        # closed by stopping
+                        self.rejected.append(block.header.number)
+                        break
+                    finally:
+                        self.mcs_secs += time.perf_counter() - t0
+                    prev_hash = protoutil.block_header_hash(block.header)
+                    try:
+                        self._pipe.submit(block)
+                    except Exception:
+                        if self._pipe.error is None:
+                            raise          # not a pipeline failure
+                        break              # re-raised after close below
         finally:
             # run() never returns with commits in flight
             self._pipe.close()

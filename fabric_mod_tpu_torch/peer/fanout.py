@@ -42,6 +42,7 @@ import threading
 from typing import Callable, Dict, Optional
 
 from fabric_mod_tpu_torch.ledger.notifier import CommitNotifier
+from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.protos import batchdecode
 from fabric_mod_tpu_torch.protos import messages as m
 from fabric_mod_tpu_torch.protos import protoutil
@@ -231,8 +232,9 @@ class BlockFanout:
         blk = self._ledger.get_block_by_number(num)
         if blk is None:
             return None
-        is_cfg = self._classify(blk)
-        payload = encode_frame(self._channel_id, self.form, blk)
+        with tracing.span("fanout.materialize", block=num):
+            is_cfg = self._classify(blk)
+            payload = encode_frame(self._channel_id, self.form, blk)
         return _Frame(num, payload, is_cfg)
 
     def materialize_upto(self, height: int) -> None:

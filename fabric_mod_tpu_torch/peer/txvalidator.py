@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from fabric_mod_tpu_torch.ledger.rwsetutil import parse_tx_rwset
+from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.peer.lifecycle import LIFECYCLE_NS
 from fabric_mod_tpu_torch.peer.plugins import PluginRegistry
 from fabric_mod_tpu_torch.policy import BatchCollector
@@ -146,10 +147,13 @@ class StagedBlock:
     is the block's columnar body decode (batchdecode.BlockRWSets, None
     for blocks under 4 rows) for the ledger's commit; `spine_fallbacks`
     counts the rows the spine scan left to the generic decode, and
-    `decode_secs` is the host time of the two batch pre-passes."""
+    `decode_secs` is the host time of the two batch pre-passes.
+    `trace_timeline` carries the block's tracing timeline from the
+    commit pipe's stage loop to its commit loop (None disarmed)."""
 
     __slots__ = ("block", "validator", "works", "mask_fn", "_mask",
-                 "session", "rwsets", "spine_fallbacks", "decode_secs")
+                 "session", "rwsets", "spine_fallbacks", "decode_secs",
+                 "trace_timeline")
 
     def __init__(self, block, validator, works, mask_fn, session=None,
                  rwsets=None, spine_fallbacks=0, decode_secs=0.0):
@@ -162,21 +166,26 @@ class StagedBlock:
         self.rwsets = rwsets
         self.spine_fallbacks = spine_fallbacks
         self.decode_secs = decode_secs
+        self.trace_timeline = None
 
     def resolve_mask(self) -> np.ndarray:
-        """Await the device verdicts (idempotent)."""
+        """Await the device verdicts (idempotent).  The one choke point
+        of the pipelined and the synchronous path: the verdict_await
+        sub-stage is attributed here (reference :185)."""
         if self._mask is None:
-            raw = self.mask_fn()
-            if self.session is not None:
-                # bind (and, on a device mask, enqueue) the whole-block
-                # policy evaluator before the host sync
-                self.session.attach_mask(raw)
-            self._mask = _host_mask(raw)
-            # the fused verify seam defers its verdict-cache write-back
-            # to the consumer's sync point — this is it
-            writeback = getattr(self.mask_fn, "writeback", None)
-            if writeback is not None:
-                writeback()
+            with tracing.span("verdict_await",
+                              block=self.block.header.number):
+                raw = self.mask_fn()
+                if self.session is not None:
+                    # bind (and, on a device mask, enqueue) the
+                    # whole-block policy evaluator before the host sync
+                    self.session.attach_mask(raw)
+                self._mask = _host_mask(raw)
+                # the fused verify seam defers its verdict-cache
+                # write-back to the consumer's sync point — this is it
+                writeback = getattr(self.mask_fn, "writeback", None)
+                if writeback is not None:
+                    writeback()
         return self._mask
 
     @property
@@ -436,59 +445,69 @@ class TxValidator:
         # VALIDATION_PARAMETER writes of EARLIER txs in this block
         inblock_vp: Dict[tuple, list] = {}
         datas = block.data.data
-        t0 = time.perf_counter()
-        # batch pre-passes (reference :549-591): the whole block's
-        # envelope spine in one vectorized scan, then every spine-
-        # accepted endorser tx's payload.data in one columnar body
-        # decode; rows either scan could not prove clean come back None
-        # and take the generic per-tx decode below (identical outcomes)
-        spines = batchdecode.decode_block_spine(datas)
-        body_datas: List[Optional[bytes]] = [
-            spine.payload.data if spine is not None
-            and spine.ch.type == m.HeaderType.ENDORSER_TRANSACTION else None
-            for spine in spines]
-        rwsets = batchdecode.decode_block_rwsets(body_datas)
-        if rwsets is not None:
-            # the header facts ride along to the commit, value-identical
-            # to the generic envelope_channel_header decode
-            for idx, spine in enumerate(spines):
+        num = block.header.number
+        with tracing.span("unpack", block=num, txs=len(datas)):
+            t0 = time.perf_counter()
+            # batch pre-passes (reference :549-591): the whole block's
+            # envelope spine in one vectorized scan, then every spine-
+            # accepted endorser tx's payload.data in one columnar body
+            # decode; rows either scan could not prove clean come back
+            # None and take the generic per-tx decode below (identical
+            # outcomes)
+            spines = batchdecode.decode_block_spine(datas)
+            with tracing.span("body_decode", block=num, txs=len(datas)):
+                body_datas: List[Optional[bytes]] = [
+                    spine.payload.data if spine is not None
+                    and spine.ch.type == m.HeaderType.ENDORSER_TRANSACTION
+                    else None for spine in spines]
+                rwsets = batchdecode.decode_block_rwsets(body_datas)
+            if rwsets is not None:
+                # the header facts ride along to the commit, value-
+                # identical to the generic envelope_channel_header decode
+                for idx, spine in enumerate(spines):
+                    if spine is not None:
+                        rwsets.txids[idx] = spine.ch.tx_id
+                        rwsets.types[idx] = spine.ch.type
+            decode_secs = time.perf_counter() - t0
+            for idx, data in enumerate(datas):
+                work = _TxWork()
+                works.append(work)
+                spine = spines[idx]
                 if spine is not None:
-                    rwsets.txids[idx] = spine.ch.tx_id
-                    rwsets.types[idx] = spine.ch.type
-        decode_secs = time.perf_counter() - t0
-        for idx, data in enumerate(datas):
-            work = _TxWork()
-            works.append(work)
-            spine = spines[idx]
-            if spine is not None:
-                env = spine.env
-            else:
-                try:
-                    env = m.Envelope.decode(data)
-                except Exception:
-                    work.flag = V.BAD_PAYLOAD
-                    continue
-            body = rwsets.bodies[idx] if rwsets is not None else None
-            self._stage_tx(env, work, collector, inblock_vp, session,
-                           spine, body)
-            for ns, key, vp in work.vp_writes:
-                inblock_vp.setdefault((ns, key), []).append((idx, vp))
+                    env = spine.env
+                else:
+                    try:
+                        env = m.Envelope.decode(data)
+                    except Exception:
+                        work.flag = V.BAD_PAYLOAD
+                        continue
+                body = rwsets.bodies[idx] if rwsets is not None else None
+                self._stage_tx(env, work, collector, inblock_vp, session,
+                               spine, body)
+                for ns, key, vp in work.vp_writes:
+                    inblock_vp.setdefault((ns, key), []).append((idx, vp))
         if session is not None and len(session):
             # the MSP principal matrix lands here, memoized per pair
-            session.finalize()
+            with tracing.span("policy_gather", block=num,
+                              instances=len(session)):
+                session.finalize()
         # pass 2: dispatch the device batch; with a tensor session the
-        # verifier's fused seam may hand back a device-resident mask
-        async_fn = None
-        if session is not None:
-            async_fn = getattr(self._verifier, "verify_many_fused_async",
-                               None)
-        if async_fn is None:
-            async_fn = getattr(self._verifier, "verify_many_async", None)
-        if async_fn is not None:
-            mask_fn = async_fn(collector.items)
-        else:
-            items = collector.items
-            mask_fn = lambda: self._verifier.verify_many(items)  # noqa: E731
+        # verifier's fused seam may hand back a device-resident mask.
+        # The span times the enqueue; the wait is verdict_await's
+        with tracing.span("device_dispatch", block=num,
+                          items=len(collector.items)):
+            async_fn = None
+            if session is not None:
+                async_fn = getattr(self._verifier,
+                                   "verify_many_fused_async", None)
+            if async_fn is None:
+                async_fn = getattr(self._verifier, "verify_many_async",
+                                   None)
+            if async_fn is not None:
+                mask_fn = async_fn(collector.items)
+            else:
+                items = collector.items
+                mask_fn = lambda: self._verifier.verify_many(items)  # noqa: E731
         return StagedBlock(block, self, works, mask_fn, session, rwsets,
                            sum(spine is None for spine in spines),
                            decode_secs)
@@ -501,23 +520,27 @@ class TxValidator:
         mask = staged.resolve_mask()
         session = staged.session
         if session is not None and len(session):
-            session.verdicts()
+            # one evaluator pass gives every policy verdict of the block
+            with tracing.span("policy_device", block=block.header.number,
+                              instances=len(session)):
+                session.verdicts()
         flags: List[int] = []
         seen_txids = set()
         applied_vp: Dict[tuple, int] = {}   # (ns, key) -> writer tx_idx
-        for idx, work in enumerate(works):
-            flag = self._finish_tx(work, mask, applied_vp)
-            if flag == V.VALID and work.txid:
-                if work.txid in seen_txids or \
-                        self._tx_id_exists(work.txid):
-                    flag = V.DUPLICATE_TXID
-                else:
-                    seen_txids.add(work.txid)
-            if flag == V.VALID:
-                for ns, key, _vp in work.vp_writes:
-                    applied_vp[(ns, key)] = idx
-            flags.append(flag)
-        protoutil.set_block_txflags(block, bytes(flags))
+        with tracing.span("policy_finish", block=block.header.number):
+            for idx, work in enumerate(works):
+                flag = self._finish_tx(work, mask, applied_vp)
+                if flag == V.VALID and work.txid:
+                    if work.txid in seen_txids or \
+                            self._tx_id_exists(work.txid):
+                        flag = V.DUPLICATE_TXID
+                    else:
+                        seen_txids.add(work.txid)
+                if flag == V.VALID:
+                    for ns, key, _vp in work.vp_writes:
+                        applied_vp[(ns, key)] = idx
+                flags.append(flag)
+            protoutil.set_block_txflags(block, bytes(flags))
         return flags
 
     def validate(self, block: m.Block) -> List[int]:
@@ -585,15 +608,23 @@ class Committer:
         self.last_timings: Dict[str, Optional[float]] = {}
 
     def store_block(self, block: m.Block) -> List[int]:
-        t0 = time.perf_counter()
-        staged = self.validator.stage(block)
-        t1 = time.perf_counter()
-        staged.resolve_mask()
-        t2 = time.perf_counter()
-        flags = self.validator.finish(staged)
-        t3 = time.perf_counter()
-        flags = self.ledger.commit_block(block, flags, staged.rwsets)
-        t4 = time.perf_counter()
+        # the synchronous path records the same per-block timeline the
+        # commit pipe does (reference :739-747)
+        tl = tracing.start_timeline("sync", block.header.number)
+        try:
+            with tracing.timeline_scope(tl):
+                t0 = time.perf_counter()
+                staged = self.validator.stage(block)
+                t1 = time.perf_counter()
+                staged.resolve_mask()
+                t2 = time.perf_counter()
+                flags = self.validator.finish(staged)
+                t3 = time.perf_counter()
+                flags = self.ledger.commit_block(block, flags,
+                                                 staged.rwsets)
+                t4 = time.perf_counter()
+        finally:
+            tracing.finish_timeline(tl)
         session = staged.session
         rwsets = staged.rwsets
         self.last_timings = {

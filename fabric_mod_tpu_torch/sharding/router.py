@@ -228,7 +228,9 @@ class ChannelShardRouter:
                 old, b.pipe = b.pipe, None
             if old is not None:
                 old.close()                    # drain the poisoned engine
-            pipe = PipelinedCommitter(b.target, depth=self._depth)
+            pipe = PipelinedCommitter(
+                b.target, depth=self._depth,
+                consumer=f"shard{self.slice_of(channel_id)}")
             with self._lock:
                 b.pipe = pipe
             return pipe

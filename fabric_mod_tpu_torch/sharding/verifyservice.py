@@ -21,11 +21,11 @@ channel's validator to its slice verifier directly.  This service is
 the small-verify lane: gossip block verifies, config signature sets,
 broadcast filters.
 
-Left out: the reference's fault point, metric and span, and with them
-its `_SliceLane` wrapper (nothing else was in it): a group goes straight
-to its slice verifier, and `flushes` and `groups` (per slice) are plain
-counters (read by chip_smoke.py).  Untagged and unknown tags take slice
-0, the reference's default slice.
+A group goes to its slice verifier through `_SliceLane`, whose call
+is the "shard.dispatch" span (tracer armed; reference :62).  Left out:
+the reference's fault point and metric; `flushes` and `groups` (per
+slice) are plain counters (read by chip_smoke.py).  Untagged and
+unknown tags take slice 0, the reference's default slice.
 """
 from __future__ import annotations
 
@@ -33,8 +33,27 @@ from typing import Callable, Dict, Sequence
 
 from fabric_mod_tpu_torch.bccsp.api import VerifyItem
 from fabric_mod_tpu_torch.bccsp.gpu import BatchingVerifyService
+from fabric_mod_tpu_torch.observability import tracing
 
 DEFAULT_SLICE = 0
+
+
+class _SliceLane:
+    """One slice's verifier as the flusher calls it: each group's
+    dispatch timed as the "shard.dispatch" span."""
+
+    def __init__(self, index: int, verifier):
+        self.index = index
+        self.verifier = verifier
+
+    def verify_many_async(self, items: Sequence[VerifyItem]):
+        with tracing.span("shard.dispatch", slice=self.index,
+                          items=len(items)):
+            fn = getattr(self.verifier, "verify_many_async", None)
+            if fn is not None:
+                return fn(items)
+            mask = self.verifier.verify_many(items)
+            return lambda: mask
 
 
 class CrossChannelVerifyService(BatchingVerifyService):
@@ -61,6 +80,7 @@ class CrossChannelVerifyService(BatchingVerifyService):
         self._shard_of = shard_of
         self.flushes = 0                  # routed batches (flusher thread)
         self.groups = {i: 0 for i in self.verifiers}   # dispatch groups
+        self._lanes = {i: _SliceLane(i, v) for i, v in self.verifiers.items()}
         super().__init__(verifier=self.verifiers[DEFAULT_SLICE], **kwargs)
 
     # -- per-channel surface ---------------------------------------------
@@ -83,4 +103,4 @@ class CrossChannelVerifyService(BatchingVerifyService):
             groups.setdefault(s, []).append(entry)
         for s in groups:
             self.groups[s] += 1
-        return [(self.verifiers[s], groups[s]) for s in sorted(groups)]
+        return [(self._lanes[s], groups[s]) for s in sorted(groups)]

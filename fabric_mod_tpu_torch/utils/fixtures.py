@@ -440,7 +440,8 @@ NETWORK_ORGS = ("Org1", "Org2", "Org3")
 
 def make_network_material(seed: int = 0, channel_id: str = "testchannel",
                           consensus_type: str = "solo", orderers: int = 1,
-                          gossip_peers: int = 0, **batch_config):
+                          gossip_peers: int = 0, spare_orderers: int = 0,
+                          **batch_config):
     """An e2e.NetworkMaterial made from `seed`: a CA per org of
     NETWORK_ORGS and one for the orderer org, a peer and an admin per
     org, a client of the first org, `orderers` orderer signers under the
@@ -455,6 +456,9 @@ def make_network_material(seed: int = 0, channel_id: str = "testchannel",
     material's `gossip_peers`: one identity for each gossip peer of a
     composed network; an admin of the orderer org (after every other
     certificate, so theirs do not change) its `orderer_admin`.
+    `spare_orderers` more orderer signers ("orderer<orderers>", ...),
+    issued after the admin, join `consenters` without being in the
+    genesis consenter set: orderers that can join the channel later.
     Certificates and keys are the same for the same
     seed; the genesis envelope carries a fresh nonce."""
     from fabric_mod_tpu_torch.channelconfig import genesis
@@ -492,13 +496,17 @@ def make_network_material(seed: int = 0, channel_id: str = "testchannel",
         gossip.append(signer(cas[org], f"gossip{i}.{org.lower()}", org,
                              "peer"))
     orderer_admin = signer(orderer_ca, "admin@orderer", "OrdererOrg", "admin")
+    for i in range(orderers, orderers + spare_orderers):
+        consenters[f"orderer{i}"] = signer(orderer_ca, f"orderer{i}",
+                                           "OrdererOrg", "orderer")
     return NetworkMaterial(
         ca_pems={org: ca.cert_pem() for org, ca in cas.items()},
         orderer_ca_pem=orderer_ca.cert_pem(),
         client=client, peers=peers, admins=admins,
         orderer=consenters[ids[0]],
         genesis=block.encode(),
-        consenters=consenters if consensus_type != "solo" else {},
+        consenters=(consenters if consensus_type != "solo"
+                    or spare_orderers else {}),
         gossip_peers=gossip, orderer_admin=orderer_admin)
 
 
@@ -858,6 +866,23 @@ def config_with_batch_size(config, max_message_count: int):
     batch.max_message_count = max_message_count
     value.value = batch.encode()
     set_value(orderer, BATCH_SIZE, value)
+    set_group(desired.channel_group, ORDERER, orderer)
+    return desired
+
+
+def config_with_consenters(config, consenter_ids):
+    """A copy of channel `config` whose Raft consenter set is
+    `consenter_ids`: the desired config of a membership update."""
+    from fabric_mod_tpu_torch.channelconfig.bundle import (
+        CONSENSUS_TYPE, ORDERER, groups_of, set_group, set_value, values_of)
+    from fabric_mod_tpu_torch.protos import messages as m
+    desired = m.Config.decode(config.encode())
+    orderer = groups_of(desired.channel_group)[ORDERER]
+    value = values_of(orderer)[CONSENSUS_TYPE]
+    ctype = m.ConsensusType.decode(value.value)
+    ctype.metadata = m.RaftMetadata(consenters=list(consenter_ids)).encode()
+    value.value = ctype.encode()
+    set_value(orderer, CONSENSUS_TYPE, value)
     set_group(desired.channel_group, ORDERER, orderer)
     return desired
 

@@ -318,6 +318,20 @@ extern "C" int field(int op, const void* a, const void* b, void* out, int n) {{
 """
 
 
+def test_library_path_keys_the_whole_build_command(monkeypatch):
+    """A built library's name hashes every flag of its nvcc command, not
+    only the target: adding any flag names another library, so a stale
+    one is never loaded."""
+    base = {n: _build.library_path(n) for n in _build.SOURCES}
+    flags = _build._flags()
+    monkeypatch.setattr(_build, "_flags", lambda: [*flags, "-lineinfo"])
+    other = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert all(other[n] != base[n] for n in _build.SOURCES)
+    monkeypatch.undo()
+    assert {n: _build.library_path(n) for n in _build.SOURCES} == base
+    assert flags[:len(_build.ARCH_FLAGS)] == list(_build.ARCH_FLAGS)
+
+
 @pytest.mark.cuda
 def test_field_ops_on_card(cuda_device, tmp_path):
     """The inline-PTX field arithmetic, built by nvcc for the card,
@@ -1101,3 +1115,94 @@ def test_mesh_verifier_over_two_cards_equals_one_card(cuda_device):
         fused = v.verify_many_fused_async(items)()
         assert fused.device == mesh[0]
         assert fused.cpu().tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+def test_device_lens_trace_holds_every_launch_on_card(cuda_device, tmp_path):
+    """The device lens around one GpuVerifier dispatch of 64 lanes, the
+    endorser lanes raw: its Chrome trace holds one event for each of the
+    four hand-written kernels the window launched, and the window is
+    one-shot."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.observability import tracing
+    items, expect = fixtures.make_block(0, n_tx=20, raw_endorsers=True)
+    verifier = gpu.GpuVerifier(cache_size=0, profile_dir=str(tmp_path))
+    verifier.verify_many(items[:8])
+    tracing.rearm_device_profile()
+    try:
+        with tracing.active():
+            assert (verifier.verify_many(items) == expect).all()
+            lens = tracing.last_lens()
+            assert (verifier.verify_many(items) == expect).all()
+            assert tracing.last_lens() is lens     # one-shot
+    finally:
+        tracing.rearm_device_profile()
+    assert lens.kernel_table() == {
+        "ladder_projective": (1, 1), "sha256_e": (1, 1),
+        "verify_epilogue": (1, 1), "verify_prologue": (1, 1)}
+
+
+@pytest.mark.cuda
+def test_raft_join_and_follower_on_card(cuda_device, tmp_path):
+    """A three-orderer Raft network adds orderer3 by a config update;
+    orderer3 joins from that block, replicating and verifying the chain
+    on the card, and orders with the cluster; orderer4 follows.  The
+    follower's chain and orderer3's replicated blocks equal the
+    source's byte for byte; the card verified every replicated block."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.channelconfig import (compute_update,
+                                                    signed_update_envelope)
+    from fabric_mod_tpu_torch.protos import messages as m
+    import time
+    material = fixtures.make_network_material(
+        6, consensus_type="etcdraft", orderers=3, spare_orderers=2,
+        max_message_count=8, batch_timeout="200ms")
+    net = e2e.Network(str(tmp_path), material=material,
+                      verifier=gpu.GpuVerifier(cache_size=0),
+                      election_timeout=(5.0, 10.0), heartbeat_s=0.5)
+    try:
+        src = net.orderers[0].support
+        envs = [env for env, ok in fixtures.make_e2e_stream(net, 24)[0] if ok]
+
+        def wait(pred, timeout=60):
+            deadline = time.monotonic() + timeout
+            while not pred() and time.monotonic() < deadline:
+                time.sleep(0.02)
+            assert pred()
+
+        def ordered():
+            return sum(len(src.store.get_block_by_number(i).data.data)
+                       for i in range(1, src.store.height))
+        for env in envs[:12]:
+            net.broadcast.submit(env)
+        wait(lambda: ordered() >= 12)
+        cur = src.bundle().config
+        desired = fixtures.config_with_consenters(
+            cur, list(src.bundle().orderer.consenters()) + ["orderer3"])
+        net.broadcast.submit(signed_update_envelope(
+            net.channel_id, compute_update(net.channel_id, cur,
+                                           desired.channel_group),
+            [net.orderer_admin]))
+        wait(lambda: all(o.support.sequence() == 1 for o in net.orderers))
+        join_block = src.store.get_block_by_number(src.writer.last_config)
+        h = join_block.header.number + 1
+        before = dict(p256_core.counts())
+        joined = net.join_orderer("orderer3", join_block)
+        assert p256_core.counts()["verify_prologue"] >= \
+            before["verify_prologue"] + h - 1      # one a signed block
+        follower = net.join_orderer("orderer4",
+                                    m.Block.decode(material.genesis),
+                                    as_follower=True)
+        for env in envs[12:]:
+            net.broadcast.submit(env)
+        wait(lambda: ordered() >= len(envs))
+        wait(lambda: len({o.support.store.height
+                          for o in net.orderers}) == 1)
+        raw = [[o.support.store.get_block_by_number(i).encode()
+                for i in range(o.support.store.height)]
+               for o in (net.orderers[0], joined, follower)]
+        assert raw[2] == raw[0]
+        assert raw[1][:h] == raw[0][:h] and len(raw[1]) > h
+    finally:
+        net.close()

@@ -16,7 +16,9 @@ block on each of two channels through a 2-slice ChannelShardRouter
 ledgers, commits a private block whose plaintext one of them holds and
 runs one reconcile_tick on another, deploys a chaincode by the lifecycle
 ceremony, answers one rich query, snapshots the ledger and bootstraps a
-second one from the snapshot, then inspects sys.modules."""
+second one from the snapshot, runs a traced pipeline (stage
+attribution), an admission-armed Network that sheds, and a follower
+that joins and pulls its chain, then inspects sys.modules."""
 import json
 import os
 import pathlib
@@ -297,6 +299,45 @@ with tempfile.TemporaryDirectory() as root:
                                          os.path.join(root, "joined"))
         assert joined.state_fingerprint() == net.ledger.state_fingerprint()
         joined.close()
+    finally:
+        net.close()
+from fabric_mod_tpu_torch.observability import tracing
+from fabric_mod_tpu_torch.orderer import admission
+from fabric_mod_tpu_torch.orderer.participation import ChannelParticipation
+from fabric_mod_tpu_torch.orderer.registrar import Registrar
+import time
+stats = {}
+with tracing.active():
+    assert e2e.run_pipeline(8, verifier=sw.SwVerifier(), stats=stats) > 0
+assert stats["stage_attribution"]["verdict_await"] > 0
+amat = fixtures.make_network_material(5, max_message_count=8,
+                                      batch_timeout="60s")
+with tempfile.TemporaryDirectory() as root:
+    net = e2e.Network(os.path.join(root, "adm"), material=amat,
+                      verifier=sw.SwVerifier(),
+                      admission={"queue_cap": 4, "rate": 1.0, "burst": 2.0})
+    try:
+        submits, _want = fixtures.make_e2e_stream(net, 8)
+        shed = 0
+        for env, ok in submits:
+            try:
+                if ok:
+                    net.broadcast.submit(env)
+            except admission.ResourceExhaustedError:
+                shed += 1
+        assert shed > 0 and net.support.chain.submit_queue_depth()[1] == 4
+        reg = Registrar(os.path.join(root, "follower"),
+                        e2e._signer(net.csp, amat.orderer), net.csp)
+        store = net.support.store
+        fetch = lambda lo, hi: [store.get_block_by_number(i)
+                                for i in range(lo, hi or store.height)]
+        joined = ChannelParticipation(reg, block_fetcher=fetch).join(
+            net.genesis_block, as_follower=True)
+        deadline = time.time() + 30
+        while joined.store.height < store.height and time.time() < deadline:
+            time.sleep(0.05)
+        assert joined.store.height == store.height
+        reg.close()
     finally:
         net.close()
 bad = sorted(n for n in sys.modules
