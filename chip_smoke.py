@@ -3,7 +3,9 @@
 block commit, the end-to-end network around it (the main path) on a solo
 and on a three-node Raft ordering service, gossip around it, the
 dissemination tree and the deliver fan-out, channel sharding, the
-durable ledger and private data, and the idemix presentation verify.
+durable ledger and private data, the idemix presentation verify, and
+the service surface (discovery, external chaincode, the broker
+consenter, the operations server).
 
     python3 chip_smoke.py
 
@@ -207,9 +209,9 @@ Phases (any failure exits non-zero; none is caught):
    (a)'s stream (1000 txs each, arm (a)'s order); 50 gossip peers, each
    its own ledger, Channel (tensor policy, commit pipe of depth 2),
    GossipNode and GossipService, every channel's verifier one
-   BatchingVerifyService over one GpuVerifier, join by one round of
-   signed alive messages (each peer to every other; fresh news is
-   forwarded); a copy of block 1 with a flipped signature byte is pushed
+   BatchingVerifyService over one GpuVerifier, every view seeded, then
+   a round of signed alive messages from 10 of the peers (each to every
+   other; fresh news is forwarded; cut from all 50 for the time limit); a copy of block 1 with a flipped signature byte is pushed
    to every peer, which must reject it; the minimum-PKI-ID peer, pinned
    as static leader, delivers and pushes, the others commit what the
    pushes and their pulls bring.  Every peer must reach the orderer's
@@ -393,6 +395,38 @@ Phases (any failure exits non-zero; none is caught):
    signature, a source with one flipped orderer-signature byte refused
    by a join and by a follower; blocks replicated a second.
 
+16. the service surface (run after 15, at BASELINE.md #2's width: 1000-tx
+   blocks, 3 orgs, the 2-of-3 default, signatures verified on the card)
+   — (b) first: the KV contract packaged as ccaas (peer/ccpackage.py),
+   served by a ChaincodeServer in a child process (which imports the
+   port alone), resolved through a ChaincodeLauncher as the endorsers'
+   mycc; phase 8 (a)'s transactions endorsed over TCP, ordered and
+   committed on the card into 2 x 1000-tx blocks: flags and fingerprint
+   equal to phase 8 (a)'s in-process arm; ms a remote invoke.  (a) on
+   that network: 2,048 signed discovery queries (1,024 of the three
+   orgs' members, 512 with a flipped signature bit, 512 from an org
+   outside the channel) through DiscoveryService.check_access from 8
+   threads, the Readers signatures verified by the card (a coalescing
+   service over a GpuVerifier without memo-cache): every verdict the
+   host SwVerifier oracle's, launches nonzero; a second pass from the
+   auth cache with none; a config update (BatchTimeout -> 200 ms) bumps
+   the sequence and the next pass launches again; the lifecycle deploys
+   cc2 (AND(Org1, Org3)); the layouts of cc2 and of mycc (the
+   implicit-meta MAJORITY default).  (c) two registrars consume one
+   persisted Broker topic for a "kafka" channel; phase 8 (a)'s stream in
+   order; the peer commits the first's chain on the card: equal data
+   hashes on both, phase 8 (a)'s fingerprint; the broker and the second
+   registrar restarted resume at the persisted offset and cut nothing.
+   (d) while (c)'s peer commits (traced), an HTTPS OperationsServer with
+   a required client certificate from the port's CA (a client without
+   one refused) is scraped (/metrics, /healthz, all 200), beside an HTTP
+   one: /metrics' commit-pipe and verifier series moved, /flight and
+   /trace hold the blocks' timelines and spans, /logspec round-trips,
+   /debug/threads answers, /healthz 200 -> 503 (a planted staging error
+   in the channel's pipe) -> 200 (the channel discards it), the
+   participation routes list the channels and a REST join answers what
+   ChannelParticipation.join gives.
+
    python3 chip_smoke.py --phase 11
    python3 chip_smoke.py --phase 12
    python3 chip_smoke.py --phase 13
@@ -402,13 +436,14 @@ run phase 11 (its (b) on a stream endorsed there, without phase 10 (b)
 beside it), phase 12, phase 13 (its (b) on blocks signed there) or
 phase 14 alone after the header, and print no kernels line;
 `--phase 15` runs (b), phase 8 (a), then (a), (c) and (d) ((d)
-ordering arm (a)'s stream twice).
+ordering arm (a)'s stream twice); `--phase 16` runs phase 8 (a), then
+phase 16 on its stream.
 
 It prints one JSON line describing each of the seven kernels
 (`launches` counts the block-commit phase, the four e2e arms, phase
 7's check, pairings and batch_verify, phase 10's two parts, phase 11's
-three, phase 12 (a)'s sweep, phase 13's three parts, phase 14 and phase
-15's four parts), and
+three, phase 12 (a)'s sweep, phase 13's three parts, phase 14, phase
+15's four parts and phase 16's commits and discovery passes), and
 as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -594,6 +629,10 @@ STORM_SAMPLE_EVERY = 10
 # 217 s of phase 10 on the card, the 50 peers' commits holding one GIL
 GOSSIP_BLOCKS = 2
 GOSSIP_TIMEOUT_S = 900.0
+# (b)'s signed alive round comes from 10 of the 50 peers, every view
+# seeded first (depth: the round from all 50 took 72.8 s of the script's
+# 1,200 s limit on an H100, and phase 16 needs the room)
+GOSSIP_ALIVE_SENDERS = 10
 
 # phase 11 (a): bench.py:2383 `measure_dissemination`'s top point: 128
 # peers, one-put blocks (a 50 ms batch timeout, 12-tx cap), the relay
@@ -2527,7 +2566,8 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
     each peer its own ledger, Channel (tensor policy, commit pipe of
     depth 2), GossipNode and GossipService on one in-process network,
     every channel's verifier one BatchingVerifyService over one
-    GpuVerifier.  One round of signed alive messages joins them; the
+    GpuVerifier.  Every view is seeded, then the first
+    GOSSIP_ALIVE_SENDERS peers send a round of signed alive messages; the
     minimum-PKI-ID peer is pinned as the static leader (bench.py:2229),
     the others commit what its pushes (and their forwards) bring.  A
     copy of block 1 with a flipped orderer-signature byte is pushed to
@@ -2641,17 +2681,42 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
                                               static_leader=(i == lead)))
             built_s = time.perf_counter() - t0
 
-            # membership: one signed alive round, every peer to every other
+            # membership: every view seeded with the peers that send no
+            # alive (no message), then a signed alive round from the
+            # first GOSSIP_ALIVE_SENDERS peers, each to every other, its
+            # fresh news forwarded: the senders reach the views only
+            # through the round
+            for node in nodes:
+                for other in nodes[GOSSIP_ALIVE_SENDERS:]:
+                    if other is not node:
+                        node.mapper.put(other._identity)
+                        node._members_by_pki[other.pki_id] = other.endpoint
+                        node.discovery.handle_alive(
+                            other.pki_id, m.AliveMessage(
+                                membership=m.GossipMember(
+                                    endpoint=other.endpoint,
+                                    pki_id=other.pki_id),
+                                timestamp=m.PeerTime(inc_num=1, seq_num=1)))
             reset_kernel_counts()
             sizes = _cohorts(card)
             t0 = time.perf_counter()
             endpoints = [n.endpoint for n in nodes]
-            for node in nodes:
+            for node in nodes[:GOSSIP_ALIVE_SENDERS]:
                 node.join(endpoints)
             join_s = time.perf_counter() - t0
+            if calls["envelope"] < GOSSIP_ALIVE_SENDERS * (GOSSIP_PEERS - 1):
+                raise AssertionError(f"the alive round's envelope verifies "
+                                     f"{dict(calls)}")
             views = [len(n.discovery.alive_members()) for n in nodes]
             if min(views) != GOSSIP_PEERS - 1:
                 raise AssertionError(f"membership views {sorted(views)[:5]}")
+            senders = {n.pki_id for n in nodes[:GOSSIP_ALIVE_SENDERS]}
+            for i, n in enumerate(nodes):
+                seen = {mb.pki_id for mb in n.discovery.alive_members()}
+                if not senders - {n.pki_id} <= seen:
+                    raise AssertionError(f"peer {i}'s view lacks "
+                                         f"{len(senders - seen - {n.pki_id})}"
+                                         f" of the alive round's senders")
             join_sent, join_calls = sent.sent, dict(calls)
 
             # a tampered block 1 pushed to every peer
@@ -2732,13 +2797,17 @@ def phase_gossip_network(torch, dev, stream, fingerprint):
                 "verify_prologue", "ladder_projective", "verify_epilogue")},
                 "the gossip network")
             spread_calls = {k: calls[k] - join_calls[k] for k in calls}
-            direct = GOSSIP_PEERS * (GOSSIP_PEERS - 1)
+            direct = GOSSIP_ALIVE_SENDERS * (GOSSIP_PEERS - 1)
             log(f"gossip (b) {GOSSIP_PEERS} peers over one "
                 f"BatchingVerifyService on the card: the orderer "
                 f"ordered phase 8's stream's first {n_blocks} blocks "
                 f"({n_blocks} x {TX_PER_BLOCK} txs) in {ordered_s:.1f} s; "
-                f"peers built in {built_s:.1f} s; membership: one signed "
-                f"alive round in {join_s:.1f} s, {join_sent} envelopes sent "
+                f"peers built in {built_s:.1f} s; membership: views "
+                f"seeded with the {GOSSIP_PEERS - GOSSIP_ALIVE_SENDERS} "
+                f"quiet peers, then a signed alive round from "
+                f"{GOSSIP_ALIVE_SENDERS} peers in {join_s:.1f} s (each in "
+                f"every view after it), "
+                f"{join_sent} envelopes sent "
                 f"({direct} direct, {join_sent - direct} forwarded), verify "
                 f"calls {join_calls}; the tampered block 1 rejected by all "
                 f"{tags.rejections} peers it reached")
@@ -6077,6 +6146,684 @@ def phase_observability(torch, dev, pre, post) -> dict:
     return launched
 
 
+# phase 16: the service surface at BASELINE.md #2's width (1000-tx blocks,
+# 3 orgs, the 2-of-3 MAJORITY default, signatures verified by the card)
+SVC_MEMBER_QUERIES = 1024
+SVC_FLIPPED_QUERIES = 512
+SVC_OUTSIDE_QUERIES = 512
+SVC_THREADS = 8
+# (a)'s config update: the batch timeout the lifecycle ceremony then waits
+SVC_BATCH_TIMEOUT = "200ms"
+SVC_POLICY = "AND('Org1.peer', 'Org3.peer')"
+# (d): how often the HTTPS scraper reads /metrics and /healthz meanwhile
+SVC_SCRAPE_EVERY_S = 0.25
+# the child process serving the KV contract over the ccaas protocol: it
+# puts the checkout on its own path and imports the port alone
+CCAAS_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from fabric_mod_tpu_torch.peer.chaincode import KvContract
+from fabric_mod_tpu_torch.peer.extbuilder import ChaincodeServer
+srv = ChaincodeServer(KvContract())
+srv.start()
+print(srv.address, flush=True)
+sys.stdin.read()
+srv.stop()
+bad = [n for n in sys.modules if n.split(".")[0] in
+       ("jax", "fabric_mod_tpu", "cryptography")]
+print("modules", bad, flush=True)
+"""
+
+
+def svc_material(consensus_type="solo", orderers=1, **extra):
+    """Phase 8's material (SEED: the same client, peer and admin
+    certificates, so phase 8's endorsed stream is valid on it)."""
+    from fabric_mod_tpu_torch.utils import fixtures
+    return fixtures.make_network_material(
+        SEED, consensus_type=consensus_type, orderers=orderers,
+        max_message_count=TX_PER_BLOCK, batch_timeout=E2E_BATCH_TIMEOUT,
+        preferred_max_bytes=E2E_PREFERRED_MAX_BYTES, **extra)
+
+
+def svc_feed(net, submits):
+    """Broadcast `submits` in order from one thread: every accepted
+    envelope taken, every tampered one refused."""
+    from fabric_mod_tpu_torch.orderer import BroadcastError
+    for env, ok in submits:
+        try:
+            net.broadcast.submit(env)
+        except BroadcastError:
+            if ok:
+                raise
+            continue
+        if not ok:
+            raise AssertionError("Broadcast accepted a tampered creator "
+                                 "signature")
+
+
+def svc_commit(net, submits, expected, fingerprint, where):
+    """Order and commit `submits` through `net` (the deliver client and
+    one submitter, as phase 8 (a)); every block TX_PER_BLOCK txs with
+    the construction's flags, the state `fingerprint`.  Returns the
+    commit span in seconds."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.protos import protoutil
+    n_tx = len(expected)
+    _client, committed, span_s = e2e.commit_until(
+        net, n_tx, E2E_TIMEOUT_S, feed=lambda: svc_feed(net, submits),
+        idle_timeout_s=E2E_TIMEOUT_S)
+    if committed != n_tx or net.ledger.height != 1 + n_tx // TX_PER_BLOCK:
+        raise AssertionError(f"{where}: {committed} txs committed, height "
+                             f"{net.ledger.height}")
+    flags = [f for n in range(1, net.ledger.height)
+             for f in protoutil.block_txflags(net.ledger.get_block_by_number(n))]
+    if flags != list(expected):
+        raise AssertionError(f"{where}: txflags differ from the construction")
+    if net.ledger.state_fingerprint() != fingerprint:
+        raise AssertionError(f"{where}: the state fingerprint differs from "
+                             f"phase 8 (a)'s")
+    return span_s
+
+
+def svc_external(torch, dev, root, full, solo_fp):
+    """16 (b): the KV contract as a ccaas package served by a
+    ChaincodeServer in a child process, resolved through a
+    ChaincodeLauncher as the endorsers' `mycc`; phase 8 (a)'s
+    transactions (the same args, plants and order) endorsed over TCP,
+    ordered and committed on the card into 2 x 1000-tx blocks: flags
+    and fingerprint equal to phase 8 (a)'s in-process contract arm.
+    Returns the network, the child and the launcher (part (a) runs on
+    them; the caller closes them)."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.peer.ccpackage import PackageStore, build_package
+    from fabric_mod_tpu_torch.peer.extbuilder import (ChaincodeLauncher,
+                                                      ExternalContract)
+    from fabric_mod_tpu_torch.utils import fixtures
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", CCAAS_CHILD, str(Path(__file__).resolve().parent)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    address = child.stdout.readline().strip()
+    if not address:
+        raise AssertionError(f"phase 16 (b): the chaincode server did not "
+                             f"start (exit {child.poll()})")
+    started_s = time.perf_counter() - t0
+    store = PackageStore(os.path.join(root, "packages"))
+    pkg_id = store.save(build_package(
+        "mycc", json.dumps({"address": address}).encode(), cc_type="ccaas"))
+    launcher = ChaincodeLauncher(store)
+    net = e2e.Network(os.path.join(root, "external"), material=svc_material(),
+                      verifier=gpu.GpuVerifier(device=dev, cache_size=0),
+                      tensor_policy=True, pipeline_depth=OBS_DEPTH)
+    try:
+        # the in-process KV contract out, the launcher in: mycc resolves
+        # to the installed package on its first endorsement
+        net.chaincodes.unregister("mycc")
+        n_tx = len(full[1])
+        timing = {"calls": 0, "secs": 0.0}
+        resolved = []
+
+        def resolve(name):
+            contract = launcher.resolve(name)
+            if isinstance(contract, ExternalContract) and not resolved:
+                resolved.append(contract)
+                invoke = contract.invoke
+
+                def timed(stub):
+                    t = time.perf_counter()
+                    try:
+                        return invoke(stub)
+                    finally:
+                        timing["calls"] += 1
+                        timing["secs"] += time.perf_counter() - t
+                contract.invoke = timed
+            return contract
+        net.chaincodes.set_resolver(resolve)
+        t0 = time.perf_counter()
+        submits, flat = fixtures.make_e2e_stream(net, n_tx, PLANT_EVERY)
+        endorse_s = time.perf_counter() - t0
+        if not resolved or timing["calls"] < n_tx:
+            raise AssertionError(f"phase 16 (b): mycc resolved to "
+                                 f"{[type(c).__name__ for c in resolved]}, "
+                                 f"{timing['calls']} remote invokes")
+        if flat != full[1]:
+            raise AssertionError("phase 16 (b): the stream's construction "
+                                 "differs from phase 8 (a)'s")
+        reset_kernel_counts()
+        span_s = svc_commit(net, submits, flat, solo_fp, "phase 16 (b)")
+        counts = kernel_counts()
+        require_launched({k: counts[k] for k in CORE_KERNELS}, "phase 16 (b)")
+        log(f"phase 16 (b) external chaincode: package {pkg_id[:24]}... "
+            f"(ccaas) resolved through the ChaincodeLauncher to a chaincode "
+            f"server in a child process (up in {started_s:.2f} s); {n_tx} "
+            f"txs endorsed over TCP in {endorse_s:.1f} s "
+            f"({endorse_s / n_tx * 1e3:.3f} ms a tx), "
+            f"{timing['calls']} remote invokes at "
+            f"{timing['secs'] / timing['calls'] * 1e3:.3f} ms each "
+            f"(endorser wall: the invoke with its state callbacks); ordered "
+            f"and committed on the card in {span_s:.1f} s "
+            f"({n_tx / span_s:.1f} tx/s); flags and fingerprint "
+            f"({solo_fp[:16]}) == phase 8 (a)'s in-process contract; "
+            f"kernel launches {counts}")
+        return net, child, launcher
+    except BaseException:
+        net.close()
+        launcher.close()
+        svc_stop_child(child)
+        raise
+
+
+def svc_stop_child(child) -> None:
+    """End the chaincode server's process (its stdin closed: it stops its
+    server and reports its modules) and reap it."""
+    try:
+        child.stdin.close()
+        out = child.stdout.read()
+        child.wait(timeout=30)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=10)
+    if "modules []" not in out:
+        raise AssertionError(f"phase 16 (b): the chaincode process loaded "
+                             f"{out.strip()!r}")
+
+
+def svc_queries(net):
+    """(signed queries, expected verdicts): SVC_MEMBER_QUERIES from the
+    three orgs' client, peers and admins, SVC_FLIPPED_QUERIES of theirs
+    with one signature bit flipped, SVC_OUTSIDE_QUERIES from identities of
+    an org outside the channel (Org9, its own CA)."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.msp import ca as calib
+    from fabric_mod_tpu_torch.protos.protoutil import SignedData
+    from fabric_mod_tpu_torch.utils import fixtures
+    members = [net.client, *net.peer_signers.values(), *net.admins.values()]
+    ca = calib.CA("ca.org9", "Org9", seed=b"phase16", now=fixtures.CERT_EPOCH)
+    outsiders = []
+    for i in range(4):
+        cert, key = ca.issue(f"client{i}@org9", "Org9", ous=["client"])
+        outsiders.append(e2e._signer(net.csp, ("Org9", cert.pem(),
+                                               calib.key_pem(key))))
+    queries, want = [], []
+    for kind, n, signers in (("member", SVC_MEMBER_QUERIES, members),
+                             ("flipped", SVC_FLIPPED_QUERIES, members),
+                             ("outside", SVC_OUTSIDE_QUERIES, outsiders)):
+        for i in range(n):
+            s = signers[i % len(signers)]
+            data = b"discovery|%s|%d" % (kind.encode(), i)
+            sig = s.sign_message(data)
+            if kind == "flipped":
+                sig = fixtures._flip(sig)
+            queries.append(SignedData(data=data, identity=s.serialize(),
+                                      signature=sig))
+            want.append(kind == "member")
+    return queries, want
+
+
+def svc_pass(svc, queries):
+    """Every query through `svc.check_access` from SVC_THREADS threads
+    (thread k takes queries k, k + SVC_THREADS, ...); (verdicts, s)."""
+    got = [None] * len(queries)
+    errors = []
+
+    def run(k):
+        try:
+            for i in range(k, len(queries), SVC_THREADS):
+                got[i] = svc.check_access(queries[i])
+        except Exception as e:              # re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(k,), daemon=True)
+               for k in range(SVC_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=E2E_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("phase 16 (a): a discovery thread is blocked")
+    if errors:
+        raise errors[0]
+    return got, wall
+
+
+def svc_discovery(torch, dev, net):
+    """16 (a): 2048 signed discovery queries through
+    DiscoveryService.check_access from SVC_THREADS threads, the Readers
+    signatures verified by the card (a BatchingVerifyService over a
+    GpuVerifier without memo-cache: concurrent queries share launches);
+    every verdict the host SwVerifier oracle's; a second pass answered
+    by the auth cache with no launch; a config update (BatchTimeout ->
+    SVC_BATCH_TIMEOUT) bumps the sequence and the next pass verifies on
+    the card again.  Then the lifecycle deploys cc2 (SVC_POLICY) and the
+    layouts of cc2 and of mycc (the implicit-meta MAJORITY default) are
+    printed.  Each pass reads its launches as a difference of the counts
+    and resets nothing, so the counts the caller reads after this part
+    hold all three passes, the config update and the deploy."""
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.discovery import DiscoveryService
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    t0 = time.perf_counter()
+    queries, want = svc_queries(net)
+    signed_s = time.perf_counter() - t0
+    oracle_svc = DiscoveryService(net.channel.bundle, net.channel._vinfo,
+                                  lambda: {},
+                                  verify_many=sw.SwVerifier().verify_many)
+    t0 = time.perf_counter()
+    oracle = [oracle_svc.check_access(q) for q in queries]
+    oracle_s = time.perf_counter() - t0
+    if oracle != want:
+        raise AssertionError("phase 16 (a): the host oracle's verdicts "
+                             "differ from the construction")
+    card = gpu.GpuVerifier(device=dev, cache_size=0)
+    service = gpu.BatchingVerifyService(card)
+    sizes = _cohorts(card)
+    members = {org: [m.GossipMember(endpoint=f"peer0.{org.lower()}:7051",
+                                    pki_id=org.encode())]
+               for org in ("Org1", "Org2", "Org3")}
+    svc = DiscoveryService(net.channel.bundle, net.channel._vinfo,
+                           lambda: members, verify_many=service.verify_many)
+    try:
+        passes = []
+        for label in ("first", "cached", "after the config update"):
+            if label == "after the config update":
+                seq = net.channel.bundle().sequence
+                desired = fixtures.config_with_batch_timeout(
+                    net.channel.bundle().config, SVC_BATCH_TIMEOUT)
+                base = net.committed_txs()
+                net.update_config(desired, [net.orderer_admin,
+                                            net.admins["Org1"],
+                                            net.admins["Org2"]])
+                if net.pump_committed(base + 1) != base + 1 or \
+                        net.channel.bundle().sequence != seq + 1:
+                    raise AssertionError("phase 16 (a): the config update "
+                                         "did not commit")
+            pre, before = kernel_counts(), len(sizes)
+            got, wall = svc_pass(svc, queries)
+            counts = {k: v - pre[k] for k, v in kernel_counts().items()}
+            launched = sum(counts[k] for k in CORE_KERNELS)
+            if got != oracle:
+                raise AssertionError(f"phase 16 (a) {label} pass: "
+                                     f"{sum(a != b for a, b in zip(got, oracle))}"
+                                     f" verdicts differ from the oracle's")
+            if (launched == 0) != (label == "cached"):
+                raise AssertionError(f"phase 16 (a) {label} pass: "
+                                     f"{launched} hand-written launches")
+            if label != "cached":
+                require_launched({k: counts[k] for k in CORE_KERNELS},
+                                 f"phase 16 (a) {label} pass")
+            passes.append((label, wall, launched, len(sizes) - before,
+                           sizes[before:]))
+        # a deployed definition (the ceremony at the new batch timeout)
+        t0 = time.perf_counter()
+        net.deploy_chaincode("cc2", "1.0", 1, policy=_policy(SVC_POLICY))
+        deploy_s = time.perf_counter() - t0
+        layouts = {cc: [lo.quantities_by_org for lo in
+                        svc.peers_for_endorsement(cc).layouts]
+                   for cc in ("cc2", "mycc")}
+        if layouts != {"cc2": [{"Org1": 1, "Org3": 1}],
+                       "mycc": [{"Org1": 1, "Org2": 1}, {"Org1": 1, "Org3": 1},
+                                {"Org2": 1, "Org3": 1}]}:
+            raise AssertionError(f"phase 16 (a): layouts {layouts}")
+        conf = svc.config()
+    finally:
+        service.close()
+    log(f"phase 16 (a) discovery: {len(queries)} signed queries "
+        f"({SVC_MEMBER_QUERIES} of the three orgs' members, "
+        f"{SVC_FLIPPED_QUERIES} flipped, {SVC_OUTSIDE_QUERIES} from Org9 "
+        f"outside the channel; signed in {signed_s:.1f} s) through "
+        f"check_access from {SVC_THREADS} threads; every pass's verdicts == "
+        f"the host SwVerifier oracle's ({oracle_s:.2f} s serial)")
+    for label, wall, launched, calls, cohort in passes:
+        mean = sum(cohort) / len(cohort) if cohort else 0.0
+        log(f"phase 16 (a) {label} pass: {wall:.3f} s "
+            f"({len(queries) / wall:.1f} queries/s), hand-written "
+            f"verify-core launches {launched}, calls into the GpuVerifier "
+            f"{calls} (mean cohort {mean:.2f})")
+    log(f"phase 16 (a) layouts: cc2 ({SVC_POLICY}, deployed by the "
+        f"lifecycle in {deploy_s:.1f} s after the batch timeout went to "
+        f"{SVC_BATCH_TIMEOUT}) {layouts['cc2']}; mycc (the implicit-meta "
+        f"MAJORITY default) {layouts['mycc']}; config(): MSPs "
+        f"{sorted(conf['msps'])}")
+
+
+def svc_scrape(metrics_text: str, name: str) -> float:
+    """The summed value of a series' samples in a text exposition."""
+    total = 0.0
+    for line in metrics_text.splitlines():
+        key, _, value = line.rpartition(" ")
+        if key == name or key.startswith(name + "{"):
+            total += float(value)
+    return total
+
+
+def svc_broker_ops(torch, dev, root, full, solo_fp):
+    """16 (c) and (d): two registrars consume one persisted Broker topic
+    for a "kafka" channel (the peer's network's orderer and a second
+    registrar); phase 8 (a)'s stream submitted in order, the peer
+    committing the first registrar's chain on the card (MCS and
+    validation), traced, while an HTTPS operations server with a
+    required client certificate is scraped, beside an HTTP one with the
+    participation routes.  Gates: equal data hashes on both registrars,
+    phase 8 (a)'s fingerprint, the ops routes, a restart of the broker
+    and the second registrar that resumes from the persisted offset and
+    cuts nothing."""
+    import ssl
+    import urllib.error
+    import urllib.request
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.msp import ca as calib
+    from fabric_mod_tpu_torch.observability import OperationsServer, tracing
+    from fabric_mod_tpu_torch.orderer.broker import Broker, BrokerChain
+    from fabric_mod_tpu_torch.orderer.participation import ChannelParticipation
+    from fabric_mod_tpu_torch.orderer.registrar import Registrar
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    import base64
+    import struct
+    submits, flat = full
+    n_tx = len(flat)
+    material = svc_material("kafka", orderers=2)
+    broker_dir = os.path.join(root, "broker")
+    broker = Broker(broker_dir)
+    factory = {"kafka": lambda sup: BrokerChain(broker, sup)}
+    net = e2e.Network(os.path.join(root, "kafka"), material=material,
+                      verifier=gpu.GpuVerifier(device=dev),
+                      tensor_policy=True, consenters=factory,
+                      pipeline_depth=OBS_DEPTH)
+    csp = sw.SwCSP()
+    second = Registrar(os.path.join(root, "second"),
+                       e2e._signer(csp, material.consenters["orderer1"]), csp,
+                       consenters=factory)
+    servers = []
+    try:
+        second.create_channel(m.Block.decode(material.genesis))
+        chains = [net.support.chain, second.get_chain(net.channel_id).chain]
+        if not all(isinstance(c, BrokerChain) for c in chains):
+            raise AssertionError(f"phase 16 (c): consenters "
+                                 f"{[type(c).__name__ for c in chains]}")
+        # (d)'s servers: HTTPS with a required client certificate from
+        # the port's own CA, HTTP with the participation routes
+        ca = calib.CA("ca.ops", "OpsOrg", seed=b"phase16",
+                      now=fixtures.CERT_EPOCH)
+        pems = {}
+        for name, (cert, key) in (
+                ("server", ca.issue("localhost", "OpsOrg", ous=["server"])),
+                ("client", ca.issue("operator", "OpsOrg", ous=["client"]))):
+            for ext, data in (("pem", cert.pem()), ("key", calib.key_pem(key))):
+                path = os.path.join(root, f"{name}.{ext}")
+                with open(path, "wb") as f:
+                    f.write(data)
+                pems[f"{name}.{ext}"] = path
+        pems["ca"] = os.path.join(root, "ca.pem")
+        with open(pems["ca"], "wb") as f:
+            f.write(ca.cert_pem())
+        https = OperationsServer(tls={"cert": pems["server.pem"],
+                                      "key": pems["server.key"],
+                                      "client_ca": pems["ca"]})
+        plain = OperationsServer(participation=ChannelParticipation(
+            net.registrar))
+        servers = [https, plain]
+        for s in servers:
+            s.start()
+        ctx = ssl.create_default_context(cafile=pems["ca"])
+        ctx.check_hostname = False
+        ctx.load_cert_chain(pems["client.pem"], pems["client.key"])
+        secure = "https://%s:%d" % https.addr
+        base = "http://%s:%d" % plain.addr
+
+        def get(url, context=None, method="GET", body=None):
+            req = urllib.request.Request(url, data=body, method=method)
+            try:
+                with urllib.request.urlopen(req, timeout=60,
+                                            context=context) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+
+        code, text = get(secure + "/metrics", ctx)
+        series = ("fabric_commitpipe_blocks_total",
+                  "fabric_bccsp_verdict_cache_misses",
+                  'fabric_trace_substage_seconds_count{stage="device_dispatch"}')
+        before = {s: svc_scrape(text.decode(), s) for s in series}
+        if code != 200 or get(secure + "/healthz", ctx)[0] != 200:
+            raise AssertionError(f"phase 16 (d): /metrics {code}, /healthz "
+                                 f"{get(secure + '/healthz', ctx)}")
+        refused = False
+        bare = ssl.create_default_context(cafile=pems["ca"])
+        bare.check_hostname = False
+        try:
+            get(secure + "/healthz", bare)
+        except (ssl.SSLError, urllib.error.URLError, ConnectionError):
+            refused = True
+        if not refused:
+            raise AssertionError("phase 16 (d): HTTPS answered a client "
+                                 "without a certificate")
+
+        # the scraper reads /metrics and /healthz over HTTPS while the
+        # peer commits
+        scrapes, stop = [], threading.Event()
+
+        def scrape():
+            while not stop.is_set():
+                scrapes.append((get(secure + "/metrics", ctx)[0],
+                                get(secure + "/healthz", ctx)[0]))
+                stop.wait(SVC_SCRAPE_EVERY_S)
+        scraper = threading.Thread(target=scrape, daemon=True)
+        tracing.recorder().reset()
+        reset_kernel_counts()
+        scraper.start()
+        try:
+            with tracing.active():
+                span_s = svc_commit(net, submits, flat, solo_fp,
+                                    "phase 16 (c)")
+        finally:
+            stop.set()
+            scraper.join(timeout=60)
+        counts = kernel_counts()
+        require_launched({k: counts[k] for k in CORE_KERNELS}, "phase 16 (c)")
+        if not scrapes or any(c != (200, 200) for c in scrapes):
+            raise AssertionError(f"phase 16 (d): scrapes during the commit "
+                                 f"{sorted(set(scrapes))}")
+        # (c): both registrars cut the same blocks
+        stores = [net.support.store, second.get_chain(net.channel_id).store]
+        deadline = time.monotonic() + E2E_TIMEOUT_S
+        while stores[1].height < stores[0].height:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 16 (c): heights "
+                                     f"{[s.height for s in stores]}")
+            time.sleep(0.01)
+        hashes = [[s.get_block_by_number(n).header.data_hash
+                   for n in range(s.height)] for s in stores]
+        if hashes[0] != hashes[1] or len(hashes[0]) != 1 + E2E_BLOCKS:
+            raise AssertionError("phase 16 (c): the registrars' blocks differ")
+        slot = BrokerChain.OFFSET_MD_SLOT
+        offsets = [struct.unpack("<q", stores[0].get_block_by_number(
+            n).metadata.metadata[slot])[0] for n in range(1, stores[0].height)]
+
+        # (d): the routes
+        code, text = get(secure + "/metrics", ctx)
+        after = {s: svc_scrape(text.decode(), s) for s in series}
+        moved = {s: after[s] - before[s] for s in series}
+        if code != 200 or moved[series[0]] != E2E_BLOCKS or any(
+                v <= 0 for v in moved.values()):
+            raise AssertionError(f"phase 16 (d): /metrics moved {moved}")
+        flight = json.loads(get(base + "/flight")[1])
+        timelines = [t["block"] for t in flight["timelines"]
+                     if t["consumer"] == "deliver"]
+        trace = json.loads(get(base + "/trace?limit=4096")[1])
+        names = sorted({s["name"] for s in trace["spans"]})
+        if timelines != list(range(1, 1 + E2E_BLOCKS)) or \
+                "ledger_write" not in names:
+            raise AssertionError(f"phase 16 (d): /flight timelines "
+                                 f"{timelines}, /trace {names}")
+        spec_put = get(base + "/logspec", method="PUT",
+                       body=json.dumps({"spec": "peer=debug:info"}).encode())
+        spec_get = json.loads(get(base + "/logspec")[1])
+        get(base + "/logspec", method="PUT",
+            body=json.dumps({"spec": "info"}).encode())
+        threads_code, dump = get(base + "/debug/threads")
+        if spec_put[0] != 204 or spec_get != {"spec": "peer=debug:info"} or \
+                threads_code != 200 or b"opsserver-http" not in dump:
+            raise AssertionError(f"phase 16 (d): /logspec {spec_put[0]} "
+                                 f"{spec_get}, /debug/threads {threads_code}")
+        # /healthz: a planted staging error poisons the channel's shared
+        # pipe (503), the channel discards it (200 again)
+        channel = net.channel
+        healthy = get(secure + "/healthz", ctx)[0]
+
+        def planted(_block):
+            del channel.stage_block
+            raise RuntimeError("phase 16 planted stage error")
+        channel.stage_block = planted
+        pipe = channel.commit_pipeline()
+        fake = m.Block.decode(net.ledger.get_block_by_number(
+            net.ledger.height - 1).encode())
+        fake.header.number = net.ledger.height
+        pipe.submit(fake)
+        try:
+            pipe.flush(E2E_TIMEOUT_S)
+            raise AssertionError("phase 16 (d): the planted error did not "
+                                 "fail the pipe")
+        except RuntimeError as e:
+            if "planted" not in str(e):
+                raise
+        poisoned, body = get(secure + "/healthz", ctx)
+        failed = json.loads(body)["failed_checks"]
+        if channel.commit_pipeline() is pipe or not pipe.closed:
+            raise AssertionError("phase 16 (d): the channel kept the pipe")
+        healed = get(secure + "/healthz", ctx)[0]
+        if (healthy, poisoned, healed) != (200, 503, 200) or not any(
+                k.startswith("commitpipe[channel#") and "planted" in v
+                for k, v in failed.items()):
+            raise AssertionError(f"phase 16 (d): /healthz {healthy} -> "
+                                 f"{poisoned} {failed} -> {healed}")
+        # participation: the list, and a REST join equal to a direct one
+        listed = json.loads(get(base + "/participation/v1/channels")[1])
+        want_list = {"channels": [{"name": net.channel_id,
+                                   "height": 1 + E2E_BLOCKS,
+                                   "status": "active"}]}
+        join_material = fixtures.make_network_material(SEED, "svcjoin")
+        code, joined = get(base + "/participation/v1/channels", method="POST",
+                           body=json.dumps({"config_block": base64.b64encode(
+                               join_material.genesis).decode()}).encode())
+        direct = ChannelParticipation(second).join(
+            m.Block.decode(join_material.genesis))
+        info = json.loads(get(base + "/participation/v1/channels/svcjoin")[1])
+        removed = get(base + "/participation/v1/channels/svcjoin",
+                      method="DELETE")[0]
+        if listed != want_list or code != 201 or json.loads(joined) != {
+                "name": direct.channel_id, "height": direct.store.height} or \
+                info != ChannelParticipation(second).channel_info("svcjoin") \
+                or removed != 204:
+            raise AssertionError(f"phase 16 (d): participation {listed}, "
+                                 f"join {code} {joined}, info {info}, "
+                                 f"remove {removed}")
+        for s in servers:
+            s.stop()
+        servers = []
+
+        # (c): a restart of the broker and the second registrar resumes
+        # from the offset in its tip and cuts nothing
+        tip = stores[1].height
+        blocks = [stores[1].get_block_by_number(n).encode()
+                  for n in range(tip)]
+        second.close()
+        second = None
+        t0 = time.perf_counter()
+        broker2 = Broker(broker_dir)
+        try:
+            second = Registrar(
+                os.path.join(root, "second"),
+                e2e._signer(csp, material.consenters["orderer1"]), csp,
+                consenters={"kafka": lambda sup: BrokerChain(broker2, sup)})
+            chain = second.get_chain(net.channel_id).chain
+            topic = len(broker2.read(net.channel_id, 0, timeout_s=0))
+            time.sleep(1.0)               # a wrong consumer would re-cut now
+            store = second.get_chain(net.channel_id).store
+            again = [store.get_block_by_number(n).encode()
+                     for n in range(store.height)]
+            if chain.consumed != offsets[-1] + 1 or topic != offsets[-1] + 1 \
+                    or again != blocks or len(broker2.read(
+                        net.channel_id, 0, timeout_s=0)) != topic:
+                raise AssertionError(f"phase 16 (c): after the restart "
+                                     f"consumed {chain.consumed}, topic "
+                                     f"{topic}, offsets {offsets}, height "
+                                     f"{store.height} (was {tip})")
+            restart_s = time.perf_counter() - t0
+        finally:
+            if second is not None:
+                second.close()
+                second = None
+            broker2.close()
+    finally:
+        for s in servers:
+            s.stop()
+        if second is not None:
+            second.close()
+        net.close()
+        broker.close()
+    log(f"phase 16 (c) broker consenter: {n_tx} txs of phase 8 (a)'s stream "
+        f"ordered through one persisted topic consumed by 2 registrars and "
+        f"committed on the card by the peer in {span_s:.1f} s "
+        f"({n_tx / span_s:.1f} tx/s): equal data hashes on both, the "
+        f"offsets stamped {offsets}, fingerprint == phase 8 (a)'s "
+        f"({solo_fp[:16]}); the broker and the second registrar restarted "
+        f"in {restart_s:.2f} s resumed at offset {offsets[-1] + 1} with "
+        f"nothing re-cut; kernel launches {counts}")
+    log(f"phase 16 (d) operations servers: {len(scrapes)} HTTPS scrapes of "
+        f"/metrics and /healthz during the commit, all 200 (a client "
+        f"without a certificate refused); /metrics moved "
+        f"{ {k.split('{')[0]: v for k, v in moved.items()} }; /flight "
+        f"timelines of blocks {timelines}; /trace span names {names}; "
+        f"/logspec round trip; /debug/threads; /healthz {healthy} -> "
+        f"{poisoned} (a planted stage error) -> {healed} (the pipe "
+        f"discarded); /participation lists {listed['channels']}, a REST "
+        f"join {json.loads(joined)} == ChannelParticipation.join's")
+
+
+def phase_services(torch, dev, full, solo_fp) -> dict:
+    """Phase 16: (b) external chaincode, then (a) discovery on its
+    network, then (c) and (d) the broker consenter under the operations
+    servers.  `full` is phase 8 (a)'s stream and `solo_fp` its
+    fingerprint.  Returns the parts' kernel launches summed."""
+    t_phase = time.perf_counter()
+    parts = {}      # part -> (kernel launches, seconds)
+    with tempfile.TemporaryDirectory() as root:
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        net, child, launcher = svc_external(torch, dev, root, full, solo_fp)
+        try:
+            parts["b"] = (kernel_counts(), time.perf_counter() - t0)
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            svc_discovery(torch, dev, net)
+            parts["a"] = (kernel_counts(), time.perf_counter() - t0)
+        finally:
+            net.close()
+            launcher.close()
+            svc_stop_child(child)
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        svc_broker_ops(torch, dev, root, full, solo_fp)
+        parts["cd"] = (kernel_counts(), time.perf_counter() - t0)
+    launched: dict = {}
+    for counts, _secs in parts.values():
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+    require_launched({k: launched[k] for k in CORE_KERNELS}, "phase 16")
+    log(f"services phase: {time.perf_counter() - t_phase:.1f} s wall, parts "
+        f"{ {k: round(v[1], 1) for k, v in sorted(parts.items())} } s, "
+        f"ladder launches "
+        f"{ {k: v[0]['ladder_projective'] for k, v in sorted(parts.items())} }; "
+        f"kernel launches {launched}")
+    return launched
+
+
 def main_phase11(torch, dev) -> int:
     """`--phase 11`: phase 11 alone, its (b) on a stream made here (phase 8
     arm (a)'s first GOSSIP_BLOCKS blocks' worth, endorsed as phase 8 does);
@@ -6172,10 +6919,27 @@ def main_phase15(torch, dev) -> int:
     return 0
 
 
+def main_phase16(torch, dev) -> int:
+    """`--phase 16`: phase 16 alone after phase 8 (a), which gives it the
+    stream and the fingerprint; no kernels line."""
+    from fabric_mod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    _counts, _block, full, solo_fp = phase_e2e(torch, dev, arm="a",
+                                               n_blocks=E2E_BLOCKS)
+    phase_services(torch, dev, full, solo_fp)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=["11", "12", "13", "14", "15"],
+    parser.add_argument("--phase",
+                        choices=["11", "12", "13", "14", "15", "16"],
                         default=None,
                         help="run one phase alone (after the header)")
     only = parser.parse_args().phase
@@ -6215,6 +6979,8 @@ def main() -> int:
         return main_phase14(torch, dev)
     if only == "15":
         return main_phase15(torch, dev)
+    if only == "16":
+        return main_phase16(torch, dev)
 
     # 2. build
     t0 = time.perf_counter()
@@ -6344,6 +7110,10 @@ def main() -> int:
     arms["observability"] = phase_observability(
         torch, dev, [env for env, ok in order_free[0] if ok],
         [env for env, ok in full[0] if ok])
+    # 16. the service surface: (b) external chaincode and (a) discovery
+    # on one network, (c) the broker consenter under (d) the operations
+    # servers, over phase 8 (a)'s stream
+    arms["services"] = phase_services(torch, dev, full, solo_fp)
     # 7 (d), the plain pairing's profile: after the last profiler window
     pairing_profile()
     for k in kernels.values():

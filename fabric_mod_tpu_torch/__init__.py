@@ -34,7 +34,11 @@ validation of org-local approvals), the system chaincodes, config
 updates, rich queries, ledger snapshots and the admin commands.
 Slice 16 puts the idemix pairing check on two hand-written CUDA kernels
 (csrc/fp256bn_pairing.cu: the Miller loops, then the final
-exponentiation with the verdict), two launches a check.
+exponentiation with the verdict), two launches a check.  Slice 19
+ports the service surface: discovery (its access check verified on
+the card), the broker consenter, external chaincode (packages, the
+ccaas protocol, platforms, builders) and the operations server with
+logging specs, diagnostics and health.
 
 Counterparts (reference module -> port module):
 
@@ -105,6 +109,16 @@ parallel/mesh.py                parallel/mesh.py (device tuples; the
                                 lane split in place of NamedShardings)
 sharding/shardmap.py, router.py sharding/ (copies; knobs as arguments,
 verifyservice.py, multihost.py  no metrics; multihost a stub, as there)
+discovery/service.py            discovery/service.py (copy; the
+                                Readers check through the given
+                                verify_many)
+orderer/broker.py               orderer/broker.py (the same topic file
+                                format)
+peer/ccpackage.py,              peer/ (copies; python packages'
+extbuilder.py, platforms.py     reference imports resolve to the port)
+observability/opsserver.py,     observability/ (copies over the port's
+logging.py, diag.py             metrics and tracer; health: commit
+                                pipes only)
 (none)                          convert.py (constants, layouts, a
                                 world's bytes, a network's material and
                                 idemix data across)

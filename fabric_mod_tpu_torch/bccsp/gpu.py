@@ -48,6 +48,8 @@ from fabric_mod_tpu_torch import device as _device
 from fabric_mod_tpu_torch.bccsp import der as _der
 from fabric_mod_tpu_torch.bccsp.api import VerifyItem
 from fabric_mod_tpu_torch.observability import tracing
+from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
+                                                        default_provider)
 
 BUCKETS = (8, 64, 512, 2048)
 LADDERS = ("projective", "mixed")
@@ -108,10 +110,27 @@ def marshal_items(items: Sequence[VerifyItem], size: Optional[int] = None
     return d, r, s, qx, qy, pre_ok, msg
 
 
+_CACHE_HITS_OPTS = MetricOpts(
+    "fabric", "bccsp", "verdict_cache_hits",
+    help="Verify verdicts served from the memo-cache (device skipped).")
+_CACHE_MISSES_OPTS = MetricOpts(
+    "fabric", "bccsp", "verdict_cache_misses",
+    help="Verify items that had to be dispatched to the device.")
+_CACHE_EVICTIONS_OPTS = MetricOpts(
+    "fabric", "bccsp", "verdict_cache_evictions",
+    help="LRU evictions from the verdict memo-cache.")
+_CACHE_SIZE_OPTS = MetricOpts(
+    "fabric", "bccsp", "verdict_cache_size",
+    help="Current number of memoized verify verdicts.")
+
+
 class VerdictCache:
     """Bounded LRU of (digest, signature, public key, message) -> bool.
     A verify is a pure function of that tuple, so a hit skips the
-    device entirely.  Thread-safe."""
+    device entirely.  Thread-safe.  `hits` and `misses` count this
+    cache's probes; the reference's `fabric_bccsp_verdict_cache_*`
+    series (bccsp/tpu.py:156-166) count every cache's, on the default
+    metrics provider."""
 
     def __init__(self, capacity: int):
         if capacity <= 0:
@@ -122,6 +141,11 @@ class VerdictCache:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        prov = default_provider()
+        self._m_hits = prov.counter(_CACHE_HITS_OPTS)
+        self._m_misses = prov.counter(_CACHE_MISSES_OPTS)
+        self._m_evictions = prov.counter(_CACHE_EVICTIONS_OPTS)
+        self._m_size = prov.gauge(_CACHE_SIZE_OPTS)
 
     @staticmethod
     def key_of(item: VerifyItem) -> Optional[tuple]:
@@ -145,19 +169,24 @@ class VerdictCache:
     def get_many(self, keys: Sequence[Optional[tuple]]
                  ) -> List[Optional[bool]]:
         out: List[Optional[bool]] = []
+        hits = 0
         with self._lock:
             for k in keys:
                 got = self._od.get(k) if k is not None else None
                 if got is not None:
                     self._od.move_to_end(k)
-                    self.hits += 1
-                else:
-                    self.misses += 1
+                    hits += 1
                 out.append(got)
+            self.hits += hits
+            self.misses += len(keys) - hits
+        self._m_hits.add(hits)
+        self._m_misses.add(len(keys) - hits)
         return out
 
     def put_many(self, keys: Sequence[Optional[tuple]], verdicts) -> None:
+        evicted = 0
         with self._lock:
+            before = len(self._od)
             for k, v in zip(keys, verdicts):
                 if k is None:
                     continue
@@ -165,6 +194,11 @@ class VerdictCache:
                 self._od.move_to_end(k)
             while len(self._od) > self.capacity:
                 self._od.popitem(last=False)
+                evicted += 1
+            delta = len(self._od) - before
+        self._m_evictions.add(evicted)
+        # a delta: the one exposition row totals every cache's verdicts
+        self._m_size.add(delta)
 
     def __len__(self) -> int:
         with self._lock:

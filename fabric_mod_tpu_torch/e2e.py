@@ -139,20 +139,29 @@ class Network:
     shed_high, shed_low, shed_lat_s, clock); each orderer builds its own
     controller from them for its Broadcast, and `queue_cap` bounds its
     chains' submit queues.  None (the default) is every mechanism off:
-    the blocking 10,000-entry queues, no limiter, no gate."""
+    the blocking 10,000-entry queues, no limiter, no gate.
+
+    `consenters` maps more ConsensusTypes to chain factories for every
+    orderer's registrar (e.g. {"kafka": lambda support:
+    BrokerChain(broker, support)}, orderer/broker.py); a type it does
+    not name runs solo.  `pipeline_depth` > 0 gives the peer's Channel a
+    shared commit pipe of that depth (peer/channel.py)."""
 
     def __init__(self, root_dir: str, material: NetworkMaterial,
                  verifier=None, device=None, tensor_policy: bool = False,
                  ingress_batching: bool = False, staged_batch: int = 0,
                  election_timeout: Tuple[float, float] = (0.15, 0.3),
                  heartbeat_s: float = 0.05, clock=None,
-                 admission: Optional[dict] = None):
+                 admission: Optional[dict] = None,
+                 consenters: Optional[dict] = None,
+                 pipeline_depth: int = 0):
         if verifier is None:
             from fabric_mod_tpu_torch.bccsp.gpu import GpuVerifier
             verifier = GpuVerifier(device=device)
         self.csp = SwCSP()
         self.verifier = verifier
         self.admission = dict(admission or {})
+        self._consenters = dict(consenters or {})
         self._queue_cap = int(self.admission.get("queue_cap", 0))
         self.peer_signers = {org: _signer(self.csp, p)
                              for org, p in material.peers.items()}
@@ -207,7 +216,8 @@ class Network:
         self.ledger_mgr = LedgerManager(os.path.join(root_dir, "peer"))
         self.ledger = self.ledger_mgr.create_or_open(channel_id)
         self.channel = Channel(channel_id, self.ledger, verifier, bundle,
-                               self.csp, tensor_policy=tensor_policy)
+                               self.csp, tensor_policy=tensor_policy,
+                               pipeline_depth=pipeline_depth)
         if self.ledger.height == 0:
             self.channel.init_from_genesis(self.genesis_block)
 
@@ -322,8 +332,9 @@ class Network:
                 os.path.join(root_dir, "orderer", oid),
                 _signer(self.csp, pems), self.csp,
                 verify_many=ingress_verify,
-                consenters={"etcdraft": raft_factory} if raft_factory
-                else None, submit_queue_cap=self._queue_cap,
+                consenters=dict(self._consenters, **(
+                    {"etcdraft": raft_factory} if raft_factory else {})),
+                submit_queue_cap=self._queue_cap,
                 block_fetcher=join[2] if join else None,
                 verifier=self.verifier)
         except BaseException:

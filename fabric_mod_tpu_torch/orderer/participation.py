@@ -20,11 +20,15 @@ the card a block.  The reference's onboarding checks the chain and the
 anchor only, so a source that alters nothing but an orderer signature
 is refused here and taken there.
 
-Not ported: the REST surface (`ChannelParticipation.handle`), which
-rides the reference's operations HTTP server.
+The REST surface, `ChannelParticipation.handle` (reference :241), answers
+{GET, POST, DELETE} /participation/v1/channels[/<id>] with the
+reference's status codes and JSON bodies; observability/opsserver.py
+serves it.
 """
 from __future__ import annotations
 
+import base64
+import json
 import threading
 from typing import Callable, Dict, List, Optional
 
@@ -295,3 +299,39 @@ class ChannelParticipation:
 
     def remove(self, channel_id: str) -> None:
         self._registrar.remove_channel(channel_id)
+
+    # -- the REST shape of restapi.go -------------------------------------
+    def handle(self, method: str, path: str, body: bytes):
+        """(status code, JSON-serializable body or None) for {GET, POST,
+        DELETE} /participation/v1/channels[/<id>]: list (200), one
+        channel's info (200), a join from {"config_block": base64 block,
+        "follower": bool} (201, name and height), a removal (204); a
+        refused request 400 with {"error": ...}, an unknown path 404, any
+        other method 405."""
+        parts = [p for p in path.split("/") if p]
+        # parts: ["participation", "v1", "channels", <id>?]
+        if len(parts) < 3 or parts[0] != "participation" or \
+                parts[1] != "v1" or parts[2] != "channels":
+            return 404, {"error": "not found"}
+        cid = parts[3] if len(parts) > 3 else None
+        try:
+            if method == "GET" and cid is None:
+                return 200, {"channels": self.list_channels()}
+            if method == "GET":
+                return 200, self.channel_info(cid)
+            if method == "POST" and cid is None:
+                req = json.loads(body or b"{}")
+                block = m.Block.decode(
+                    base64.b64decode(req["config_block"]))
+                info = self.join(block,
+                                 as_follower=bool(req.get("follower")))
+                return 201, {"name": info.channel_id,
+                             "height": info.store.height}
+            if method == "DELETE" and cid is not None:
+                self.remove(cid)
+                return 204, None
+        except ParticipationError as e:
+            return 400, {"error": str(e)}
+        except Exception as e:
+            return 400, {"error": f"bad request: {e}"}
+        return 405, {"error": "method not allowed"}

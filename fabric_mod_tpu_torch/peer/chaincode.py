@@ -105,6 +105,12 @@ class ChaincodeRegistry:
     def register(self, name: str, contract: Contract) -> None:
         self._contracts[name] = contract
 
+    def unregister(self, name: str) -> None:
+        """Drop a registered contract: the next `get` of `name` asks the
+        resolver (e.g. an installed package in place of the in-process
+        contract, peer/extbuilder.ChaincodeLauncher)."""
+        self._contracts.pop(name, None)
+
     def set_resolver(self, resolver) -> None:
         """Miss handler (reference: launch on first use,
         chaincode_support.go:93).  A contract it returns is cached; None

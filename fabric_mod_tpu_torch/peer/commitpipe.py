@@ -36,12 +36,24 @@ With the tracer armed (observability/tracing.py) each block gets one
 timeline, labelled by `consumer`: the stage loop starts it around the
 staging, the StagedBlock carries it, and the commit loop resumes it
 around the verdict wait and the commit, then finishes it (reference
-:420-473).  The reference's metrics, health registration and fault
-points are not ported; the cumulative `stage_secs`, `await_secs` and
-`commit_secs` are.
+:420-473).
+
+Metrics and health are the reference's (:68-107, :210-225, :366): the
+`fabric_commitpipe_*` stage, await and commit histograms, the
+per-consumer occupancy gauge and the barrier and block counters on the
+port's default metrics provider, beside the cumulative `stage_secs`,
+`await_secs` and `commit_secs`; each pipe registers a checker in
+observability/opsserver.default_health() under a per-instance key
+(`commitpipe[<consumer>#<n>]`: consumer labels repeat, and one pipe's
+entry must not mask another's) that fails while the pipe holds a
+sticky error and is not closed, and `close()` unregisters it, so a
+poisoned pipe flips /healthz until its owner discards it.  The
+reference's fault points are not ported.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 import logging
 import queue
 import threading
@@ -50,9 +62,53 @@ from typing import Callable, List, Optional
 
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerError
 from fabric_mod_tpu_torch.observability import tracing
+from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
+                                                        default_provider)
+from fabric_mod_tpu_torch.observability.opsserver import default_health
 from fabric_mod_tpu_torch.protos import protoutil
 
 log = logging.getLogger(__name__)
+
+_STAGE_OPTS = MetricOpts(
+    "fabric", "commitpipe", "stage_seconds",
+    help="Host unpack + policy compilation + device dispatch time per "
+         "block (the pipeline's front stage).")
+_AWAIT_OPTS = MetricOpts(
+    "fabric", "commitpipe", "await_seconds",
+    help="Device-verdict wait per block (overlapped with the next "
+         "block's staging when depth > 1).")
+_COMMIT_OPTS = MetricOpts(
+    "fabric", "commitpipe", "commit_seconds",
+    help="Flag resolution + MVCC + ledger commit time per block.")
+_OCCUPANCY_OPTS = MetricOpts(
+    "fabric", "commitpipe", "occupancy",
+    help="Blocks staged but not yet committed (pipeline fill; bounded "
+         "by the configured depth).  Labeled per consumer: multiple "
+         "live engines (a deliver client's private pipe + a channel's "
+         "shared one) must not overwrite each other's fill level.",
+    label_names=("consumer",))
+_BARRIER_OPTS = MetricOpts(
+    "fabric", "commitpipe", "barriers_total",
+    help="Barrier drains: blocks whose config/VALIDATION_PARAMETER/"
+         "lifecycle writes forced the next stage to wait for commit.")
+_BLOCKS_OPTS = MetricOpts(
+    "fabric", "commitpipe", "blocks_total",
+    help="Blocks committed through a pipelined committer.")
+
+
+@functools.lru_cache(maxsize=None)
+def _metrics():
+    prov = default_provider()
+    return (prov.histogram(_STAGE_OPTS),
+            prov.histogram(_AWAIT_OPTS),
+            prov.histogram(_COMMIT_OPTS),
+            prov.gauge(_OCCUPANCY_OPTS),
+            prov.counter(_BARRIER_OPTS),
+            prov.counter(_BLOCKS_OPTS))
+
+
+# the per-instance suffix of a pipe's health-registry key
+_pipe_seq = itertools.count()
 
 
 class ValidatorCommitTarget:
@@ -119,6 +175,17 @@ class PipelinedCommitter:
         self.stage_secs = 0.0
         self.await_secs = 0.0
         self.commit_secs = 0.0
+        (self._m_stage, self._m_await, self._m_commit, occupancy,
+         self._m_barriers, self._m_blocks) = _metrics()
+        self._m_occupancy = occupancy.with_labels(consumer)
+        self._health_key = f"commitpipe[{consumer}#{next(_pipe_seq)}]"
+        default_health().register(self._health_key, self._health_check)
+
+    def _health_check(self) -> None:
+        if self._err is not None and not self._closed:
+            raise RuntimeError(
+                f"commit pipeline [{self._consumer}] poisoned: "
+                f"{self._err!r}")
 
     @property
     def error(self) -> Optional[Exception]:
@@ -220,6 +287,9 @@ class PipelinedCommitter:
                     return
                 self._closed = True
             started = self._started
+        # a closed pipe leaves the health registry: its error reached its
+        # callers, and the entry would pin the pipe and its channel
+        default_health().unregister(self._health_key)
         if not started:
             return
         self._in_q.put(None)
@@ -247,6 +317,7 @@ class PipelinedCommitter:
                     if self._err is not None:
                         continue           # drain mode
                     self._inflight += 1
+                    self._m_occupancy.set(self._inflight)
                 t0 = time.perf_counter()
                 # one timeline a block; the stage side's sub-spans land
                 # here, and the staged block carries it to the commit
@@ -257,8 +328,11 @@ class PipelinedCommitter:
                     staged = self._channel.stage_block(block)
                 if tl is not None:
                     staged.trace_timeline = tl
-                self.stage_secs += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.stage_secs += dt
+                self._m_stage.observe(dt)
                 if staged.needs_barrier:
+                    self._m_barriers.add()
                     with self._cv:
                         self._barrier_height = block.header.number + 1
                 self._staged_q.put(staged)
@@ -291,8 +365,12 @@ class PipelinedCommitter:
                 tracing.finish_timeline(tl)
             self.await_secs += t1 - t0
             self.commit_secs += t2 - t1
+            self._m_await.observe(t1 - t0)
+            self._m_commit.observe(t2 - t1)
+            self._m_blocks.add()
             with self._cv:
                 self._inflight -= 1
+                self._m_occupancy.set(self._inflight)
                 self._height = staged.block.header.number + 1
                 self._cv.notify_all()
             if self._on_commit is not None:

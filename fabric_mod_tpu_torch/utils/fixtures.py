@@ -870,6 +870,22 @@ def config_with_batch_size(config, max_message_count: int):
     return desired
 
 
+def config_with_batch_timeout(config, timeout: str):
+    """A copy of channel `config` whose orderer BatchTimeout is `timeout`
+    (a duration string, e.g. "200ms"): the desired config of a
+    batch-timeout update."""
+    from fabric_mod_tpu_torch.channelconfig.bundle import (
+        BATCH_TIMEOUT, ORDERER, groups_of, set_group, set_value, values_of)
+    from fabric_mod_tpu_torch.protos import messages as m
+    desired = m.Config.decode(config.encode())
+    orderer = groups_of(desired.channel_group)[ORDERER]
+    value = values_of(orderer)[BATCH_TIMEOUT]
+    value.value = m.BatchTimeout(timeout=timeout).encode()
+    set_value(orderer, BATCH_TIMEOUT, value)
+    set_group(desired.channel_group, ORDERER, orderer)
+    return desired
+
+
 def config_with_consenters(config, consenter_ids):
     """A copy of channel `config` whose Raft consenter set is
     `consenter_ids`: the desired config of a membership update."""

@@ -17,8 +17,12 @@ ledgers, commits a private block whose plaintext one of them holds and
 runs one reconcile_tick on another, deploys a chaincode by the lifecycle
 ceremony, answers one rich query, snapshots the ledger and bootstraps a
 second one from the snapshot, runs a traced pipeline (stage
-attribution), an admission-armed Network that sheds, and a follower
-that joins and pulls its chain, then inspects sys.modules."""
+attribution), an admission-armed Network that sheds, a follower that
+joins and pulls its chain, a Network ordering through the broker
+consenter with an operations server scraped beside it, a discovery
+service's access check and layouts on it, and a ccaas package resolved
+by the chaincode launcher and invoked over TCP, then inspects
+sys.modules."""
 import json
 import os
 import pathlib
@@ -340,6 +344,70 @@ with tempfile.TemporaryDirectory() as root:
         reg.close()
     finally:
         net.close()
+import json as _json
+import urllib.request
+from fabric_mod_tpu_torch.discovery import DiscoveryService
+from fabric_mod_tpu_torch.observability import OperationsServer
+from fabric_mod_tpu_torch.orderer.broker import Broker, BrokerChain
+from fabric_mod_tpu_torch.peer.ccpackage import PackageStore, build_package
+from fabric_mod_tpu_torch.peer.chaincode import (ChaincodeError,
+                                                 ChaincodeStub, KvContract)
+from fabric_mod_tpu_torch.peer.extbuilder import (ChaincodeLauncher,
+                                                  ChaincodeServer)
+kmat = fixtures.make_network_material(6, consensus_type="kafka",
+                                      max_message_count=4,
+                                      batch_timeout="100ms")
+with tempfile.TemporaryDirectory() as root:
+    broker = Broker(os.path.join(root, "broker"))
+    net = e2e.Network(os.path.join(root, "kafka"), material=kmat,
+                      verifier=sw.SwVerifier(), consenters={
+                          "kafka": lambda sup: BrokerChain(broker, sup)})
+    ops = OperationsServer()
+    ops.start()
+    try:
+        assert isinstance(net.support.chain, BrokerChain)
+        submits, want = fixtures.make_e2e_stream(net, 8, plant_every=8)
+        for env, ok in submits:
+            if ok:
+                net.broadcast.submit(env)
+        assert e2e.commit_until(net, 8, 120)[1] == 8
+        flags = [f for n in range(1, net.ledger.height)
+                 for f in protoutil.block_txflags(
+                     net.ledger.get_block_by_number(n))]
+        assert flags == want
+        base = "http://%s:%d" % ops.addr
+        assert b"fabric_commitpipe_blocks_total" in \
+            urllib.request.urlopen(base + "/metrics").read()
+        assert _json.load(urllib.request.urlopen(base + "/healthz"))[
+            "status"] == "OK"
+        svc = DiscoveryService(net.channel.bundle, net.channel._vinfo,
+                               lambda: {},
+                               verify_many=sw.SwVerifier().verify_many)
+        data = b"discovery-query"
+        assert svc.check_access(protoutil.SignedData(
+            data=data, identity=net.client.serialize(),
+            signature=net.client.sign_message(data)))
+        assert len(svc.peers_for_endorsement("mycc").layouts) == 3
+    finally:
+        ops.stop()
+        net.close()
+        broker.close()
+    srv = ChaincodeServer(KvContract())
+    srv.start()
+    store = PackageStore(os.path.join(root, "pkgs"))
+    store.save(build_package("remote", _json.dumps(
+        {"address": srv.address}).encode(), cc_type="ccaas"))
+    launcher = ChaincodeLauncher(store)
+    cc = launcher.resolve("remote")
+    try:
+        cc.invoke(ChaincodeStub("remote", None, [b"nosuch"], "t", "ch"))
+        raise AssertionError("the remote contract answered an unknown op")
+    except ChaincodeError as e:
+        assert "unknown op" in str(e), e
+    finally:
+        cc.close()
+        launcher.close()
+        srv.stop()
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")

@@ -17,6 +17,17 @@ from fabric_mod_tpu_torch.ops import limbs9 as TL
 from fabric_mod_tpu_torch.ops import p256 as tp
 from fabric_mod_tpu_torch.ops import p256_cuda
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain limb code is many small ops: one intra-op thread a
+    worker keeps the tier-1 workers from oversubscribing the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 BATCH = 3
 R = 1 << 270
 

@@ -10,6 +10,16 @@ from fabric_mod_tpu_torch.ops import p256 as tp
 from tests.test_torch_p256 import _inputs, _run_both
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain limb code is many small ops: one intra-op thread a
+    worker keeps the tier-1 workers from oversubscribing the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("edge", [0, 1])
 def test_mixed_ladder_matches_reference(edge):
     want, got = _run_both(True, edge)

@@ -12,6 +12,16 @@ from fabric_mod_tpu_torch.bccsp.api import VerifyItem
 from fabric_mod_tpu_torch.utils import fixtures
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain limb code is many small ops: one intra-op thread a
+    worker keeps the tier-1 workers from oversubscribing the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def mixed_items():
     """8 items (one bucket): block traffic with raw endorser messages,
