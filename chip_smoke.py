@@ -3,9 +3,9 @@
 block commit, the end-to-end network around it (the main path) on a solo
 and on a three-node Raft ordering service, gossip around it, the
 dissemination tree and the deliver fan-out, channel sharding, the
-durable ledger and private data, the idemix presentation verify, and
-the service surface (discovery, external chaincode, the broker
-consenter, the operations server).
+durable ledger and private data, the idemix presentation verify, the
+service surface (discovery, external chaincode, the broker consenter,
+the operations server), and the soak under churn with faults armed.
 
     python3 chip_smoke.py
 
@@ -73,7 +73,7 @@ Phases (any failure exits non-zero; none is caught):
    (a) the projective ladder with the tensor-policy evaluator, which must
    receive a CUDA mask on every block; (b) the same with the policy
    closures; (c) the mixed ladder with the evaluator; (d) the host
-   software verifier, the oracle; (f) as (a) on
+   software verifier, the oracle (over 6 spawned processes); (f) as (a) on
    make_commit_world(raw_messages=True): every item a raw message,
    hashed by the SHA-256 kernel, which no other arm may launch (arm (e)
    of earlier versions, the vectorized MVCC, is now every arm's).
@@ -224,7 +224,7 @@ Phases (any failure exits non-zero; none is caught):
 
 11. deliver fan-out and dissemination trees (run after 10) — (a)
    bench.py:2383's top point: a solo network (50 ms batch timeout)
-   orders 4 one-put blocks (cut from 6); 128 all-pull peers, each its own
+   orders 2 one-put blocks (cut from 6, then 4); 128 all-pull peers, each its own
    DeliverClient and orderer stream, then 128 relay-mode peers
    (dissemination.RelayService, degree 4, per-child queue 64; membership
    and each tree parent's identity seeded as bench.py:2229 does, the
@@ -379,9 +379,10 @@ Phases (any failure exits non-zero; none is caught):
    within 10% (floored at bench.py's 100 ms over 32 blocks, scaled to
    the blocks committed; bench.py:690's grouping), seconds a block
    by substage and the device idle share; (c) at the end, bench.py's
-   broadcast storm at its width: 4096 pre-signed envelopes from 8
-   clients, 16-tx blocks, the drain pinned by a write_block sleep to
-   ~1/4 of the calibrated submit rate, gated (queue cap 64 and the
+   broadcast storm at its width, cut to 1024 pre-signed envelopes (from
+   4096, for the time limit) from 8 clients, 16-tx blocks, the drain
+   pinned by a write_block sleep to ~1/4 of the calibrated submit
+   rate, gated (queue cap 64 and the
    overload gate) against ungated, then unthrottled unstaged against
    staged 64, the Writers checks on the card: every admitted envelope
    committed exactly once, every shed typed, the gated queue within its
@@ -427,6 +428,35 @@ Phases (any failure exits non-zero; none is caught):
    participation routes list the channels and a REST join answers what
    ChannelParticipation.join gives.
 
+17. the soak under churn (run after 16, before 7 (d)'s profile; no
+   profiler window) — (a) the reference's acceptance soak
+   (tests/test_soak.py:137): seed 8, nine events covering all nine
+   churn kinds, two channels, two peers at start, 3-5 txs between
+   events, 60 s recovery windows; three Raft orderers (8-tx blocks,
+   200 ms batch timeout), the background fault plan armed at p = 0.05
+   (gossip drops, deliver stream deaths, Raft submit faults), mixed
+   x509 and idemix traffic, every soak peer's blocks, MCS checks,
+   gossip envelopes, config checks and event-stream ACL checks, and
+   every orderer's Writers checks, verified by one shared GpuVerifier
+   on the card (the idemix lane verifies on
+   the host, as the reference's does): every event converges within its
+   window, every admitted x509 tx is committed exactly once, tampered
+   idemix presentations rejected, faults fired, three peers at the end,
+   the audit subscriber cut FORBIDDEN at the revocation block, no
+   registered worker thread leaked; the schedule, recovery seconds by
+   kind, tx/s of both lanes, fault fires, submit errors and launches.
+   (b) fault seams against the card: `bccsp.device.dispatch` armed once
+   under a BatchingVerifyService over a GpuVerifier: every waiter of
+   that batch gets InjectedFault and no verdict, the next batch's
+   verdicts equal the plain version's (and the construction's); the
+   same for `bccsp.device.resolve`; `commitpipe.commit` armed on the
+   second pass while a Channel with a depth-2 pipe commits phase 8
+   (a)'s blocks on the card: the pipe is rebuilt once and the
+   fingerprint equals phase 8 (a)'s.  (c) the sharded soak: seed 8,
+   three events, every peer's channels behind a ChannelShardRouter of
+   GpuVerifier slices; `--phase 17` only (the whole script leaves it
+   out for its time limit).
+
    python3 chip_smoke.py --phase 11
    python3 chip_smoke.py --phase 12
    python3 chip_smoke.py --phase 13
@@ -437,13 +467,14 @@ beside it), phase 12, phase 13 (its (b) on blocks signed there) or
 phase 14 alone after the header, and print no kernels line;
 `--phase 15` runs (b), phase 8 (a), then (a), (c) and (d) ((d)
 ordering arm (a)'s stream twice); `--phase 16` runs phase 8 (a), then
-phase 16 on its stream.
+phase 16 on its stream; `--phase 17` runs phase 8 (a), then phase 17.
 
 It prints one JSON line describing each of the seven kernels
 (`launches` counts the block-commit phase, the four e2e arms, phase
 7's check, pairings and batch_verify, phase 10's two parts, phase 11's
 three, phase 12 (a)'s sweep, phase 13's three parts, phase 14, phase
-15's four parts and phase 16's commits and discovery passes), and
+15's four parts, phase 16's commits and discovery passes, and phase
+17's soaks and fault seams), and
 as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -471,6 +502,9 @@ SAMPLE = 256
 SEED = 20261016
 # block-commit phase: a planted invalid tx of each kind every 50 txs
 PLANT_EVERY = 50
+# the host oracles (phase 5 arm (d), phase 14) verify over this many
+# spawned processes: the pure-python verify is ~1.4 ms a signature
+ORACLE_WORKERS = 6
 
 # idemix phase: a 1000-tx idemix block's pairing checks (padded to the
 # next power of two), every 97th lane tampered; bench.py's presentation
@@ -640,7 +674,9 @@ GOSSIP_ALIVE_SENDERS = 10
 # bench.py:2229's long anti-entropy cadence (the relay's repair prod
 # stays live)
 RELAY_PEERS = 128
-RELAY_BLOCKS = 4          # cut from 6 for the time limit
+# cut from 6, then 4 (depth: ~10 s a block over the two arms' 256 peers)
+# for the time limit; block 1 unprofiled, block 2 profiled
+RELAY_BLOCKS = 2
 RELAY_BATCH_TXS = 12
 RELAY_BATCH_TIMEOUT = "50ms"
 RELAY_DEGREE = 4
@@ -704,7 +740,6 @@ LC_QUERIES = 100
 LC_QUERY_LIMIT = 3
 LC_SNAPSHOT_KEYS = 100_000
 LC_SOURCE_BLOCKS = 4
-LC_ORACLE_WORKERS = 6
 # where (b)'s tensor-policy passes must find the verify mask
 LC_MASK_DEVICE = "cuda"
 
@@ -722,7 +757,10 @@ ATTRIBUTION_TOL = 0.10
 ATTRIBUTION_FLOOR_S = 0.1
 ATTRIBUTION_FLOOR_BLOCKS = 32
 STORM_CHANNEL = "storm"
-STORM_TXS_15 = 4096
+# cut from bench.py's 4096 (depth: the ungated arm drains every envelope
+# at a quarter of the submit rate, ~67 s at 4096, ~36-48 s at 2048) for
+# the time limit; the gated arm still meets its cap of 64 at once
+STORM_TXS_15 = 1024
 STORM_CLIENTS = 8
 STORM_MAX_MESSAGES = 16
 STORM_BATCH_TIMEOUT_15 = "100ms"
@@ -1645,7 +1683,7 @@ def phase_block_commit(torch, np, world, raw_world, blocks, expected):
     """The block commit through the port's Committer, arm by arm, each
     into a fresh durable ledger.  Returns the kernel launch counts of
     the GPU arms."""
-    from fabric_mod_tpu_torch.bccsp import gpu, sw
+    from fabric_mod_tpu_torch.bccsp import gpu
     from fabric_mod_tpu_torch.ledger import kvledger
     from fabric_mod_tpu_torch.policy import tensorpolicy
     from fabric_mod_tpu_torch.protos import messages as m
@@ -1656,7 +1694,8 @@ def phase_block_commit(torch, np, world, raw_world, blocks, expected):
             ("b", "projective ladder, policy closures", "projective", False,
              False),
             ("c", "mixed ladder, tensor policy", "mixed", True, False),
-            ("d", "host software verifier (oracle)", None, False, False),
+            ("d", f"host software verifier (oracle, {ORACLE_WORKERS} "
+             "processes)", None, False, False),
             ("f", "projective ladder, tensor policy, raw messages hashed "
              "by the sha256_e kernel", "projective", True, True))
     n_tx = sum(len(f) for f in expected)
@@ -1670,11 +1709,12 @@ def phase_block_commit(torch, np, world, raw_world, blocks, expected):
         vector_passes.append(arm)
         return vectorized(*args)
     kvledger.validate_and_prepare_batch_vectorized = counted_vector
+    pool = PoolSwVerifier(ORACLE_WORKERS)
     reset_kernel_counts()
     try:
         for arm, label, ladder, tensor, raw in arms:
             verifier = (gpu.GpuVerifier(ladder=ladder, cache_size=0)
-                        if ladder else sw.SwVerifier())
+                        if ladder else pool)
             committer = (raw_world if raw else world).committer(
                 verifier, tensor_policy=tensor)
             tensorpolicy.reset_counts()
@@ -1733,6 +1773,7 @@ def phase_block_commit(torch, np, world, raw_world, blocks, expected):
                     f"passes, device ms per block {dev_ms} (CUDA events)")
     finally:
         kvledger.validate_and_prepare_batch_vectorized = vectorized
+        pool.close()
     if len({tuple(map(tuple, f)) for f in flags_by_arm.values()}) != 1:
         raise AssertionError("arms disagree on txflags")
     if len(set(fps.values())) != 1:
@@ -4870,7 +4911,7 @@ def phase_durable(torch, dev, blocks=None, expected=None,
 
 class PoolSwVerifier:
     """The host oracle's verifier: SwVerifier's `verify_item` over a pool
-    of `workers` spawned processes (the pure-python verify is ~3 ms a
+    of `workers` spawned processes (the pure-python verify is ~1.4 ms a
     signature; phase 14's oracle checks ~20,000).  `close()` stops the
     workers."""
 
@@ -5483,7 +5524,7 @@ def phase_lifecycle(torch, dev, scale_blocks=None) -> dict:
         return out
     if scale_blocks is None:
         scale_blocks = make_scale_blocks()
-    pool = PoolSwVerifier(LC_ORACLE_WORKERS)
+    pool = PoolSwVerifier(ORACLE_WORKERS)
     try:
         with tempfile.TemporaryDirectory() as root:
             t0 = time.perf_counter()
@@ -5844,8 +5885,9 @@ def storm_arm(root, by_client, world, gated: bool, drain_delay_s: float,
 
 
 def obs_storm(torch, dev) -> None:
-    """15 (c): bench.py:2568's broadcast storm at its width: 4096
-    pre-signed envelopes from 8 clients, a write_block sleep pinning the
+    """15 (c): bench.py:2568's broadcast storm at its width (8 clients,
+    16-tx blocks, queue cap 64), cut to STORM_TXS_15 pre-signed
+    envelopes, a write_block sleep pinning the
     drain to ~1/4 of the measured submit capacity, the gated arm
     (bounded queue and overload gate) against the ungated; then the
     unthrottled pair, unstaged against staged (64), the Writers checks
@@ -6823,6 +6865,198 @@ def phase_services(torch, dev, full, solo_fp) -> dict:
         f"kernel launches {launched}")
     return launched
 
+# ---------------------------------------------------------------------------
+# phase 17: the soak under churn (the reference's acceptance soak,
+# tests/test_soak.py:137-148), fault seams against the card, the sharded
+# soak (tests/test_soak.py:195-213)
+# ---------------------------------------------------------------------------
+
+SOAK_SEED = 8
+SOAK_EVENTS = 9
+SOAK_SHARDED_EVENTS = 3
+SOAK_FAULT_ITEMS = 32
+
+
+def soak_config(**kw):
+    from fabric_mod_tpu_torch.soak import SoakConfig
+    return SoakConfig(seed=SOAK_SEED, n_channels=2, n_peers=2,
+                      gap_txs=(3, 5), recovery_window_s=60.0, **kw)
+
+
+def soak_report(tag: str, rep: dict, counts: dict) -> None:
+    """Gates the harness does not (it gates convergence, exactly-once,
+    the revocation cut, fault fires and leaks itself), then the figures."""
+    from fabric_mod_tpu_torch.soak import CORE_KINDS
+    kinds = [e["kind"] for e in rep["events"]]
+    if not rep["x509_txs"] or rep["audited_txs"] != rep["x509_txs"]:
+        raise AssertionError(f"phase 17 {tag}: audited {rep['audited_txs']} "
+                             f"of {rep['x509_txs']} admitted x509 txs")
+    if rep["fault_fires"] <= 0:
+        raise AssertionError(f"phase 17 {tag}: no fault fired")
+    if tag == "(a)":
+        if set(kinds) != set(CORE_KINDS):
+            raise AssertionError(f"phase 17 (a): kinds {kinds}")
+        if rep["idemix_tamper_rejects"] <= 0 or not rep["idemix_txs"]:
+            raise AssertionError("phase 17 (a): the idemix lane rejected "
+                                 "no tampered presentation")
+        if rep["peers_final"] != 3:
+            raise AssertionError(f"phase 17 (a): {rep['peers_final']} "
+                                 f"peers at the end")
+        revoke = next(e for e in rep["events"] if e["kind"] == "acl_revoke")
+        if revoke["cut_at_block"] <= 0:
+            raise AssertionError("phase 17 (a): no revocation block")
+    elif not rep["sharded"] or len(kinds) != SOAK_SHARDED_EVENTS:
+        raise AssertionError(f"phase 17 {tag}: sharded {rep['sharded']}, "
+                             f"kinds {kinds}")
+    require_launched({k: counts[k] for k in CORE_KERNELS}, f"phase 17 {tag}")
+    log(f"phase 17 {tag} soak: schedule "
+        f"{[(e['kind'], e['gap_txs']) for e in rep['schedule']]}")
+    log(f"phase 17 {tag} soak: recovery s by kind "
+        f"{rep['recovery_s_by_kind']}; x509 {rep['x509_txs']} txs "
+        f"({rep['x509_tx_per_sec']} tx/s, all audited once), idemix "
+        f"{rep['idemix_txs']} ({rep['idemix_tx_per_sec']} /s, "
+        f"{rep['idemix_tamper_rejects']} tampered rejected); fault fires "
+        f"{rep['fault_fires']}, submit errors {rep['submit_errors']}; peers "
+        f"at the end {rep['peers_final']}; wall {rep['wall_secs']} s; "
+        f"kernel launches {counts}")
+    for e in rep["events"]:
+        extra = {k: v for k, v in e.items()
+                 if k not in ("kind", "recovery_s", "pre_rate", "post_rate")}
+        log(f"phase 17 {tag}   {e['kind']}: recovered in {e['recovery_s']} "
+            f"s, tx/s {e['pre_rate']} -> {e['post_rate']} {extra}")
+
+
+def soak_run(tag: str, **kw):
+    """One soak through the harness a user calls, its default verifier
+    (one GpuVerifier on the card shared by every peer and orderer);
+    returns the kernel launches."""
+    from fabric_mod_tpu_torch.soak import SoakHarness
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    rep = SoakHarness(soak_config(**kw)).run()
+    counts = kernel_counts()
+    soak_report(tag, rep, counts)
+    log(f"phase 17 {tag}: {time.perf_counter() - t0:.1f} s wall")
+    return counts
+
+
+def soak_fault_verify(dev, point: str) -> dict:
+    """(b): `point` armed on its first pass under a BatchingVerifyService
+    over a GpuVerifier on the card: every waiter of that batch gets the
+    InjectedFault and no verdict; the next batch's verdicts equal the
+    plain version's and the construction's.  Returns the launches."""
+    from fabric_mod_tpu_torch import faults
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.utils import fixtures
+    items, expect = fixtures.make_block(1, n_tx=40)
+    n = SOAK_FAULT_ITEMS
+    # the last n lanes hold seven planted false ones
+    first, second = items[:n], items[-n:]
+    want = [bool(x) for x in expect[-n:]]
+    plain = [bool(x) for x in gpu.GpuVerifier(device="cpu", cache_size=0)
+             .verify_many(second)]
+    if plain != want:
+        raise AssertionError(f"phase 17 (b) {point}: the plain version "
+                             f"disagrees with the construction")
+    reset_kernel_counts()
+    svc = gpu.BatchingVerifyService(gpu.GpuVerifier(device=dev, cache_size=0),
+                                    max_batch=n, deadline_s=5.0)
+    plan = faults.FaultPlan().add(point, nth=1)
+    try:
+        with faults.active(plan):
+            futs = [svc.submit(it) for it in first]
+            errs = [f.exception(timeout=60) for f in futs]
+            if not all(isinstance(e, faults.InjectedFault) for e in errs):
+                raise AssertionError(
+                    f"phase 17 (b) {point}: waiters got "
+                    f"{sorted({type(e).__name__ for e in errs})}")
+            futs = [svc.submit(it) for it in second]
+            got = [f.result(timeout=60) for f in futs]
+    finally:
+        svc.close()
+    counts = kernel_counts()
+    if got != plain:
+        raise AssertionError(f"phase 17 (b) {point}: the next batch's "
+                             f"verdicts differ from the plain version's")
+    if plan.fires(point) != 1:
+        raise AssertionError(f"phase 17 (b) {point}: {plan.fires(point)} "
+                             f"fires")
+    require_launched({k: counts[k] for k in CORE_KERNELS},
+                     f"phase 17 (b) {point}")
+    log(f"phase 17 (b) {point}: {n} waiters of the first batch got "
+        f"InjectedFault and no verdict; the next {n} verdicts equal the "
+        f"plain version's ({sum(got)} true); passes "
+        f"{plan.calls(point)}, fires 1; kernel launches {counts}")
+    return counts
+
+
+def soak_fault_commit(dev, solo_fp) -> dict:
+    """(b): `commitpipe.commit` armed on its second pass while a Channel
+    with a depth-2 pipe on the card commits phase 8 (a)'s ordered
+    blocks: the poisoned pipe is rebuilt once, and the fingerprint
+    equals phase 8 (a)'s."""
+    from fabric_mod_tpu_torch import e2e, faults
+    from fabric_mod_tpu_torch.bccsp import gpu
+    from fabric_mod_tpu_torch.protos import messages as m
+    material, blocks, fp8 = ORDERED["a"]
+    if fp8 != solo_fp:
+        raise AssertionError("phase 17 (b): ORDERED is not phase 8 (a)'s")
+    reset_kernel_counts()
+    with tempfile.TemporaryDirectory() as root:
+        net = e2e.Network(root, material=material,
+                          verifier=gpu.GpuVerifier(device=dev),
+                          tensor_policy=True, pipeline_depth=2)
+        try:
+            pipes = []
+            plan = faults.FaultPlan().add("commitpipe.commit", nth=2)
+            with faults.active(plan):
+                for raw in blocks:
+                    pipes.append(net.channel.commit_pipeline())
+                    net.channel.store_block(m.Block.decode(raw))
+                pipes.append(net.channel.commit_pipeline())
+            rebuilt = len({id(p) for p in pipes}) - 1
+            fp = net.ledger.state_fingerprint()
+            height = net.ledger.height
+        finally:
+            net.close()
+    counts = kernel_counts()
+    if plan.fires("commitpipe.commit") != 1 or rebuilt != 1:
+        raise AssertionError(f"phase 17 (b) commitpipe.commit: fires "
+                             f"{plan.fires('commitpipe.commit')}, pipes "
+                             f"rebuilt {rebuilt}")
+    if fp != solo_fp or height != len(blocks) + 1:
+        raise AssertionError("phase 17 (b) commitpipe.commit: the "
+                             "fingerprint differs from phase 8 (a)'s")
+    require_launched({k: counts[k] for k in CORE_KERNELS},
+                     "phase 17 (b) commitpipe.commit")
+    log(f"phase 17 (b) commitpipe.commit: fired on block 2 of "
+        f"{len(blocks)}, the pipe rebuilt once, the block retried through "
+        f"it; fingerprint == phase 8 (a)'s ({fp[:16]}); kernel launches "
+        f"{counts}")
+    return counts
+
+
+def phase_soak(torch, dev, solo_fp, sharded: bool) -> dict:
+    """Phase 17: (a) the default soak, (b) the fault seams, and with
+    `sharded` (c) the sharded soak.  Returns the parts' launches
+    summed."""
+    t_phase = time.perf_counter()
+    parts = {}
+    parts["a"] = soak_run("(a)", n_events=SOAK_EVENTS)
+    for point in ("bccsp.device.dispatch", "bccsp.device.resolve"):
+        parts[point] = soak_fault_verify(dev, point)
+    parts["commitpipe.commit"] = soak_fault_commit(dev, solo_fp)
+    if sharded:
+        parts["c"] = soak_run("(c)", n_events=SOAK_SHARDED_EVENTS,
+                              sharded=True)
+    launched: dict = {}
+    for counts in parts.values():
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+    log(f"soak phase: {time.perf_counter() - t_phase:.1f} s wall; kernel "
+        f"launches {launched}")
+    return launched
+
 
 def main_phase11(torch, dev) -> int:
     """`--phase 11`: phase 11 alone, its (b) on a stream made here (phase 8
@@ -6935,11 +7169,28 @@ def main_phase16(torch, dev) -> int:
     return 0
 
 
+def main_phase17(torch, dev) -> int:
+    """`--phase 17`: phase 17 alone after phase 8 (a), whose ordered
+    blocks and fingerprint (b) commits again; no kernels line."""
+    from fabric_mod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    _counts, _block, _full, solo_fp = phase_e2e(torch, dev, arm="a",
+                                                n_blocks=E2E_BLOCKS)
+    phase_soak(torch, dev, solo_fp, sharded=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase",
-                        choices=["11", "12", "13", "14", "15", "16"],
+                        choices=["11", "12", "13", "14", "15", "16",
+                                 "17"],
                         default=None,
                         help="run one phase alone (after the header)")
     only = parser.parse_args().phase
@@ -6981,6 +7232,16 @@ def main() -> int:
         return main_phase15(torch, dev)
     if only == "16":
         return main_phase16(torch, dev)
+    if only == "17":
+        return main_phase17(torch, dev)
+
+    # each top-level step's wall, printed at the end beside the total
+    walls, t_mark = {}, [time.perf_counter()]
+
+    def mark(step: str) -> None:
+        now = time.perf_counter()
+        walls[step] = round(now - t_mark[0], 1)
+        t_mark[0] = now
 
     # 2. build
     t0 = time.perf_counter()
@@ -6999,6 +7260,7 @@ def main() -> int:
         f"LOP3 -> IADD3 {probe['alu']:.2f}, a shuffle and an add "
         f"{probe['shuffle']:.2f}, three SHF -> LOP3 -> IADD3 "
         f"{probe['round']:.2f}")
+    mark("2 build")
 
     # 3. kernels against their plain versions; the SHA-256 kernel on the
     # block-commit fixture's real messages (made here, committed in 5)
@@ -7017,6 +7279,7 @@ def main() -> int:
         torch, np, dev, sm_clock_hz(),
         torch.cuda.get_device_properties(0).multi_processor_count,
         commit_messages(commit_blocks, LANES), probe))
+    mark("3 kernels, 15 (b), fixtures")
 
     # 4. the verify path
     t0 = time.perf_counter()
@@ -7027,10 +7290,12 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (pure-python signer)")
     counts = phase_main_path(torch, np, blocks)
     log(f"verify path kernel launches {counts}")
+    mark("4 verify path")
 
     # 5. the block commit: the main path
     counts = phase_block_commit(torch, np, world, raw_world, commit_blocks,
                                 expected)
+    mark("5 block commit")
 
     # 8. the end-to-end network on a solo orderer, in turns: (a)
     # unstaged, (b) staged
@@ -7045,6 +7310,7 @@ def main() -> int:
     obs_part("a", obs_traced_commit, torch)
     profile_e2e_block(torch, *e2e_block)
     log(f"e2e phase: {time.perf_counter() - t0:.1f} s wall")
+    mark("8 e2e, 15 (a)")
 
     # 9. the same streams through three Raft orderers: (c) unstaged via a
     # follower, (d) staged over every orderer
@@ -7058,13 +7324,16 @@ def main() -> int:
                                    stream=order_free)
     log(f"Raft e2e phase: {time.perf_counter() - t0:.1f} s wall; arm (c)'s "
         f"fingerprint == arm (a)'s ({raft_fp[:16]})")
+    mark("9 Raft e2e")
 
     # 6. where a block's time goes (after the counted runs)
     phase_profile(torch, blocks, world, commit_blocks)
+    mark("6 profile")
 
     # 7. the idemix presentation verify
     arms["idemix"], idemix_kernels, pairing_profile = phase_idemix(torch, np)
     kernels.update(idemix_kernels)
+    mark("7 idemix")
 
     # 10. gossip: (a) the 50-peer MCS storm, (b) 50 gossip peers over
     # one verifier around a solo network ordering arm (a)'s stream.  Run
@@ -7075,6 +7344,7 @@ def main() -> int:
     arms["gossip_network"], gossip_figures = phase_gossip_network(
         torch, dev, full, solo_fp)
     log(f"gossip phase: {time.perf_counter() - t0:.1f} s wall")
+    mark("10 gossip")
 
     # 11. deliver fan-out and dissemination trees: (a) 128 peers, relay
     # against all-pull; (b) phase 10 (b)'s world over the relay; (c) the
@@ -7085,11 +7355,13 @@ def main() -> int:
                                               gossip_figures)
     arms["fanout"] = phase_fanout(torch, dev)
     log(f"dissemination phase: {time.perf_counter() - t0:.1f} s wall")
+    mark("11 dissemination")
 
     # 12. channel sharding: (a) bench.py's multichannel curve at 1000-tx
     # blocks, (b) per-slice and per-channel isolation, (c) the mesh over
     # two or more cards
     arms["multichannel"] = phase_sharding(torch, dev)
+    mark("12 sharding")
 
     # 13. the durable ledger and private data: (a) state scale at 10k,
     # 100k and 1M keys, (b) crash and recovery on phase 5's blocks, (c)
@@ -7097,11 +7369,13 @@ def main() -> int:
     scale_blocks = make_scale_blocks()
     arms["durable"] = phase_durable(torch, dev, commit_blocks, expected,
                                     scale_blocks)
+    mark("13 durable")
 
     # 14. lifecycle, system chaincodes, config updates, rich queries and
     # snapshots: (a)-(e) on a solo network beside a host oracle, (f) the
     # snapshot, a bootstrapped peer and the admin commands
     arms["lifecycle"] = phase_lifecycle(torch, dev, scale_blocks)
+    mark("14 lifecycle")
 
     # 15. observability and the orderer's ingress: (a) phase 8 (a)'s
     # blocks committed traced and untraced, (b) the device lens, (c) the
@@ -7110,16 +7384,26 @@ def main() -> int:
     arms["observability"] = phase_observability(
         torch, dev, [env for env, ok in order_free[0] if ok],
         [env for env, ok in full[0] if ok])
+    mark("15 (c), (d)")
     # 16. the service surface: (b) external chaincode and (a) discovery
     # on one network, (c) the broker consenter under (d) the operations
     # servers, over phase 8 (a)'s stream
     arms["services"] = phase_services(torch, dev, full, solo_fp)
+    mark("16 services")
+    # 17. the soak under churn: (a) the reference's acceptance soak on the
+    # card, (b) fault seams against the card; (c), the sharded soak, runs
+    # under --phase 17 only, for the whole script's time limit
+    arms["soak"] = phase_soak(torch, dev, solo_fp, sharded=False)
+    mark("17 soak")
     # 7 (d), the plain pairing's profile: after the last profiler window
     pairing_profile()
+    mark("7 (d) pairing profile")
     for k in kernels.values():
         k["launches"] = counts.get(k["name"], 0) + sum(
             c.get(k["name"], 0) for c in arms.values())
 
+    log(f"walls (s) by step, the header's excluded: {json.dumps(walls)}; "
+        f"sum {sum(walls.values()):.1f}")
     log(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

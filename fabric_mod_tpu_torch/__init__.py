@@ -38,7 +38,10 @@ exponentiation with the verdict), two launches a check.  Slice 19
 ports the service surface: discovery (its access check verified on
 the card), the broker consenter, external chaincode (packages, the
 ccaas protocol, platforms, builders) and the operations server with
-logging specs, diagnostics and health.
+logging specs, diagnostics and health.  Slice 20 ports the soak under
+churn (every soak peer verifying through one shared GpuVerifier), the
+fault seams with their plans, the retry policy, the worker-thread
+registry and the event deliver service in process.
 
 Counterparts (reference module -> port module):
 
@@ -119,6 +122,18 @@ extbuilder.py, platforms.py     reference imports resolve to the port)
 observability/opsserver.py,     observability/ (copies over the port's
 logging.py, diag.py             metrics and tracer; health: commit
                                 pipes only)
+soak/ (plan, workload,          soak/ (copies; the FMT_SOAK_* knobs
+invariants, world, harness)     SoakConfig arguments; one shared
+                                GpuVerifier; the event stream in
+                                process)
+faults/ (points, core)          faults/ (copies less three points;
+                                nothing armed at import)
+utils/retry.py                  utils/retry.py (copy; defaults as
+                                constants)
+concurrency/threads.py, core.py concurrency/ (the thread registry, the
+cancel.py                       arming gate, CancellationEvent)
+peer/deliverevents.py           peer/deliverevents.py (in process; no
+                                gRPC registration)
 (none)                          convert.py (constants, layouts, a
                                 world's bytes, a network's material and
                                 idemix data across)

@@ -26,9 +26,11 @@ submitter (reference :491, :848, :927).  `GpuVerifier(profile_dir=)`
 is the device lens: with the tracer armed, the process's first dispatch
 runs its marshal, launches and resolve inside one torch.profiler window
 and writes the Chrome trace there (reference :495-514, whose window an
-environment knob arms).  Left out: metrics, fault points,
-and the circuit breaker with its software failover — a CUDA error here
-raises; no path answers a device batch in software.
+environment knob arms).  The reference's fault points
+`bccsp.device.dispatch` (after the marshal) and `bccsp.device.resolve`
+(in the resolver) raise to the caller for every kind.  Left out:
+metrics, and the circuit breaker with its software failover — a CUDA
+error here raises; no path answers a device batch in software.
 """
 from __future__ import annotations
 
@@ -45,8 +47,10 @@ import numpy as np
 import torch
 
 from fabric_mod_tpu_torch import device as _device
+from fabric_mod_tpu_torch import faults
 from fabric_mod_tpu_torch.bccsp import der as _der
 from fabric_mod_tpu_torch.bccsp.api import VerifyItem
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
                                                         default_provider)
@@ -347,6 +351,7 @@ class GpuVerifier:
                 uniq[_device.upload(lanes, self.device)]
 
             def finish_fused():
+                faults.point("bccsp.device.resolve")
                 return raw
 
             def writeback() -> None:
@@ -357,6 +362,7 @@ class GpuVerifier:
             return finish_fused
 
         def finish() -> np.ndarray:
+            faults.point("bccsp.device.resolve")
             mask = verdicts.cpu().numpy()
             if cache is not None:
                 cache.put_many([uniq_keys[j] for j in miss_lanes], mask)
@@ -378,6 +384,7 @@ class GpuVerifier:
         size = _bucket(n, len(devs), self.buckets)
         with tracing.span("der_marshal", items=n, bucket=size):
             *planes, msg = marshal_items(items, size)
+        faults.point("bccsp.device.dispatch")
         parts = [self._verify_lanes(
             dev, *(p[lo:hi] for p in planes),
             None if msg is None else tuple(x[lo:hi] for x in msg))
@@ -478,10 +485,12 @@ class BatchingVerifyService:
         # orders submit against close: an item lands before close()'s
         # final drain, or is refused
         self._lifecycle = threading.Lock()
-        self._resolver = threading.Thread(
-            target=self._resolve_loop, name="verify-resolver", daemon=True)
-        self._worker = threading.Thread(
-            target=self._run, name="verify-flusher", daemon=True)
+        self._resolver = RegisteredThread(
+            target=self._resolve_loop, name="verify-resolver",
+            structure="BatchingVerifyService")
+        self._worker = RegisteredThread(
+            target=self._run, name="verify-flusher",
+            structure="BatchingVerifyService")
         self._resolver.start()
         self._worker.start()
 

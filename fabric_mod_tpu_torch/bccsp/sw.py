@@ -140,35 +140,65 @@ def _window_row(pt):
     return row
 
 
-class _Comb:
-    """Fixed-base comb for G: 64 rows, row i holding the 1..15 multiples
-    of 2^(4i)*G, so k*G is ~60 mixed additions and no doublings.  Built
-    on first use."""
+def _comb_rows(pt, bits: int):
+    """A fixed-base comb: row i holds the 1..2^bits - 1 multiples of
+    2^(bits*i)*pt in affine, so k*pt for k < 2^256 is one mixed addition
+    a non-zero digit and no doublings.  Built in Jacobian coordinates
+    and normalised with one inversion (Montgomery's trick)."""
+    per = (1 << bits) - 1
+    n_rows = -(-256 // bits)
+    flat = []
+    for _ in range(n_rows):
+        acc = (pt[0], pt[1], 1)
+        flat.append(acc)
+        for _ in range(per - 1):
+            acc = _jac_add_affine(acc, pt)
+            flat.append(acc)
+        pt = _jac_to_affine(_jac_add_affine(acc, pt))   # 2^bits * pt
+    prefix, acc = [], 1
+    for _x, _y, z in flat:
+        acc = acc * z % P
+        prefix.append(acc)
+    inv = pow(acc, -1, P)
+    out = [None] * len(flat)
+    for i in range(len(flat) - 1, -1, -1):
+        x, y, z = flat[i]
+        zi = inv * prefix[i - 1] % P if i else inv
+        inv = inv * z % P
+        zi2 = zi * zi % P
+        out[i] = (x * zi2 % P, y * zi2 * zi % P)
+    return [out[i * per:(i + 1) * per] for i in range(n_rows)]
 
+
+def _mul_comb_jac(k: int, rows, bits: int):
+    acc = None
+    mask = (1 << bits) - 1
+    for row in rows:
+        digit = k & mask
+        if digit:
+            acc = _jac_add_affine(acc, row[digit - 1])
+        k >>= bits
+        if not k:
+            break
+    return acc
+
+
+class _Comb:
+    """G's comb in 8-bit digits: 32 rows of 255 points, so k*G is ~32
+    mixed additions.  Built on first use."""
+
+    BITS = 8
     rows = None
 
     @classmethod
     def get(cls):
         if cls.rows is None:
-            rows, base = [], G
-            for _ in range(64):
-                row = _window_row(base)
-                rows.append(row)
-                base = point_add(row[-1], base)      # 16 * base
-            cls.rows = rows
+            cls.rows = _comb_rows(G, cls.BITS)
         return cls.rows
 
 
 def _mul_g_jac(k: int):
-    acc = None
-    for row in _Comb.get():
-        nib = k & 0xF
-        if nib:
-            acc = _jac_add_affine(acc, row[nib - 1])
-        k >>= 4
-        if not k:
-            break
-    return acc
+    return _mul_comb_jac(k, _Comb.get(), _Comb.BITS)
 
 
 def _mul_window_jac(k: int, row):
@@ -308,32 +338,57 @@ class PrivateKey:
             k = (k + 1) % N or 1            # astronomically unlikely
 
 
-class _WindowCache:
-    """Per-public-key 4-bit window tables: identities verify many
-    messages, so one 15-entry table per key amortises to nothing."""
+class _KeyTables:
+    """Per-public-key tables for u2*Q.  A key's first verifies use a
+    4-bit window table (15 points: 252 doublings a product); from its
+    `comb_after`-th on, a 4-bit comb (64 rows of 15 points, built once
+    for a few verifies' work: no doublings).  Identities verify many
+    messages, so the tables amortise; at most `cap` of each kind are
+    kept."""
 
-    def __init__(self, cap: int = 4096):
+    BITS = 4
+
+    def __init__(self, cap: int = 4096, comb_cap: int = 256,
+                 comb_after: int = 8):
         self.cap = cap
+        self.comb_cap = comb_cap
+        self.comb_after = comb_after
         self._rows: dict = {}
+        self._uses: dict = {}
+        self._combs: dict = {}
 
-    def row(self, pt):
-        got = self._rows.get(pt)
-        if got is None:
+    def mul(self, k: int, pt):
+        """k * pt in Jacobian coordinates (None is the identity)."""
+        comb = self._combs.get(pt)
+        if comb is not None:
+            return _mul_comb_jac(k, comb, self.BITS)
+        uses = self._uses.get(pt, 0) + 1
+        if uses >= self.comb_after:
+            if len(self._combs) >= self.comb_cap:
+                self._combs.clear()
+            comb = self._combs[pt] = _comb_rows(pt, self.BITS)
+            self._uses.pop(pt, None)
+            self._rows.pop(pt, None)
+            return _mul_comb_jac(k, comb, self.BITS)
+        if len(self._uses) >= self.cap:
+            self._uses.clear()
+        self._uses[pt] = uses
+        row = self._rows.get(pt)
+        if row is None:
             if len(self._rows) >= self.cap:
                 self._rows.clear()
-            got = self._rows[pt] = _window_row(pt)
-        return got
+            row = self._rows[pt] = _window_row(pt)
+        return _mul_window_jac(k, row)
 
 
-_WINDOWS = _WindowCache()
+_KEYS = _KeyTables()
 
 
 def _equation_holds(x: int, y: int, r: int, s: int, e: int) -> bool:
     """The ECDSA equation for an on-curve key and 1 <= r, s < n."""
     w = pow(s, -1, N)
-    pt = _jac_to_affine(_jac_add(
-        _mul_g_jac(e * w % N),
-        _mul_window_jac(r * w % N, _WINDOWS.row((x, y)))))
+    pt = _jac_to_affine(_jac_add(_mul_g_jac(e * w % N),
+                                 _KEYS.mul(r * w % N, (x, y))))
     return pt is not None and pt[0] % N == r
 
 

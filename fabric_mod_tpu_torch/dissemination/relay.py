@@ -37,8 +37,10 @@ what `GossipNode._verified_block` drops — a decode `ValueError` and the
 MCS's `BlockVerificationError` — and anything else propagates to the
 sender loop, which keeps it in `errors` and stops.  A push and a repair
 prod are the "relay.push" and "relay.repair" spans (tracer armed);
-metrics and the reference's `dissemination.push` /
-`dissemination.repair` fault points are left out.
+metrics are left out.  The reference's fault points are here: an
+armed `dissemination.push` drop loses one child's copy (the repair prod
+and anti-entropy recover it), a `dissemination.repair` drop suppresses
+the prod (the anti-entropy tick is the backstop).
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ import collections
 import threading
 from typing import Callable, Dict, List, Optional
 
+from fabric_mod_tpu_torch import faults
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.peer.mcs import BlockVerificationError
 from fabric_mod_tpu_torch.protos import messages as m
@@ -95,8 +99,9 @@ class BlockRelay:
         if self._thread is not None and self._thread.is_alive():
             return
         self._stop.clear()
-        self._thread = threading.Thread(target=self._sender_loop,
-                                        name="relay-push", daemon=True)
+        self._thread = RegisteredThread(target=self._sender_loop,
+                                        name="relay-push",
+                                        structure="dissemination.relay")
         self._thread.start()
 
     def stop(self) -> None:
@@ -165,6 +170,10 @@ class BlockRelay:
 
     def _send_one(self, child: str, num: int, frame: bytes,
                   is_config: bool) -> bool:
+        if faults.point("dissemination.push"):
+            with self._lock:
+                self.stats["dropped"] += 1
+            return False
         with tracing.span("relay.push", block=num):
             env = self._envelope(num, frame, is_config)
             ok = self._node.comm.send_signed(child, env)
@@ -247,4 +256,6 @@ class BlockRelay:
             self._last_gap_start = gap.start
             self.stats["repair_prods"] += 1
         with tracing.span("relay.repair", start=gap.start, stop=gap.stop):
+            if faults.point("dissemination.repair"):
+                return                     # the prod only: the tick heals
             self._node.state.request_gap()

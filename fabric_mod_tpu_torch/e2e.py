@@ -38,7 +38,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
-import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -46,6 +45,7 @@ from fabric_mod_tpu_torch.bccsp.sw import SwCSP
 from fabric_mod_tpu_torch.channelconfig import (Bundle, compute_update,
                                                 config_from_block,
                                                 signed_update_envelope)
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerManager
 from fabric_mod_tpu_torch.msp.identities import SigningIdentity, deserialize_cert
 from fabric_mod_tpu_torch.observability import tracing
@@ -456,7 +456,7 @@ def commit_until(net: Network, want_txs: int, timeout: float,
             client.run(idle_timeout_s=idle_timeout_s)
         except Exception as e:              # re-raised below
             errors.append(e)
-    runner = threading.Thread(target=pull, name="e2e-deliver", daemon=True)
+    runner = RegisteredThread(target=pull, name="e2e-deliver", structure="e2e")
     t0 = time.perf_counter()
     runner.start()
     try:
@@ -501,8 +501,8 @@ def submit_all(net: Network, envs, submitters: int = 1) -> None:
                 net.broadcast.submit(env)
         except Exception as e:              # re-raised below
             errors.append(e)
-    threads = [threading.Thread(target=run, args=(envs[k::submitters],),
-                                name=f"e2e-submit-{k}", daemon=True)
+    threads = [RegisteredThread(target=run, args=(envs[k::submitters],),
+                                name=f"e2e-submit-{k}", structure="e2e")
                for k in range(submitters)]
     for t in threads:
         t.start()

@@ -22,6 +22,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, Dict
 
+from fabric_mod_tpu_torch import faults
 from fabric_mod_tpu_torch.gossip.protoext import sign_message
 from fabric_mod_tpu_torch.protos import messages as m
 
@@ -47,7 +48,10 @@ class InProcNetwork:
     def send(self, src_endpoint: str, src_pki_id: bytes,
              dst_endpoint: str, env_bytes: bytes) -> bool:
         """Deliver one envelope; False when the destination is unknown
-        or either end is partitioned."""
+        or either end is partitioned, or an armed drop-mode rule loses
+        it on the wire (redelivery and anti-entropy must repair it)."""
+        if faults.point("gossip.comm.drop"):
+            return False
         with self._lock:
             if (src_endpoint in self.partitioned or
                     dst_endpoint in self.partitioned):

@@ -16,6 +16,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.protos import messages as m
 
 
@@ -120,8 +121,8 @@ class Discovery:
             while not self._stop.wait(interval_s):
                 self.tick_send_alive()
                 self.tick_check_alive()
-        self._thread = threading.Thread(target=loop, name="discovery-loop",
-                                        daemon=True)
+        self._thread = RegisteredThread(target=loop, name="discovery-loop",
+                                        structure="gossip.discovery")
         self._thread.start()
 
     def stop(self) -> None:

@@ -22,6 +22,8 @@ from __future__ import annotations
 import threading
 from typing import Callable, Optional
 
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
+
 
 class LeaderElectionService:
     def __init__(self, pki_id: bytes, alive_pki_ids_fn,
@@ -61,8 +63,8 @@ class LeaderElectionService:
         def loop():
             while not self._stop.wait(interval_s):
                 self.tick()
-        self._thread = threading.Thread(target=loop, name="election-loop",
-                                        daemon=True)
+        self._thread = RegisteredThread(target=loop, name="election-loop",
+                                        structure="LeaderElectionService")
         self._thread.start()
 
     def stop(self) -> None:

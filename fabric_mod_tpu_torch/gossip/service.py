@@ -33,6 +33,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.gossip.election import LeaderElectionService
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerError
 from fabric_mod_tpu_torch.peer.deliverclient import (DeliverClient,
@@ -152,8 +153,8 @@ class GossipService:
                         self.errors.append(e)
                         return
 
-            t = threading.Thread(target=run, name="gossip-deliver-restart",
-                                 daemon=True)
+            t = RegisteredThread(target=run, name="gossip-deliver-restart",
+                                 structure="gossip.service")
             self._client_thread = t
             t.start()
 

@@ -29,6 +29,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerError
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.protos import messages as m
@@ -257,9 +258,9 @@ class GossipStateProvider:
                     except Exception as e:     # kept; the loop survives
                         self._keep(e)
                     next_tick = time.monotonic() + interval_s
-        self._thread = threading.Thread(target=loop,
+        self._thread = RegisteredThread(target=loop,
                                         name="gossip-state-drain",
-                                        daemon=True)
+                                        structure="GossipStateProvider")
         self._thread.start()
 
     def stop(self) -> None:

@@ -44,6 +44,7 @@ import tempfile
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from fabric_mod_tpu_torch import faults
 from fabric_mod_tpu_torch.ledger import richquery
 from fabric_mod_tpu_torch.ledger.blkstorage import BlockStore
 from fabric_mod_tpu_torch.ledger.confighistory import ConfigHistoryManager
@@ -478,7 +479,9 @@ class KvLedger:
                 self.blockstore.add_block(block)
                 # the recovery contract's crash window: the block is
                 # durable in the block store, none of the effects below
-                # are yet
+                # are yet; an armed error-mode rule kills the commit
+                # here (reference :457)
+                faults.point("peer.ledger.crash")
                 self._apply_state_updates(batch, num)
                 # per-tx writes (not the deduped batch), so commit and
                 # replay record the same history

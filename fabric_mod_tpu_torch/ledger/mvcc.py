@@ -19,6 +19,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from fabric_mod_tpu_torch import faults
 from fabric_mod_tpu_torch.ledger.rwsetutil import (
     parse_tx_rwset, range_fingerprint, version_tuple)
 from fabric_mod_tpu_torch.ledger.statedb import UpdateBatch, VersionedDB
@@ -160,6 +161,7 @@ def validate_and_prepare_batch_vectorized(
     join plus a `touched` bitmap standing in for `batch.get`.  Timed
     as the "mvcc_vector" span (reference :170).
     """
+    faults.point("peer.mvcc.vector")
     with tracing.span("mvcc_vector", block=block_num, txs=len(txs)):
         return _validate_vectorized(txs, db, block_num, planes)
 

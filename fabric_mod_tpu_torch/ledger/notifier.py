@@ -26,6 +26,8 @@ import threading
 import time
 from typing import Callable, List, Optional, Set
 
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
+
 # how long close() waits for the relay thread to exit
 JOIN_TIMEOUT_S = 10.0
 
@@ -76,9 +78,9 @@ class CommitNotifier:
             if self._started or self._closed:
                 return
             self._started = True
-            self._thread = threading.Thread(
+            self._thread = RegisteredThread(
                 target=self._run, name=f"notifier-{self._name}",
-                daemon=True)
+                structure="CommitNotifier")
             self._thread.start()
 
     def close(self) -> None:

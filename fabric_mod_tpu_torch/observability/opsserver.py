@@ -31,6 +31,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional
 from urllib.parse import parse_qs, urlparse
 
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.observability import diag, tracing
 from fabric_mod_tpu_torch.observability import logging as flog
 from fabric_mod_tpu_torch.observability.metrics import (MetricsProvider,
@@ -211,8 +212,9 @@ class OperationsServer:
             self._httpd.socket = ctx.wrap_socket(
                 self._httpd.socket, server_side=True)
         self.addr = self._httpd.server_address
-        self._thread = threading.Thread(target=self._httpd.serve_forever,
-                                        name="opsserver-http", daemon=True)
+        self._thread = RegisteredThread(target=self._httpd.serve_forever,
+                                        name="opsserver-http",
+                                        structure="observability.opsserver")
 
     def start(self) -> None:
         self._thread.start()

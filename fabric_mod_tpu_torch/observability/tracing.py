@@ -47,9 +47,9 @@ every seam is one module-flag read and NO span object is allocated:
   (scripts/torch_lens_stress.py): open it before any large profiler
   window of the process, as the one-shot first dispatch does.
 
-Not ported: the reference's auto-dump callers (the soak harness, the
-circuit breaker and fault points, none of which the port has); the
-recorder's `auto_dump` itself is here.
+`auto_dump` is called by the port's fault points and the soak's
+SoakError; the reference's circuit breaker, its third caller, is not in
+the port.
 """
 from __future__ import annotations
 

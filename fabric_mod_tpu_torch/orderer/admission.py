@@ -38,9 +38,8 @@ metrics registry (observability/metrics.py): queue occupancy, sheds by
 reason, throttles, throttled clients, gate state, the admission-latency
 histogram and the chains' drop counter, under the reference's names.
 
-Not ported: the fault point `orderer.admission.overload` (the
-reference's forced-open gate, reason="forced"), with the rest of its
-fault points; the port's tests drive a real overload instead.
+The fault point `orderer.admission.overload` in drop mode forces the
+gate open for that pass (reason="forced"), as the reference's does.
 """
 from __future__ import annotations
 
@@ -51,6 +50,7 @@ import time
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
+from fabric_mod_tpu_torch import faults
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
                                                         default_provider)
@@ -460,11 +460,15 @@ class AdmissionController:
         `occupancy` is `channel`'s consenter submit-queue fraction as
         read by the caller (0.0 when the chain doesn't expose one)."""
         _metrics()["occupancy"].with_labels(channel).set(occupancy)
+        forced = faults.point("orderer.admission.overload")
         gate = self.gate_for(channel)
         gate_open = gate.observe(occupancy) if gate is not None \
             else False
         if priority:
             return                         # config/lifecycle: always in
+        if forced:
+            raise shed("forced", "admission gate forced open (chaos)",
+                       retry_after_s=0.25)
         if gate_open:
             assert gate is not None
             raise shed(

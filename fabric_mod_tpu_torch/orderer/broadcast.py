@@ -14,9 +14,10 @@ back to the submitter's thread, and `chain.order` stays there.  Config
 updates always take the blocking path.
 
 A Raft consenter with no leader to forward to raises the typed
-NotLeaderError; `submit` retries it with a backoff (0.05 s doubling to
-0.5 s) for up to NOT_LEADER_RETRY_S, the reference's default budget,
-then re-raises it (reference :84-89, :140-153).
+NotLeaderError; `submit` retries it through a utils/retry.Retrier, the
+reference's policy by default (jittered backoff from 0.05 s doubling to
+0.5 s, for up to NOT_LEADER_RETRY_S), then re-raises it (reference
+:74-90, :140-157).
 
 Overload (orderer/admission.py): with an `AdmissionController` that has
 a mechanism on, `submit` classifies the envelope (one header parse) and
@@ -31,6 +32,7 @@ the "broadcast.submit" span (tracer armed).
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 from fabric_mod_tpu_torch.channelconfig import ConfigTxError
 from fabric_mod_tpu_torch.observability import tracing
@@ -40,6 +42,7 @@ from fabric_mod_tpu_torch.orderer.msgprocessor import MsgRejectedError
 from fabric_mod_tpu_torch.orderer.registrar import Registrar
 from fabric_mod_tpu_torch.orderer.stagedbroadcast import StagedIngress
 from fabric_mod_tpu_torch.protos import messages as m
+from fabric_mod_tpu_torch.utils.retry import Retrier
 
 # client-attributable rejections -> BAD_REQUEST on the wire; anything
 # else propagates as an internal error
@@ -55,13 +58,18 @@ class Broadcast:
     """`staged_batch`: the most envelopes one lane drain judges together;
     0 runs each submitter's check on its own thread.  `admission`: an
     admission_mod.AdmissionController (None, or one with every
-    mechanism off, admits everything as the default ingress does)."""
+    mechanism off, admits everything as the default ingress does).
+    `retrier`: the NOT_LEADER retry policy (tests pass one whose sleep
+    drives a ManualClock); None is the reference's."""
 
     def __init__(self, registrar: Registrar, staged_batch: int = 0,
-                 admission=None):
+                 admission=None, retrier: Optional[Retrier] = None):
         if staged_batch < 0:
             raise ValueError("staged_batch must be >= 0")
         self._registrar = registrar
+        self._retrier = retrier if retrier is not None else Retrier(
+            base_s=0.05, max_s=0.5, deadline_s=NOT_LEADER_RETRY_S,
+            retry_on=(NotLeaderError,), name="broadcast")
         self._staged = StagedIngress(staged_batch) if staged_batch else None
         self._admission = (admission if admission is not None
                            and admission.enabled else None)
@@ -70,19 +78,6 @@ class Broadcast:
     def admission(self):
         """The controller consulted on each submission, or None."""
         return self._admission
-
-    @staticmethod
-    def _retry_not_leader(fn, *args) -> None:
-        deadline = time.monotonic() + NOT_LEADER_RETRY_S
-        pause = 0.05
-        while True:
-            try:
-                return fn(*args)
-            except NotLeaderError:
-                if time.monotonic() + pause > deadline:
-                    raise
-            time.sleep(pause)
-            pause = min(0.5, 2 * pause)
 
     def close(self) -> None:
         """Stop the lanes (nothing to stop unstaged); a submitter racing
@@ -120,7 +115,7 @@ class Broadcast:
                     support.processor.process_config_update_msg(env)
                 # a consenter's pre-order check (Raft's one-membership-
                 # change rule) is a client fault too
-                self._retry_not_leader(support.chain.configure, wrapped, seq)
+                self._retrier.call(support.chain.configure, wrapped, seq)
             except _CLIENT_FAULTS as e:
                 raise BroadcastError(f"config update rejected: {e}") from e
             self._note_latency(support, t0)
@@ -133,7 +128,7 @@ class Broadcast:
                 seq = support.processor.process_normal_msg(env)
         except _CLIENT_FAULTS as e:
             raise BroadcastError(f"rejected: {e}") from e
-        self._retry_not_leader(support.chain.order, env, seq)
+        self._retrier.call(support.chain.order, env, seq)
         self._note_latency(support, t0)
 
     def _note_latency(self, support, t0: float) -> None:

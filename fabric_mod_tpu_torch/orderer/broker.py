@@ -32,6 +32,7 @@ import threading
 import zlib
 from typing import Dict, List, Optional, Tuple
 
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.orderer.consensus import ChainHaltedError
 from fabric_mod_tpu_torch.protos import messages as m
 
@@ -140,9 +141,9 @@ class BrokerChain:
         self._support = support
         self._topic = topic or support.channel_id
         self._halted = threading.Event()
-        self._thread = threading.Thread(
+        self._thread = RegisteredThread(
             target=self._run, name=f"broker-chain[{self._topic}]",
-            daemon=True)
+            structure="orderer.broker")
         self._timer_lock = threading.Lock()
         self._timer: Optional[threading.Timer] = None
         self._consumed = 0

@@ -22,6 +22,7 @@ import threading
 import time
 from typing import Optional
 
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.orderer import admission
 from fabric_mod_tpu_torch.protos import messages as m
 
@@ -67,8 +68,8 @@ class SoloChain:
         self._q: "queue.Queue[Optional[_Msg]]" = queue.Queue(
             maxsize=queue_cap if self._bounded else SUBMIT_QUEUE_CAP)
         self._halted = threading.Event()
-        self._thread = threading.Thread(target=self._run, name="solo-chain",
-                                        daemon=True)
+        self._thread = RegisteredThread(target=self._run, name="solo-chain",
+                                        structure="orderer.consensus")
 
     def start(self) -> None:
         self._thread.start()

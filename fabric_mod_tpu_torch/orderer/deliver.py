@@ -12,6 +12,7 @@ import threading
 import time
 from typing import Iterator, Optional
 
+from fabric_mod_tpu_torch import faults
 from fabric_mod_tpu_torch.protos import messages as m
 
 # how often a tip wait re-checks the stop event
@@ -34,6 +35,9 @@ class DeliverService:
         while stop is None or num <= stop:
             if stop_event is not None and stop_event.is_set():
                 return
+            # chaos seam: a stream that dies mid-pull reaches the
+            # consumer as a transport error would
+            faults.point("deliver.stream")
             blk = store.get_block_by_number(num)
             if blk is not None:
                 yield blk

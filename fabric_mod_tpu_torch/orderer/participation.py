@@ -33,6 +33,7 @@ import threading
 from typing import Callable, Dict, List, Optional
 
 from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.orderer.consensus import ChainHaltedError
 from fabric_mod_tpu_torch.peer.mcs import (BlockVerificationError,
                                            MessageCryptoService)
@@ -122,8 +123,9 @@ class FollowerChain:
         self.rejected: List[int] = []
         self.errors: List[BaseException] = []
         self._halted = threading.Event()
-        self._thread = threading.Thread(target=self._run,
-                                        name="participation", daemon=True)
+        self._thread = RegisteredThread(target=self._run,
+                                        name="participation",
+                                        structure="orderer.participation")
 
     # -- consenter surface (order/configure refuse) ----------------------
     def start(self) -> None:

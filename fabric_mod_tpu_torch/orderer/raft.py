@@ -27,7 +27,10 @@ The reference's knobs are constructor arguments with their defaults:
 `pipeline` (FABRIC_MOD_TPU_RAFT_PIPELINE, 0), `queue_cap`
 (FABRIC_MOD_TPU_RAFT_QUEUE, 8192) and `group_commit`
 (FABRIC_MOD_TPU_WAL_GROUP_COMMIT, off: an fsync on every append).  Its
-fault points and race-check wrappers are left out; a node counts its
+fault points are at the reference's places (`orderer.wal.sync` drops a
+barrier's fsync, `orderer.wal.crash` kills an append after the frame
+write, `orderer.raft.replicate` drops a pipelined window); its
+race-check wrappers are left out; a node counts its
 dropped messages (also in the admission module's chain drop counter,
 reference :450-510), its elections and the leader changes it saw in
 plain attributes.  A WAL barrier is the "wal.sync" span and a pipelined
@@ -44,6 +47,8 @@ import time
 import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
+from fabric_mod_tpu_torch import faults
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.orderer.admission import chain_drop_counter
 
@@ -253,6 +258,8 @@ class RaftWAL:
         if not self._dirty:
             return
         with tracing.span("wal.sync"):
+            if faults.point("orderer.wal.sync"):
+                return                     # the injected lost fsync
             self._f.flush()
             os.fsync(self._f.fileno())
             self.sync_count += 1
@@ -282,6 +289,9 @@ class RaftWAL:
         payload = (bytes([_ENTRY]) + struct.pack("<qq", term, index)
                    + data)
         self._f.write(self._frame(payload))
+        # crash seam: after the frame write, before any ack is built on
+        # it — the torn-tail window a restart's replay crops
+        faults.point("orderer.wal.crash")
         self._dirty = True
         if not self._group:
             self.sync()
@@ -418,8 +428,9 @@ class RaftNode:
             if subscribe is not None:
                 # a wakeup only: a full queue already wakes the FSM
                 subscribe(lambda: self._put_advisory(("noop",)))
-        self._thread = threading.Thread(
-            target=self._run, name=f"raft-fsm[{node_id}]", daemon=True)
+        self._thread = RegisteredThread(
+            target=self._run, name=f"raft-fsm[{node_id}]",
+            structure="orderer.raft")
         transport.register(node_id, self._on_transport_msg)
 
     # -- queue admission --------------------------------------------------
@@ -684,6 +695,8 @@ class RaftNode:
             if not entries:
                 break
             with tracing.span("raft.replicate"):
+                if faults.point("orderer.raft.replicate"):
+                    return                 # the injected window drop
                 self._transport.send(self.id, peer, AppendEntries(
                     self._wal.term, self.id, opt - 1,
                     self._wal.term_at(opt - 1), list(entries),

@@ -25,8 +25,8 @@ puts: a full queue sheds a normal tx with the typed
 ResourceExhaustedError, while config and priority envelopes wait for
 room (reference :109-227); 0 keeps the blocking 10,000-entry queue.
 Dropped submits are counted in `dropped` and in the admission module's
-chain drop counter (reference :312-385).  Left out, as in the rest of
-the port: fault points.
+chain drop counter (reference :312-385).  The reference's
+`orderer.raft.submit` fault point sits in the leaderless-submit check.
 """
 from __future__ import annotations
 
@@ -36,6 +36,8 @@ import time
 from collections import deque
 from typing import List, Optional, Tuple
 
+from fabric_mod_tpu_torch import faults
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.orderer import admission
 from fabric_mod_tpu_torch.orderer.consensus import (SUBMIT_QUEUE_CAP,
                                                     ChainHaltedError,
@@ -134,9 +136,9 @@ class RaftChain:
         self.dropped = 0
         self.forwarded = 0
         self._halted = threading.Event()
-        self._thread = threading.Thread(target=self._run,
+        self._thread = RegisteredThread(target=self._run,
                                         name=f"raftchain[{node_id}]",
-                                        daemon=True)
+                                        structure="orderer.raftchain")
         # applied-index recovery: a restart replaying the WAL skips the
         # entries already in the block store (reference: etcdraft's
         # appliedIndex in the block metadata)
@@ -234,6 +236,7 @@ class RaftChain:
         it and forwards (reference: Submit :494); only a leaderless
         window refuses (reference: etcdraft's ErrNoLeader)."""
         self.wait_ready()
+        faults.point("orderer.raft.submit")
         if self.is_leader:
             return
         lead = self._raft.leader_id

@@ -20,8 +20,9 @@ same `verify_many` seam: a fault costs amortisation, never a lost
 submission, and a device error surfaces as its envelope's exception.
 `close()` leaves no submitter blocked: a deposit that races the close
 is refused with a typed error.  A cohort's call is the
-"broadcast.stage" span (tracer armed); the reference's fault point is
-left out.
+"broadcast.stage" span (tracer armed); the reference's
+`orderer.broadcast.stage` fault point fails a drain's cohort call, which
+takes the same per-envelope path.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ import queue
 import threading
 from typing import Dict, List
 
+from fabric_mod_tpu_torch import faults
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.observability import tracing
 
 
@@ -73,9 +76,9 @@ class _Lane:
         # close's sentinel, or is refused
         self._mu = threading.Lock()
         self._closed = False
-        self._thread = threading.Thread(
+        self._thread = RegisteredThread(
             target=self._run, name=f"broadcast-stage-{channel_id}",
-            daemon=True)
+            structure="stagedbroadcast")
         self._thread.start()
 
     def deposit(self, pending: _Pending) -> None:
@@ -125,6 +128,8 @@ class _Lane:
     def _flush(batch: List[_Pending]) -> None:
         try:
             with tracing.span("broadcast.stage", items=len(batch)):
+                if faults.point("orderer.broadcast.stage"):
+                    raise RuntimeError("injected stage fault")
                 verdicts = batch[0].processor.process_normal_msgs(
                     [p.env for p in batch])
         except Exception:                # the cohort's call failed: judge

@@ -48,7 +48,9 @@ observability/opsserver.default_health() under a per-instance key
 entry must not mask another's) that fails while the pipe holds a
 sticky error and is not closed, and `close()` unregisters it, so a
 poisoned pipe flips /healthz until its owner discards it.  The
-reference's fault points are not ported.
+reference's fault points are at the same places: `commitpipe.stage`
+before a block stages and `commitpipe.commit` between the stage and the
+verdict wait; either poisons the pipe like a real failure.
 """
 from __future__ import annotations
 
@@ -60,6 +62,8 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from fabric_mod_tpu_torch import faults
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerError
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
@@ -201,7 +205,8 @@ class PipelinedCommitter:
         self._started = True
         for name, fn in (("commitpipe-stage", self._stage_loop),
                          ("commitpipe-commit", self._commit_loop)):
-            t = threading.Thread(target=fn, name=name, daemon=True)
+            t = RegisteredThread(target=fn, name=name,
+                                 structure="PipelinedCommitter")
             t.start()
             self._threads.append(t)
 
@@ -319,6 +324,9 @@ class PipelinedCommitter:
                     self._inflight += 1
                     self._m_occupancy.set(self._inflight)
                 t0 = time.perf_counter()
+                # chaos seam: an engine crash while staging (the sticky
+                # error below is the recovery contract under test)
+                faults.point("commitpipe.stage")
                 # one timeline a block; the stage side's sub-spans land
                 # here, and the staged block carries it to the commit
                 # loop (None disarmed: no object, no write)
@@ -352,6 +360,9 @@ class PipelinedCommitter:
                 return
             tl = getattr(staged, "trace_timeline", None)
             try:
+                # chaos seam: a crash between the stage and the
+                # verdict wait — nothing of the block reached the ledger
+                faults.point("commitpipe.commit")
                 with tracing.timeline_scope(tl):
                     t0 = time.perf_counter()
                     staged.resolve_mask()  # the device-verdict wait

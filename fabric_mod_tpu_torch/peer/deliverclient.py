@@ -112,7 +112,11 @@ class DeliverClient:
         prev_hash = None
         if start > 0:
             prev = self._channel.ledger.get_block_by_number(start - 1)
-            prev_hash = protoutil.block_header_hash(prev.header)
+            # a ledger bootstrapped from a snapshot holds no block below
+            # its base: its block store's base marker carries the hash
+            prev_hash = (protoutil.block_header_hash(prev.header)
+                         if prev is not None else
+                         self._channel.ledger.blockstore.last_block_hash)
         dropped: Optional[Exception] = None
         try:
             source_iter = iter(self._source.blocks(

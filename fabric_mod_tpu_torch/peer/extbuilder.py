@@ -42,6 +42,7 @@ import subprocess
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
+from fabric_mod_tpu_torch.concurrency import RegisteredThread
 from fabric_mod_tpu_torch.peer.chaincode import ChaincodeError, ChaincodeStub
 
 
@@ -218,9 +219,9 @@ class ChaincodeServer:
         self._srv = socketserver.ThreadingTCPServer((host, port), Handler)
         self._srv.daemon_threads = True
         self.address = "%s:%d" % self._srv.server_address
-        self._thread = threading.Thread(target=self._srv.serve_forever,
+        self._thread = RegisteredThread(target=self._srv.serve_forever,
                                         name="chaincode-server",
-                                        daemon=True)
+                                        structure="peer.extbuilder")
 
     def start(self) -> None:
         self._thread.start()

@@ -30,8 +30,10 @@ Three shared dimensions, one engine:
 
 The filtered projection decodes the block body in one vectorized pass
 (protos/batchdecode.py) with the per-tx decode as the fallback for any
-row the scanner cannot prove clean.  Metrics, tracing spans and the
-`deliver.fanout` fault point of the reference are left out; the ring
+row the scanner cannot prove clean.  Metrics and tracing spans of the
+reference are left out; its `deliver.fanout` fault point is in
+`get_frame`, so an injected stream death kills one consumer only.  The
+ring
 size is a constructor argument (the reference's
 FABRIC_MOD_TPU_FANOUT_RING, default 128).
 """
@@ -41,6 +43,7 @@ import collections
 import threading
 from typing import Callable, Dict, Optional
 
+from fabric_mod_tpu_torch import faults
 from fabric_mod_tpu_torch.ledger.notifier import CommitNotifier
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.protos import batchdecode
@@ -433,7 +436,9 @@ class FanoutEngine:
                 self.fanouts[form].materialize_upto(height)
 
     def get_frame(self, form: str, num: int) -> Optional[_Frame]:
-        """One stream pulling its next frame."""
+        """One stream pulling its next frame; the `deliver.fanout`
+        seam kills that stream only, the ring and the others untouched."""
+        faults.point("deliver.fanout")
         return self.fanouts[form].get(num)
 
     def close(self) -> None:

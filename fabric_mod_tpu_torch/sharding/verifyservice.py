@@ -22,8 +22,9 @@ the small-verify lane: gossip block verifies, config signature sets,
 broadcast filters.
 
 A group goes to its slice verifier through `_SliceLane`, whose call
-is the "shard.dispatch" span (tracer armed; reference :62).  Left out:
-the reference's fault point and metric; `flushes` and `groups` (per
+is the "shard.dispatch" span (tracer armed; reference :62), behind the
+reference's `sharding.dispatch` fault point, which kills one slice
+group of one flush.  Left out: the metric; `flushes` and `groups` (per
 slice) are plain counters (read by chip_smoke.py).  Untagged and
 unknown tags take slice 0, the reference's default slice.
 """
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Sequence
 
+from fabric_mod_tpu_torch import faults
 from fabric_mod_tpu_torch.bccsp.api import VerifyItem
 from fabric_mod_tpu_torch.bccsp.gpu import BatchingVerifyService
 from fabric_mod_tpu_torch.observability import tracing
@@ -47,6 +49,7 @@ class _SliceLane:
         self.verifier = verifier
 
     def verify_many_async(self, items: Sequence[VerifyItem]):
+        faults.point("sharding.dispatch")
         with tracing.span("shard.dispatch", slice=self.index,
                           items=len(items)):
             fn = getattr(self.verifier, "verify_many_async", None)

@@ -21,8 +21,9 @@ attribution), an admission-armed Network that sheds, a follower that
 joins and pulls its chain, a Network ordering through the broker
 consenter with an operations server scraped beside it, a discovery
 service's access check and layouts on it, and a ccaas package resolved
-by the chaincode launcher and invoked over TCP, then inspects
-sys.modules."""
+by the chaincode launcher and invoked over TCP, arms and disarms a fault
+plan, retries through a Retrier, runs a two-event soak under churn
+(host verifier), then inspects sys.modules."""
 import json
 import os
 import pathlib
@@ -408,6 +409,33 @@ with tempfile.TemporaryDirectory() as root:
         cc.close()
         launcher.close()
         srv.stop()
+from fabric_mod_tpu_torch import faults
+from fabric_mod_tpu_torch.soak import SoakConfig, SoakHarness
+from fabric_mod_tpu_torch.utils.retry import Retrier
+plan = faults.FaultPlan.parse("peer.mvcc.vector:error@n=1").validate()
+faults.arm(plan)
+try:
+    faults.point("peer.mvcc.vector")
+    raise AssertionError("the armed rule did not fire")
+except faults.InjectedFault:
+    pass
+finally:
+    faults.disarm()
+assert not faults.armed() and plan.fires() == 1
+tries = []
+
+def flaky():
+    tries.append(1)
+    if len(tries) < 3:
+        raise OSError("transient")
+    return len(tries)
+
+assert Retrier(base_s=0.0, jitter=0.0, max_attempts=3,
+               sleep=lambda s: None).call(flaky) == 3
+rep = SoakHarness(SoakConfig(seed=11, n_events=2, n_channels=1, n_peers=2,
+                             gap_txs=(2, 3), verifier=sw.SwVerifier())).run()
+assert rep["x509_txs"] > 0 and rep["audited_txs"] == rep["x509_txs"]
+assert len(rep["events"]) == 2 and rep["fault_fires"] > 0
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")
