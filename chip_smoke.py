@@ -5,7 +5,8 @@ and on a three-node Raft ordering service, gossip around it, the
 dissemination tree and the deliver fan-out, channel sharding, the
 durable ledger and private data, the idemix presentation verify, the
 service surface (discovery, external chaincode, the broker consenter,
-the operations server), and the soak under churn with faults armed.
+the operations server), the soak under churn with faults armed, and
+the offline tools, whose network commits under armed lock guards.
 
     python3 chip_smoke.py
 
@@ -457,6 +458,31 @@ Phases (any failure exits non-zero; none is caught):
    GpuVerifier slices; `--phase 17` only (the whole script leaves it
    out for its time limit).
 
+18. the offline tools and the lock discipline (after 17, before 7 (d))
+   — (a) on the host, through `fabric_mod_tpu_torch.cli.main`: cryptogen
+   from a crypto config in the reference's YAML (Org1-Org3 with one
+   peer, one user and one admin each, and OrdererOrg), configtxgen with
+   a solo profile at 1000 txs a block, configtxlator's proto_decode ->
+   proto_encode of the genesis (the same bytes) and compute_update of a
+   BatchSize 1000 -> 500 change, which the channel's config processing
+   accepts signed by the orderer org's admin (sequence 1, 500); `import
+   yaml` and `import grpc` probed and logged (the port imports neither).
+   (b) the tree and genesis read back as network material (cli/
+   cryptogen.network_material); a solo e2e Network on the card's
+   GpuVerifier inside `concurrency.armed()`: two 1000-tx blocks endorsed
+   by 2 of 3 orgs (one group of phase 8's planted kinds through the
+   endorsers, then puts signed by the tree's peers, every 10th by Org1
+   alone), ordered and committed; every flag the construction's, no
+   RaceError, the lock-order registry observed ordering edges, no
+   registered worker left after close, each verify-core kernel launched
+   3 times a block (two validation calls and the MCS check).  (c)
+   `ledger snapshot` of (b)'s peer and `join-from-snapshot`: equal
+   height and fingerprint.  (d) `discover endorsers` over (a)'s genesis
+   (no signature checked): the three 2-of-3 layouts.  (e)
+   `idemixgen ca-keygen` and `signerconfig`, then 16 presentations under
+   that key and one with Abar tampered verified in one batch on the
+   card: 1 + 1 pairing launches, 16 true, the tampered one false.
+
    python3 chip_smoke.py --phase 11
    python3 chip_smoke.py --phase 12
    python3 chip_smoke.py --phase 13
@@ -467,14 +493,16 @@ beside it), phase 12, phase 13 (its (b) on blocks signed there) or
 phase 14 alone after the header, and print no kernels line;
 `--phase 15` runs (b), phase 8 (a), then (a), (c) and (d) ((d)
 ordering arm (a)'s stream twice); `--phase 16` runs phase 8 (a), then
-phase 16 on its stream; `--phase 17` runs phase 8 (a), then phase 17.
+phase 16 on its stream; `--phase 17` runs phase 8 (a), then phase 17;
+`--phase 18` runs phase 18 alone.
 
 It prints one JSON line describing each of the seven kernels
 (`launches` counts the block-commit phase, the four e2e arms, phase
 7's check, pairings and batch_verify, phase 10's two parts, phase 11's
 three, phase 12 (a)'s sweep, phase 13's three parts, phase 14, phase
 15's four parts, phase 16's commits and discovery passes, and phase
-17's soaks and fault seams), and
+17's soaks and fault seams, and phase 18's network and presentations),
+and
 as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -7058,6 +7086,330 @@ def phase_soak(torch, dev, solo_fp, sharded: bool) -> dict:
     return launched
 
 
+# -- phase 18: the offline tools and the lock discipline ----------------------
+
+TOOLS_CHANNEL = "toolchan"
+TOOLS_ORGS = ("Org1", "Org2", "Org3")
+# BASELINE.md #2's width: 3 peer orgs, one peer, one user and one admin
+# each, and the orderer org, in the reference's crypto-config YAML
+TOOLS_CRYPTO = "".join(
+    ["PeerOrgs:\n"]
+    + [f"  - Name: {o}\n    PeerCount: 1\n    UserCount: 1\n"
+       for o in TOOLS_ORGS]
+    + ["OrdererOrgs:\n  - Name: OrdererOrg\n    OrdererCount: 1\n"])
+# a solo profile at 1000 txs a block (phase 8's batch cut)
+TOOLS_PROFILE = (
+    f"ChannelID: {TOOLS_CHANNEL}\n"
+    f"PeerOrgs: [{', '.join(TOOLS_ORGS)}]\n"
+    "OrdererOrgs: [OrdererOrg]\n"
+    "BatchSize:\n"
+    f"  MaxMessageCount: {TX_PER_BLOCK}\n"
+    f"  PreferredMaxBytes: {E2E_PREFERRED_MAX_BYTES}\n"
+    f"BatchTimeout: {E2E_BATCH_TIMEOUT}\n"
+    "ConsensusType: solo\n")
+TOOLS_NEW_BATCH = 500
+TOOLS_PRESENTATIONS = 16
+# verify-core launches a 1000-tx block: 2 validation calls + 1 MCS check
+TOOLS_CORE_A_BLOCK = 3
+
+
+def tools_cli(argv) -> str:
+    """Run `python -m fabric_mod_tpu_torch.cli.main argv` in process;
+    its standard output.  A nonzero exit raises."""
+    import contextlib
+    import io
+    from fabric_mod_tpu_torch.cli.main import main as cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(list(argv))
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} exited {rc}")
+    return out.getvalue()
+
+
+def tools_make(root, verifier) -> dict:
+    """18 (a): cryptogen, configtxgen and configtxlator on the host.  The
+    genesis decodes to JSON and encodes back to the same bytes; the
+    ConfigUpdate of a BatchSize 1000 -> 500 change, signed by the orderer
+    org's admin, is accepted by the channel's config processing
+    (verified by `verifier`).  Returns the paths."""
+    import importlib.util
+    from fabric_mod_tpu_torch.bccsp.sw import SwCSP
+    from fabric_mod_tpu_torch.channelconfig import (Bundle, config_from_block,
+                                                    signed_update_envelope)
+    from fabric_mod_tpu_torch.channelconfig.configtx import (
+        extract_config_update, propose_config_update)
+    from fabric_mod_tpu_torch.msp.identities import (SigningIdentity,
+                                                     deserialize_cert)
+    from fabric_mod_tpu_torch.protos import messages as m
+    log("phase 18 (a): on this machine `import yaml` "
+        f"{'would succeed' if importlib.util.find_spec('yaml') else 'fails'}"
+        f", `import grpc` "
+        f"{'would succeed' if importlib.util.find_spec('grpc') else 'fails'}"
+        "; the port imports neither")
+    t0 = time.perf_counter()
+    p = {k: os.path.join(root, v) for k, v in (
+        ("crypto_yaml", "crypto-config.yaml"), ("profile", "configtx.yaml"),
+        ("crypto", "crypto-config"), ("genesis", "genesis.block"),
+        ("json", "genesis.json"), ("again", "genesis-again.block"),
+        ("orig", "config.pb"), ("upd", "config-500.pb"),
+        ("update", "update.pb"))}
+    with open(p["crypto_yaml"], "w") as f:
+        f.write(TOOLS_CRYPTO)
+    with open(p["profile"], "w") as f:
+        f.write(TOOLS_PROFILE)
+    tools_cli(["cryptogen", "--config", p["crypto_yaml"], "--output",
+               p["crypto"]])
+    tools_cli(["configtxgen", "--profile", p["profile"], "--crypto",
+               p["crypto"], "--output", p["genesis"]])
+    with open(p["json"], "w") as f:
+        f.write(tools_cli(["configtxlator", "proto_decode", "--type",
+                           "Block", "--input", p["genesis"]]))
+    tools_cli(["configtxlator", "proto_encode", "--type", "Block",
+               "--input", p["json"], "--output", p["again"]])
+    with open(p["genesis"], "rb") as a, open(p["again"], "rb") as b:
+        raw = a.read()
+        if b.read() != raw:
+            raise AssertionError("phase 18 (a): proto_decode -> proto_encode "
+                                 "changed the genesis block's bytes")
+    cid, config = config_from_block(m.Block.decode(raw))
+    new = m.Config.decode(config.encode())
+    for g in new.channel_group.groups:
+        if g.key == "Orderer":
+            for v in g.value.values:
+                if v.key == "BatchSize":
+                    bs = m.BatchSize.decode(v.value.value)
+                    bs.max_message_count = TOOLS_NEW_BATCH
+                    v.value.value = bs.encode()
+    with open(p["orig"], "wb") as f:
+        f.write(config.encode())
+    with open(p["upd"], "wb") as f:
+        f.write(new.encode())
+    tools_cli(["configtxlator", "compute_update", "--channel_id", cid,
+               "--original", p["orig"], "--updated", p["upd"], "--output",
+               p["update"]])
+    csp = SwCSP()
+    admin_dir = os.path.join(p["crypto"], "OrdererOrg", "admin")
+    with open(os.path.join(admin_dir, "admin.pem"), "rb") as f:
+        cert = deserialize_cert(f.read())
+    with open(os.path.join(admin_dir, "admin.key"), "rb") as f:
+        admin = SigningIdentity("OrdererOrg", cert, f.read(), csp)
+    with open(p["update"], "rb") as f:
+        update = m.ConfigUpdate.decode(f.read())
+    bundle = Bundle(cid, config, csp)
+    if bundle.batch_config().max_message_count != TX_PER_BLOCK \
+            or bundle.application.org_mspids != TOOLS_ORGS:
+        raise AssertionError("phase 18 (a): the genesis is not the profile's")
+    nxt = propose_config_update(
+        bundle, extract_config_update(signed_update_envelope(
+            cid, update, [admin])), verifier.verify_many)
+    got = Bundle(cid, nxt, csp).batch_config().max_message_count
+    if (nxt.sequence, got) != (1, TOOLS_NEW_BATCH):
+        raise AssertionError(f"phase 18 (a): the update gave sequence "
+                             f"{nxt.sequence}, {got} txs a block")
+    log(f"phase 18 (a) tools: cryptogen {list(TOOLS_ORGS)} + OrdererOrg, a "
+        f"solo genesis at {TX_PER_BLOCK} txs a block ({len(raw)} bytes), "
+        f"its JSON round trip byte-equal, the BatchSize -> "
+        f"{TOOLS_NEW_BATCH} update ({len(update.encode())} bytes) accepted "
+        f"at sequence 1; {time.perf_counter() - t0:.1f} s on the host")
+    return p
+
+
+def tools_stream(net, material) -> tuple:
+    """18 (b)'s E2E_BLOCKS x TX_PER_BLOCK txs: one group of PLANT_EVERY
+    through the network's endorsers (phase 8's planted kinds, a tampered
+    creator among them), then blind puts signed by the tree's peers,
+    Org1 and Org2 (2 of 3), every LC_UNDER_EVERY-th by Org1 alone.  A
+    hand-signed put costs the host about a fifth of an endorsed one (no
+    proposal check or simulation).  Returns (submits, expected flags)."""
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    V = m.TxValidationCode
+    submits, expected = fixtures.make_e2e_stream(net, PLANT_EVERY,
+                                                 PLANT_EVERY)
+    n_puts = E2E_BLOCKS * TX_PER_BLOCK - len(expected)
+    under = [i % LC_UNDER_EVERY == LC_UNDER_EVERY - 1 for i in range(n_puts)]
+    envs = fixtures.make_put_txs(
+        fixtures.network_world(material),
+        [(fixtures.NAMESPACE, f"t{i}", b"v%d" % i,
+          ("Org1",) if u else ("Org1", "Org2"))
+         for i, u in enumerate(under)], b"phase18")
+    return (list(submits) + [(env, True) for env in envs],
+            list(expected) + [V.ENDORSEMENT_POLICY_FAILURE if u else V.VALID
+                              for u in under])
+
+
+def tools_network(torch, p, verifier, root) -> tuple:
+    """18 (b): a solo Network from (a)'s tree and genesis on the card's
+    GpuVerifier, every guard armed: E2E_BLOCKS blocks of TX_PER_BLOCK
+    txs endorsed by 2 of 3 orgs (tools_stream), ordered and committed.
+    Returns (the peer's ledger dir, its height, its fingerprint, the
+    launches)."""
+    from fabric_mod_tpu_torch import concurrency, e2e
+    from fabric_mod_tpu_torch.cli.cryptogen import network_material
+    from fabric_mod_tpu_torch.protos import protoutil
+    with open(p["genesis"], "rb") as f:
+        material = network_material(p["crypto"], f.read())
+    n_tx = E2E_BLOCKS * TX_PER_BLOCK
+    before = set(concurrency.live_registered())
+    concurrency.lock_registry().clear()
+    with concurrency.armed():
+        net = e2e.Network(os.path.join(root, "net"), material,
+                          verifier=verifier)
+        try:
+            t0 = time.perf_counter()
+            submits, expected = tools_stream(net, material)
+            t_endorse = time.perf_counter() - t0
+            reset_kernel_counts()
+            _client, committed, span_s = e2e.commit_until(
+                net, n_tx, E2E_TIMEOUT_S, feed=lambda: svc_feed(net, submits),
+                idle_timeout_s=E2E_TIMEOUT_S)
+            launched = kernel_counts()
+            height = net.ledger.height
+            if committed != n_tx or height != 1 + E2E_BLOCKS:
+                raise AssertionError(f"phase 18 (b): {committed} txs "
+                                     f"committed, height {height}")
+            flags = [f for n in range(1, height)
+                     for f in protoutil.block_txflags(
+                         net.ledger.get_block_by_number(n))]
+            if flags != list(expected):
+                raise AssertionError("phase 18 (b): txflags differ from the "
+                                     "construction")
+            fp = net.ledger.state_fingerprint()
+            ledger_dir = net.ledger.dir
+        finally:
+            net.close()
+        leaked = [t.name for t in concurrency.live_registered()
+                  if t not in before]
+    edges = concurrency.lock_registry().edge_count()
+    if leaked:
+        raise AssertionError(f"phase 18 (b): registered workers left after "
+                             f"close: {leaked}")
+    if edges <= 0:
+        raise AssertionError("phase 18 (b): the lock-order registry observed "
+                             "no ordering: the guards did not run")
+    # a 1000-tx block is 2,900-3,000 signature lanes: two 2048-lane
+    # validation calls, and one MCS check of the orderer's signature
+    for k in CORE_KERNELS:
+        if launched[k] < TOOLS_CORE_A_BLOCK * E2E_BLOCKS:
+            raise AssertionError(
+                f"phase 18 (b): {k} launched {launched[k]} times for "
+                f"{E2E_BLOCKS} blocks, under {TOOLS_CORE_A_BLOCK} a block")
+    valid = sum(1 for f in expected if f == 0)
+    log(f"phase 18 (b) tool-built network, guards armed: {n_tx} txs "
+        f"endorsed by 2 of 3 orgs in {t_endorse:.1f} s ({PLANT_EVERY} through "
+        f"the endorsers, the rest hand-signed puts), {E2E_BLOCKS} blocks "
+        f"ordered and committed in {span_s:.1f} s ({n_tx / span_s:.1f} "
+        f"committed tx/s; {valid} VALID, every flag the construction's); "
+        f"no RaceError; {edges} lock-order edges observed; no registered "
+        f"worker left (live now: {len(concurrency.live_registered())}); "
+        f"kernel launches {launched}")
+    return ledger_dir, height, fp, launched
+
+
+def tools_snapshot(root, ledger_dir, height, fp) -> None:
+    """18 (c): `ledger snapshot` of (b)'s peer, `join-from-snapshot` into
+    a new ledger: equal height and fingerprint."""
+    from fabric_mod_tpu_torch.ledger.kvledger import KvLedger
+    t0 = time.perf_counter()
+    snap, joined = os.path.join(root, "snap"), os.path.join(root, "joined")
+    tools_cli(["ledger", "snapshot", "--ledger", ledger_dir, "--channel",
+               TOOLS_CHANNEL, "--output", snap])
+    tools_cli(["ledger", "join-from-snapshot", "--snapshot", snap,
+               "--ledger", joined])
+    led = KvLedger(TOOLS_CHANNEL, joined)
+    try:
+        got = (led.height, led.state_fingerprint())
+    finally:
+        led.close()
+    if got != (height, fp):
+        raise AssertionError(f"phase 18 (c): the joined peer is at "
+                             f"{got[0]}, fingerprint "
+                             f"{'equal' if got[1] == fp else 'different'}")
+    log(f"phase 18 (c) ledger snapshot + join-from-snapshot: height "
+        f"{height}, fingerprint equal ({fp[:16]}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def tools_discover(p) -> None:
+    """18 (d): `discover endorsers` over (a)'s genesis (the offline tool
+    checks no signature, so the card has no part in it): the three
+    2-of-3 layouts."""
+    from fabric_mod_tpu_torch.cli import discover
+    got = discover.query("endorsers", p["genesis"], chaincode="mycc")
+    layouts = sorted(tuple(sorted(lo)) for lo in got["layouts"])
+    want = [("Org1", "Org2"), ("Org1", "Org3"), ("Org2", "Org3")]
+    if layouts != want or any(set(lo.values()) != {1}
+                              for lo in got["layouts"]):
+        raise AssertionError(f"phase 18 (d): layouts {got['layouts']}")
+    log(f"phase 18 (d) discover endorsers: layouts {got['layouts']}")
+
+
+def tools_idemix(root) -> dict:
+    """18 (e): `idemixgen ca-keygen` and `signerconfig`, then
+    TOOLS_PRESENTATIONS presentations under that key and one with Abar
+    tampered, verified in one batch on the card: 1 + 1 pairing launches,
+    the valid ones true, the tampered one false.  Returns the launches."""
+    import json as _json
+    from fabric_mod_tpu_torch.idemix import credential as cred
+    from fabric_mod_tpu_torch.idemix.fp256bn import G1, g1_add
+    t0 = time.perf_counter()
+    d = os.path.join(root, "idemix")
+    tools_cli(["idemixgen", "ca-keygen", "--output", d])
+    tools_cli(["idemixgen", "signerconfig", "--ca-input", d, "--output", d,
+               "--org-unit", "Org1", "--enrollment-id", "user0", "--role",
+               "1"])
+    with open(os.path.join(d, "IssuerPublicKey.json")) as f:
+        ik = cred.IssuerKey.from_dict(_json.load(f))
+    with open(os.path.join(d, "user", "SignerConfig.json")) as f:
+        signer = _json.load(f)
+    c = cred.Credential.from_dict(signer["credential"])
+    sk = int(signer["sk"], 16)
+    disclosed = {0: c.attrs[0], 1: c.attrs[1]}
+    items = []
+    for i in range(TOOLS_PRESENTATIONS + 1):
+        msg = b"phase18|%d" % i
+        sig = cred.sign(ik, c, sk, msg, disclosed)
+        if i == TOOLS_PRESENTATIONS:
+            sig.A_bar = g1_add(sig.A_bar, G1.generator())
+        items.append((sig, msg, disclosed))
+    t_sign = time.perf_counter() - t0
+    before = kernel_counts()
+    t1 = time.perf_counter()
+    got = cred.batch_verify(ik, items)
+    t_verify = time.perf_counter() - t1
+    launched = pairing_launched(before, "phase 18 (e)")
+    if got != [True] * TOOLS_PRESENTATIONS + [False]:
+        raise AssertionError(f"phase 18 (e): verdicts {got}")
+    log(f"phase 18 (e) idemixgen: issuer key and signer config, "
+        f"{TOOLS_PRESENTATIONS} presentations true and one tampered false in "
+        f"one batch on the card ({t_verify * 1e3:.1f} ms; keys and signing "
+        f"{t_sign:.1f} s on the host); launches {launched}")
+    return launched
+
+
+def phase_tools(torch, dev) -> dict:
+    """Phase 18: (a) the tools on the host, (b) a tool-built solo network
+    committing on the card under armed guards, (c) a snapshot and a join
+    of its peer, (d) discover endorsers, (e) idemixgen's key and 16
+    presentations on the card.  Returns the launches of (b) and (e)."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    t_phase = time.perf_counter()
+    verifier = gpu.GpuVerifier(device=dev)
+    with tempfile.TemporaryDirectory() as root:
+        p = tools_make(root, verifier)
+        ledger_dir, height, fp, net_counts = tools_network(torch, p,
+                                                           verifier, root)
+        tools_snapshot(root, ledger_dir, height, fp)
+        tools_discover(p)
+        idemix_counts = tools_idemix(root)
+    launched = {k: net_counts.get(k, 0) + idemix_counts.get(k, 0)
+                for k in set(net_counts) | set(idemix_counts)}
+    log(f"tools phase: {time.perf_counter() - t_phase:.1f} s wall; kernel "
+        f"launches {launched}")
+    return launched
+
+
 def main_phase11(torch, dev) -> int:
     """`--phase 11`: phase 11 alone, its (b) on a stream made here (phase 8
     arm (a)'s first GOSSIP_BLOCKS blocks' worth, endorsed as phase 8 does);
@@ -7185,12 +7537,25 @@ def main_phase17(torch, dev) -> int:
     return 0
 
 
+def main_phase18(torch, dev) -> int:
+    """`--phase 18`: phase 18 alone; no kernels line."""
+    from fabric_mod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    phase_tools(torch, dev)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase",
                         choices=["11", "12", "13", "14", "15", "16",
-                                 "17"],
+                                 "17", "18"],
                         default=None,
                         help="run one phase alone (after the header)")
     only = parser.parse_args().phase
@@ -7234,6 +7599,8 @@ def main() -> int:
         return main_phase16(torch, dev)
     if only == "17":
         return main_phase17(torch, dev)
+    if only == "18":
+        return main_phase18(torch, dev)
 
     # each top-level step's wall, printed at the end beside the total
     walls, t_mark = {}, [time.perf_counter()]
@@ -7395,6 +7762,11 @@ def main() -> int:
     # under --phase 17 only, for the whole script's time limit
     arms["soak"] = phase_soak(torch, dev, solo_fp, sharded=False)
     mark("17 soak")
+    # 18. the offline tools and the lock discipline: a tool-built network
+    # committing on the card under armed guards, its snapshot and join,
+    # discover, and idemixgen's presentations on the card
+    arms["tools"] = phase_tools(torch, dev)
+    mark("18 tools")
     # 7 (d), the plain pairing's profile: after the last profiler window
     pairing_profile()
     mark("7 (d) pairing profile")

@@ -41,7 +41,10 @@ ccaas protocol, platforms, builders) and the operations server with
 logging specs, diagnostics and health.  Slice 20 ports the soak under
 churn (every soak peer verifying through one shared GpuVerifier), the
 fault seams with their plans, the retry policy, the worker-thread
-registry and the event deliver service in process.
+registry and the event deliver service in process.  Slice 21 ports the
+offline tools (cli/ less node and chaincode, protos/jsonpb.py, a
+YAML-subset reader) and the lock discipline: every lock, queue and
+ownership guard the reference builds, under its name and rank.
 
 Counterparts (reference module -> port module):
 
@@ -95,7 +98,7 @@ broadcast.py, deliver.py,
 stagedbroadcast.py
 peer/plugins.py, txvalidator.py peer/ (generic per-tx decode path;
                                 tensor_policy a constructor argument)
-peer/mcs.py, commitpipe.py,     peer/ (plain threading objects;
+peer/mcs.py, commitpipe.py,     peer/ (the reference's guards;
 channel.py, deliverclient.py,   pipeline_depth a constructor argument)
 chaincode.py, endorser.py,
 lifecycle.py, scc.py
@@ -130,8 +133,15 @@ faults/ (points, core)          faults/ (copies less three points;
                                 nothing armed at import)
 utils/retry.py                  utils/retry.py (copy; defaults as
                                 constants)
-concurrency/threads.py, core.py concurrency/ (the thread registry, the
-cancel.py                       arming gate, CancellationEvent)
+concurrency/ (threads, core,     concurrency/ (copies; armed by enable()
+cancel, locks, queues,          or armed(), never by the environment)
+ownership)
+utils/racecheck.py,             utils/ (copies)
+semaphore.py
+cli/ (cryptogen, configtxgen,   cli/ (copies; node and chaincode exit 2;
+configtxlator, idemixgen,       the YAML read by utils/yamlread.py;
+discover, ledgerutil, main)     discover on the card's GpuVerifier)
+protos/jsonpb.py                protos/jsonpb.py (copy)
 peer/deliverevents.py           peer/deliverevents.py (in process; no
                                 gRPC registration)
 (none)                          convert.py (constants, layouts, a

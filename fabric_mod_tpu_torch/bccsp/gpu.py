@@ -50,7 +50,8 @@ from fabric_mod_tpu_torch import device as _device
 from fabric_mod_tpu_torch import faults
 from fabric_mod_tpu_torch.bccsp import der as _der
 from fabric_mod_tpu_torch.bccsp.api import VerifyItem
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import (GuardedQueue, RegisteredLock,
+                                              RegisteredThread)
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
                                                         default_provider)
@@ -479,12 +480,16 @@ class BatchingVerifyService:
         self.max_batch = max_batch
         self.deadline_s = deadline_s
         self.inflight_depth = inflight_depth
-        self._q: "queue.Queue" = queue.Queue()
-        self._inflight: "queue.Queue" = queue.Queue(inflight_depth)
+        # submit queue: many producers, one consumer (the flusher);
+        # in-flight queue: strictly one producer and one consumer,
+        # flusher -> resolver.  Armed, the guards check both contracts.
+        self._q: "GuardedQueue" = GuardedQueue(name="verify-submit")
+        self._inflight: "GuardedQueue" = GuardedQueue(
+            inflight_depth, name="verify-inflight", single_producer=True)
         self._stop = threading.Event()
         # orders submit against close: an item lands before close()'s
         # final drain, or is refused
-        self._lifecycle = threading.Lock()
+        self._lifecycle = RegisteredLock("verify-service-lifecycle")
         self._resolver = RegisteredThread(
             target=self._resolve_loop, name="verify-resolver",
             structure="BatchingVerifyService")
@@ -555,7 +560,10 @@ class BatchingVerifyService:
         self._worker.join(timeout=60)
         self._resolver.join(timeout=60)
         # a thread that outlived its join leaves its items here: fail
-        # them rather than leave a caller parked on a future
+        # them rather than leave a caller parked on a future (the
+        # consumer pin is released first: armed, a live flusher's pin
+        # would make this drain raise and strand the waiters)
+        self._q.release_consumer()
         while True:
             try:
                 group = self._q.get_nowait()

@@ -1,15 +1,17 @@
-"""The arming gate of the concurrency guards.
+"""The arming gate of the concurrency guards and the shared per-thread
+held-lock stack.
 
-The port's copy of the parts of fabric_mod_tpu/concurrency/core.py the
-worker-thread registry needs: `RaceError` and the gate that
-`assert_joined` consults.  The reference arms it from FMT_RACECHECK at
-import; the port reads no environment: `enable()` or `armed()` turn it
-on.  The lock-order registry and its per-thread held-lock stack come
-with the rest of the concurrency package.
+The port's copy of fabric_mod_tpu/concurrency/core.py.  The reference
+arms the gate from FMT_RACECHECK at import; the port reads no
+environment: `enable()` or `armed()` turn it on.  The held-lock stack is
+shared between `OrderedLock` and `RegisteredLock` (locks.py), so
+ordering edges are observed across both kinds: an inversion between a
+ranked ledger lock and a rankless gossip lock is still a cycle.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 
 
 class RaceError(AssertionError):
@@ -41,3 +43,14 @@ def armed(on: bool = True):
         yield
     finally:
         _enabled = prev
+
+
+_tls = threading.local()
+
+
+def held_locks() -> list:
+    """This thread's stack of (rank_or_None, lock) acquisitions."""
+    h = getattr(_tls, "held", None)
+    if h is None:
+        h = _tls.held = []
+    return h

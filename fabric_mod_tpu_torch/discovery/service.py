@@ -21,10 +21,10 @@ from __future__ import annotations
 
 import hashlib
 import itertools
-import threading
 from typing import Dict, List, Optional, Sequence
 
 from fabric_mod_tpu_torch.channelconfig.bundle import values_of
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.msp.ca import cert_pem
 from fabric_mod_tpu_torch.policy import policydsl
 from fabric_mod_tpu_torch.protos import messages as m
@@ -146,7 +146,7 @@ class DiscoveryService:
         self._membership = membership_fn
         self._verify_many = verify_many
         self._auth_cache: Dict[bytes, bool] = {}
-        self._auth_lock = threading.Lock()
+        self._auth_lock = RegisteredLock("discovery.service._auth_lock")
 
     # -- auth (reference: authcache.go:196) ------------------------------
     def check_access(self, sd: SignedData) -> bool:

@@ -49,7 +49,7 @@ import threading
 from typing import Callable, Dict, List, Optional
 
 from fabric_mod_tpu_torch import faults
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import RegisteredLock, RegisteredThread
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.peer.mcs import BlockVerificationError
 from fabric_mod_tpu_torch.protos import messages as m
@@ -78,7 +78,7 @@ class BlockRelay:
         self._tree_source = tree_source
         self._cap = max(1, int(queue_cap))
         self._cid = node._channel.channel_id
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("dissemination.relay._lock")
         self._ready = threading.Condition(self._lock)
         self._queues: Dict[str, collections.deque] = {}
         self._envs: "collections.OrderedDict[int, bytes]" = \

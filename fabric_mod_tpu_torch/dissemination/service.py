@@ -24,9 +24,9 @@ reference's knobs are constructor arguments with its defaults:
 """
 from __future__ import annotations
 
-import threading
 from typing import Callable, Dict, Optional
 
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.dissemination.relay import QUEUE_CAP, BlockRelay
 from fabric_mod_tpu_torch.dissemination.tree import DEGREE, RelayTree
 from fabric_mod_tpu_torch.peer.fanout import RING_SIZE, BlockFanout, encode_frame
@@ -55,7 +55,7 @@ class RelayService:
         self._epoch = int(epoch)
         self._leader_source = leader_source or self._elected_leader
         self.relay = BlockRelay(node, self.tree, queue_cap=queue_cap)
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("dissemination.service._lock")
         self._is_root = False
         self._root_from = 0
         # the membership the current epoch was minted for: any change (a

@@ -34,6 +34,7 @@ Nothing is read from the environment: nothing arms at import.
 
 Triggers are deterministic: fire-on-Nth-call (`n=K`, 1-based — fires
 from the Kth pass on, so `times` caps apply), one-shot (`once` ≡ `n=1`),
+
 or seeded probability (`p=F,seed=S` — a per-rule `random.Random(S)`, so
 a given seed yields the same fire pattern on every run).  `times=T`
 caps total fires (default 1 for `n`/`once`, unlimited for `p`).
@@ -45,9 +46,9 @@ from __future__ import annotations
 import contextlib
 import functools
 import random
-import threading
 from typing import Dict, List, Optional
 
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.faults import points as _points
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
@@ -130,7 +131,7 @@ class FaultPlan:
 
     def __init__(self):
         self._rules: Dict[str, List[FaultRule]] = {}
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("faults.core._lock")
 
     def add(self, point: str, mode: str = "error", kind: str = "fault",
             nth: Optional[int] = None, p: Optional[float] = None,

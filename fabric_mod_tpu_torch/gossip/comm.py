@@ -19,10 +19,10 @@ propagates to the sender.
 """
 from __future__ import annotations
 
-import threading
 from typing import Callable, Dict
 
 from fabric_mod_tpu_torch import faults
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.gossip.protoext import sign_message
 from fabric_mod_tpu_torch.protos import messages as m
 
@@ -33,7 +33,7 @@ class InProcNetwork:
     """Endpoint registry + direct delivery (the wire stand-in)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("gossip.comm._lock")
         self._handlers: Dict[str, Handler] = {}
         self.partitioned: set = set()        # endpoints cut off (tests)
 

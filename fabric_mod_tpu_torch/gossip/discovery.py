@@ -16,7 +16,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import RegisteredLock, RegisteredThread
 from fabric_mod_tpu_torch.protos import messages as m
 
 
@@ -53,7 +53,7 @@ class Discovery:
         self._clock = clock if clock is not None else time.time
         self._inc = int(self._clock() * 1000)
         self._seq = 0
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("gossip.discovery._lock")
         self._members: Dict[bytes, MemberInfo] = {}
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None

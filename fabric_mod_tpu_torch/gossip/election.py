@@ -22,7 +22,9 @@ from __future__ import annotations
 import threading
 from typing import Callable, Optional
 
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch import concurrency
+from fabric_mod_tpu_torch.concurrency import (RegisteredLock, RegisteredThread,
+                                              ThreadOwnership)
 
 
 class LeaderElectionService:
@@ -34,9 +36,15 @@ class LeaderElectionService:
         self._on_change = on_change
         self._static = static
         self._is_leader = bool(static) if static is not None else False
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("election")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # once start()'s loop runs, it owns ticking: an external tick()
+        # racing the loop could fire on_change transitions out of
+        # order.  Armed, such a tick raises.  A manual tick() on an
+        # unstarted service stays legal, and after stop() the dead loop
+        # thread hands ownership back.
+        self._ticker = ThreadOwnership("election-ticker", live_only=True)
 
     @property
     def is_leader(self) -> bool:
@@ -46,6 +54,8 @@ class LeaderElectionService:
     def tick(self) -> bool:
         """Recompute leadership; fires on_change on transitions.
         Returns the current verdict."""
+        if concurrency.enabled():
+            self._ticker.guard()
         if self._static is not None:
             return self._is_leader
         candidates = [self._pki] + list(self._alive())
@@ -61,6 +71,7 @@ class LeaderElectionService:
 
     def start(self, interval_s: float = 1.0) -> None:
         def loop():
+            self._ticker.claim()           # the loop owns ticking now
             while not self._stop.wait(interval_s):
                 self.tick()
         self._thread = RegisteredThread(target=loop, name="election-loop",

@@ -13,9 +13,9 @@ verifier raises propagates.
 from __future__ import annotations
 
 import hashlib
-import threading
 from typing import Callable, Dict, Optional
 
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.msp.mspimpl import MSPValidationError
 
 # what deserializing or validating an identity raises for one the MSP
@@ -31,7 +31,7 @@ class IdentityMapper:
     def __init__(self, msp_mgr, verifier=None):
         self._msp = msp_mgr
         self._verifier = verifier
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("gossip.identity._lock")
         self._store: Dict[bytes, bytes] = {}    # pki_id -> serialized
 
     def put(self, serialized_identity: bytes) -> bytes:

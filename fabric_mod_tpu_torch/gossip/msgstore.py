@@ -10,10 +10,11 @@ scans the live buckets, and whole expired buckets drop in O(1).
 """
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Deque, Optional, Tuple
+
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 
 
 class TTLMessageStore:
@@ -28,7 +29,7 @@ class TTLMessageStore:
         self._width = ttl_s / n_buckets
         self._n = n_buckets
         self._max = max_entries
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("gossip.msgstore._lock")
         self._count = 0
         self._buckets: Deque[Tuple[int, set]] = deque()
 

@@ -33,7 +33,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import RegisteredLock, RegisteredThread
 from fabric_mod_tpu_torch.gossip.election import LeaderElectionService
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerError
 from fabric_mod_tpu_torch.peer.deliverclient import (DeliverClient,
@@ -65,7 +65,7 @@ class GossipService:
         self._client: Optional[DeliverClient] = None
         self._client_thread: Optional[threading.Thread] = None
         self._client_halt: Optional[threading.Event] = None
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("gossip.service._lock")
         self._relay = relay
         self.errors: List[BaseException] = []
         self.election = LeaderElectionService(

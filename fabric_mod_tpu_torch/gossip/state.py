@@ -29,7 +29,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import RegisteredLock, RegisteredThread
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerError
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.protos import messages as m
@@ -44,7 +44,7 @@ class PayloadsBuffer:
         self._have: set = set()
         self.next_seq = next_seq
         self._known_to = next_seq          # 1 past the highest num seen
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("gossip-payloads")
         self.ready = threading.Condition(self._lock)
 
     def push(self, block: m.Block) -> bool:
@@ -123,7 +123,7 @@ class GossipStateProvider:
         self._thread: Optional[threading.Thread] = None
         # serializes pop->commit sequences: two concurrent drains
         # interleaving pops would submit blocks out of order
-        self._drain_lock = threading.Lock()
+        self._drain_lock = RegisteredLock("gossip-state-drain")
         self._active_pipe = None           # the pipe drain last fed
         # what the background loop and stop() caught, in order
         self.errors: List[BaseException] = []

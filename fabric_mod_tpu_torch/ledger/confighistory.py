@@ -19,9 +19,9 @@ from __future__ import annotations
 import base64
 import json
 import os
-import threading
 from typing import Dict, List, Optional, Tuple
 
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.protos import messages as m
 
 LIFECYCLE_NS = "_lifecycle"
@@ -37,7 +37,7 @@ class ConfigHistoryManager:
     def __init__(self, path: str):
         self._path = path
         self._since_sp_write = 0
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("ledger.confighistory._lock")
         # ns -> sorted [(block_num, collections bytes)]
         self._by_ns: Dict[str, List[Tuple[int, bytes]]] = {}
         # the last block OFFERED (not merely recorded): the ledger's

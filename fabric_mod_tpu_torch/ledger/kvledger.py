@@ -45,6 +45,7 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 from fabric_mod_tpu_torch import faults
+from fabric_mod_tpu_torch.concurrency import OrderedLock
 from fabric_mod_tpu_torch.ledger import richquery
 from fabric_mod_tpu_torch.ledger.blkstorage import BlockStore
 from fabric_mod_tpu_torch.ledger.confighistory import ConfigHistoryManager
@@ -292,7 +293,7 @@ class KvLedger:
         self.dir = ledger_dir
         self._durable = durable
         os.makedirs(ledger_dir, exist_ok=True)
-        self._lock = threading.Lock()
+        self._lock = OrderedLock(10, "kvledger")
         self.height_changed = threading.Condition()
         self.blockstore = BlockStore(os.path.join(ledger_dir, "chains"))
         self._state_path = os.path.join(ledger_dir, "state.snap")

@@ -26,7 +26,7 @@ import threading
 import time
 from typing import Callable, List, Optional, Set
 
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import RegisteredLock, RegisteredThread
 
 # how long close() waits for the relay thread to exit
 JOIN_TIMEOUT_S = 10.0
@@ -61,7 +61,7 @@ class CommitNotifier:
         self._cond = cond
         self._height = height_fn
         self._name = name
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock(f"ledger.notifier.{name}._lock")
         self._waiters: Set[CommitWaiter] = set()
         self._callbacks: List[Callable[[int], None]] = []
         self._closed = False

@@ -26,9 +26,9 @@ import base64
 import hashlib
 import json
 import os
-import threading
 from typing import Dict, List, Optional, Tuple
 
+from fabric_mod_tpu_torch.concurrency import OrderedLock
 from fabric_mod_tpu_torch.ledger.durable import _frame, _iter_records, _LogStore
 from fabric_mod_tpu_torch.protos import messages as m
 
@@ -150,7 +150,7 @@ class TransientStore:
         transientstore) — without it, endorsement-time staging is lost
         on crash and must be re-reconciled from peers."""
         # nests inside the ledger's commit lock
-        self._lock = threading.Lock()
+        self._lock = OrderedLock(20, "transientstore")
         self._max = max_entries
         self._count = 0
         # txid -> [(received_at_block, TxPvtReadWriteSet bytes)]
@@ -257,7 +257,7 @@ class PvtDataStore:
         pvtdatastorage/store.go); without it the plaintext must be
         re-reconciled from peers after a crash."""
         # nests inside the transient store's lock
-        self._lock = threading.Lock()
+        self._lock = OrderedLock(30, "pvtdatastore")
         # (block, tx) -> [(ns, collection, KVRWSet bytes)]
         self._by_block: Dict[Tuple[int, int],
                              List[Tuple[str, str, bytes]]] = {}

@@ -5,8 +5,9 @@ satisfies-principal calls on hot identities are answered from memory.
 """
 from __future__ import annotations
 
-import threading
 from typing import Any, Dict
+
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 
 
 class SecondChanceCache:
@@ -14,7 +15,7 @@ class SecondChanceCache:
 
     def __init__(self, capacity: int = 256):
         self.capacity = capacity
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("msp.cache._lock")
         self._data: Dict[Any, list] = {}    # key -> [value, referenced]
         self._ring: list = []
         self._hand = 0

@@ -17,9 +17,9 @@ counting handler counts emitted records per level on a MetricsProvider
 from __future__ import annotations
 
 import logging
-import threading
 from typing import Dict, Optional
 
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
                                                         MetricsProvider)
 
@@ -30,7 +30,7 @@ _LEVELS = {"debug": logging.DEBUG, "info": logging.INFO,
            "error": logging.ERROR, "fatal": logging.CRITICAL,
            "panic": logging.CRITICAL}
 
-_spec_lock = threading.Lock()
+_spec_lock = RegisteredLock("observability.logging._spec_lock")
 _current_spec = "info"
 
 

@@ -25,6 +25,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
+
 
 class MetricOpts:
     def __init__(self, namespace: str, subsystem: str, name: str,
@@ -135,7 +137,7 @@ class MetricsProvider:
     def __init__(self):
         self._metrics: List[_Labeled] = []
         self._named: Dict[Tuple[type, str], _Labeled] = {}
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("observability.metrics._lock")
 
     def new_counter(self, opts: MetricOpts) -> Counter:
         return self._register(Counter(opts))
@@ -215,7 +217,7 @@ class MetricsProvider:
 
 
 _default_provider: Optional[MetricsProvider] = None
-_default_lock = threading.Lock()
+_default_lock = RegisteredLock("observability.metrics._default_lock")
 
 
 def default_provider() -> MetricsProvider:

@@ -26,12 +26,11 @@ from __future__ import annotations
 
 import json
 import ssl
-import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional
 from urllib.parse import parse_qs, urlparse
 
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import RegisteredLock, RegisteredThread
 from fabric_mod_tpu_torch.observability import diag, tracing
 from fabric_mod_tpu_torch.observability import logging as flog
 from fabric_mod_tpu_torch.observability.metrics import (MetricsProvider,
@@ -45,7 +44,7 @@ class HealthRegistry:
 
     def __init__(self):
         self._checkers: Dict[str, Callable[[], None]] = {}
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("observability.opsserver._lock")
 
     def register(self, name: str, checker: Callable[[], None]) -> None:
         with self._lock:
@@ -70,7 +69,8 @@ class HealthRegistry:
 
 
 _default_health: Optional[HealthRegistry] = None
-_default_health_lock = threading.Lock()
+_default_health_lock = RegisteredLock(
+    "observability.opsserver._default_health_lock")
 
 
 def default_health() -> HealthRegistry:

@@ -62,6 +62,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
                                                         default_provider)
 
@@ -353,7 +354,7 @@ class Recorder:
 
     def __init__(self, span_ring: int = SPAN_RING,
                  flight_ring: int = FLIGHT_RING):
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("observability.tracing._lock")
         self._spans: collections.deque = collections.deque(
             maxlen=max(8, span_ring))
         self._timelines: collections.deque = collections.deque(
@@ -648,7 +649,7 @@ class DeviceLens:
                 for n in sorted(names)}
 
 
-_profile_lock = threading.Lock()
+_profile_lock = RegisteredLock("observability.tracing._profile_lock")
 _profile_taken = False
 _last_lens: Optional[DeviceLens] = None
 

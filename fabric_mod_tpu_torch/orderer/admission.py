@@ -45,12 +45,12 @@ from __future__ import annotations
 
 import functools
 import hashlib
-import threading
 import time
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 from fabric_mod_tpu_torch import faults
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
                                                         default_provider)
@@ -221,7 +221,8 @@ class ClientRateLimiter:
         self._clock = clock or time
         self._max = max(1, max_clients)
         self._buckets: "OrderedDict[str, TokenBucket]" = OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock(
+            "orderer.admission.ClientRateLimiter._lock")
         self._throttled = 0                # buckets with throttles > 0
         newcomer_rate = rate * self.NEWCOMER_SCALE
         self._newcomers = TokenBucket(
@@ -297,7 +298,7 @@ class OverloadGate:
         self._ewma = 0.0
         self._stamp = self._clock.monotonic()
         self._open = False
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("orderer.admission.OverloadGate._lock")
 
     @property
     def is_open(self) -> bool:
@@ -413,7 +414,7 @@ class AdmissionController:
         self._clock = clock or time
         self._template = gate
         self._gates: Dict[str, OverloadGate] = {}
-        self._gates_lock = threading.Lock()
+        self._gates_lock = RegisteredLock("orderer.admission._gates_lock")
         if gate is not None:
             self._gates[gate.channel] = gate
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import threading
 from typing import Sequence
 
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.protos import messages as m
 from fabric_mod_tpu_torch.protos import protoutil
 
@@ -40,7 +41,7 @@ class BlockWriter:
         self._store = store
         self._signer = signer
         self.channel_id = channel_id
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("orderer.blockwriter._lock")
         self.height_changed = threading.Condition()
         # the last-config pointer from the tip (reference: blockwriter
         # newBlockWriter reads lastConfigBlockNum)

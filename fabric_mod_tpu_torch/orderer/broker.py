@@ -32,7 +32,7 @@ import threading
 import zlib
 from typing import Dict, List, Optional, Tuple
 
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import RegisteredLock, RegisteredThread
 from fabric_mod_tpu_torch.orderer.consensus import ChainHaltedError
 from fabric_mod_tpu_torch.protos import messages as m
 
@@ -50,7 +50,7 @@ class Broker:
         self._dir = dir_path
         self._topics: Dict[str, List[bytes]] = {}
         self._files: Dict[str, object] = {}
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("orderer.broker._lock")
         self._cv = threading.Condition(self._lock)
         if dir_path:
             os.makedirs(dir_path, exist_ok=True)
@@ -144,7 +144,7 @@ class BrokerChain:
         self._thread = RegisteredThread(
             target=self._run, name=f"broker-chain[{self._topic}]",
             structure="orderer.broker")
-        self._timer_lock = threading.Lock()
+        self._timer_lock = RegisteredLock("orderer.broker._timer_lock")
         self._timer: Optional[threading.Timer] = None
         self._consumed = 0
         store = support.store

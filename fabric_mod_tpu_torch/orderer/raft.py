@@ -48,7 +48,8 @@ import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 from fabric_mod_tpu_torch import faults
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import (RegisteredLock, RegisteredThread,
+                                              ThreadOwnership)
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.orderer.admission import chain_drop_counter
 
@@ -120,7 +121,7 @@ class RaftTransport:
 
     def __init__(self):
         self._handlers: Dict[str, Callable] = {}
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("orderer.raft._lock")
         self.partitioned: set = set()
 
     def register(self, node_id: str, handler: Callable) -> None:
@@ -428,6 +429,10 @@ class RaftNode:
             if subscribe is not None:
                 # a wakeup only: a full queue already wakes the FSM
                 subscribe(lambda: self._put_advisory(("noop",)))
+        # the single-threaded FSM contract, machine-checked: every
+        # state transition runs on the FSM thread, and a stray
+        # cross-thread call raises (always on once the loop claims it)
+        self._fsm_owner = ThreadOwnership(f"raft-fsm[{node_id}]")
         self._thread = RegisteredThread(
             target=self._run, name=f"raft-fsm[{node_id}]",
             structure="orderer.raft")
@@ -519,6 +524,7 @@ class RaftNode:
 
     # -- FSM loop (reference: chain.go:533 run) ---------------------------
     def _run(self) -> None:
+        self._fsm_owner.claim()
         while not self._stop.is_set():
             timeout = max(0.0, self._deadline - self._now())
             try:
@@ -545,6 +551,7 @@ class RaftNode:
                 self._on_timer()
 
     def _on_reconfig(self, node_ids) -> None:
+        self._fsm_owner.guard()
         self.member = self.id in node_ids
         self.peers = [p for p in node_ids if p != self.id]
         for gone in [p for p in self._next_index
@@ -561,6 +568,7 @@ class RaftNode:
                           + self._rng.uniform(*self._eto))
 
     def _on_timer(self) -> None:
+        self._fsm_owner.guard()
         if self.state == LEADER:
             self._broadcast_append()
             self._deadline = self._now() + self._hb
@@ -623,6 +631,7 @@ class RaftNode:
         return idx
 
     def _on_propose(self, data: bytes) -> None:
+        self._fsm_owner.guard()
         if self.state != LEADER:
             return
         self._append_local(data)
@@ -631,6 +640,7 @@ class RaftNode:
         self._broadcast_append(optimistic=True)
 
     def _on_propose_many(self, datas: List[bytes]) -> None:
+        self._fsm_owner.guard()
         if self.state != LEADER:
             return
         for data in datas:
@@ -714,6 +724,7 @@ class RaftNode:
 
     # -- message handling --------------------------------------------------
     def _on_message(self, src: str, msg) -> None:
+        self._fsm_owner.guard()
         if isinstance(msg, RequestVote):
             self._on_request_vote(msg)
         elif isinstance(msg, VoteReply):

@@ -37,7 +37,7 @@ from collections import deque
 from typing import List, Optional, Tuple
 
 from fabric_mod_tpu_torch import faults
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import RegisteredLock, RegisteredThread
 from fabric_mod_tpu_torch.orderer import admission
 from fabric_mod_tpu_torch.orderer.consensus import (SUBMIT_QUEUE_CAP,
                                                     ChainHaltedError,
@@ -132,7 +132,8 @@ class RaftChain:
         # bounds is dropped and counted
         self._parked: List[_Submit] = []
         self._overflow: "deque[_Submit]" = deque()
-        self._overflow_lock = threading.Lock()
+        self._overflow_lock = RegisteredLock(
+            "orderer.raftchain._overflow_lock")
         self.dropped = 0
         self.forwarded = 0
         self._halted = threading.Event()

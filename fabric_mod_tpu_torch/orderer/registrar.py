@@ -34,10 +34,10 @@ from __future__ import annotations
 
 import os
 import shutil
-import threading
 from typing import Dict, Optional, Tuple
 
 from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.ledger.blkstorage import BlockStore
 from fabric_mod_tpu_torch.orderer.blockcutter import BlockCutter
 from fabric_mod_tpu_torch.orderer.blockwriter import (BlockWriter,
@@ -67,7 +67,7 @@ class ChainSupport:
         self.store = store
         self.submit_queue_cap = submit_queue_cap
         self._bundle = bundle
-        self._bundle_lock = threading.Lock()
+        self._bundle_lock = RegisteredLock("orderer.registrar._bundle_lock")
         self._csp = csp
         self.cutter = BlockCutter(bundle.batch_config())
         self.writer = BlockWriter(store, signer, channel_id)
@@ -151,7 +151,7 @@ class Registrar:
         # channel ids being joined or removed right now: reserved, so a
         # concurrent join or remove of the same id cannot interleave
         self._busy: set = set()
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("orderer.registrar._lock")
         os.makedirs(root_dir, exist_ok=True)
         # recover existing channels from disk (reference: Initialize); a
         # directory with a .joining marker died mid-onboarding: its

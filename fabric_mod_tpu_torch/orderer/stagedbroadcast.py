@@ -31,7 +31,8 @@ import threading
 from typing import Dict, List
 
 from fabric_mod_tpu_torch import faults
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import (GuardedQueue, RegisteredLock,
+                                              RegisteredThread)
 from fabric_mod_tpu_torch.observability import tracing
 
 
@@ -71,7 +72,8 @@ class _Lane:
 
     def __init__(self, channel_id: str, max_batch: int):
         self._max = max(1, max_batch)
-        self._q: "queue.Queue" = queue.Queue(max(64, 2 * self._max))
+        self._q: "GuardedQueue" = GuardedQueue(
+            max(64, 2 * self._max), name=f"broadcast.stage.{channel_id}")
         # orders deposits against close: a deposit lands before the
         # close's sentinel, or is refused
         self._mu = threading.Lock()
@@ -150,7 +152,7 @@ class StagedIngress:
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self._max = max_batch
-        self._mu = threading.Lock()
+        self._mu = RegisteredLock("stagedbroadcast.lanes")
         self._lanes: Dict[str, _Lane] = {}
         self._closed = False
 

@@ -22,11 +22,11 @@ chaincode definition in `_lifecycle`.
 from __future__ import annotations
 
 import os
-import threading
 from typing import List, Optional
 
 from fabric_mod_tpu_torch.channelconfig import (
     Bundle, ConfigTxError, extract_config_update, propose_config_update)
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.peer.commitpipe import PipelinedCommitter
 from fabric_mod_tpu_torch.ledger.pvtdata import PvtDataStore, TransientStore
 from fabric_mod_tpu_torch.peer.lifecycle import (
@@ -63,12 +63,13 @@ class Channel:
         self._plugin_registry = plugin_registry
         self._tensor_policy = tensor_policy
         self._pipeline_depth = pipeline_depth
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("peer.channel._lock")
         self._commit_pipe: Optional[PipelinedCommitter] = None
         self._shard_router = None
         # serializes pipe rebuilds; never held by the pipe's threads,
         # so the drain-join inside cannot deadlock
-        self._pipe_rebuild_lock = threading.Lock()
+        self._pipe_rebuild_lock = RegisteredLock(
+            "peer.channel._pipe_rebuild_lock")
         if vinfo is None:
             # committed chaincode definitions resolve each namespace's
             # endorsement policy (peer/lifecycle.py)

@@ -57,13 +57,13 @@ from __future__ import annotations
 import functools
 import itertools
 import logging
-import queue
 import threading
 import time
 from typing import Callable, List, Optional
 
 from fabric_mod_tpu_torch import faults
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import (GuardedQueue, OwnedState,
+                                              RegisteredLock, RegisteredThread)
 from fabric_mod_tpu_torch.ledger.kvledger import LedgerError
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
@@ -155,14 +155,23 @@ class PipelinedCommitter:
         self._channel = channel
         self._consumer = consumer
         self.depth = max(1, depth)
-        self._in_q: "queue.Queue" = queue.Queue(max(1, in_queue))
-        self._staged_q: "queue.Queue" = queue.Queue()
+        # in-queue: many producers (submitters and close's sentinel),
+        # one consumer (the stage loop); staged queue: strictly one
+        # producer and one consumer, stage -> commit.  Armed, the guards
+        # check both contracts.
+        self._in_q: "GuardedQueue" = GuardedQueue(
+            max(1, in_queue), name=f"commitpipe-in[{consumer}]")
+        self._staged_q: "GuardedQueue" = GuardedQueue(
+            name=f"commitpipe-staged[{consumer}]", single_producer=True)
         self._on_commit = on_commit
         self._on_error = on_error
         # one condition guards the pipeline state: the inflight count
         # (the depth bound), the committed height (barrier and flush
-        # waits) and the sticky first error
-        self._cv = threading.Condition()
+        # waits) and the sticky first error.  Its lock feeds the
+        # lock-order registry: it nests inside the submit lock and
+        # around the ledger's ranked OrderedLock
+        self._cv = threading.Condition(
+            RegisteredLock(f"commitpipe-cv[{consumer}]"))
         self._inflight = 0
         self._height = channel.ledger.height
         self._barrier_height: Optional[int] = None
@@ -170,15 +179,18 @@ class PipelinedCommitter:
         self._err: Optional[Exception] = None
         self._closed = False
         self._started = False
+        self._start_lock = RegisteredLock(f"commitpipe-start[{consumer}]")
         # serializes producers through the in-queue put, so two
         # overlapping submitters cannot enqueue out of order
-        self._submit_lock = threading.Lock()
+        self._submit_lock = RegisteredLock(f"commitpipe-submit[{consumer}]")
         self._threads: List[threading.Thread] = []
-        # cumulative wall seconds per stage: the stage loop writes
-        # stage_secs, the commit loop await_secs and commit_secs
-        self.stage_secs = 0.0
-        self.await_secs = 0.0
-        self.commit_secs = 0.0
+        # cumulative wall seconds per stage; single writers, checked
+        # armed: the stage loop writes the stage state, the commit loop
+        # the await and commit seconds; reads stay open
+        self._stage_state = OwnedState(f"commitpipe-stage[{consumer}]",
+                                       secs=0.0)
+        self._commit_state = OwnedState(f"commitpipe-commit[{consumer}]",
+                                        await_secs=0.0, commit_secs=0.0)
         (self._m_stage, self._m_await, self._m_commit, occupancy,
          self._m_barriers, self._m_blocks) = _metrics()
         self._m_occupancy = occupancy.with_labels(consumer)
@@ -192,6 +204,18 @@ class PipelinedCommitter:
                 f"{self._err!r}")
 
     @property
+    def stage_secs(self) -> float:
+        return self._stage_state.secs
+
+    @property
+    def await_secs(self) -> float:
+        return self._commit_state.await_secs
+
+    @property
+    def commit_secs(self) -> float:
+        return self._commit_state.commit_secs
+
+    @property
     def error(self) -> Optional[Exception]:
         return self._err
 
@@ -200,15 +224,16 @@ class PipelinedCommitter:
         return self._closed
 
     def _ensure_started(self) -> None:
-        if self._started:
-            return
-        self._started = True
-        for name, fn in (("commitpipe-stage", self._stage_loop),
-                         ("commitpipe-commit", self._commit_loop)):
-            t = RegisteredThread(target=fn, name=name,
-                                 structure="PipelinedCommitter")
-            t.start()
-            self._threads.append(t)
+        with self._start_lock:
+            if self._started:
+                return
+            self._started = True
+            for name, fn in (("commitpipe-stage", self._stage_loop),
+                             ("commitpipe-commit", self._commit_loop)):
+                t = RegisteredThread(target=fn, name=name,
+                                     structure="PipelinedCommitter")
+                t.start()
+                self._threads.append(t)
 
     def _fail(self, e: Exception) -> None:
         with self._cv:
@@ -337,7 +362,7 @@ class PipelinedCommitter:
                 if tl is not None:
                     staged.trace_timeline = tl
                 dt = time.perf_counter() - t0
-                self.stage_secs += dt
+                self._stage_state.secs += dt
                 self._m_stage.observe(dt)
                 if staged.needs_barrier:
                     self._m_barriers.add()
@@ -374,8 +399,8 @@ class PipelinedCommitter:
                 return
             finally:
                 tracing.finish_timeline(tl)
-            self.await_secs += t1 - t0
-            self.commit_secs += t2 - t1
+            self._commit_state.await_secs += t1 - t0
+            self._commit_state.commit_secs += t2 - t1
             self._m_await.observe(t1 - t0)
             self._m_commit.observe(t2 - t1)
             self._m_blocks.add()

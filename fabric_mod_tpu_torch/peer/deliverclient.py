@@ -30,6 +30,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from fabric_mod_tpu_torch.concurrency import OwnedState
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.peer.channel import Channel
 from fabric_mod_tpu_torch.peer.commitpipe import PipelinedCommitter
@@ -69,6 +70,11 @@ class DeliverClient:
         self._pipe = self._make_pipe()
         self.rejected: List[int] = []      # block numbers that failed MCS
         self.mcs_secs = 0.0                # stage 1's block verification
+        # stage 1's exclusivity: run() claims this state for its thread;
+        # a second concurrent run() on one client would pull and submit
+        # twice, and armed, its claim raises (sequential re-runs
+        # re-claim freely)
+        self._runner = OwnedState("deliverclient-runner")
 
     def _make_pipe(self) -> PipelinedCommitter:
         # a dead pipeline stops the pull at once (the source honours
@@ -100,8 +106,18 @@ class DeliverClient:
     def run(self, idle_timeout_s: float = 30.0) -> None:
         """Pull from the ledger's current height until `stop()` or the
         source goes idle for `idle_timeout_s`.  Blocking; one run() at
-        a time.  Re-raises the pipeline's error, and a dropped stream
-        as DeliverDisconnected."""
+        a time: armed, a concurrent second run() raises RaceError.
+        Re-raises the pipeline's error, and a dropped stream as
+        DeliverDisconnected."""
+        self._runner.claim()
+        try:
+            self._run_claimed(idle_timeout_s)
+        finally:
+            # released on every exit, or each later run() would be a
+            # false race
+            self._runner.release()
+
+    def _run_claimed(self, idle_timeout_s: float) -> None:
         if self._pipe.closed:
             self._secs_base[0] += self._pipe.stage_secs
             self._secs_base[1] += self._pipe.await_secs

@@ -26,6 +26,11 @@ from fabric_mod_tpu_torch.peer.channel import Channel
 from fabric_mod_tpu_torch.policy.manager import CHANNEL_APPLICATION_WRITERS
 from fabric_mod_tpu_torch.protos import messages as m
 from fabric_mod_tpu_torch.protos import protoutil
+from fabric_mod_tpu_torch.utils.semaphore import AcquireTimeout, Semaphore
+
+# how long a proposal waits for a permit under max_concurrency (the
+# reference's endorser.go:93)
+ACQUIRE_TIMEOUT_S = 5.0
 
 
 class ProposalRejectedError(Exception):
@@ -36,10 +41,16 @@ class Endorser:
     """One peer's endorsement service for one channel."""
 
     def __init__(self, channel: Channel, registry: ChaincodeRegistry,
-                 signer):
+                 signer, max_concurrency: int = 0):
+        """`max_concurrency` > 0 caps in-flight ProcessProposal calls
+        (reference: internal/peer/node/grpc_limiters.go's Endorser
+        semaphore); excess requests shed after a short wait with a 503
+        response."""
         self._channel = channel
         self._registry = registry
         self._signer = signer
+        self._limiter = (Semaphore(max_concurrency) if max_concurrency > 0
+                         else None)
 
     # -- request preprocessing (reference: endorser.go:258 preProcess) --
     def _pre_process(self, sp: m.SignedProposal):
@@ -84,6 +95,16 @@ class Endorser:
 
     # -- the endorsement flow (reference: endorser.go:306) ---------------
     def process_proposal(self, sp: m.SignedProposal) -> m.ProposalResponse:
+        if self._limiter is not None:
+            try:
+                with self._limiter.acquire(timeout_s=ACQUIRE_TIMEOUT_S):
+                    return self._process_proposal(sp)
+            except AcquireTimeout as e:
+                return m.ProposalResponse(response=m.Response(
+                    status=503, message=f"endorser overloaded: {e}"))
+        return self._process_proposal(sp)
+
+    def _process_proposal(self, sp: m.SignedProposal) -> m.ProposalResponse:
         prop, ch, sh = self._pre_process(sp)
         try:
             ccpp = m.ChaincodeProposalPayload.decode(prop.payload)

@@ -39,10 +39,9 @@ import os
 import socket
 import socketserver
 import subprocess
-import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
-from fabric_mod_tpu_torch.concurrency import RegisteredThread
+from fabric_mod_tpu_torch.concurrency import RegisteredLock, RegisteredThread
 from fabric_mod_tpu_torch.peer.chaincode import ChaincodeError, ChaincodeStub
 
 
@@ -273,7 +272,7 @@ class ExternalContract:
         self._timeout = timeout_s
         # re-entrant: the invoke error path closes the connection while
         # holding it
-        self._lock = threading.RLock()
+        self._lock = RegisteredLock("peer.extbuilder.ExternalContract._lock")
         self._sock: Optional[socket.socket] = None
         self._file: Optional[_SockFile] = None
 
@@ -451,7 +450,7 @@ class ChaincodeLauncher:
         self._platforms = platforms or PlatformRegistry()
         self._live: Dict[str, object] = {}
         self._procs: List[subprocess.Popen] = []
-        self._lock = threading.RLock()
+        self._lock = RegisteredLock("peer.extbuilder.ChaincodeLauncher._lock")
         self._launch_ctx = LaunchContext(self._procs.append)
 
     def resolve(self, name: str):

@@ -40,10 +40,10 @@ FABRIC_MOD_TPU_FANOUT_RING, default 128).
 from __future__ import annotations
 
 import collections
-import threading
 from typing import Callable, Dict, Optional
 
 from fabric_mod_tpu_torch import faults
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.ledger.notifier import CommitNotifier
 from fabric_mod_tpu_torch.observability import tracing
 from fabric_mod_tpu_torch.protos import batchdecode
@@ -176,7 +176,7 @@ class _ConfigMemo:
         self._cap = cap
         self._d: "collections.OrderedDict[int, bool]" = \
             collections.OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("peer.fanout.cfgmemo._lock")
 
     def classify(self, block: m.Block) -> bool:
         num = block.header.number
@@ -227,7 +227,7 @@ class BlockFanout:
         self.form = form
         self._ring_size = max(1, ring_size)
         self._ring: Dict[int, _Frame] = {}
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock(f"peer.fanout.{form}._lock")
         self._classify = classify or _is_config_block
         self.stats = stats if stats is not None else _fanout_stats()
 
@@ -300,7 +300,7 @@ class _AclGroup:
         self.rep_sd = rep_sd
         # (config_sequence, forced config block or None) -> error or None
         self.verdicts: "collections.OrderedDict" = collections.OrderedDict()
-        self.lock = threading.Lock()
+        self.lock = RegisteredLock("peer.fanout.aclgroup.lock")
 
 
 class AclGroupSession:
@@ -338,7 +338,7 @@ class AclGroups:
         self._seq_of = getattr(acl, "config_sequence", None)
         self._channel_id = channel_id
         self._groups: Dict[tuple, _AclGroup] = {}
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("peer.fanout.aclgroups._lock")
         self.stats = {"checks": 0, "reuses": 0}
 
     def sequence(self):
@@ -416,7 +416,7 @@ class FanoutEngine:
             name=f"deliver-{channel_id}")
         self.notifier.on_commit(self._on_commit)
         self._subs = {form: 0 for form in FORMS}
-        self._subs_lock = threading.Lock()
+        self._subs_lock = RegisteredLock("peer.fanout.engine._subs_lock")
 
     # -- subscriber accounting (a form with no subscribers skips the
     #    eager per-commit materialization; on-demand fills cover joins)

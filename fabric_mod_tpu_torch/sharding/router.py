@@ -40,10 +40,10 @@ consumer labels.
 from __future__ import annotations
 
 import logging
-import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
 from fabric_mod_tpu_torch.bccsp.api import VerifyItem
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 from fabric_mod_tpu_torch.peer.commitpipe import PipelinedCommitter
 from fabric_mod_tpu_torch.sharding.shardmap import ShardMap
 from fabric_mod_tpu_torch.sharding.verifyservice import (
@@ -101,7 +101,7 @@ class _Binding:
         self.target = None                  # stage_block/commit_staged
         self.handle = handle
         self.pipe: Optional[PipelinedCommitter] = None
-        self.rebuild_lock = threading.Lock()
+        self.rebuild_lock = RegisteredLock(f"sharding.rebuild[{channel_id}]")
 
 
 class ChannelShardRouter:
@@ -123,7 +123,7 @@ class ChannelShardRouter:
             raise ValueError(f"{len(meshes)} meshes for {n_slices} slices")
         self.map = ShardMap(n_slices)
         self._depth = max(1, depth)
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("sharding.router")
         self._bindings: Dict[str, _Binding] = {}
         self._closed = False
         factory = verifier_factory or _default_verifier

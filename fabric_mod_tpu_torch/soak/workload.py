@@ -38,7 +38,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-from fabric_mod_tpu_torch.concurrency import (RegisteredThread,
+from fabric_mod_tpu_torch.concurrency import (RegisteredLock, RegisteredThread,
                                               assert_joined)
 from fabric_mod_tpu_torch.observability import get_logger
 from fabric_mod_tpu_torch.protos import messages as m
@@ -49,7 +49,7 @@ log = get_logger("soak.workload")
 _FIXTURE_PATH = os.path.join(os.path.dirname(__file__),
                              "idemix_fixture.json")
 _fixture_cache: Optional[dict] = None
-_fixture_lock = threading.Lock()
+_fixture_lock = RegisteredLock("soak.workload._fixture_lock")
 
 
 def load_idemix_fixture() -> dict:
@@ -108,7 +108,7 @@ class MixedWorkload:
         self._gate = threading.Event()
         self._gate.set()
         self._stop = threading.Event()
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("soak.workload._lock")
         self._busy = 0
         # cid -> {txid: encoded envelope} — retained for the
         # resubmit-at-tail path of the exactly-once audit

@@ -59,7 +59,7 @@ from fabric_mod_tpu_torch.channelconfig.bundle import (APPLICATION,
                                                        values_of)
 from fabric_mod_tpu_torch.channelconfig.configtx import config_from_block
 from fabric_mod_tpu_torch.concurrency import (CancellationEvent,
-                                              RegisteredThread,
+                                              RegisteredLock, RegisteredThread,
                                               assert_joined)
 from fabric_mod_tpu_torch.gossip import (GossipNode, GossipService,
                                          InProcNetwork)
@@ -330,7 +330,7 @@ class SoakWorld:
         self._clock_interval = clock_interval
         self._pump_stop = threading.Event()
         self._pump: Optional[RegisteredThread] = None
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("soak.world._lock")
         self._batch_counts: Dict[str, int] = {}
         self._rr = 0
 

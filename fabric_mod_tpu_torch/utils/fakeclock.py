@@ -13,14 +13,15 @@ blocked on a queue re-read their (manual) deadlines.
 """
 from __future__ import annotations
 
-import threading
 from typing import Callable, List
+
+from fabric_mod_tpu_torch.concurrency import RegisteredLock
 
 
 class ManualClock:
     def __init__(self, start: float = 0.0):
         self._t = start
-        self._lock = threading.Lock()
+        self._lock = RegisteredLock("utils.fakeclock._lock")
         self._subs: List[Callable[[], None]] = []
 
     def monotonic(self) -> float:

@@ -1,5 +1,5 @@
 """The port imports neither jax, nor any module of the JAX package, nor
-the `cryptography` wheel: a fresh interpreter imports every port module,
+the `cryptography`, `grpc` or `yaml` packages: a fresh interpreter imports every port module,
 runs the CPU verify path, commits one small block through the port's
 Committer on the CPU and two 16-tx blocks through the columnar decode
 and the vectorized MVCC (host verifier), verifies one idemix
@@ -23,7 +23,11 @@ consenter with an operations server scraped beside it, a discovery
 service's access check and layouts on it, and a ccaas package resolved
 by the chaincode launcher and invoked over TCP, arms and disarms a fault
 plan, retries through a Retrier, runs a two-event soak under churn
-(host verifier), then inspects sys.modules."""
+(host verifier), drives the offline tools through cli.main (cryptogen,
+configtxgen, a configtxlator round trip, discover (no verifier), a
+ledger snapshot) with one block committed by a tool-built Network under
+armed guards, then inspects sys.modules: no jax, no module of the JAX
+package, no `cryptography`, `grpc` or `yaml`."""
 import json
 import os
 import pathlib
@@ -436,10 +440,54 @@ rep = SoakHarness(SoakConfig(seed=11, n_events=2, n_channels=1, n_peers=2,
                              gap_txs=(2, 3), verifier=sw.SwVerifier())).run()
 assert rep["x509_txs"] > 0 and rep["audited_txs"] == rep["x509_txs"]
 assert len(rep["events"]) == 2 and rep["fault_fires"] > 0
+import contextlib, io, tempfile
+from fabric_mod_tpu_torch import concurrency, e2e as _e2e
+from fabric_mod_tpu_torch.cli import cryptogen as _cg
+from fabric_mod_tpu_torch.cli.main import main as cli
+with tempfile.TemporaryDirectory() as d, \
+        contextlib.redirect_stdout(io.StringIO()):
+    with open(f"{d}/c.yaml", "w") as f:
+        f.write("PeerOrgs:\n  - Name: Org1\n  - Name: Org2\n"
+                "  - Name: Org3\nOrdererOrgs:\n  - Name: OrdererOrg\n")
+    with open(f"{d}/p.yaml", "w") as f:
+        f.write("ChannelID: auditchan\nPeerOrgs: [Org1, Org2, Org3]\n"
+                "OrdererOrgs: [OrdererOrg]\nBatchSize:\n"
+                "  MaxMessageCount: 8\nBatchTimeout: 5s\n")
+    assert cli(["cryptogen", "--config", f"{d}/c.yaml", "--output",
+                f"{d}/crypto"]) == 0
+    assert cli(["configtxgen", "--profile", f"{d}/p.yaml", "--crypto",
+                f"{d}/crypto", "--output", f"{d}/g.block"]) == 0
+    js = io.StringIO()
+    with contextlib.redirect_stdout(js):
+        assert cli(["configtxlator", "proto_decode", "--type", "Block",
+                    "--input", f"{d}/g.block"]) == 0
+    with open(f"{d}/g.json", "w") as f:
+        f.write(js.getvalue())
+    assert cli(["configtxlator", "proto_encode", "--type", "Block",
+                "--input", f"{d}/g.json", "--output", f"{d}/g2.block"]) == 0
+    assert open(f"{d}/g2.block", "rb").read() == \
+        open(f"{d}/g.block", "rb").read()
+    assert cli(["discover", "endorsers", "--genesis", f"{d}/g.block",
+                "--chaincode", "mycc"]) == 0
+    mat = _cg.network_material(f"{d}/crypto", open(f"{d}/g.block", "rb").read())
+    with concurrency.armed():
+        net = _e2e.Network(f"{d}/net", mat, verifier=sw.SwVerifier())
+        try:
+            for i in range(8):
+                net.invoke([b"put", b"audit%d" % i, b"v"])
+            assert _e2e.commit_until(net, 8, 60)[1] == 8
+        finally:
+            net.close()
+    assert cli(["ledger", "snapshot", "--ledger",
+                f"{d}/net/peer/auditchan", "--channel", "auditchan",
+                "--output", f"{d}/snap"]) == 0
+    assert cli(["node"]) == 2
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")
-             or n == "cryptography" or n.startswith("cryptography."))
+             or n == "cryptography" or n.startswith("cryptography.")
+             or n == "grpc" or n.startswith("grpc.")
+             or n == "yaml" or n.startswith("yaml."))
 print(json.dumps(bad))
 """
 
