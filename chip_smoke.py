@@ -5,8 +5,10 @@ and on a three-node Raft ordering service, gossip around it, the
 dissemination tree and the deliver fan-out, channel sharding, the
 durable ledger and private data, the idemix presentation verify, the
 service surface (discovery, external chaincode, the broker consenter,
-the operations server), the soak under churn with faults armed, and
-the offline tools, whose network commits under armed lock guards.
+the operations server), the soak under churn with faults armed, the
+offline tools, whose network commits under armed lock guards, and the
+transport: Raft orderers and peers over mutual TLS, in process and as OS
+processes, verifying on the card.
 
     python3 chip_smoke.py
 
@@ -156,8 +158,9 @@ Phases (any failure exits non-zero; none is caught):
    (the line precompute, a Miller doubling step, an add step, a
    cyclotomic square, a multiply, and the rest once), scaled by the
    schedule's static counts: launches per check, device busy ms, idle
-   share; run at the very end, after every other profiler window, since
-   a window of ~10^5 device records blinds later ones (PERF.md §7);
+   share; under `--phase 7` only (the whole script leaves it out for its
+   time limit), after phase 7's other parts, since a window of ~10^5
+   device records blinds later ones (PERF.md §7);
 6. profile (run after 9) — torch.profiler over one verify of each
    block kind, over a verify call of one signature, of one 2048-lane
    bucket and of one raw 2048-lane bucket (which must launch the four
@@ -211,7 +214,7 @@ Phases (any failure exits non-zero; none is caught):
    its own ledger, Channel (tensor policy, commit pipe of depth 2),
    GossipNode and GossipService, every channel's verifier one
    BatchingVerifyService over one GpuVerifier, every view seeded, then
-   a round of signed alive messages from 10 of the peers (each to every
+   a round of signed alive messages from 4 of the peers (each to every
    other; fresh news is forwarded; cut from all 50 for the time limit); a copy of block 1 with a flipped signature byte is pushed
    to every peer, which must reject it; the minimum-PKI-ID peer, pinned
    as static leader, delivers and pushes, the others commit what the
@@ -339,7 +342,7 @@ Phases (any failure exits non-zero; none is caught):
    "1.0", 1, AND(Org1, Org3)) commits Org1's and Org2's approvals each
    in its own block, then the definition, every ceremony tx VALID;
    checkcommitreadiness and queryapproved read through an endorser.
-   (b) 4 x 1000 blind puts over mycc and cc2, every 10th endorsed by a
+   (b) 2 x 1000 blind puts over mycc and cc2, every 10th endorsed by a
    set its namespace refuses (Org1 alone; Org1 + Org2 for cc2), from 32
    threads: the construction's flags by txid; committed tx/s, stage and
    commit ms a block, verify-core launches a block, one tensor-policy
@@ -483,10 +486,48 @@ Phases (any failure exits non-zero; none is caught):
    that key and one with Abar tampered verified in one batch on the
    card: 1 + 1 pairing launches, 16 true, the tampered one false.
 
+19. the transport (after 18) — comm/ over mutual TLS on loopback
+   (the port's own framing on `ssl` sockets), the orderer's and the
+   peer's servers, Raft and gossip over the wire, deliver failover and
+   node/chaincode.  (a) in this process, BASELINE.md #2's width: three
+   Raft orderers (Registrar, RaftChain over GRPCRaftTransport,
+   OrdererServer, host Writers checks), two peers (Org1, Org2) sharing
+   one GpuVerifier, each pulling through a FailoverDeliverSource over
+   the three orderers (the first leader first), serving an
+   EndorserServer and an EventDeliverServer on one GRPCServer, and
+   gossiping over GRPCGossipNetwork with GossipAuth (joined by signed
+   alive messages).  Two 1000-tx blocks endorsed 2 of 3: block 1 holds
+   50 txs endorsed through RemoteEndorser, the rest hand-signed, one
+   with a flipped endorsement; then the leader's server and transport
+   stop and its chain halts; block 2 (a flipped endorsement and an MVCC
+   read conflict of a block-1 key) goes to the new leader; all through
+   8 GrpcBroadcaster streams, and an EventDeliverClient over the wire
+   waits for a block-2 txid (VALID).  Gates: both peers' flags equal
+   the construction's by txid and each other's, equal fingerprints, the
+   surviving orderers at one height, the peers' sources rotated, no
+   registered worker left, each verify-core kernel launched >= 3 times
+   a block.  (b) three `cli.main node --role orderer` processes and two
+   `--role peer` processes (core.yaml `peer.BCCSP.Default: GPU`) from
+   the tools' material (cryptogen, configtxgen at 1000 txs a block,
+   500 ms batch timeout) and comm/tls TLS directories
+   (utils/procnet.py): 24 puts through GrpcBroadcaster and 3 `chaincode
+   invoke`s, the Raft leader SIGKILLed, 24 more puts and an `invoke
+   --wait-event`; `chaincode query` gives the last value at both peers.
+   Gates: both peers past the kill height and equal, each peer's
+   `fabric_bccsp_verdict_cache_misses` above its warm-up's 2048 (items
+   went to the card), each peer's `fabric_gpu_kernel_nvcc_builds_total`
+   0 (the children load phase 2's build); every child SIGTERMed in a
+   `finally` (SIGKILLed if it lingers), the logs printed when a gate
+   fails.  Prints (a)'s committed tx/s, its election and failover
+   seconds and launches, (b)'s peers' start-up (torch import, CUDA
+   context, kernels and warm-up, shown apart) and the seconds from the
+   kill to the next commit.
+
    python3 chip_smoke.py --phase 11
    python3 chip_smoke.py --phase 12
    python3 chip_smoke.py --phase 13
    python3 chip_smoke.py --phase 14
+   python3 chip_smoke.py --phase 19
 
 run phase 11 (its (b) on a stream endorsed there, without phase 10 (b)
 beside it), phase 12, phase 13 (its (b) on blocks signed there) or
@@ -494,14 +535,16 @@ phase 14 alone after the header, and print no kernels line;
 `--phase 15` runs (b), phase 8 (a), then (a), (c) and (d) ((d)
 ordering arm (a)'s stream twice); `--phase 16` runs phase 8 (a), then
 phase 16 on its stream; `--phase 17` runs phase 8 (a), then phase 17;
-`--phase 18` runs phase 18 alone.
+`--phase 18` runs phase 18 alone, `--phase 19` phase 19 alone, and
+`--phase 7` phase 7 with its (d).
 
 It prints one JSON line describing each of the seven kernels
 (`launches` counts the block-commit phase, the four e2e arms, phase
 7's check, pairings and batch_verify, phase 10's two parts, phase 11's
 three, phase 12 (a)'s sweep, phase 13's three parts, phase 14, phase
 15's four parts, phase 16's commits and discovery passes, and phase
-17's soaks and fault seams, and phase 18's network and presentations),
+17's soaks and fault seams, phase 18's network and presentations, and
+phase 19 (a)'s two blocks),
 and
 as its last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
@@ -691,10 +734,11 @@ STORM_SAMPLE_EVERY = 10
 # 217 s of phase 10 on the card, the 50 peers' commits holding one GIL
 GOSSIP_BLOCKS = 2
 GOSSIP_TIMEOUT_S = 900.0
-# (b)'s signed alive round comes from 10 of the 50 peers, every view
+# (b)'s signed alive round comes from 4 of the 50 peers, every view
 # seeded first (depth: the round from all 50 took 72.8 s of the script's
-# 1,200 s limit on an H100, and phase 16 needs the room)
-GOSSIP_ALIVE_SENDERS = 10
+# 1,200 s limit on an H100; cut to 10 for phase 16, then to 4 for phase
+# 19's room)
+GOSSIP_ALIVE_SENDERS = 4
 
 # phase 11 (a): bench.py:2383 `measure_dissemination`'s top point: 128
 # peers, one-put blocks (a 50 ms batch timeout, 12-tx cap), the relay
@@ -759,7 +803,8 @@ VERIFY_KERNELS = ("ladder_projective", "ladder_mixed", "verify_prologue",
 # phase 14: the lifecycle slice on a solo network with 1000-tx blocks
 LC_SEED = 1415
 LC_BATCH_TIMEOUT = "2s"
-LC_BLOCKS = 4
+# (b)'s blocks: cut from 4 (depth) for phase 19's room
+LC_BLOCKS = 2
 LC_UNDER_EVERY = 10
 LC_UPGRADE_INVOKES = 10
 LC_NEW_BATCH = 500
@@ -7410,6 +7455,617 @@ def phase_tools(torch, dev) -> dict:
     return launched
 
 
+# -- 19. the transport: comm/ over mutual TLS, the servers, Raft and gossip
+# -- over the wire, deliver failover, node/chaincode as processes -----------
+
+WIRE_CHANNEL = "wirechan"
+WIRE_PEERS = ("Org1", "Org2")
+# 19 (a): txs of block 1 endorsed over the wire (RemoteEndorser); the rest
+# are hand-signed puts, as 18 (b)'s
+WIRE_REMOTE = 50
+WIRE_SUBMITTERS = 8
+WIRE_ELECTION_TIMEOUT = (1.0, 2.0)
+WIRE_HEARTBEAT_S = 0.1
+WIRE_TIMEOUT_S = 300.0
+# 19 (b): txs before and after the leader's SIGKILL, and the invokes of
+# each that go through `chaincode invoke`
+PROCS_PUTS = 24
+PROCS_INVOKES = 3
+PROCS_BATCH_TIMEOUT = "500ms"
+PROCS_START_S = 420.0
+# a GPU peer warms its four buckets with BUCKETS[-1] distinct items: the
+# verdict cache's misses before any block
+PROCS_WARM_MISSES = 2048
+
+
+def wire_orderers(root, material, tca, csp, genesis_block) -> dict:
+    """Three Raft orderers, each a Registrar whose RaftChain speaks
+    Cluster/Step through a GRPCRaftTransport, and an OrdererServer, all
+    over mutual TLS from `tca`."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.orderer.cluster import GRPCRaftTransport
+    from fabric_mod_tpu_torch.orderer.raftchain import RaftChain
+    from fabric_mod_tpu_torch.orderer.registrar import Registrar
+    from fabric_mod_tpu_torch.orderer.server import OrdererServer
+    ids = list(material.consenters)
+    nodes = {}
+    for oid in ids:
+        sc, sk = tca.issue(f"{oid}.example.com", sans=("127.0.0.1",))
+        cc, ck = tca.issue(f"{oid}.client", server=False)
+        nodes[oid] = {"pems": (sc, sk), "tr": GRPCRaftTransport(
+            oid, {j: "127.0.0.1:0" for j in ids},
+            listen_address="127.0.0.1:0", server_cert=sc, server_key=sk,
+            client_ca=tca.cert_pem, client_cert=cc, client_key=ck)}
+    for n in nodes.values():
+        for j, o in nodes.items():
+            n["tr"].set_peer_address(j, f"127.0.0.1:{o['tr'].listen_port}")
+        n["tr"].start()
+    for oid, n in nodes.items():
+        def factory(support, oid=oid, tr=n["tr"]):
+            return RaftChain(
+                oid, ids, tr, os.path.join(root, oid,
+                                           f"{support.channel_id}.wal"),
+                support, election_timeout=WIRE_ELECTION_TIMEOUT,
+                heartbeat_s=WIRE_HEARTBEAT_S)
+        n["reg"] = Registrar(os.path.join(root, oid),
+                             e2e._signer(csp, material.consenters[oid]), csp,
+                             consenters={"etcdraft": factory})
+        n["sup"] = n["reg"].create_channel(genesis_block)
+        sc, sk = n["pems"]
+        n["srv"] = OrdererServer(n["reg"], "127.0.0.1:0", server_cert_pem=sc,
+                                 server_key_pem=sk,
+                                 client_root_pem=tca.cert_pem)
+        n["srv"].start()
+        n["addr"] = f"127.0.0.1:{n['srv'].port}"
+    return nodes
+
+
+def wire_peer(root, org, material, verifier, tca, csp, genesis_block,
+              orderer_addrs) -> dict:
+    """One committing peer over the wire: a FailoverDeliverSource over every
+    orderer, an EndorserServer and an EventDeliverServer on one mTLS
+    GRPCServer, and a GossipNode on a GRPCGossipNetwork with GossipAuth,
+    its identity mapper and every verify on `verifier`."""
+    from fabric_mod_tpu_torch import e2e
+    from fabric_mod_tpu_torch.channelconfig import Bundle, config_from_block
+    from fabric_mod_tpu_torch.comm.grpc_comm import GRPCServer
+    from fabric_mod_tpu_torch.gossip.comm import GossipAuth, GRPCGossipNetwork
+    from fabric_mod_tpu_torch.gossip.identity import IdentityMapper
+    from fabric_mod_tpu_torch.gossip.node import GossipNode
+    from fabric_mod_tpu_torch.ledger.kvledger import LedgerManager
+    from fabric_mod_tpu_torch.peer.aclmgmt import ACLProvider
+    from fabric_mod_tpu_torch.peer.blocksprovider import (
+        Endpoint, FailoverDeliverSource)
+    from fabric_mod_tpu_torch.peer.channel import Channel
+    from fabric_mod_tpu_torch.peer.deliverclient import DeliverClient
+    from fabric_mod_tpu_torch.peer.deliverevents import EventDeliverServer
+    from fabric_mod_tpu_torch.peer.endorser import Endorser
+    from fabric_mod_tpu_torch.peer.endorserserver import EndorserServer
+    from fabric_mod_tpu_torch.peer.scc import build_default_registry
+    cid, config = config_from_block(genesis_block)
+    p = {"org": org}
+    p["mgr"] = LedgerManager(os.path.join(root, org))
+    p["ledger"] = p["mgr"].create_or_open(cid)
+    p["channel"] = Channel(cid, p["ledger"], verifier,
+                           Bundle(cid, config, csp), csp)
+    p["channel"].init_from_genesis(genesis_block)
+    pc, pk = tca.issue(f"peer0.{org.lower()}.example.com",
+                       sans=("127.0.0.1",))
+    p["pems"] = (pc, pk)
+    p["source"] = FailoverDeliverSource(
+        [Endpoint(a, tca.cert_pem, pc, pk) for a in orderer_addrs], cid,
+        base_backoff_s=0.05)
+    p["dc"] = DeliverClient(p["channel"], p["source"])
+    p["runner"] = threading.Thread(
+        target=p["dc"].run, kwargs={"idle_timeout_s": WIRE_TIMEOUT_S},
+        name=f"wire-deliver[{org}]", daemon=True)
+    signer = e2e._signer(csp, material.peers[org])
+    endorser = Endorser(p["channel"],
+                        build_default_registry(p["channel"], p["ledger"]),
+                        signer)
+    p["server"] = GRPCServer("127.0.0.1:0", pc, pk, tca.cert_pem,
+                             max_workers=64)
+    EndorserServer(endorser, grpc=p["server"])
+    p["events"] = EventDeliverServer(
+        cid, p["ledger"], ACLProvider(p["channel"].bundle,
+                                      verify_many=verifier.verify_many),
+        grpc=p["server"])
+    p["server"].start()
+    p["addr"] = f"127.0.0.1:{p['server'].port}"
+    mapper = IdentityMapper(p["channel"].bundle().msp_manager, verifier)
+    p["gnet"] = GRPCGossipNetwork(
+        "127.0.0.1:0", server_cert=pc, server_key=pk, client_ca=tca.cert_pem,
+        client_cert=pc, client_key=pk,
+        auth=GossipAuth(signer.serialize(), signer.sign_message, mapper.put,
+                        mapper.verify))
+    p["gnet"].start()
+    p["node"] = GossipNode(p["gnet"].listen_endpoint, signer, p["channel"],
+                           p["gnet"])
+    p["runner"].start()
+    return p
+
+
+def wire_close(orderers, peers) -> None:
+    for p in peers:
+        p["dc"].stop()
+    for p in peers:
+        p["runner"].join(60)
+        p["source"].close()
+        p["node"].stop()
+        p["gnet"].stop()
+        p["events"].stop()
+        p["server"].stop(1.0)
+        p["channel"].close()
+        p["mgr"].close()
+    for n in orderers.values():
+        n["srv"].stop(0)
+        n["reg"].close()
+        n["tr"].stop()
+
+
+def wire_stream(material, n_blocks, block_txs) -> tuple:
+    """19 (a)'s hand-signed envelopes: block 1 less WIRE_REMOTE (those are
+    endorsed over the wire) and every later block, each with a tx whose
+    Org2 endorsement signature is flipped (ENDORSEMENT_POLICY_FAILURE),
+    and from block 2 on one that read key w0 absent (MVCC_READ_CONFLICT:
+    block 1 wrote it).  Returns ([envelopes of each block], {txid: flag})."""
+    import hashlib
+    from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.utils import fixtures
+    V = m.TxValidationCode
+    world = fixtures.network_world(material)
+    blocks, flags = [], {}
+    for b in range(n_blocks):
+        n_puts = block_txs - (WIRE_REMOTE if b == 0 else 0) - (
+            1 if b == 0 else 2)
+        envs = fixtures.make_put_txs(
+            world, [(fixtures.NAMESPACE, f"w{i}" if b == 0 else f"x{b}.{i}",
+                     b"v%d" % i, WIRE_PEERS) for i in range(n_puts)],
+            b"phase19|%d" % b)
+        flags.update({_txid(e): V.VALID for e in envs})
+        planted = []
+        rw = RWSetBuilder()
+        rw.add_write(fixtures.NAMESPACE, f"bad{b}", b"v")
+        planted.append((rw, V.ENDORSEMENT_POLICY_FAILURE, 1))
+        if b > 0:
+            rw = RWSetBuilder()
+            rw.add_read(fixtures.NAMESPACE, "w0", None)
+            rw.add_write(fixtures.NAMESPACE, f"mvcc{b}", b"v")
+            planted.append((rw, V.MVCC_READ_CONFLICT, None))
+        for k, (rw, flag, bad) in enumerate(planted):
+            env = fixtures._signed_tx(
+                world, rw.build().encode(), WIRE_PEERS,
+                hashlib.sha256(b"phase19|planted|%d|%d" % (b, k)).digest()[:24],
+                1_735_689_600_000_000_000 + b * 10_000 + k,
+                bad_endorser=bad)
+            flags[_txid(env)] = flag
+            envs.insert(len(envs) // 2 + k, env)
+        blocks.append(envs)
+    return blocks, flags
+
+
+def wire_submit(addr, tca, pems, envs, remote=None) -> list:
+    """Broadcast `envs` to the orderer at `addr` from WIRE_SUBMITTERS
+    GrpcBroadcaster streams (mTLS as `pems`); with `remote` (a callable
+    taking a broadcaster, returning txids) one more stream runs it.
+    Returns remote's txids; any error raises."""
+    from fabric_mod_tpu_torch.comm.grpc_comm import GRPCClient
+    from fabric_mod_tpu_torch.peer.grpcdeliver import GrpcBroadcaster
+    errors, txids = [], []
+
+    def run(part=None, fn=None):
+        client = GRPCClient(addr, tca.cert_pem, *pems)
+        bcast = GrpcBroadcaster(client)
+        try:
+            if fn is not None:
+                txids.extend(fn(bcast))
+            for env in part or ():
+                bcast.submit(env)
+        except Exception as e:
+            errors.append(e)
+        finally:
+            bcast.close()
+            client.close()
+    threads = [threading.Thread(target=run, args=(envs[i::WIRE_SUBMITTERS],))
+               for i in range(WIRE_SUBMITTERS)]
+    if remote is not None:
+        threads.append(threading.Thread(target=run, kwargs={"fn": remote}))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise AssertionError(f"phase 19: a broadcast failed: {errors[0]!r}")
+    return txids
+
+
+def wait_for(pred, timeout_s: float, what: str) -> float:
+    """Poll `pred` every 10 ms; the seconds it took.  Raises on timeout."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"phase 19: timed out waiting for {what}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def wire_leader(orderers, live) -> str:
+    chains = {o: orderers[o]["sup"].chain for o in live}
+    leaders = [o for o, c in chains.items() if c.is_leader]
+    if len(leaders) == 1 and all(c.leader_id == leaders[0]
+                                 for c in chains.values()):
+        return leaders[0]
+    return None
+
+
+def transport_inprocess(torch, dev, verifier, n_blocks=E2E_BLOCKS,
+                        block_txs=TX_PER_BLOCK) -> dict:
+    """19 (a): three Raft orderers and two peers in this process over
+    mutual-TLS sockets on loopback, BASELINE.md #2's width (3 orgs,
+    1000-tx blocks, 2-of-3 endorsement).  Block 1: WIRE_REMOTE txs
+    endorsed through RemoteEndorser, the rest hand-signed, with a flipped
+    endorsement; block 2 after the Raft leader's server and transport
+    stop, with a flipped endorsement and an MVCC conflict; everything
+    through GrpcBroadcaster streams.  An EventDeliverClient over the wire
+    waits for a block-2 txid.  Returns the launches."""
+    from fabric_mod_tpu_torch import concurrency, e2e
+    from fabric_mod_tpu_torch.bccsp.sw import SwCSP
+    from fabric_mod_tpu_torch.comm.grpc_comm import GRPCClient
+    from fabric_mod_tpu_torch.comm.tls import TlsCA
+    from fabric_mod_tpu_torch.peer.deliverevents import EventDeliverClient
+    from fabric_mod_tpu_torch.peer.endorserserver import (RemoteEndorser,
+                                                          invoke_remote)
+    from fabric_mod_tpu_torch.protos import messages as m
+    from fabric_mod_tpu_torch.protos import protoutil
+    from fabric_mod_tpu_torch.utils import fixtures
+    V = m.TxValidationCode
+    t_phase = time.perf_counter()
+    material = fixtures.make_network_material(
+        SEED + 19, channel_id=WIRE_CHANNEL, consensus_type="etcdraft",
+        orderers=3, max_message_count=block_txs,
+        batch_timeout=E2E_BATCH_TIMEOUT,
+        preferred_max_bytes=E2E_PREFERRED_MAX_BYTES)
+    blocks, expected = wire_stream(material, n_blocks, block_txs)
+    t_sign = time.perf_counter() - t_phase
+    csp = SwCSP()
+    tca = TlsCA(seed=b"phase19")
+    client_pems = tca.issue("client.example.com", server=False)
+    client_signer = e2e._signer(csp, material.client)
+    genesis_block = m.Block.decode(material.genesis)
+    before = set(concurrency.live_registered())
+    orderers, peers = {}, []
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            orderers = wire_orderers(root, material, tca, csp, genesis_block)
+            live = list(orderers)
+            t_elect = wait_for(lambda: wire_leader(orderers, live),
+                               WIRE_TIMEOUT_S, "a Raft leader")
+            # the leader first: the peers stream from the orderer that
+            # will fail, so their sources must rotate
+            first = wire_leader(orderers, live)
+            addrs = [orderers[o]["addr"] for o in
+                     sorted(orderers, key=lambda o: o != first)]
+            for org in WIRE_PEERS:
+                peers.append(wire_peer(root, org, material, verifier, tca,
+                                       csp, genesis_block, addrs))
+            a, b = (p["node"] for p in peers)
+            a.join([b.endpoint])
+            b.join([a.endpoint])
+            wait_for(lambda: b.endpoint in a.discovery.alive_endpoints()
+                     and a.endpoint in b.discovery.alive_endpoints(),
+                     60, "the gossip peers' signed alive messages")
+            endorsers = [RemoteEndorser(GRPCClient(p["addr"], tca.cert_pem,
+                                                   *client_pems))
+                         for p in peers]
+
+            def remote(bcast):
+                return [invoke_remote(
+                    WIRE_CHANNEL, fixtures.NAMESPACE,
+                    [b"put", b"r%d" % i, b"v%d" % i], client_signer,
+                    endorsers, bcast) for i in range(WIRE_REMOTE)]
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            leader = wire_leader(orderers, live)
+            txids = wire_submit(orderers[leader]["addr"], tca, client_pems,
+                                blocks[0], remote=remote)
+            expected.update({t: V.VALID for t in txids})
+            wait_for(lambda: all(p["ledger"].height >= 2 for p in peers),
+                     WIRE_TIMEOUT_S, "block 1 at both peers")
+            t_block1 = time.perf_counter() - t0
+            for e in endorsers:
+                e._client.close()
+            # the leader fails: its server and transport stop, its chain
+            # halts; the survivors elect, the peers rotate away from it
+            wait_for(lambda: wire_leader(orderers, live), WIRE_TIMEOUT_S,
+                     "a Raft leader before the stop")
+            leader = wire_leader(orderers, live)
+            t_kill = time.perf_counter()
+            dead = orderers[leader]
+            dead["srv"].stop(0)
+            dead["tr"].stop()
+            dead["reg"].close()
+            live = [o for o in orderers if o != leader]
+            t_reelect = wait_for(lambda: wire_leader(orderers, live),
+                                 WIRE_TIMEOUT_S, "a new Raft leader")
+            new_leader = wire_leader(orderers, live)
+            target = _txid(blocks[1][0])
+            got_event = {}
+            evc_client = GRPCClient(peers[0]["addr"], tca.cert_pem,
+                                    *client_pems)
+            evc = EventDeliverClient(evc_client, WIRE_CHANNEL, client_signer)
+
+            def wait_event():
+                try:
+                    got_event["code"] = evc.wait_for_tx(
+                        target, start=2, timeout_s=WIRE_TIMEOUT_S)
+                except Exception as e:
+                    got_event["error"] = e
+            waiter = threading.Thread(target=wait_event, daemon=True)
+            waiter.start()
+            t1 = time.perf_counter()
+            for envs in blocks[1:]:
+                wire_submit(orderers[new_leader]["addr"], tca, client_pems,
+                            envs)
+            wait_for(lambda: all(p["ledger"].height >= 1 + n_blocks
+                                 for p in peers), WIRE_TIMEOUT_S,
+                     f"block {n_blocks} at both peers")
+            t_rest = time.perf_counter() - t1
+            t_kill_commit = time.perf_counter() - t_kill
+            waiter.join(WIRE_TIMEOUT_S)
+            evc_client.close()
+            launched = kernel_counts()
+            if got_event.get("code") != V.VALID:
+                raise AssertionError(f"phase 19 (a): the event stream gave "
+                                     f"{got_event}")
+            # the gates
+            flags_at = []
+            for p in peers:
+                led = p["ledger"]
+                if led.height != 1 + n_blocks:
+                    raise AssertionError(f"phase 19 (a): {p['org']} at "
+                                         f"height {led.height}")
+                by_tx = {}
+                for n in range(1, led.height):
+                    blk = led.get_block_by_number(n)
+                    if len(blk.data.data) != block_txs:
+                        raise AssertionError(f"phase 19 (a): block {n} holds "
+                                             f"{len(blk.data.data)} txs")
+                    for raw, f in zip(blk.data.data,
+                                      protoutil.block_txflags(blk)):
+                        by_tx[_txid(m.Envelope.decode(raw))] = f
+                if by_tx != expected:
+                    bad = sorted(t for t in expected
+                                 if by_tx.get(t) != expected[t])[:3]
+                    raise AssertionError(f"phase 19 (a): {p['org']}'s flags "
+                                         f"differ from the construction at "
+                                         f"{bad}")
+                flags_at.append([protoutil.block_txflags(
+                    led.get_block_by_number(n)) for n in range(led.height)])
+            if flags_at[0] != flags_at[1]:
+                raise AssertionError("phase 19 (a): the peers' txflags "
+                                     "differ")
+            fps = {p["ledger"].state_fingerprint() for p in peers}
+            if len(fps) != 1:
+                raise AssertionError("phase 19 (a): the peers' state "
+                                     "fingerprints differ")
+            heights = {o: orderers[o]["sup"].store.height for o in live}
+            if len(set(heights.values())) != 1 or \
+                    set(heights.values()) != {1 + n_blocks}:
+                raise AssertionError(f"phase 19 (a): surviving orderers at "
+                                     f"{heights}")
+            rotations = [p["source"].rotations for p in peers]
+            if leader == first and min(rotations) < 1:
+                raise AssertionError(f"phase 19 (a): the peers' sources "
+                                     f"did not rotate ({rotations})")
+            sessions = [len(p["gnet"]._sessions) for p in peers]
+        finally:
+            wire_close(orderers, peers)
+    leaked = []
+    deadline = time.monotonic() + 30
+    while True:
+        leaked = [t.name for t in concurrency.live_registered()
+                  if t not in before]
+        if not leaked or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    if leaked:
+        raise AssertionError(f"phase 19 (a): workers left after close: "
+                             f"{leaked}")
+    for k in CORE_KERNELS:
+        if launched[k] < TOOLS_CORE_A_BLOCK * n_blocks:
+            raise AssertionError(
+                f"phase 19 (a): {k} launched {launched[k]} times for "
+                f"{n_blocks} blocks, under {TOOLS_CORE_A_BLOCK} a block")
+    n_tx = n_blocks * block_txs
+    valid = sum(1 for f in expected.values() if f == V.VALID)
+    log(f"phase 19 (a) in process over mutual TLS on loopback: 3 Raft "
+        f"orderers (GRPCRaftTransport, first leader in {t_elect:.2f} s), 2 "
+        f"peers on one verifier, each pulling through a FailoverDeliverSource "
+        f"over the 3 orderers; {n_tx} txs ({WIRE_REMOTE} endorsed through "
+        f"RemoteEndorser, the rest hand-signed in {t_sign:.1f} s; {valid} "
+        f"VALID, the flipped endorsements and the MVCC conflict flagged) "
+        f"through {WIRE_SUBMITTERS} GrpcBroadcaster streams; block 1 "
+        f"submitted and committed at both peers in {t_block1:.2f} s "
+        f"({block_txs / t_block1:.1f} committed tx/s); leader {leader} "
+        f"stopped: new leader {new_leader} in {t_reelect:.2f} s, the rest "
+        f"({n_tx - block_txs} txs) submitted and committed in {t_rest:.2f} s "
+        f"({(n_tx - block_txs) / t_rest:.1f} committed tx/s), kill to the "
+        f"last commit {t_kill_commit:.2f} s (the failover gap); deliver "
+        f"rotations {rotations}; gossip sessions {sessions}; the event "
+        f"stream saw {target[:12]} VALID; flags and fingerprints equal at "
+        f"both peers, surviving orderers at height {1 + n_blocks}; "
+        f"launches {launched}; {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def _cc_out(argv) -> tuple:
+    """`python -m fabric_mod_tpu_torch.cli.main argv` in process:
+    (exit code, standard output with the binary part first)."""
+    import contextlib
+    import io
+    from fabric_mod_tpu_torch.cli.main import main as cli
+    out = io.StringIO()
+    out.buffer = io.BytesIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(list(argv))
+    return rc, out.buffer.getvalue().decode() + out.getvalue()
+
+
+def procs_submit(net, oid, start, count) -> None:
+    """`count` puts signed by Org1's user0 and endorsed by both peer orgs'
+    peer0, through a GrpcBroadcaster to orderer `oid`."""
+    from fabric_mod_tpu_torch.cli.chaincode import _load_identity
+    from fabric_mod_tpu_torch.comm.grpc_comm import GRPCClient
+    from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder
+    from fabric_mod_tpu_torch.peer.grpcdeliver import GrpcBroadcaster
+    from fabric_mod_tpu_torch.protos import protoutil
+    client_id = _load_identity(net.crypto_dir, "Org1", "users", "user0")
+    endorsers = [_load_identity(net.crypto_dir, org, "peers", "peer0")
+                 for _, org in net.peers]
+    conn = GRPCClient(f"127.0.0.1:{net.bports[oid]}",
+                      server_root_pem=net.tls.cert_pem)
+    bcast = GrpcBroadcaster(conn)
+    try:
+        for i in range(start, start + count):
+            b = RWSetBuilder()
+            b.add_write("mycc", f"pk{i}", b"pv%d" % i)
+            bcast.submit(protoutil.create_signed_tx(
+                net.channel, "mycc", b.build().encode(), client_id,
+                endorsers))
+    finally:
+        bcast.close()
+        conn.close()
+
+
+def transport_processes(torch, dev) -> None:
+    """19 (b): three `cli.main node --role orderer` processes and two
+    `--role peer` processes (core.yaml: peer.BCCSP.Default GPU) from the
+    tools' material (cryptogen, configtxgen) and TLS directories; txs
+    through GrpcBroadcaster and `chaincode invoke`, the Raft leader
+    SIGKILLed, more txs, `chaincode query` of the last value.  Every child
+    is stopped in a `finally`; the logs print when a gate fails."""
+    from fabric_mod_tpu_torch.utils.procnet import ProcNet
+    t_phase = time.perf_counter()
+    peers = ("p0", "p1")
+    with tempfile.TemporaryDirectory() as root:
+        net = ProcNet(root, channel="wireprocs", peer_orgs=TOOLS_ORGS,
+                      orderers=3, batch_txs=TX_PER_BLOCK,
+                      batch_timeout=PROCS_BATCH_TIMEOUT)
+        t0 = time.perf_counter()
+        net.start_all()
+        try:
+            wait_for(lambda: _quiet(lambda: all(
+                net.channel_info(o)["height"] >= 1 for o in net.o_ids)
+                and net.leader_known_by_all()), PROCS_START_S,
+                "the orderer processes and their leader")
+            t_up = wait_for(lambda: _quiet(lambda: all(
+                net.peer_height(p) >= 1 for p in peers)), PROCS_START_S,
+                "the peer processes")
+            t_start = time.perf_counter() - t0
+            startup = {p: re.search(r"start-up: (.*?);", net.log_text(p))
+                       for p in peers}
+            leader = net.leader()
+            procs_submit(net, leader, 0, PROCS_PUTS)
+            for i in range(PROCS_INVOKES):
+                # the last waits for its commit on p0's event stream
+                last = (["--wait-event", "--wait-timeout", "120"]
+                        if i == PROCS_INVOKES - 1 else [])
+                rc, out = _cc_out(net.cc_args("invoke", f"put,ck{i},cv{i}",
+                                              orderer=leader, extra=last))
+                if rc != 0:
+                    raise AssertionError(f"phase 19 (b): chaincode invoke "
+                                         f"exited {rc}: {out}")
+            wait_for(lambda: _quiet(lambda: len({
+                net.peer_height(p) for p in peers} | {
+                net.channel_info(leader)["height"]}) == 1),
+                WIRE_TIMEOUT_S, "the first txs at both peers")
+            h_kill = net.peer_height(peers[0])
+            t_kill = time.perf_counter()
+            net.kill(leader)
+            survivors = [o for o in net.o_ids if o != leader]
+            t_elect = wait_for(lambda: _quiet(
+                lambda: net.leader() in survivors
+                and net.leader_known_by_all()), WIRE_TIMEOUT_S,
+                "a new leader among the surviving processes")
+            new_leader = net.leader()
+            procs_submit(net, new_leader, PROCS_PUTS, PROCS_PUTS)
+            rc, out = _cc_out(net.cc_args("invoke", "put,lastkey,lastvalue",
+                                          orderer=new_leader,
+                                          extra=["--wait-event",
+                                                 "--wait-timeout", "120"]))
+            if rc != 0:
+                raise AssertionError(f"phase 19 (b): invoke --wait-event "
+                                     f"exited {rc}: {out}")
+            wait_for(lambda: _quiet(lambda: all(
+                net.peer_height(p) > h_kill for p in peers)),
+                WIRE_TIMEOUT_S, "a commit after the kill at both peers")
+            t_commit = time.perf_counter() - t_kill
+            wait_for(lambda: _quiet(lambda: len({
+                net.peer_height(p) for p in peers} | {
+                net.channel_info(new_leader)["height"]}) == 1),
+                WIRE_TIMEOUT_S, "equal heights")
+            heights = {p: net.peer_height(p) for p in peers}
+            for p in peers:
+                rc, out = _cc_out(net.cc_args("query", "get,lastkey",
+                                              peers=[p]))
+                if (rc, out) != (0, "lastvalue\n"):
+                    raise AssertionError(f"phase 19 (b): query at {p} gave "
+                                         f"{rc} {out!r}")
+            misses = {p: net.peer_metric(
+                p, "fabric_bccsp_verdict_cache_misses") for p in peers}
+            builds = {p: net.peer_metric(
+                p, "fabric_gpu_kernel_nvcc_builds_total") for p in peers}
+            if any((v or 0) <= PROCS_WARM_MISSES for v in misses.values()):
+                raise AssertionError(f"phase 19 (b): verdict-cache misses "
+                                     f"{misses}: no item went to the card "
+                                     f"after the warm-up")
+            if any(v != 0 for v in builds.values()):
+                raise AssertionError(f"phase 19 (b): kernel builds in the "
+                                     f"peers {builds}: not phase 2's build")
+            if any(v is None or "CUDA context" not in v.group(1)
+                   for v in startup.values()):
+                raise AssertionError("phase 19 (b): a peer logged no "
+                                     "start-up line")
+        except BaseException:
+            for name in net.procs:
+                log(f"--- phase 19 (b) log of {name} (tail):\n"
+                    f"{net.log_text(name)[-4000:]}")
+            raise
+        finally:
+            net.teardown()
+    log(f"phase 19 (b) as OS processes: 3 orderers and 2 GPU peers up in "
+        f"{t_start:.1f} s (peers serving {t_up:.1f} s after the orderers' "
+        f"leader); peer start-up "
+        f"{[(p, s and s.group(1)) for p, s in startup.items()]};"
+        f" {PROCS_PUTS} puts and {PROCS_INVOKES} `chaincode invoke`s, leader "
+        f"{leader} SIGKILLed at height {h_kill}: new leader {new_leader} in "
+        f"{t_elect:.2f} s, kill to the next commit at both peers "
+        f"{t_commit:.2f} s; {PROCS_PUTS} puts and an invoke --wait-event "
+        f"after; heights {heights}; query lastvalue at both; verdict-cache "
+        f"misses {misses} (the warm-up's {PROCS_WARM_MISSES} among them); "
+        f"nvcc builds {builds}; {time.perf_counter() - t_phase:.1f} s")
+
+
+def _quiet(pred) -> bool:
+    """`pred()`, false where it raises (a node not yet serving)."""
+    try:
+        return bool(pred())
+    except Exception:
+        return False
+
+
+def phase_transport(torch, dev) -> dict:
+    """Phase 19: (a) the transport in process on the card's GpuVerifier,
+    (b) the process network.  Returns (a)'s launches."""
+    from fabric_mod_tpu_torch.bccsp import gpu
+    t_phase = time.perf_counter()
+    launched = transport_inprocess(torch, dev, gpu.GpuVerifier(device=dev))
+    transport_processes(torch, dev)
+    log(f"transport phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return launched
+
+
 def main_phase11(torch, dev) -> int:
     """`--phase 11`: phase 11 alone, its (b) on a stream made here (phase 8
     arm (a)'s first GOSSIP_BLOCKS blocks' worth, endorsed as phase 8 does);
@@ -7550,12 +8206,41 @@ def main_phase18(torch, dev) -> int:
     return 0
 
 
+def main_phase7(torch, np, dev) -> int:
+    """`--phase 7`: phase 7 alone with (d), the plain pairing's profile,
+    which the whole script leaves out for its time limit; no kernels
+    line."""
+    from fabric_mod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    _launched, _entries, pairing_profile = phase_idemix(torch, np)
+    pairing_profile()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main_phase19(torch, dev) -> int:
+    """`--phase 19`: phase 19 alone; no kernels line."""
+    from fabric_mod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_many()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    phase_transport(torch, dev)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase",
-                        choices=["11", "12", "13", "14", "15", "16",
-                                 "17", "18"],
+                        choices=["7", "11", "12", "13", "14", "15", "16",
+                                 "17", "18", "19"],
                         default=None,
                         help="run one phase alone (after the header)")
     only = parser.parse_args().phase
@@ -7585,6 +8270,8 @@ def main() -> int:
     _device.require_exact_fp32()
     dev = _device.resolve(None)
 
+    if only == "7":
+        return main_phase7(torch, np, dev)
     if only == "11":
         return main_phase11(torch, dev)
     if only == "12":
@@ -7601,6 +8288,8 @@ def main() -> int:
         return main_phase17(torch, dev)
     if only == "18":
         return main_phase18(torch, dev)
+    if only == "19":
+        return main_phase19(torch, dev)
 
     # each top-level step's wall, printed at the end beside the total
     walls, t_mark = {}, [time.perf_counter()]
@@ -7698,7 +8387,7 @@ def main() -> int:
     mark("6 profile")
 
     # 7. the idemix presentation verify
-    arms["idemix"], idemix_kernels, pairing_profile = phase_idemix(torch, np)
+    arms["idemix"], idemix_kernels, _plain_profile = phase_idemix(torch, np)
     kernels.update(idemix_kernels)
     mark("7 idemix")
 
@@ -7767,9 +8456,13 @@ def main() -> int:
     # discover, and idemixgen's presentations on the card
     arms["tools"] = phase_tools(torch, dev)
     mark("18 tools")
-    # 7 (d), the plain pairing's profile: after the last profiler window
-    pairing_profile()
-    mark("7 (d) pairing profile")
+    # 19. the transport: (a) three Raft orderers and two peers in this
+    # process over mutual TLS, the leader stopped between the two blocks;
+    # (b) the same as OS processes, the leader SIGKILLed
+    arms["transport"] = phase_transport(torch, dev)
+    mark("19 transport")
+    # 7 (d), the plain pairing's profile (_plain_profile), runs under
+    # --phase 7 only, for the script's time limit
     for k in kernels.values():
         k["launches"] = counts.get(k["name"], 0) + sum(
             c.get(k["name"], 0) for c in arms.values())

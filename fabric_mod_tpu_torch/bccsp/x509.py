@@ -5,9 +5,12 @@ only X.509 layer the port has: the port never imports the
 `cryptography` wheel, so it parses and issues certificates the same way
 on every machine.  The shapes covered are those a Fabric CA mints: X.509
 v3, EC P-256 keys, ecdsa-with-SHA256 signatures, names of string
-attributes (CN, O, OU, ...), BasicConstraints and KeyUsage.  A
-non-critical extension of another kind is dropped; a critical one, or
-anything else outside these shapes, raises `UnsupportedCertificate`.
+attributes (CN, O, OU, ...), BasicConstraints and KeyUsage, and the TLS
+certificates' SubjectAlternativeName (DNS names and IP addresses) and
+ExtendedKeyUsage (comm/tls.py issues them so that OpenSSL's host-name
+check passes).  A non-critical extension of another kind is dropped; a
+critical one, or anything else outside these shapes, raises
+`UnsupportedCertificate`.
 
 A parsed `Certificate` keeps the exact DER it was read from: its
 fingerprint (msp/identities.cert_fingerprint) and its PEM come from
@@ -18,7 +21,8 @@ from __future__ import annotations
 
 import datetime
 import hashlib
-from typing import List, Optional
+import ipaddress
+from typing import List, Optional, Sequence
 
 from fabric_mod_tpu_torch.bccsp import sw
 from fabric_mod_tpu_torch.bccsp.sw import (
@@ -178,6 +182,66 @@ class KeyUsage:
         self.decipher_only = decipher_only
 
 
+class DNSName:
+    """A SubjectAlternativeName dNSName ([2] IA5String)."""
+
+    def __init__(self, value: str):
+        self.value = value
+
+    def __eq__(self, other):
+        return isinstance(other, DNSName) and self.value == other.value
+
+    def __hash__(self):
+        return hash(("dns", self.value))
+
+    def __repr__(self):
+        return f"<DNSName(value={self.value!r})>"
+
+
+class IPAddress:
+    """A SubjectAlternativeName iPAddress ([7] OCTET STRING)."""
+
+    def __init__(self, value):
+        self.value = ipaddress.ip_address(value)
+
+    def __eq__(self, other):
+        return isinstance(other, IPAddress) and self.value == other.value
+
+    def __hash__(self):
+        return hash(("ip", self.value))
+
+    def __repr__(self):
+        return f"<IPAddress(value={self.value})>"
+
+
+class SubjectAlternativeName:
+    oid = ObjectIdentifier("2.5.29.17")
+
+    def __init__(self, names: Sequence):
+        self._names = list(names)
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def get_values_for_type(self, kind) -> list:
+        return [n.value for n in self._names if isinstance(n, kind)]
+
+
+class ExtendedKeyUsageOID:
+    SERVER_AUTH = ObjectIdentifier("1.3.6.1.5.5.7.3.1")
+    CLIENT_AUTH = ObjectIdentifier("1.3.6.1.5.5.7.3.2")
+
+
+class ExtendedKeyUsage:
+    oid = ObjectIdentifier("2.5.29.37")
+
+    def __init__(self, usages: Sequence[ObjectIdentifier]):
+        self._usages = list(usages)
+
+    def __iter__(self):
+        return iter(self._usages)
+
+
 class Extension:
     def __init__(self, oid_, critical: bool, value):
         self.oid = oid_
@@ -223,6 +287,18 @@ def _encode_extension_value(ext) -> bytes:
         unused = nbytes * 8 - len(bits)
         return der_tlv(0x03, bytes([unused])
                        + val.to_bytes(nbytes, "big"))
+    if isinstance(ext, SubjectAlternativeName):
+        names = []
+        for n in ext:
+            if isinstance(n, DNSName):
+                names.append(der_tlv(0x82, n.value.encode("ascii")))
+            elif isinstance(n, IPAddress):
+                names.append(der_tlv(0x87, n.value.packed))
+            else:
+                raise UnsupportedCertificate(f"general name {n!r}")
+        return der_seq(*names)
+    if isinstance(ext, ExtendedKeyUsage):
+        return der_seq(*(der_oid(u.dotted_string) for u in ext))
     raise UnsupportedCertificate(f"extension {type(ext).__name__}")
 
 
@@ -248,6 +324,25 @@ def _decode_extension(oid_: ObjectIdentifier, critical: bool,
                 on = bool(body[i // 8] & (0x80 >> (i % 8)))
             flags.append(on)
         return Extension(oid_, critical, KeyUsage(*flags))
+    if dotted == "2.5.29.17":                     # SubjectAlternativeName
+        rd = DerReader(value).reader(0x30)
+        names = []
+        while not rd.done():
+            tag, a, b = rd.read()
+            if tag == 0x82:
+                names.append(DNSName(rd.buf[a:b].decode("ascii")))
+            elif tag == 0x87:
+                names.append(IPAddress(bytes(rd.buf[a:b])))
+            elif critical:
+                raise UnsupportedCertificate(
+                    f"critical SubjectAlternativeName with tag 0x{tag:02x}")
+        return Extension(oid_, critical, SubjectAlternativeName(names))
+    if dotted == "2.5.29.37":                     # ExtendedKeyUsage
+        rd = DerReader(value).reader(0x30)
+        usages = []
+        while not rd.done():
+            usages.append(_oid_from_der_body(rd.value(0x06)))
+        return Extension(oid_, critical, ExtendedKeyUsage(usages))
     if critical:
         raise UnsupportedCertificate(f"critical extension {dotted}")
     return None                                   # tolerated, dropped

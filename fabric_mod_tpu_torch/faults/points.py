@@ -7,15 +7,10 @@ that never fires; declaring every point here makes
 tests scan the package both ways (every declared point has a
 `faults.point` literal, every literal is declared).
 
-Three of the reference's points are not declared, each with its seam:
-
-* ``bccsp.device.probe`` belongs to the circuit breaker's probe, and
-  the port has no breaker: a device fault raises to the caller, it
-  never degrades to a host verdict;
-* ``deliver.failover.stream`` lives in peer/blocksprovider.py, which
-  comes with the gRPC transport (``comm/``);
-* ``gossip.comm.send`` lives in ``GRPCGossipNetwork``, also the gRPC
-  transport's.
+One of the reference's points is not declared, with its seam:
+``bccsp.device.probe`` belongs to the circuit breaker's probe, and the
+port has no breaker: a device fault raises to the caller, it never
+degrades to a host verdict.
 
 Tests arming synthetic points for framework units register them scoped
 via :func:`declared_point`.
@@ -31,11 +26,13 @@ DECLARED_POINTS: Set[str] = {
     "bccsp.device.resolve",
     "commitpipe.commit",
     "commitpipe.stage",
+    "deliver.failover.stream",
     "deliver.fanout",
     "deliver.stream",
     "dissemination.push",
     "dissemination.repair",
     "gossip.comm.drop",
+    "gossip.comm.send",
     "orderer.admission.overload",
     "orderer.broadcast.stage",
     "orderer.raft.replicate",

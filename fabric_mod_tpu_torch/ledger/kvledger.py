@@ -60,8 +60,18 @@ from fabric_mod_tpu_torch.ledger.rwsetutil import RWSetBuilder, parse_tx_rwset
 from fabric_mod_tpu_torch.ledger.snapshot import generate_snapshot
 from fabric_mod_tpu_torch.ledger.statedb import UpdateBatch, VersionedDB
 from fabric_mod_tpu_torch.observability import tracing
+from fabric_mod_tpu_torch.observability.metrics import (MetricOpts,
+                                                        default_provider)
 from fabric_mod_tpu_torch.protos import messages as m
 from fabric_mod_tpu_torch.protos import protoutil
+
+# the reference's G_HEIGHT (kvledger.py:52): set after each commit
+_HEIGHT_OPTS = MetricOpts("ledger", "", "blockchain_height",
+                          "Committed chain height", ("channel",))
+
+
+def _height_gauge():
+    return default_provider().gauge(_HEIGHT_OPTS)
 
 Version = Tuple[int, int]
 
@@ -491,6 +501,8 @@ class KvLedger:
                 self.confighistory.handle_block_writes(
                     num, [(ns, key, value) for (ns, key), (value, _v)
                           in batch.updates.items()])
+            _height_gauge().with_labels(self.ledger_id).set(
+                self.blockstore.height)
             if not self._durable and (num + 1) % self.SNAPSHOT_EVERY == 0:
                 self.state.snapshot(self._state_path)
         with self.height_changed:

@@ -1,17 +1,13 @@
 """The span-name registry: every tracing span of the port, declared here.
 
 The port's own copy of fabric_mod_tpu/observability/spannames.py
-(`DECLARED_SPANS` :19).  Span names are the join key of the tracer: the
+(`DECLARED_SPANS` :19), the same set.  Span names are the join key of the tracer: the
 per-block timelines, the ``fabric_trace_substage_seconds{stage}``
 histogram, the stage attribution that must explain the commit pipe's
 stage, await and commit buckets, and the Chrome-trace export all select
 spans BY NAME.  A test (tests/test_torch_tracing.py) holds both
 directions: every ``tracing.span("...")`` literal in the port is
 declared here, and every name declared here is used by a seam.
-
-Dropped from the reference's set: ``broadcast.handle``, whose only seam
-is the gRPC broadcast server (the reference's orderer/server.py:68),
-which the port does not have.
 """
 from __future__ import annotations
 
@@ -20,6 +16,7 @@ from typing import Set
 # Keep sorted.
 DECLARED_SPANS: Set[str] = {
     "body_decode",
+    "broadcast.handle",
     "broadcast.stage",
     "broadcast.submit",
     "der_marshal",

@@ -12,7 +12,10 @@ Nothing here runs at import.
 `build_count()` counts the nvcc builds and library loads of this
 process, also exported as the ``fabric_gpu_kernel_builds_total``
 counter (the port's counterpart of the reference's XLA compile count,
-observability/tracing.compile_count).
+observability/tracing.compile_count).  `nvcc_count()` counts the nvcc
+builds alone (``fabric_gpu_kernel_nvcc_builds_total``): a process that
+finds every library built, as a node started after a build does, keeps
+it at 0.
 """
 from __future__ import annotations
 
@@ -124,6 +127,32 @@ def _count_build() -> None:
     default_provider().counter(_BUILDS_OPTS).add(1)
 
 
+_NVCC_OPTS = MetricOpts(
+    "fabric", "gpu", "kernel_nvcc_builds_total",
+    help="nvcc builds of the port's CUDA sources in this process (0 when "
+         "every library was already built).")
+_nvcc_builds = 0
+
+
+def _count_nvcc() -> None:
+    global _nvcc_builds
+    with _builds_lock:
+        _nvcc_builds += 1
+    default_provider().counter(_NVCC_OPTS).add(1)
+
+
+def nvcc_count() -> int:
+    """nvcc builds made by this process so far."""
+    return _nvcc_builds
+
+
+def export_counts() -> None:
+    """Register both counters on the default metrics provider, so a
+    process that builds nothing still shows them (at 0) on /metrics."""
+    default_provider().counter(_BUILDS_OPTS).add(0)
+    default_provider().counter(_NVCC_OPTS).add(0)
+
+
 def build_count() -> int:
     """nvcc builds plus library loads made by this process so far."""
     return _builds
@@ -149,6 +178,7 @@ def build_many(names: Sequence[str] = SOURCES) -> Dict[str, str]:
         out, _ = proc.communicate()
         logs[name] = out
         _count_build()
+        _count_nvcc()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")

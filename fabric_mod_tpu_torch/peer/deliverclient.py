@@ -18,8 +18,9 @@ Three stages, the double buffer:
 Stages 2 and 3 are peer/commitpipe.PipelinedCommitter at depth 2,
 always, as in the reference; this client owns stage 1 and the MCS gate.
 Commit order is block-number order by construction (one puller).  A
-block that fails the MCS is dropped, recorded in `rejected`, and ends
-the pull.  `on_commit(block)` fires after each commit (the gossip
+block that fails the MCS is dropped and recorded in `rejected`; it ends
+the pull, unless the source can fetch it again from another orderer
+(`report_bad_block`, peer/blocksprovider.py).  `on_commit(block)` fires after each commit (the gossip
 service pushes the leader's blocks to the other peers from it); what it
 raises fails the pipe and is re-raised by `run()`, where the reference
 logs it as advisory.
@@ -159,9 +160,18 @@ class DeliverClient:
                             expected_prev_hash=prev_hash)
                     except BlockVerificationError:
                         # a tampered or mis-signed block is never
-                        # committed; a single-endpoint source fails
-                        # closed by stopping
+                        # committed.  A failover source is asked to
+                        # fetch it again from a different orderer
+                        # (reference: blocksprovider.go:227 — disconnect
+                        # and retry another orderer); a single-endpoint
+                        # source fails closed by stopping
                         self.rejected.append(block.header.number)
+                        del self.rejected[:-1000]  # bounded memory
+                        report = getattr(self._source,
+                                         "report_bad_block", None)
+                        if report is not None:
+                            report(block.header.number)
+                            continue
                         break
                     finally:
                         self.mcs_secs += time.perf_counter() - t0

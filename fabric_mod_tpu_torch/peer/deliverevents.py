@@ -1,29 +1,29 @@
-"""Client-facing event deliver service: Deliver / DeliverFiltered, in
-process.
+"""Client-facing event deliver service: Deliver / DeliverFiltered.
 
 The port's copy of fabric_mod_tpu/peer/deliverevents.py (reference:
 core/peer/deliverevents.go — `Deliver` at :255 streaming full blocks,
 `DeliverFiltered` at :240 streaming filtered blocks).  The server's
 seek checks (`_check_request`), its frame loop (`_frames`) and the
 session ACL re-check over the fan-out engine's `AclGroups` are the
-reference's (:120-258); the gRPC registration is not: a stream is the
-in-process call `handle(filtered, request_iter)`, which yields the
-encoded DeliverResponse messages the reference's handler yields, and
-the client goes over a callable transport (`server.call` or anything
-with its signature) instead of a channel.  The gRPC registration comes
-with the gRPC transport (`comm/`).
+reference's (:120-258).  A stream runs two ways: in process, as the call
+`handle(filtered, request_iter)` (or `call(method, ...)`), which yields
+the encoded DeliverResponse messages (the soak's peers use it); and over
+the wire, registered as `protos.Deliver/Deliver` and `DeliverFiltered`
+on a shared GRPCServer (comm/grpc_comm.py) given as `grpc=`, as the
+reference's registration (:54-102).
 
 Server side: seek semantics over the peer ledger (committed blocks,
 whose metadata carries the validator's txflags), gated per stream by
 the channel ACLs `event/Block` / `event/FilteredBlock`
 (peer/aclmgmt.py), on the shared per-block fan-out engine
-(peer/fanout.py).  A stream stops when its CancellationEvent is set,
-when its deadline passes at the tip (TimeoutError, the gRPC deadline's
-stand-in) or when the server stops.
+(peer/fanout.py).  A stream stops when its CancellationEvent is set (in
+process, or when the wire's client cancels or goes away), when its
+deadline passes at the tip (TimeoutError, in process) or when the server
+stops.
 
 Client side: `EventDeliverClient` signs SeekInfo envelopes and exposes
 `wait_for_tx` — scan filtered blocks until a txid appears and return
-its validation code.
+its validation code — over a GRPCClient or the in-process transport.
 """
 from __future__ import annotations
 
@@ -31,6 +31,8 @@ import threading
 import time
 from typing import Callable, Iterator, Optional, Tuple
 
+from fabric_mod_tpu_torch.comm.grpc_comm import (GRPCServer, MethodKind,
+                                                 RpcError, StatusCode)
 from fabric_mod_tpu_torch.concurrency import CancellationEvent
 from fabric_mod_tpu_torch.peer.fanout import FanoutEngine, filtered_block
 from fabric_mod_tpu_torch.protos import messages as m
@@ -40,6 +42,7 @@ from fabric_mod_tpu_torch.protos.protoutil import SignedData
 __all__ = ["EventDeliverServer", "EventDeliverClient", "EventStreamError",
            "filtered_block", "make_signed_seek_envelope"]
 
+SERVICE = "protos.Deliver"
 METHODS = {"Deliver": False, "DeliverFiltered": True}
 # the reference's FABRIC_MOD_TPU_DELIVER_STREAMS default
 MAX_STREAMS = 40
@@ -57,9 +60,13 @@ class EventDeliverServer:
     re-checks after admission are batched per (resource, creator)
     group by the fan-out engine.  `max_streams` is the admission cap
     (the reference's FABRIC_MOD_TPU_DELIVER_STREAMS, default 40): past
-    it a stream gets SERVICE_UNAVAILABLE."""
+    it a stream gets SERVICE_UNAVAILABLE.
+
+    `grpc` registers both methods on that (shared) server, which its
+    owner starts and stops; without it the service is in process only."""
 
     def __init__(self, channel_id: str, ledger, acl,
+                 grpc: Optional[GRPCServer] = None,
                  max_streams: int = MAX_STREAMS):
         self._channel_id = channel_id
         self._ledger = ledger
@@ -70,6 +77,10 @@ class EventDeliverServer:
         self.active_streams = 0
         self.rejected_streams = 0
         self._count_lock = threading.Lock()
+        if grpc is not None:
+            for method, filtered in METHODS.items():
+                grpc.register(SERVICE, method, MethodKind.STREAM_STREAM,
+                              self._wire_handler(filtered))
 
     @property
     def fanout(self) -> FanoutEngine:
@@ -77,9 +88,18 @@ class EventDeliverServer:
 
     def stop(self) -> None:
         # flag the close, then the notifier close wakes every stream
-        # parked at the tip
+        # parked at the tip, so a shared listener's stop strands none
         self._closing.set()
         self._fanout.close()
+
+    def _wire_handler(self, filtered: bool):
+        def handle(request_iter, context) -> Iterator[bytes]:
+            # the client's cancel, its going away and the server's stop
+            # end the stream through its CancellationEvent
+            stop_event = CancellationEvent()
+            context.add_callback(stop_event.set)
+            yield from self.handle(filtered, request_iter, stop_event)
+        return handle
 
     def call(self, method: str, request_iter,
              stop_event: Optional[CancellationEvent] = None,
@@ -233,12 +253,39 @@ def make_signed_seek_envelope(channel_id: str, start: int,
     return protoutil.sign_envelope(payload, signer)
 
 
+def _wire_transport(client):
+    """A GRPCClient as the client's transport: the stream over the wire,
+    cancelled when `stop_event` is set; its deadline is `timeout_s`."""
+    def call(method, request_iter, stop_event=None, timeout_s=None):
+        stream = client.stream_stream(SERVICE, method, request_iter,
+                                      timeout=timeout_s)
+        unhook = (stop_event.on_set(stream.cancel)
+                  if hasattr(stop_event, "on_set") else None)
+        try:
+            yield from stream
+        except RpcError as e:
+            if e.code() == StatusCode.DEADLINE_EXCEEDED:
+                raise TimeoutError("deliver stream deadline exceeded"
+                                   ) from None
+            if stop_event is not None and stop_event.is_set():
+                return                     # our own cancel
+            raise
+        finally:
+            if unhook is not None:
+                unhook()
+            stream.cancel()
+    return call
+
+
 class EventDeliverClient:
-    """Client over the peer event service.  `transport(method,
-    request_iter, stop_event=None, timeout_s=None)` returns the stream's
-    encoded responses (`EventDeliverServer.call`)."""
+    """Client over the peer event service.  `transport` is a GRPCClient
+    (the wire), or a callable `transport(method, request_iter,
+    stop_event=None, timeout_s=None)` that returns the stream's encoded
+    responses (in process: `EventDeliverServer.call`)."""
 
     def __init__(self, transport, channel_id: str, signer):
+        if hasattr(transport, "stream_stream"):
+            transport = _wire_transport(transport)
         self._transport = transport
         self._channel_id = channel_id
         self._signer = signer

@@ -12,7 +12,7 @@ against the reference's, on the same inputs.
 * discover: peers, config and endorsers JSON equal the reference's.
 * ledger: snapshot, join-from-snapshot, rollback and rebuild-dbs over
   the same blocks give the same heights and fingerprints in both.
-* main: node and chaincode exit 2.
+* main: node and chaincode parse their arguments (usage errors exit 2).
 """
 import io
 import json
@@ -315,7 +315,16 @@ def test_ledger_tools_give_equal_heights_and_fingerprints(tmp_path):
 
 @pytest.mark.parametrize("tool", ["node", "chaincode"])
 def test_transport_tools_exit_2(tool, capsys):
-    assert main([tool]) == 2
-    assert "comes with the transport" in capsys.readouterr().err
+    """node and chaincode are in the port: without their required
+    arguments they exit 2 as a usage error (argparse), with --help 0."""
+    with pytest.raises(SystemExit) as got:
+        main([tool])
+    assert got.value.code == 2
+    assert "the following arguments are required" in \
+        capsys.readouterr().err
+    with pytest.raises(SystemExit) as got:
+        main([tool, "--help"])
+    assert got.value.code == 0
+    assert f"usage: {tool}" in capsys.readouterr().out
     assert main([]) == 2
     assert main(["nope"]) == 2

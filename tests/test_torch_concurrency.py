@@ -100,8 +100,11 @@ def test_every_port_worker_is_registered_under_the_references_structure():
             if theirs - {None}:
                 assert set(mine) <= theirs, (path, mine, theirs)
     assert plain == []
-    # the 19 worker sites of the port's modules and the soak's three
-    assert registered == 22
+    # the 27 worker sites of the port's modules (eight of them the
+    # transport's: the wire's accept, serving and stream-writer threads,
+    # the cluster and gossip senders, the deliver pump and the node's two
+    # deliver runners) and the soak's three
+    assert registered == 30
 
 
 def test_verify_service_workers_are_swept():

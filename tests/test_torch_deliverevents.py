@@ -240,3 +240,78 @@ def test_deadline_cancel_and_wait_for_tx(world):
     cancel.set()
     t.join(10)
     assert not t.is_alive() and got == [N_BLOCKS - 1]
+
+
+# -- the same service over the port's wire ----------------------------------
+
+@pytest.fixture()
+def wire(world):
+    """The port's service over its wire on the same chain, registered on
+    a shared GRPCServer as the peer node does, and a client dialing it."""
+    from fabric_mod_tpu_torch.comm.grpc_comm import GRPCClient as Client
+    from fabric_mod_tpu_torch.comm.grpc_comm import GRPCServer
+    srv = GRPCServer("127.0.0.1:0")
+    server = EventDeliverServer(
+        CH, world["server"]._ledger, world["server"]._acl, grpc=srv)
+    srv.start()
+    client = Client(f"127.0.0.1:{srv.port}")
+    yield {"server": server, "client": client}
+    client.close()
+    server.stop()
+    srv.stop()
+
+
+@pytest.mark.parametrize("method", ["Deliver", "DeliverFiltered"])
+def test_wire_answers_equal_the_references(world, wire, method):
+    """Bounded, refused and garbage seeks over the port's wire: the same
+    frames and statuses as the reference's gRPC service."""
+    mine, ref = world["signers"](world["material"].client)
+    outsider, jout = world["signers"](world["material"].orderer)
+    cases = [(lambda s: make_signed_seek_envelope(CH, 1, 4, s), mine, ref),
+             (lambda s: make_signed_seek_envelope("other-ch", 0, 1, s),
+              mine, ref),
+             (lambda s: make_signed_seek_envelope(CH, 0, 1, s), outsider,
+              jout)]
+    for fn, sm, sr in cases:
+        got = list(wire["client"].stream_stream(
+            "protos.Deliver", method, iter([fn(sm).encode()]), timeout=30))
+        want = list(world["client"].stream_stream(
+            jde.SERVICE, method, iter([fn(sr).encode()]), timeout=30))
+        assert got == want
+    got = list(wire["client"].stream_stream(
+        "protos.Deliver", method, iter([b"\xff\x01junk"]), timeout=30))
+    assert got == [m.DeliverResponse(status=m.Status.BAD_REQUEST).encode()]
+
+
+def test_wire_deadline_cancel_and_wait_for_tx(world, wire):
+    """The port's client over the wire: a deadline at the tip is a
+    TimeoutError, a tx revealed while it waits is found, and a cancelled
+    standing stream frees its slot at the server."""
+    mine, _ref = world["signers"](world["material"].client)
+    evc = EventDeliverClient(wire["client"], CH, mine)
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError):
+        evc.wait_for_tx("never-committed", timeout_s=0.5)
+    assert time.monotonic() - t0 < 10
+    target = f"t{CONFIG_AT + 2}-1"
+    threading.Timer(0.3, world["revoke"]).start()
+    assert evc.wait_for_tx(target, timeout_s=30) == m.TxValidationCode.VALID
+    cancel = CancellationEvent()
+    got = []
+
+    def stream():
+        for blk in evc.blocks(start=N_BLOCKS - 1, stop_event=cancel):
+            got.append(blk.header.number)
+    t = threading.Thread(target=stream)
+    t.start()
+    deadline = time.monotonic() + 60
+    while not got:                          # parked at the tip
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
+    cancel.set()
+    t.join(10)
+    assert not t.is_alive() and got == [N_BLOCKS - 1]
+    deadline = time.monotonic() + 10
+    while wire["server"].active_streams:    # the server saw the cancel
+        assert time.monotonic() < deadline
+        time.sleep(0.01)

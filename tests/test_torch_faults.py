@@ -11,8 +11,9 @@ reference.
   parsed plans fire on the same passes as the reference's over 2,000
   passes per point, with equal `fires()` and `calls()`.
 - The registry: the port declares the reference's points less exactly
-  `bccsp.device.probe`, `deliver.failover.stream` and
-  `gossip.comm.send`; an AST scan of the port finds every declared
+  `bccsp.device.probe` (the transport's two points,
+  `deliver.failover.stream` and `gossip.comm.send`, came with it); an
+  AST scan of the port finds every declared
   point as a `faults.point` literal and no literal that is undeclared.
 - The Retrier (reference tests/test_faults.py:111-153): delays, seeded
   jitter, the deadline on a ManualClock, give-up; the same delays as
@@ -42,8 +43,7 @@ from fabric_mod_tpu_torch.utils.fakeclock import ManualClock
 from fabric_mod_tpu_torch.utils.retry import Retrier, RetryBudgetExceeded
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-LEFT_OUT = {"bccsp.device.probe", "deliver.failover.stream",
-            "gossip.comm.send"}
+LEFT_OUT = {"bccsp.device.probe"}
 
 
 # ---------------------------------------------------------------------------

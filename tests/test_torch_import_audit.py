@@ -26,8 +26,11 @@ plan, retries through a Retrier, runs a two-event soak under churn
 (host verifier), drives the offline tools through cli.main (cryptogen,
 configtxgen, a configtxlator round trip, discover (no verifier), a
 ledger snapshot) with one block committed by a tool-built Network under
-armed guards, then inspects sys.modules: no jax, no module of the JAX
-package, no `cryptography`, `grpc` or `yaml`."""
+armed guards, drives the transport (a unary call and a stream over
+mutual TLS, a Raft Step between two cluster transports) and runs
+`cli.main node` in a thread, then inspects sys.modules: no jax, no
+module of the JAX package, no `cryptography`, `grpc` or `yaml`.  The
+fault registry declares the transport's two points."""
 import json
 import os
 import pathlib
@@ -440,7 +443,7 @@ rep = SoakHarness(SoakConfig(seed=11, n_events=2, n_channels=1, n_peers=2,
                              gap_txs=(2, 3), verifier=sw.SwVerifier())).run()
 assert rep["x509_txs"] > 0 and rep["audited_txs"] == rep["x509_txs"]
 assert len(rep["events"]) == 2 and rep["fault_fires"] > 0
-import contextlib, io, tempfile
+import contextlib, io, os, tempfile
 from fabric_mod_tpu_torch import concurrency, e2e as _e2e
 from fabric_mod_tpu_torch.cli import cryptogen as _cg
 from fabric_mod_tpu_torch.cli.main import main as cli
@@ -481,7 +484,64 @@ with tempfile.TemporaryDirectory() as d, \
     assert cli(["ledger", "snapshot", "--ledger",
                 f"{d}/net/peer/auditchan", "--channel", "auditchan",
                 "--output", f"{d}/snap"]) == 0
-    assert cli(["node"]) == 2
+    # the transport: a unary call and a stream over mutual TLS, a Raft
+    # Step between two cluster transports, then `cli.main node` (the
+    # combined role, host verifier) in a thread, stopped by its event
+    import threading, time
+    from fabric_mod_tpu_torch.cli import node as _node
+    from fabric_mod_tpu_torch.comm.grpc_comm import (GRPCClient, GRPCServer,
+                                                     MethodKind)
+    from fabric_mod_tpu_torch.comm.tls import TlsCA
+    from fabric_mod_tpu_torch.orderer import cluster as _cluster
+    from fabric_mod_tpu_torch.orderer import raft as _raft
+    tca = TlsCA(seed=b"audit")
+    sc, sk = tca.issue("audit.example.com", sans=("127.0.0.1",))
+    cc, ck = tca.issue("audit.client", server=False)
+    srv = GRPCServer("127.0.0.1:0", sc, sk, tca.cert_pem)
+    srv.register("audit.Svc", "Echo", MethodKind.UNARY, lambda r, c: r)
+    srv.register("audit.Svc", "Pipe", MethodKind.STREAM_STREAM,
+                 lambda it, c: (x[::-1] for x in it))
+    srv.start()
+    rpc = GRPCClient(f"127.0.0.1:{srv.port}", tca.cert_pem, cc, ck)
+    assert rpc.unary("audit.Svc", "Echo", b"u") == b"u"
+    assert list(rpc.stream_stream("audit.Svc", "Pipe",
+                                  iter([b"ab", b"cd"]))) == [b"ba", b"dc"]
+    rpc.close()
+    srv.stop()
+    steps = []
+    trs = {n: _cluster.GRPCRaftTransport(
+        n, {"n1": "127.0.0.1:0", "n2": "127.0.0.1:0"},
+        listen_address="127.0.0.1:0", server_cert=sc, server_key=sk,
+        client_ca=tca.cert_pem, client_cert=cc, client_key=ck)
+        for n in ("n1", "n2")}
+    for n, tr in trs.items():
+        for m_, other in trs.items():
+            tr.set_peer_address(m_, f"127.0.0.1:{other.listen_port}")
+        tr.start()
+    trs["n1"].register("n1", lambda src, msg: steps.append((src, msg.term)))
+    trs["n2"].send("n2", "n1", _raft.RequestVote(7, "n2", 0, 0))
+    deadline = time.monotonic() + 30
+    while not steps:
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
+    assert steps == [("n2", 7)]
+    for tr in trs.values():
+        tr.stop()
+    with open(f"{d}/core.yaml", "w") as f:
+        f.write("peer:\n  BCCSP:\n    Default: SW\n")
+    stop = threading.Event()
+    runner = threading.Thread(target=_node.main, args=([
+        "--role", "combined", "--genesis", f"{d}/g.block", "--crypto",
+        f"{d}/crypto", "--data", f"{d}/node", "--config",
+        f"{d}/core.yaml"],), kwargs={"stop_event": stop})
+    runner.start()
+    deadline = time.monotonic() + 60
+    while not os.path.isdir(f"{d}/node/data/ledgers/auditchan"):
+        assert time.monotonic() < deadline and runner.is_alive()
+        time.sleep(0.05)
+    stop.set()
+    runner.join(60)
+    assert not runner.is_alive()
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "fabric_mod_tpu" or n.startswith("fabric_mod_tpu.")
@@ -499,3 +559,9 @@ def test_port_loads_no_jax_and_no_reference_module():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_fault_registry_declares_the_transports_points():
+    from fabric_mod_tpu_torch.faults import points
+    assert {"deliver.failover.stream", "gossip.comm.send"} <= \
+        points.DECLARED_POINTS

@@ -436,10 +436,9 @@ def test_every_span_literal_is_declared_and_every_declaration_used():
                   if not spannames.is_declared(n)}
     assert not undeclared
     assert set(found) == spannames.DECLARED_SPANS
-    # the port's set is the reference's without the gRPC server's span
+    # the port's set is the reference's, the broadcast server's span too
     from fabric_mod_tpu.observability import spannames as jspannames
-    assert spannames.DECLARED_SPANS == \
-        jspannames.DECLARED_SPANS - {"broadcast.handle"}
+    assert spannames.DECLARED_SPANS == jspannames.DECLARED_SPANS
 
 
 # -- 4. the device lens on the CPU plain path ---------------------------------
